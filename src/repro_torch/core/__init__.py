@@ -11,8 +11,9 @@ from .engine import ArrayAMTHA, engine_schedule
 from .heft import etf_schedule, heft_schedule
 from .lowering import (FaultArrays, GraphArrays, MachineArrays,
                        ScenarioArrays, ScenarioBatch, batch_scenarios,
-                       graph_arrays, lower_faults, lower_scenario,
-                       machine_arrays)
+                       drain_matrix, graph_arrays, lower_faults,
+                       lower_population, lower_scenario, machine_arrays,
+                       repeat_batch)
 from .machine import (CommLevel, MachineModel, cluster_of_multicores,
                       dell_poweredge_1950, heterogeneous_cluster, hp_bl260c)
 from .mpaha import AppGraph, CommEdge, Subtask, merge_graphs
@@ -38,8 +39,9 @@ __all__ = [
     "graph_from", "machine_from", "schedule_from",
     # scenario IR + array/batched simulation
     "FaultArrays", "GraphArrays", "MachineArrays", "ScenarioArrays",
-    "ScenarioBatch", "batch_scenarios", "graph_arrays", "lower_faults",
-    "lower_scenario", "machine_arrays",
+    "ScenarioBatch", "batch_scenarios", "drain_matrix", "graph_arrays",
+    "lower_faults", "lower_population", "lower_scenario", "machine_arrays",
+    "repeat_batch",
     "BatchSimResult", "simulate_arrays", "simulate_batch",
     "simulate_scenario", "simulate_suite",
     # scheduler/simulator registry

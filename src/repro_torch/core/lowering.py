@@ -1,7 +1,8 @@
 """Shared scenario array IR: one lowering from (graph, machine, schedule).
 
-The array engine's exec/comm matrices, the array event loop and the
-batched simulator all gather from the IR here:
+The array engine's exec/comm matrices, the admission scorer's drain
+matrix, the array event loop, the batched simulator and the mapping
+search's population batches all gather from the IR here:
 
 * :class:`MachineArrays` — ``(C, C)`` comm latency/bandwidth matrices
   resolved from the location hierarchy (same-core entries are
@@ -194,6 +195,16 @@ def exec_matrix(graph: AppGraph, machine: MachineModel) -> np.ndarray:
     return _exec_core(graph_arrays(graph), machine_arrays(machine))
 
 
+def drain_matrix(graphs: list[AppGraph], machine: MachineModel) -> np.ndarray:
+    """(apps × cores) serial drain times — the admission-screening
+    scoring input (one per-type work vector per app, gathered onto
+    cores)."""
+    ma = machine_arrays(machine)
+    per_type = np.stack([graph_arrays(g).exec_type.sum(axis=0)
+                         for g in graphs])
+    return per_type[:, ma.core_types]
+
+
 # ---------------------------------------------------------------------------
 # fault lowering
 # ---------------------------------------------------------------------------
@@ -225,8 +236,8 @@ class FaultArrays:
 
 def lower_faults(n_cores: int,
                  script: Any) -> FaultArrays | None:
-    """Lower a fault script (anything exposing the ``FaultScript``
-    views: ``validate`` / ``fail_times`` / ``slow_events`` /
+    """Lower a fault script (:class:`repro_torch.faults.FaultScript`, or
+    anything exposing its views: ``validate`` / ``fail_times`` / ``slow_events`` /
     ``degrade_events``) against a core count. ``None`` and already
     lowered :class:`FaultArrays` pass through, and an empty script
     lowers to ``None`` so the fault-free hot paths stay untouched."""
@@ -555,3 +566,46 @@ def batch_scenarios(scenarios: list[ScenarioArrays]) -> ScenarioBatch:
         pred_lat=_frozen(pred_lat), pred_volbw=_frozen(pred_volbw),
         wave=_frozen(wave), t_est=_frozen(t_est), depth=depth,
         **fault_fields)
+
+
+def lower_population(graph: AppGraph, machine: MachineModel,
+                     schedules: list[Any], *,
+                     releases: dict[int, float] | None = None
+                     ) -> ScenarioBatch:
+    """Lower ``B`` candidate schedules of ONE (graph, machine) pair into
+    a single batch — the mapping-search fitness shape (``repro_torch.search``
+    scores whole populations through one ``simulate_batch`` call).
+
+    Same-graph batches need no per-scenario shape search: ``S`` and
+    ``P`` are fixed by the shared graph, the graph/machine arrays are
+    gathered once from the caches, and only the placement-dependent
+    arrays (core assignment, intervals, core order) differ per
+    candidate. ``releases`` (one shared map, e.g. online admission
+    floors) applies to every candidate."""
+    ga = graph_arrays(graph)
+    ma = machine_arrays(machine)
+    exec_core = _exec_core(ga, ma)
+    release, release_order = _release_arrays(ga.n_subtasks, releases)
+    scenarios = [_placement_scenario(ga, ma, exec_core, s,
+                                     release, release_order, None)
+                 for s in schedules]
+    return batch_scenarios(scenarios)
+
+
+def repeat_batch(batch: ScenarioBatch, k: int) -> ScenarioBatch:
+    """Tile a batch ``k`` times along the scenario axis (the jitter- or
+    seed-sweep shape: same scenarios, different draws) without paying
+    the batch construction again."""
+    if k <= 1:
+        return batch
+    fields = ["n_sub", "duration", "release", "prev", "pred",
+              "pred_lat", "pred_volbw", "wave", "t_est"]
+    if batch.has_faults:
+        fields += ["fail_t", "slow_t", "slow_f", "deg_t", "deg_f"]
+    rep = {f: _frozen(np.tile(getattr(batch, f),
+                              (k,) + (1,) * (getattr(batch, f).ndim - 1)))
+           for f in fields}
+    return ScenarioBatch(
+        n_scenarios=batch.n_scenarios * k,
+        max_subtasks=batch.max_subtasks, max_preds=batch.max_preds,
+        depth=batch.depth, **rep)

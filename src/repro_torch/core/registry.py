@@ -8,7 +8,8 @@ benchmarks, examples and services select implementations by *name*
 
 * ``SCHEDULERS`` — ``amtha`` (seed reference), ``engine`` (array-backed
   ``ArrayAMTHA``, placement-identical and the default fast path),
-  ``heft`` / ``etf`` (baselines, not task-coherent);
+  ``heft`` / ``etf`` (baselines, not task-coherent), ``ga`` (the
+  mapping search of :mod:`repro_torch.search`, engine-seeded);
 * ``SIMULATORS`` — ``events`` (seed pure-Python event loop), ``arrays``
   (the lowered event loop of ``core/sim_engine.py``, bit-for-bit equal
   and faster). The whole-suite batched path has a different shape (many
@@ -111,6 +112,19 @@ register_scheduler("heft", heft_schedule, task_coherent=False,
 register_scheduler("etf", etf_schedule, task_coherent=False,
                    doc="ETF baseline (subtask-level)")
 
+
+def _ga_schedule(graph, machine, **kwargs):
+    """Lazy bridge to :func:`repro_torch.search.ga.ga_schedule` — the
+    search package sits above core (it consumes the registry, the IR and
+    the batched simulator), so the import happens at call time to keep
+    the layering acyclic while still listing ``ga`` at import time."""
+    from ..search.ga import ga_schedule
+    return ga_schedule(graph, machine, **kwargs)
+
+
+register_scheduler("ga", _ga_schedule,
+                   doc="bias-elitist GA + hill climber, batched-sim "
+                       "fitness, engine-seeded (never worse)")
 
 register_simulator("events", simulate,
                    doc="seed pure-Python discrete-event loop")

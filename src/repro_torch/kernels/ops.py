@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from . import sched_score as _ss
 from . import sim_step as _sim
 
 
@@ -99,3 +100,32 @@ def sim_relax_pop(pred, lat, volbw, duration, release, *,
 
 
 sim_relax_pop.launches = 0
+
+
+def sched_score(drain, frontiers, release) -> torch.Tensor:
+    """The (apps × cores) admission screening matrix
+    ``max(frontier[j], release[i]) + drain[i, j]`` (see
+    :mod:`.sched_score`): float32 ``drain`` (A, C), ``frontiers`` (C,),
+    ``release`` (A,), all contiguous on one device. Returns (A, C)
+    float32. NaN propagates as in ``np.maximum``."""
+    device = _check_tensors(
+        "sched_score", dict(drain=drain, frontiers=frontiers,
+                            release=release),
+        dict(drain=torch.float32, frontiers=torch.float32,
+             release=torch.float32))
+    if drain.dim() != 2:
+        raise ValueError(f"sched_score.drain: expected (A, C), got shape "
+                         f"{tuple(drain.shape)}")
+    a, c = drain.shape
+    check_shape("sched_score.frontiers", frontiers, (c,))
+    check_shape("sched_score.release", release, (a,))
+    if device.type == "cpu":
+        return _ss.sched_score_torch(drain, frontiers, release)
+    if a == 0 or c == 0:
+        return torch.empty((a, c), dtype=torch.float32, device=device)
+    out = _ss.sched_score_cuda(drain, frontiers, release)
+    sched_score.launches += 1
+    return out
+
+
+sched_score.launches = 0

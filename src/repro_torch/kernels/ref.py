@@ -1,9 +1,10 @@
 """NumPy oracles of the port's kernels (copies of the JAX package's, so
 the port imports nothing from it).
 
-``pop_relax_np`` is the float32 oracle of ``sim_relax_pop``: the same
-expressions in the same float32 arithmetic, so the kernel and its plain
-PyTorch version equal it bit for bit.
+``pop_relax_np`` is the float32 oracle of ``sim_relax_pop`` and
+``sched_score_np`` that of ``sched_score``: the same expressions in the
+same float32 arithmetic, so each kernel and its plain PyTorch version
+equal them bit for bit.
 """
 
 from __future__ import annotations
@@ -44,3 +45,13 @@ def pop_relax_np(pred, lat, volbw, duration, release, *,
     for _ in range(n_steps):
         end[:, :s] = pop_step_np(end, pred, lat, volbw, duration, release)
     return np.array(end[:, :s])
+
+
+def sched_score_np(drain, frontiers, release) -> np.ndarray:
+    """Oracle for ``sched_score``: elementwise
+    ``max(frontier[j], release[i]) + drain[i, j]`` over the
+    (apps × cores) candidate matrix."""
+    drain = np.asarray(drain, np.float32)
+    f = np.asarray(frontiers, np.float32)[None, :]
+    r = np.asarray(release, np.float32)[:, None]
+    return np.maximum(f, r) + drain

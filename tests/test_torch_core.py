@@ -55,10 +55,10 @@ def test_registered_mappers_place_identically(suite, name):
 
 
 def test_registry_names():
-    assert sorted(T.SCHEDULERS) == ["amtha", "engine", "etf", "heft"]
+    assert sorted(T.SCHEDULERS) == ["amtha", "engine", "etf", "ga", "heft"]
     assert sorted(T.SIMULATORS) == ["arrays", "events"]
     with pytest.raises(ValueError, match="unknown scheduler"):
-        T.get_scheduler("ga")
+        T.get_scheduler("nope")
     with pytest.raises(ValueError, match="unknown simulator"):
         T.get_simulator("nope")
 

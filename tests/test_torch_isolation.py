@@ -35,7 +35,9 @@ def test_import_leaves_jax_and_reference_unloaded():
         "import sys\n"
         "import repro_torch, repro_torch.core, repro_torch.kernels.ops\n"
         "import repro_torch.kernels.build, repro_torch.kernels.ref\n"
-        "import repro_torch.core.convert\n"
+        "import repro_torch.core.convert, repro_torch.online\n"
+        "import repro_torch.faults, repro_torch.search\n"
+        "import repro_torch.kernels.sched_score\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "assert not bad, bad\n"

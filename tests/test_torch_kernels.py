@@ -139,4 +139,4 @@ def test_build_route_flags_and_ignored_output_dir(monkeypatch):
     assert out.parent == ROOT / "build" / "kernels"
     assert "build/" in (ROOT / ".gitignore").read_text().split()
     sources = sorted(p.stem for p in build.CSRC.glob("*.cu"))
-    assert sources == ["sim_relax_pop"]
+    assert sources == ["sched_score", "sim_relax_pop"]
