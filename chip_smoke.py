@@ -43,6 +43,28 @@ Run from the repository root (it puts ``src`` on ``sys.path`` itself):
    ``validate()`` after admission and after recovery. Numbers:
    kernel/plain/bound ms and launches, admission/evaluate/recovery wall
    seconds with a host breakdown of their layers, the recovery report.
+6. Serving path: gemma2-2b at full width and depth in bf16, weights from
+   ``init_params`` with a CUDA generator seeded 0 and every norm scale
+   redrawn N(0, 0.1) from it. Run A: ``generate`` at B=4, prompt 512, 32
+   new tokens; run B: B=1, prompt 4608 (past the 4096 window, so the
+   local layers' ring caches wrap), 16 new tokens; run C:
+   ``ContinuousBatcher(n_slots=4, max_seq=1024)`` over 8 requests with
+   prompts of 37-700 tokens and 8-24 new tokens each. The three serving
+   kernels' counts are zeroed before each run and read after it. Checks:
+   the counts equal what the path implies (rmsnorm 4 per layer + 1 per
+   forward, flash_attention one per layer per prefill, flash_decode one
+   per layer per decode step); each kernel within tolerance of its plain
+   version (``close_to_plain``) at every shape the path launched and a
+   ragged stress shape; run A teacher-forced, the kernel path's logits
+   within 5e-2 of the largest logit of the same model on the card with
+   the three entry points swapped for their plain versions, at the
+   prefill and every decode step; run C's requests equal to
+   ``generate`` of each alone, token for token. Numbers: per run prefill
+   ms, decode ms per step, tokens/s; per kernel at its largest path
+   shape the kernel's, plain version's and library call's ms and the
+   bound; side rows without softcap against
+   ``scaled_dot_product_attention``; where one decode step's time goes
+   (host parts, the profiler's device time and top kernels).
 
 Exits non-zero, printing no result, on any failure, when no CUDA device
 is present, or when run outside a checkout. The last line of standard
@@ -104,11 +126,13 @@ def snapshot(x):
 
 class Spy:
     """Stands in for ``module.name`` while the main path runs and keeps
-    the first arguments of each distinct ``key(args)``; every call goes
-    on to the real function, whose own count is untouched."""
+    the first arguments of each distinct ``key(args)`` (with the values
+    of the keyword arguments named in ``kw_names``); every call goes on
+    to the real function, whose own count is untouched."""
 
-    def __init__(self, module, name, key):
+    def __init__(self, module, name, key, kw_names=()):
         self.module, self.name, self.key = module, name, key
+        self.kw_names = kw_names
         self.fn = getattr(module, name)
         self.calls = {}
 
@@ -124,6 +148,8 @@ class Spy:
 
     def __call__(self, *args, **kwargs):
         k = self.key(args)
+        if self.kw_names:
+            k = (k, tuple(kwargs.get(n) for n in self.kw_names))
         if k not in self.calls:
             self.calls[k] = ([snapshot(a) for a in args],
                              {n: snapshot(v) for n, v in kwargs.items()})
@@ -202,6 +228,525 @@ def sim_row(name, args, steps, ops, sim_relax_pop_cuda, sim_relax_pop_torch):
                 plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bytes=n_bytes)
+
+
+# -- 6. serving the dense family: gemma2-2b on rmsnorm, flash_attention,
+#       flash_decode --------------------------------------------------------
+
+SERVE_ARCH = "gemma2-2b"
+RUN_A = dict(batch=4, prompt=512, gen=32)
+RUN_B = dict(batch=1, prompt=4608, gen=16)     # past the 4096 window
+RUN_C = dict(n_slots=4, max_seq=1024, n_requests=8, prompt=(37, 700),
+             max_new=(8, 24))
+BF16_OPS_PER_S = 989e12             # H100 SXM dense bf16 tensor-core rate
+NORM_STD = 0.1                      # norm scales redrawn N(0, 0.1)
+LOGIT_REL = 5e-2                    # teacher-forced logits: see check_logits
+SERVE_KERNELS = ("rmsnorm", "flash_attention", "flash_decode")
+
+
+def close_to_plain(got, want):
+    """(ok, max abs err). float32: rtol 1e-5 with an absolute floor of
+    1e-5 x max|want| (sums in another order; outputs that cancel near
+    zero). bfloat16: at most 2 bfloat16 ulps of max(|want|, max|want| /
+    256): both versions compute in float32 and round once."""
+    import torch
+    g, w = got.double(), want.double()
+    err = (g - w).abs()
+    amax = float(w.abs().max()) if w.numel() else 0.0
+    if want.dtype == torch.float32:
+        bound = 1e-5 * w.abs() + 1e-5 * amax
+    else:
+        mag = torch.clamp(w.abs(), min=max(amax / 256, 2.0 ** -126))
+        bound = 2 * torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    ok = got.shape == want.shape and got.dtype == want.dtype \
+        and bool((err <= bound).all())
+    return ok, float(err.max()) if err.numel() else 0.0
+
+
+def visible_pairs(s, causal, window):
+    """(query, key) pairs the attention mask lets through."""
+    if not causal:
+        return s * s if window is None else \
+            sum(min(s, i + window) for i in range(s))
+    if window is None or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def attn_cost(q, k, v, *, causal, window):
+    b, s, hq, d = q.shape
+    hkv, dv = k.shape[2], v.shape[-1]
+    n_bytes = q.element_size() * (q.numel() + k.numel() + v.numel()
+                                  + b * s * hq * dv)
+    flops = 2 * b * hq * visible_pairs(s, causal, window) * (d + dv)
+    return n_bytes, flops
+
+
+def decode_cost(q, kc, vc, pos, *, ring):
+    b, hq, d = q.shape
+    t, hkv, dv = kc.shape[1], kc.shape[2], vc.shape[-1]
+    lim = [min(int(p) + 1, t) if ring else int(p) + 1 for p in pos.tolist()]
+    n_bytes = q.element_size() * (q.numel() + sum(lim) * hkv * (d + dv)
+                                  + b * hq * dv) + 4 * b
+    flops = 2 * hq * sum(lim) * (d + dv)
+    return n_bytes, flops
+
+
+def bound(n_bytes, flops, ops_per_s):
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / ops_per_s * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+class ModeTimer:
+    """Stands in for ``serve_loop.forward`` and adds up the host wall
+    seconds of each call by mode, synchronising the card after it so
+    that a call's time is its own."""
+
+    def __init__(self, module):
+        self.module, self.fn = module, module.forward
+        self.seconds, self.calls = {}, {}
+
+    def __call__(self, params, batch, cfg, ctx):
+        import torch
+        t0 = time.perf_counter()
+        out = self.fn(params, batch, cfg, ctx)
+        torch.cuda.synchronize()
+        self.seconds[ctx.mode] = self.seconds.get(ctx.mode, 0.0) \
+            + time.perf_counter() - t0
+        self.calls[ctx.mode] = self.calls.get(ctx.mode, 0) + 1
+        return out
+
+    def __enter__(self):
+        self.module.forward = self
+        return self
+
+    def __exit__(self, *exc):
+        self.module.forward = self.fn
+
+
+@contextlib.contextmanager
+def plain_serving_kernels(ops):
+    """The three serving entry points replaced by their plain PyTorch
+    versions, which take the same arguments: the same model on the card
+    without the kernels (the package itself has no such switch)."""
+    from repro_torch.kernels.flash_attention import flash_attention_torch
+    from repro_torch.kernels.flash_decode import flash_decode_torch
+    from repro_torch.kernels.rmsnorm import rmsnorm_torch
+    saved = {k: getattr(ops, k) for k in SERVE_KERNELS}
+    ops.rmsnorm, ops.flash_attention, ops.flash_decode = \
+        rmsnorm_torch, flash_attention_torch, flash_decode_torch
+    try:
+        yield
+    finally:
+        for k, fn in saved.items():
+            setattr(ops, k, fn)
+
+
+def serve_phase(dev):
+    """Serve gemma2-2b at full width and depth in bf16 (runs A, B, C),
+    check it and time it; returns the three kernels' JSON entries."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_torch,
+                                                     visible)
+    from repro_torch.kernels.flash_decode import (flash_decode_cuda,
+                                                  flash_decode_torch,
+                                                  valid_slots)
+    from repro_torch.kernels.rmsnorm import rmsnorm_cuda, rmsnorm_torch
+    from repro_torch.models import ShardCtx, init_params
+    from repro_torch.models.layers import embed_tokens, softcap
+    from repro_torch.models.model import _head
+    from repro_torch.runtime import (ContinuousBatcher, Request, generate,
+                                     make_prefill, make_serve_step,
+                                     pad_cache_to, serve_loop)
+
+    # the plain versions' einsums and the model's matmuls in full float32
+    # where they take float32 (the plain attention's scores), never TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = ARCHS[SERVE_ARCH]
+    n_layers = cfg.n_layers
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    params = init_params(cfg, gen, dev)
+    with torch.no_grad():
+        for p in params.parameters():
+            if p.dim() == 1:                # every norm scale
+                p.copy_(torch.randn(p.shape, generator=gen, device=dev)
+                        * NORM_STD)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"serve: {cfg.name} {n_layers} layers d={cfg.d_model} "
+          f"params={n_params} ({n_params * 2 / 1e9:.2f} GB bf16) "
+          f"init_s={time.perf_counter() - t0:.1f}")
+    ctx = ShardCtx()
+
+    def tokens(b, s):
+        return torch.randint(0, cfg.vocab, (b, s), generator=gen, device=dev)
+
+    # warm-up (cuBLAS handles, kernel libraries loaded): not counted
+    generate(cfg, ctx, params, {"tokens": tokens(1, 16)}, 2)
+    torch.cuda.synchronize()
+
+    def key_norm(args):
+        return (tuple(args[0].shape), args[0].dtype, args[1].dtype)
+
+    def key_attn(args):
+        return shapes(args)
+
+    prompt_a = tokens(RUN_A["batch"], RUN_A["prompt"])
+    prompt_b = tokens(RUN_B["batch"], RUN_B["prompt"])
+    rng = np.random.default_rng(0)
+    lo, hi = RUN_C["prompt"]
+    lens = [lo, hi] + rng.integers(lo, hi + 1,
+                                   RUN_C["n_requests"] - 2).tolist()
+    news = rng.integers(RUN_C["max_new"][0], RUN_C["max_new"][1] + 1,
+                        RUN_C["n_requests"]).tolist()
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, n),
+                    max_new=m) for i, (n, m) in enumerate(zip(lens, news))]
+
+    runs, launches = {}, {}
+    with contextlib.ExitStack() as stack:
+        spies = {k: stack.enter_context(Spy(ops, k, key, kw))
+                 for k, key, kw in (
+                     ("rmsnorm", key_norm, ("zero_centered",)),
+                     ("flash_attention", key_attn, ("window", "softcap")),
+                     ("flash_decode", key_attn, ("ring", "softcap")))}
+        for name, run in (("A", RUN_A), ("B", RUN_B), ("C", RUN_C)):
+            for s in spies.values():
+                s.launches = 0
+            with ModeTimer(serve_loop) as timer:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if name == "C":
+                    batcher = ContinuousBatcher(cfg, params,
+                                                n_slots=run["n_slots"],
+                                                max_seq=run["max_seq"])
+                    for r in reqs:
+                        batcher.submit(r)
+                    ticks = batcher.run()
+                    out = None
+                    n_tok = sum(len(r.out) for r in reqs)
+                else:
+                    out = generate(cfg, ctx, params,
+                                   {"tokens": prompt_a if name == "A"
+                                    else prompt_b}, run["gen"])
+                    n_tok = run["batch"] * run["gen"]
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            launches[name] = {k: s.launches for k, s in spies.items()}
+            n_pre = timer.calls.get("prefill", 0)
+            n_dec = timer.calls.get("decode", 0)
+            runs[name] = dict(
+                out=out, wall_s=wall, tokens=n_tok, prefills=n_pre,
+                decode_steps=n_dec,
+                prefill_ms=timer.seconds.get("prefill", 0.0) * 1e3 / n_pre,
+                decode_ms_per_step=timer.seconds.get("decode", 0.0) * 1e3
+                / max(n_dec, 1), tokens_per_s=n_tok / wall)
+            if name == "C":
+                runs[name]["ticks"] = ticks
+            print(f"serve run {name}: " + json.dumps(
+                {k: v for k, v in runs[name].items() if k != "out"})
+                + f" launches {launches[name]}")
+            want = {"rmsnorm": (n_pre + n_dec) * (4 * n_layers + 1),
+                    "flash_attention": n_pre * n_layers,
+                    "flash_decode": n_dec * n_layers}
+            if launches[name] != want:
+                fail(f"serve run {name}: launches {launches[name]} != "
+                     f"{want} implied by {n_pre} prefills and {n_dec} "
+                     f"decode steps")
+    for name, run in (("A", RUN_A), ("B", RUN_B)):
+        out = runs[name]["out"]
+        if out.shape != (run["batch"], run["gen"]) or \
+                not ((0 <= out) & (out < cfg.vocab)).all():
+            fail(f"serve run {name}: tokens of shape {tuple(out.shape)} "
+                 f"or outside the vocabulary")
+        if runs[name]["decode_steps"] != run["gen"] - 1:
+            fail(f"serve run {name}: {runs[name]['decode_steps']} decode "
+                 f"steps for {run['gen']} tokens")
+    for r in reqs:
+        if not r.done or len(r.out) != r.max_new:
+            fail(f"serve run C: request {r.rid} gave {len(r.out)} of "
+                 f"{r.max_new} tokens")
+
+    # -- kernel vs plain at every path shape, plus a ragged stress shape --
+    def stress_norm():
+        x = torch.randn((37, 1001), generator=gen, device=dev).bfloat16()
+        w = torch.randn((1001,), generator=gen, device=dev).bfloat16() * 0.1
+        return [x, w], {"zero_centered": True}
+
+    def stress_attn():
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).bfloat16()
+                   for shape in ((2, 1000, 8, 256), (2, 1000, 4, 256),
+                                 (2, 1000, 4, 256)))
+        return [q, k, v], {"window": 300, "softcap": 50.0,
+                           "scale": 256 ** -0.5}
+
+    def stress_decode():
+        q = torch.randn((3, 8, 256), generator=gen, device=dev).bfloat16()
+        kc, vc = (torch.randn((3, 1001, 4, 256), generator=gen,
+                              device=dev).bfloat16() for _ in range(2))
+        pos = torch.tensor([5, 1000, 3000], dtype=torch.int32, device=dev)
+        return [q, kc, vc, pos], {"softcap": 50.0, "ring": True}
+
+    plain = {"rmsnorm": rmsnorm_torch,
+             "flash_attention": flash_attention_torch,
+             "flash_decode": flash_decode_torch}
+    stress = {"rmsnorm": stress_norm, "flash_attention": stress_attn,
+              "flash_decode": stress_decode}
+    max_err = {}
+    for name, spy in spies.items():
+        cases = [(f"path{k}", a, kw) for k, (a, kw) in spy.calls.items()]
+        cases.append(("stress", *stress[name]()))
+        max_err[name] = 0.0
+        for label, args, kw in cases:
+            got = getattr(ops, name)(*args, **kw)
+            want = plain[name](*args, **kw)
+            torch.cuda.synchronize()
+            ok, err = close_to_plain(got, want)
+            if not ok:
+                fail(f"{name} {label}: kernel not within tolerance of the "
+                     f"plain version (max abs err {err:.3e})")
+            max_err[name] = max(max_err[name], err)
+        print(f"{name}: {len(cases)} shapes within tolerance of the plain "
+              f"version, max abs err {max_err[name]:.3e}")
+
+    # -- run A teacher-forced: kernel path vs the plain versions on the card
+    def teacher_forced(prompt, toks):
+        prefill, step = make_prefill(cfg, ctx), make_serve_step(cfg, ctx)
+        b, s = prompt.shape
+        logits, cache = prefill(params, {"tokens": prompt})
+        cache = pad_cache_to(cfg, cache, b, s + toks.shape[1])
+        out = [logits.float()]
+        for i in range(toks.shape[1] - 1):
+            _, logits, cache = step(params, cache, toks[:, i:i + 1], s + i)
+            out.append(logits.float())
+        return torch.stack(out, dim=1)               # (B, n, V)
+
+    toks_a = runs["A"]["out"]
+    kern = teacher_forced(prompt_a, toks_a)
+    if not torch.isfinite(kern).all():
+        fail("run A: non-finite logits on the kernel path")
+    if not torch.equal(kern.argmax(-1), toks_a):
+        fail("run A: re-running the kernel path gave other greedy tokens")
+    with plain_serving_kernels(ops):
+        ref_logits = teacher_forced(prompt_a, toks_a)
+    d_logit = float((kern - ref_logits).abs().max())
+    scale = float(ref_logits.abs().max())
+    top1 = float((kern.argmax(-1) == ref_logits.argmax(-1)).float().mean())
+    print(f"run A teacher-forced: max |dlogit| {d_logit:.4e} over "
+          f"{kern.shape[1]} positions x {kern.shape[0]} rows, bound "
+          f"{LOGIT_REL} x max|logit| {scale:.4f} = {LOGIT_REL * scale:.4e}; "
+          f"top-1 agreement {top1:.4f}")
+    # bound: the tolerance the CPU tests hold the bf16 model to against
+    # the reference (tests/test_torch_models.py), 5e-2 of the largest logit
+    if not d_logit <= LOGIT_REL * scale:
+        fail(f"run A: kernel path logits off the plain versions' by "
+             f"{d_logit:.4e} > {LOGIT_REL * scale:.4e}")
+    del kern, ref_logits
+
+    # -- run C determinism: each request alone through generate -------------
+    for r in reqs:
+        alone = generate(cfg, ctx, params,
+                         {"tokens": torch.as_tensor(r.prompt, device=dev)
+                          .long()[None]}, len(r.out),
+                         max_seq=RUN_C["max_seq"])
+        if alone[0].tolist() != r.out:
+            fail(f"run C: request {r.rid} (prompt {len(r.prompt)}) decoded "
+                 f"differently batched than alone")
+    print(f"run C: {len(reqs)} requests (prompts {lens}, max_new {news}) "
+          f"equal to generate alone, token for token")
+
+    # -- per kernel at its largest path shape --------------------------------
+    rows = {}
+    _, (nargs, nkw) = max(
+        spies["rmsnorm"].calls.items(), key=lambda kv: kv[1][0][0].numel())
+    x, w = nargs
+    n_bytes = x.numel() * 2 * x.element_size() + w.numel() * w.element_size()
+    b_ms, b_by = bound(n_bytes, 4 * x.numel(), FP32_OPS_PER_S)
+    rows["rmsnorm"] = dict(
+        shape=str(tuple(x.shape)),
+        ms=cuda_ms(lambda: rmsnorm_cuda(x, w, **nkw), 50),
+        plain_ms=cuda_ms(lambda: rmsnorm_torch(x, w, **nkw), 50),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=cuda_ms(lambda: F.rms_norm(x, (x.shape[-1],), w,
+                                              nkw.get("eps", 1e-6)), 50),
+        bytes=n_bytes)
+
+    def attn_key(kv):
+        (q, k, v), kw = kv[1]
+        return attn_cost(q, k, v, causal=kw.get("causal", True),
+                         window=kw.get("window"))[1]
+    _, ((q, k, v), akw) = max(spies["flash_attention"].calls.items(),
+                              key=attn_key)
+    n_bytes, flops = attn_cost(q, k, v, causal=akw.get("causal", True),
+                               window=akw.get("window"))
+    b_ms, b_by = bound(n_bytes, flops, BF16_OPS_PER_S)
+    rows["flash_attention"] = dict(
+        shape=str(tuple(q.shape)) + f" window={akw.get('window')}",
+        ms=cuda_ms(lambda: flash_attention_cuda(q, k, v, **akw), 3),
+        plain_ms=cuda_ms(lambda: flash_attention_torch(q, k, v, **akw), 3),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, bytes=n_bytes,
+        flops=flops)
+
+    def dec_key(kv):
+        (q, kc, vc, pos), kw = kv[1]
+        return decode_cost(q, kc, vc, pos, ring=kw.get("ring", False))[0]
+    _, ((dq, dkc, dvc, dpos), dkw) = max(spies["flash_decode"].calls.items(),
+                                         key=dec_key)
+    n_bytes, flops = decode_cost(dq, dkc, dvc, dpos, ring=dkw["ring"])
+    b_ms, b_by = bound(n_bytes, flops, BF16_OPS_PER_S)
+    rows["flash_decode"] = dict(
+        shape=f"q {tuple(dq.shape)} cache {tuple(dkc.shape)} "
+              f"ring={dkw['ring']} pos={dpos.tolist()}",
+        ms=cuda_ms(lambda: flash_decode_cuda(dq, dkc, dvc, dpos, **dkw), 50),
+        plain_ms=cuda_ms(lambda: flash_decode_torch(dq, dkc, dvc, dpos,
+                                                    **dkw), 50),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, bytes=n_bytes,
+        flops=flops)
+    for name, row in rows.items():
+        print(f"{name} " + json.dumps(row))
+
+    # side rows: no softcap, against scaled_dot_product_attention (which
+    # cannot softcap), the window passed as an explicit mask
+    def sdpa(q, k, v, mask, causal, scale):
+        """One library call on the (B, S, H, D) layout; GQA natively
+        where this PyTorch has ``enable_gqa``, else K/V repeated."""
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        kw = dict(attn_mask=mask, is_causal=causal and mask is None,
+                  scale=scale)
+        try:
+            out = F.scaled_dot_product_attention(qt, kt, vt,
+                                                 enable_gqa=True, **kw)
+        except TypeError:
+            g = q.shape[2] // k.shape[2]
+            out = F.scaled_dot_product_attention(
+                qt, kt.repeat_interleave(g, dim=1),
+                vt.repeat_interleave(g, dim=1), **kw)
+        return out.transpose(1, 2)
+
+    side = []
+    for label, win in (("global", None), ("local", cfg.window)):
+        s = q.shape[1]
+        scale = akw.get("scale")
+        mask = None if win is None else \
+            visible(s, causal=True, window=win, device=dev)
+        got = flash_attention_cuda(q, k, v, window=win, scale=scale)
+        lib = sdpa(q, k, v, mask, True, scale)
+        side.append(dict(
+            kernel="flash_attention", softcap=None, layer=label,
+            shape=str(tuple(q.shape)),
+            ms=cuda_ms(lambda: flash_attention_cuda(q, k, v, window=win,
+                                                    scale=scale), 3),
+            library_ms=cuda_ms(lambda: sdpa(q, k, v, mask, True, scale), 3),
+            max_abs_diff=float((got.float() - lib.float()).abs().max())))
+    dmask = valid_slots(dpos, dkc.shape[1], dkw["ring"])[:, None, None, :]
+    dscale = dkw.get("scale")
+    got = flash_decode_cuda(dq, dkc, dvc, dpos, ring=dkw["ring"],
+                            scale=dscale)
+
+    def sdpa_decode():
+        return sdpa(dq[:, None], dkc, dvc, dmask, False, dscale)[:, 0]
+    side.append(dict(
+        kernel="flash_decode", softcap=None, shape=rows["flash_decode"]
+        ["shape"],
+        ms=cuda_ms(lambda: flash_decode_cuda(dq, dkc, dvc, dpos,
+                                             ring=dkw["ring"], scale=dscale),
+                   50),
+        library_ms=cuda_ms(sdpa_decode, 50),
+        max_abs_diff=float((got.float() - sdpa_decode().float()).abs()
+                           .max())))
+    for row in side:
+        print("side row (no softcap) vs scaled_dot_product_attention "
+              + json.dumps(row))
+
+    # -- where one decode step's time goes (run A's shape) -------------------
+    prefill = make_prefill(cfg, ctx)
+    logits, cache = prefill(params, {"tokens": prompt_a})
+    b, s = prompt_a.shape
+    cache = pad_cache_to(cfg, cache, b, s + RUN_A["gen"])
+    tok = logits.argmax(-1)[:, None]
+    parts = {"embed": [], "layers": [], "head": [], "argmax": []}
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        x = embed_tokens(tok, params.embed, cfg.embed_scale_by_dim)
+        torch.cuda.synchronize()
+        parts["embed"].append(time.perf_counter() - t)
+        t = time.perf_counter()
+        for i, layer in enumerate(params.layers):
+            x, _, _ = layer(x, cfg=cfg, mode="decode", positions=s,
+                            cache=cache[i])
+        torch.cuda.synchronize()
+        parts["layers"].append(time.perf_counter() - t)
+        t = time.perf_counter()
+        lg = softcap(_head(params, x, cfg)[:, 0], cfg.logit_softcap)
+        torch.cuda.synchronize()
+        parts["head"].append(time.perf_counter() - t)
+        t = time.perf_counter()
+        lg.argmax(-1)[:, None]
+        torch.cuda.synchronize()
+        parts["argmax"].append(time.perf_counter() - t)
+    step = make_serve_step(cfg, ctx)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(5):
+        step(params, cache, tok, s)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t) * 1e3 / 5
+    breakdown = {k: float(np.median(v)) * 1e3 for k, v in parts.items()}
+    breakdown["step_ms_unsynced"] = step_ms
+    try:
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                step(params, cache, tok, s)
+            torch.cuda.synchronize()
+        # only the device's own events: a CPU op carries its kernels'
+        # device time too (the rule of the profiler's own table footer)
+        evts = [e for e in prof.key_averages()
+                if "CUDA" in str(getattr(e, "device_type", ""))
+                and not getattr(e, "is_user_annotation", False)]
+
+        def dev_time(e):
+            return getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0))
+        dev_us = sum(dev_time(e) for e in evts)
+        n_kern = sum(e.count for e in evts)
+        breakdown["top_device_time_per_step"] = [
+            dict(name=e.key[:80], calls=e.count / 3,
+                 ms=dev_time(e) / 1e3 / 3)
+            for e in sorted(evts, key=dev_time, reverse=True)[:10]]
+        breakdown["device_busy_ms_per_step"] = dev_us / 1e3 / 3 \
+            if dev_us else "not measured"
+        breakdown["device_kernels_per_step"] = n_kern / 3 if n_kern \
+            else "not measured"
+        if dev_us:
+            breakdown["device_idle_share"] = 1.0 - dev_us / 1e3 / 3 / step_ms
+    except Exception as e:          # the profiler is untried on this machine
+        breakdown["device_busy_ms_per_step"] = f"not measured ({e!r})"
+    print("decode step breakdown (run A shape, host ms, synchronised per "
+          "part) " + json.dumps(breakdown))
+
+    return [dict(
+        name=name, route="cuda",
+        source=f"src/repro_torch/kernels/csrc/{name}.cu",
+        replaces={"rmsnorm": "src/repro/kernels/rmsnorm.py:29",
+                  "flash_attention": "src/repro/kernels/flash_attention.py:86",
+                  "flash_decode": "src/repro/kernels/flash_decode.py:70"}[name],
+        launches=sum(launches[r][name] for r in launches),
+        launches_by_path={f"serve_{r}": launches[r][name] for r in launches},
+        max_abs_err=max_err[name], ms=rows[name]["ms"],
+        plain_ms=rows[name]["plain_ms"], bound_ms=rows[name]["bound_ms"],
+        bound_by=rows[name]["bound_by"], library_ms=rows[name]["library_ms"],
+        shape=rows[name]["shape"]) for name in SERVE_KERNELS]
 
 
 def main() -> int:
@@ -528,6 +1073,8 @@ def main() -> int:
     print(f"ga first population: B={len(pop)} subtasks={graph.n_subtasks} "
           f"fitness rel err vs f64 {fit_err:.3e}")
 
+    serve_rows = serve_phase(dev)
+
     main_row = max(kernel_rows, key=lambda x: x["bytes"])
     score_row = max(score_rows, key=lambda x: x["bytes"])
     print(json.dumps({"kernels": [dict(
@@ -551,7 +1098,7 @@ def main() -> int:
         max_abs_err=score_err, ms=score_row["ms"],
         plain_ms=score_row["plain_ms"], bound_ms=score_row["bound_ms"],
         bound_by=score_row["bound_by"], library_ms=None,
-        shape=score_row["name"])]}))
+        shape=score_row["name"])] + serve_rows}))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

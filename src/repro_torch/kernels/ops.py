@@ -18,8 +18,13 @@ from __future__ import annotations
 
 import torch
 
+from . import flash_attention as _fa
+from . import flash_decode as _fd
+from . import rmsnorm as _rn
 from . import sched_score as _ss
 from . import sim_step as _sim
+
+FLOAT_TYPES = (torch.float32, torch.bfloat16)
 
 
 def check_shape(name: str, x: torch.Tensor, shape: tuple[int, ...]) -> None:
@@ -39,14 +44,16 @@ def check_gather_bounds(name: str, idx: torch.Tensor, bound: int) -> None:
 
 
 def _check_tensors(name: str, tensors: dict[str, torch.Tensor],
-                   dtypes: dict[str, torch.dtype]) -> torch.device:
+                   dtypes: dict[str, torch.dtype | tuple[torch.dtype, ...]]
+                   ) -> torch.device:
     for arg, x in tensors.items():
         if not isinstance(x, torch.Tensor):
             raise TypeError(f"{name}.{arg}: expected a torch.Tensor, got "
                             f"{type(x).__name__}")
-        if x.dtype != dtypes[arg]:
+        want = dtypes[arg]
+        if x.dtype not in (want if isinstance(want, tuple) else (want,)):
             raise TypeError(f"{name}.{arg}: dtype {x.dtype}, expected "
-                            f"{dtypes[arg]}")
+                            f"{want}")
         if not x.is_contiguous():
             raise ValueError(f"{name}.{arg}: must be contiguous")
     devices = {x.device for x in tensors.values()}
@@ -129,3 +136,135 @@ def sched_score(drain, frontiers, release) -> torch.Tensor:
 
 
 sched_score.launches = 0
+
+
+def _check_one_type(name: str, **tensors: torch.Tensor) -> None:
+    types = {arg: x.dtype for arg, x in tensors.items()}
+    if len(set(types.values())) != 1:
+        raise TypeError(f"{name}: inputs of several dtypes {types}")
+
+
+def _check_rank(name: str, x: torch.Tensor, rank: int, layout: str) -> None:
+    if x.dim() != rank:
+        raise ValueError(f"{name}: expected {layout}, got shape "
+                         f"{tuple(x.shape)}")
+
+
+def _check_attention_options(name: str, hq: int, hkv: int, d: int, dv: int,
+                             softcap, device: torch.device,
+                             window=None) -> None:
+    if hkv == 0 or hq % hkv:
+        raise ValueError(f"{name}: {hq} q heads are not a multiple of "
+                         f"{hkv} kv heads")
+    if window is not None and window < 1:
+        raise ValueError(f"{name}: window {window} < 1")
+    if softcap is not None and not softcap > 0:
+        raise ValueError(f"{name}: softcap {softcap} must be > 0")
+    if device.type == "cuda" and max(d, dv) > _fa.MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head dims ({d}, {dv}) exceed the "
+                         f"kernel's {_fa.MAX_HEAD_DIM}")
+
+
+def rmsnorm(x, w, *, eps: float = 1e-6,
+            zero_centered: bool = True) -> torch.Tensor:
+    """Row RMSNorm over the last axis (see :mod:`.rmsnorm`): ``x``
+    (..., d) and ``w`` (d,), each float32 or bfloat16, contiguous on one
+    device. Returns x's shape and type. ``zero_centered`` scales by
+    ``1 + w`` computed in float32."""
+    device = _check_tensors("rmsnorm", dict(x=x, w=w),
+                            dict(x=FLOAT_TYPES, w=FLOAT_TYPES))
+    if x.dim() == 0:
+        raise ValueError("rmsnorm.x: expected (..., d), got a scalar")
+    check_shape("rmsnorm.w", w, (x.shape[-1],))
+    if device.type == "cpu":
+        return _rn.rmsnorm_torch(x, w, eps=eps, zero_centered=zero_centered)
+    if x.numel() == 0:
+        return torch.empty_like(x)
+    out = _rn.rmsnorm_cuda(x, w, eps=eps, zero_centered=zero_centered)
+    rmsnorm.launches += 1
+    return out
+
+
+rmsnorm.launches = 0
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    scale: float | None = None, window: int | None = None,
+                    softcap: float | None = None) -> torch.Tensor:
+    """Prefill attention (see :mod:`.flash_attention`): ``q`` (B, S, Hq,
+    D), ``k`` (B, S, Hkv, D), ``v`` (B, S, Hkv, Dv), one type (float32
+    or bfloat16), contiguous on one device; Hq a multiple of Hkv,
+    ``window`` None or >= 1, ``softcap`` None or > 0. Returns (B, S, Hq,
+    Dv) in q's type."""
+    device = _check_tensors("flash_attention", dict(q=q, k=k, v=v),
+                            dict(q=FLOAT_TYPES, k=FLOAT_TYPES,
+                                 v=FLOAT_TYPES))
+    _check_one_type("flash_attention", q=q, k=k, v=v)
+    for arg, x in (("q", q), ("k", k), ("v", v)):
+        _check_rank(f"flash_attention.{arg}", x, 4, "(B, S, H, D)")
+    b, s, hq, d = q.shape
+    hkv, dv = k.shape[2], v.shape[-1]
+    check_shape("flash_attention.k", k, (b, s, hkv, d))
+    check_shape("flash_attention.v", v, (b, s, hkv, dv))
+    _check_attention_options("flash_attention", hq, hkv, d, dv, softcap,
+                             device, window)
+    if device.type == "cpu":
+        return _fa.flash_attention_torch(q, k, v, causal=causal, scale=scale,
+                                         window=window, softcap=softcap)
+    if q.numel() == 0 or v.numel() == 0:
+        return torch.zeros((b, s, hq, dv), dtype=q.dtype, device=device)
+    out = _fa.flash_attention_cuda(q, k, v, causal=causal, scale=scale,
+                                   window=window, softcap=softcap)
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
+
+
+def flash_decode(q, k_cache, v_cache, pos, *, scale: float | None = None,
+                 softcap: float | None = None,
+                 ring: bool = False) -> torch.Tensor:
+    """Decode attention of one token (see :mod:`.flash_decode`): ``q``
+    (B, Hq, D), ``k_cache`` (B, T, Hkv, D), ``v_cache`` (B, T, Hkv, Dv),
+    one type (float32 or bfloat16), int32 ``pos`` (B,), contiguous on
+    one device. ``pos`` is the absolute position of the token just
+    inserted: at least 0, and at most T - 1 for a linear cache (stricter
+    than the reference wrapper, whose kernel lets a zero padding slot
+    into the softmax at ``pos == T``). Returns (B, Hq, Dv) in q's type."""
+    device = _check_tensors(
+        "flash_decode", dict(q=q, k_cache=k_cache, v_cache=v_cache, pos=pos),
+        dict(q=FLOAT_TYPES, k_cache=FLOAT_TYPES, v_cache=FLOAT_TYPES,
+             pos=torch.int32))
+    _check_one_type("flash_decode", q=q, k_cache=k_cache, v_cache=v_cache)
+    _check_rank("flash_decode.q", q, 3, "(B, Hq, D)")
+    _check_rank("flash_decode.k_cache", k_cache, 4, "(B, T, Hkv, D)")
+    _check_rank("flash_decode.v_cache", v_cache, 4, "(B, T, Hkv, Dv)")
+    b, hq, d = q.shape
+    t, hkv, dv = k_cache.shape[1], k_cache.shape[2], v_cache.shape[-1]
+    check_shape("flash_decode.k_cache", k_cache, (b, t, hkv, d))
+    check_shape("flash_decode.v_cache", v_cache, (b, t, hkv, dv))
+    check_shape("flash_decode.pos", pos, (b,))
+    _check_attention_options("flash_decode", hq, hkv, d, dv, softcap, device)
+    if t == 0:
+        raise ValueError("flash_decode: empty cache (T = 0)")
+    if pos.numel():
+        lo, hi = torch.stack(torch.aminmax(pos)).tolist()   # one sync
+        top = None if ring else t - 1
+        if lo < 0 or (top is not None and hi > top):
+            raise IndexError(f"flash_decode.pos: positions span [{lo}, {hi}]"
+                             f", outside [0, {'inf' if top is None else top}]"
+                             f" ({'ring' if ring else 'linear'} cache of "
+                             f"{t} slots)")
+    if device.type == "cpu":
+        return _fd.flash_decode_torch(q, k_cache, v_cache, pos, scale=scale,
+                                      softcap=softcap, ring=ring)
+    if q.numel() == 0 or v_cache.numel() == 0:
+        return torch.zeros((b, hq, dv), dtype=q.dtype, device=device)
+    out = _fd.flash_decode_cuda(q, k_cache, v_cache, pos, scale=scale,
+                                softcap=softcap, ring=ring)
+    flash_decode.launches += 1
+    return out
+
+
+flash_decode.launches = 0

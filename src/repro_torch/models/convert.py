@@ -1,0 +1,58 @@
+"""The JAX package's parameter tree -> the port's model.
+
+The reference model keeps the layers of each repeat group stacked along
+a leading axis (``params["groups"][str(pos)]``, one entry per position
+``pos`` of the repeat unit, for ``lax.scan``); the port keeps one
+:class:`~repro_torch.models.model.Layer` per layer. Layer
+``len(prologue) + rep * len(unit) + pos`` is repeat ``rep`` of
+``groups[str(pos)]``; the prologue and tail layers are unstacked lists
+already. Every leaf is copied as it is: the layouts are the same.
+
+The tree's leaves are NumPy arrays (``np.asarray`` of each JAX array);
+bfloat16 arrives as ml_dtypes' ``bfloat16`` and is reinterpreted bit for
+bit.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..configs.base import ModelConfig
+from .model import Model
+
+
+def to_tensor(a, device=None) -> torch.Tensor:
+    """A copy of the array ``a`` as a tensor on ``device``."""
+    a = np.array(a, copy=True, order="C")          # writable, contiguous
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device) if device is not None else t
+
+
+def _layer(tree: dict, device, rep: int | None = None) -> dict:
+    pick = (lambda a: a) if rep is None else (lambda a: a[rep])
+    return {"norms": {k: to_tensor(pick(v), device) for k, v in tree.items()
+                      if k not in ("attn", "mlp")},
+            "attn": {k: to_tensor(pick(v), device)
+                     for k, v in tree["attn"].items()},
+            "mlp": {k: to_tensor(pick(v), device)
+                    for k, v in tree["mlp"].items()}}
+
+
+def params_from_reference(tree: dict, cfg: ModelConfig,
+                          device=None) -> Model:
+    """The reference's ``init_params`` tree (leaves as NumPy arrays) as
+    the port's :class:`~repro_torch.models.model.Model` on ``device``."""
+    prologue, n_rep, unit, tail = cfg.repeat_structure()
+    layers = [_layer(t, device) for t in tree.get("prologue", [])]
+    for rep in range(n_rep):
+        layers += [_layer(tree["groups"][str(pos)], device, rep)
+                   for pos in range(len(unit))]
+    layers += [_layer(t, device) for t in tree.get("tail", [])]
+    tensors = {"layers": layers,
+               **{k: to_tensor(tree[k], device)
+                  for k in ("embed", "final_norm", "head") if k in tree}}
+    return Model(cfg, tensors)

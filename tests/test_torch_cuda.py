@@ -1,17 +1,22 @@
 """The CUDA kernels on the card: each equal to its plain PyTorch version
-bit for bit, counted once per launch and guarded like the CPU path; the
-``backend="cuda"`` simulator and GA fitness within the float32
-tolerance of float64; kernel-scored admission placing exactly as the
-plain version does.
+(bit for bit for the scheduling kernels; within the tolerance stated at
+``assert_close_to_plain`` for the serving kernels), counted once per
+launch and guarded like the CPU path; the ``backend="cuda"`` simulator
+and GA fitness within the float32 tolerance of float64; kernel-scored
+admission placing exactly as the plain version does; reduced-model
+greedy decoding on the card giving the CPU's tokens.
 Every test needs an NVIDIA GPU with ``nvcc``; elsewhere they skip. On
 the card: ``python3 -m pytest -q -m cuda tests/test_torch_cuda.py``."""
+
+import copy
 
 import numpy as np
 import pytest
 import torch
 
 import repro_torch.core as T
-from repro_torch.kernels import ops, ref, sched_score, sim_step
+from repro_torch.kernels import (flash_attention, flash_decode, ops, ref,
+                                 rmsnorm, sched_score, sim_step)
 
 pytestmark = pytest.mark.cuda
 
@@ -186,3 +191,152 @@ def test_ga_fitness_on_the_card_within_f32_tolerance(cuda):
     assert ops.sim_relax_pop.launches == before + 1
     want = population_fitness(g, m, pop, backend="numpy")
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=0.0)
+
+
+# ---------------------------------------------------------------------------
+# the serving kernels: rmsnorm, flash_attention, flash_decode
+# ---------------------------------------------------------------------------
+
+def assert_close_to_plain(got, want):
+    """float32: rtol 1e-5 with an absolute floor of 1e-5 x max|want|
+    (sums taken in another order; outputs that cancel near zero).
+    bfloat16: at most 2 bfloat16 ulps of max(|want|, max|want| / 256):
+    both versions compute in float32 and round once, so they differ by a
+    rounding step where their float32 values straddle a boundary."""
+    assert got.shape == want.shape and got.dtype == want.dtype
+    g, w = got.double(), want.double()
+    amax = float(w.abs().max()) if w.numel() else 0.0
+    if want.dtype == torch.float32:
+        bound = 1e-5 * w.abs() + 1e-5 * amax
+    else:
+        mag = torch.clamp(w.abs(), min=max(amax / 256, 2.0 ** -126))
+        bound = 2 * torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    err = (g - w).abs()
+    assert bool((err <= bound).all()), \
+        f"max abs err {float(err.max()):.3e} (max |want| {amax:.3e})"
+
+
+def rand(cuda, shape, dtype, seed, scale=1.0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return (torch.randn(shape, generator=g, device=cuda) * scale).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,wdtype,zero_centered", [
+    ((4, 512, 2304), None, False), ((7, 16), torch.float32, True),
+    ((3, 1000), None, True), ((2, 5, 4, 256), torch.bfloat16, False)])
+def test_rmsnorm_kernel_close_to_plain_version(cuda, dtype, shape, wdtype,
+                                               zero_centered):
+    x = rand(cuda, shape, dtype, 1)
+    w = rand(cuda, shape[-1:], wdtype or dtype, 2, 0.1)
+    before = ops.rmsnorm.launches
+    got = ops.rmsnorm(x, w, zero_centered=zero_centered)
+    assert ops.rmsnorm.launches == before + 1
+    want = rmsnorm.rmsnorm_torch(x, w, zero_centered=zero_centered)
+    torch.cuda.synchronize()
+    assert_close_to_plain(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,hq,hkv,d,causal,window,softcap", [
+    (4, 512, 8, 4, 256, True, 4096, 50.0),     # gemma2-2b, run A shape
+    (1, 700, 8, 4, 256, True, 256, 50.0),      # window inside the prompt
+    (2, 77, 4, 1, 64, True, None, 30.0),       # ragged, MQA
+    (1, 100, 4, 2, 16, True, 16, None),        # reduced widths
+    (3, 33, 6, 2, 128, False, None, None),     # bidirectional
+    (1, 1, 2, 2, 32, True, 8, 50.0),           # one token
+])
+def test_flash_attention_kernel_close_to_plain_version(
+        cuda, dtype, b, s, hq, hkv, d, causal, window, softcap):
+    q = rand(cuda, (b, s, hq, d), dtype, 3)
+    k = rand(cuda, (b, s, hkv, d), dtype, 4)
+    v = rand(cuda, (b, s, hkv, d), dtype, 5)
+    before = ops.flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=causal, window=window,
+                              softcap=softcap)
+    assert ops.flash_attention.launches == before + 1
+    want = flash_attention.flash_attention_torch(
+        q, k, v, causal=causal, window=window, softcap=softcap)
+    torch.cuda.synchronize()
+    assert_close_to_plain(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,hq,hkv,d,ring,softcap,pos", [
+    (4, 544, 8, 4, 256, False, 50.0, [511, 300, 0, 543]),
+    (4, 544, 8, 4, 256, True, 50.0, [600, 543, 10, 2000]),
+    (1, 4096, 8, 4, 256, True, 50.0, [4700]),
+    (2, 40, 4, 2, 16, False, None, [3, 39]),
+    (3, 100, 8, 1, 64, True, 30.0, [0, 99, 150]),
+])
+def test_flash_decode_kernel_close_to_plain_version(
+        cuda, dtype, b, t, hq, hkv, d, ring, softcap, pos):
+    q = rand(cuda, (b, hq, d), dtype, 6)
+    kc = rand(cuda, (b, t, hkv, d), dtype, 7)
+    vc = rand(cuda, (b, t, hkv, d), dtype, 8)
+    p = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    before = ops.flash_decode.launches
+    got = ops.flash_decode(q, kc, vc, p, softcap=softcap, ring=ring)
+    assert ops.flash_decode.launches == before + 1
+    want = flash_decode.flash_decode_torch(q, kc, vc, p, softcap=softcap,
+                                           ring=ring)
+    torch.cuda.synchronize()
+    assert_close_to_plain(got, want)
+
+
+def test_serving_kernels_refuse_bad_input_without_falling_back(cuda):
+    q = rand(cuda, (2, 10, 4, 16), torch.float32, 1)
+    k = rand(cuda, (2, 10, 2, 16), torch.float32, 2)
+    counts = (ops.rmsnorm.launches, ops.flash_attention.launches,
+              ops.flash_decode.launches)
+    pos = torch.tensor([10, 3], dtype=torch.int32, device=cuda)
+    for exc, call in [
+            (ValueError, lambda: ops.rmsnorm(q, torch.zeros(16))),
+            (TypeError, lambda: ops.rmsnorm(q.double(),
+                                            torch.zeros(16, device=cuda))),
+            (ValueError, lambda: ops.flash_attention(q, k, k.cpu())),
+            (TypeError, lambda: ops.flash_attention(q, k.bfloat16(), k)),
+            (ValueError, lambda: ops.flash_attention(q, k, k, window=0)),
+            (ValueError, lambda: ops.flash_attention(
+                *(rand(cuda, (1, 4, 2, 320), torch.float32, i)
+                  for i in range(3)))),
+            (IndexError, lambda: ops.flash_decode(q[:, 0].contiguous(), k,
+                                                  k, pos)),
+            (ValueError, lambda: ops.flash_decode(q[:, 0], k, k, pos - 1)),
+    ]:
+        with pytest.raises(exc):
+            call()
+    assert (ops.rmsnorm.launches, ops.flash_attention.launches,
+            ops.flash_decode.launches) == counts
+
+
+def test_reduced_model_generates_the_cpu_tokens_on_the_card(cuda):
+    """Reduced gemma2-2b in float32: prefill and decode through the
+    three kernels on the card give the CPU's greedy tokens, and the
+    launch counts follow the path: per forward 4 norms per layer + 1,
+    per prefill one attention per layer, per decode step one decode
+    attention per layer."""
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.models import ShardCtx, init_params
+    from repro_torch.runtime import generate
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced(ARCHS["gemma2-2b"]).replace(dtype="float32")
+    cpu = init_params(cfg, torch.Generator().manual_seed(0))
+    for p in cpu.parameters():
+        if p.dim() == 1:                    # non-zero norm scales
+            p.copy_(torch.randn(p.shape, generator=torch.Generator()
+                                .manual_seed(p.numel())) * 0.1)
+    card = copy.deepcopy(cpu).to(cuda)
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 40)))
+    n = 8
+    before = (ops.rmsnorm.launches, ops.flash_attention.launches,
+              ops.flash_decode.launches)
+    got = generate(cfg, ShardCtx(), card, {"tokens": prompt.to(cuda)}, n)
+    layers = cfg.n_layers
+    assert (ops.rmsnorm.launches - before[0],
+            ops.flash_attention.launches - before[1],
+            ops.flash_decode.launches - before[2]) == \
+        (n * (4 * layers + 1), layers, (n - 1) * layers)
+    want = generate(cfg, ShardCtx(), cpu, {"tokens": prompt}, n)
+    assert torch.equal(got.cpu(), want)

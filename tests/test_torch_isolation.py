@@ -38,6 +38,11 @@ def test_import_leaves_jax_and_reference_unloaded():
         "import repro_torch.core.convert, repro_torch.online\n"
         "import repro_torch.faults, repro_torch.search\n"
         "import repro_torch.kernels.sched_score\n"
+        "import repro_torch.configs, repro_torch.models\n"
+        "import repro_torch.runtime, repro_torch.launch\n"
+        "import repro_torch.launch.serve, repro_torch.models.convert\n"
+        "import repro_torch.kernels.rmsnorm, repro_torch.kernels.flash_attention\n"
+        "import repro_torch.kernels.flash_decode\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "assert not bad, bad\n"
