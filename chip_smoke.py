@@ -65,6 +65,33 @@ Run from the repository root (it puts ``src`` on ``sys.path`` itself):
    bound; side rows without softcap against
    ``scaled_dot_product_attention``; where one decode step's time goes
    (host parts, the profiler's device time and top kernels).
+7. SSM and hybrid serving: mamba2-780m (48 layers, d 1536, 48 heads of
+   64, state 128, chunk 256) and zamba2-7b (81 Mamba-2 layers in 13 groups
+   of 6 plus 3, a shared attention block on 7168 wide at the head of each
+   group with a rank-128 LoRA per group) at full width and depth in bf16,
+   weights from ``init_params`` with a CUDA generator seeded 0, the norm
+   scales redrawn N(0, 0.1), Mamba-2's A in -[1, 16] and dt log-uniform
+   in [1e-3, 1e-1] (the reference's init makes every chunk's decay
+   underflow, which would hide the state carried across chunks) and the
+   LoRA ``b_*`` redrawn non-zero. mamba2 run A: ``generate``, B=4, prompt
+   512, 32 new tokens; run B: B=1, prompt 4000 (15 chunks and a ragged
+   160), 16 new tokens; run C: the batcher over run C's 8 ragged
+   requests. zamba2 run D: ``generate``, B=2, prompt 700, 16 new tokens.
+   The four serving kernels' counts are zeroed before each run and read
+   after it. Checks: exact counts (rmsnorm 2 per Mamba layer, 2 per
+   shared-block use and 1 final per forward; ssd_scan one per Mamba layer
+   per prefill; flash_attention and flash_decode one per group per
+   prefill and per decode step); each kernel within ``close_to_plain`` of
+   its plain version at every path shape (prompts under one chunk and
+   ragged ones among them) and a stress shape; run A's teacher-forced
+   logits against the plain path, in float32 within 1e-4 of the largest
+   logit and in bf16 no further from the float32 logits than 2x the
+   plain path is, a gate that must fail the kernel path with a planted
+   fault in ``ssd_scan`` (the carry between chunks dropped); run C equal
+   to ``generate`` alone. Numbers: per run prefill ms, decode ms per
+   step, tokens/s; ssd_scan's kernel, plain and bound ms at every path
+   shape; the bf16 gate's reading with each planted fault; a decode
+   step's profile per model.
 
 Exits non-zero, printing no result, on any failure, when no CUDA device
 is present, or when run outside a checkout. The last line of standard
@@ -74,6 +101,7 @@ output is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import subprocess
 import sys
@@ -231,17 +259,25 @@ def sim_row(name, args, steps, ops, sim_relax_pop_cuda, sim_relax_pop_torch):
 
 
 # -- 6. serving the dense family: gemma2-2b on rmsnorm, flash_attention,
-#       flash_decode --------------------------------------------------------
+#       flash_decode; 7. the SSM and hybrid families: mamba2-780m and
+#       zamba2-7b on ssd_scan and the same three ---------------------------
 
 SERVE_ARCH = "gemma2-2b"
 RUN_A = dict(batch=4, prompt=512, gen=32)
 RUN_B = dict(batch=1, prompt=4608, gen=16)     # past the 4096 window
 RUN_C = dict(n_slots=4, max_seq=1024, n_requests=8, prompt=(37, 700),
              max_new=(8, 24))
+SSM_RUN_A = dict(batch=4, prompt=512, gen=32)  # two whole chunks of 256
+SSM_RUN_B = dict(batch=1, prompt=4000, gen=16)  # 15 chunks + a ragged 160
+SSM_RUN_D = dict(batch=2, prompt=700, gen=16)  # zamba2-7b
 BF16_OPS_PER_S = 989e12             # H100 SXM dense bf16 tensor-core rate
 NORM_STD = 0.1                      # norm scales redrawn N(0, 0.1)
-LOGIT_REL = 5e-2                    # teacher-forced logits: see check_logits
+LOGIT_REL = 5e-2                    # teacher-forced logits: check_teacher_forced
+F32_LOGIT_REL = 1e-4                # and in float32: check_teacher_forced_f32
+BF16_ERR_RATIO = 2.0                # bf16 kernel vs plain path error ratio
+GATED_FAULTS = ("dropped carry",)   # planted faults the bf16 gate must fail
 SERVE_KERNELS = ("rmsnorm", "flash_attention", "flash_decode")
+SSM_KERNELS = SERVE_KERNELS + ("ssd_scan",)
 
 
 def close_to_plain(got, want):
@@ -292,6 +328,21 @@ def decode_cost(q, kc, vc, pos, *, ring):
     return n_bytes, flops
 
 
+def ssd_cost(x, dt, A, B, C, chunk):
+    """Bytes (each input read once, y and the final state written once)
+    and the operations the function needs: per chunk of L real
+    positions, per batch row and head, C B^T and M x over the L (L + 1)
+    / 2 causal (query, key) pairs, 2 L (L + 1) / 2 (N + P), and the
+    state's two products, 4 L N P."""
+    b, s, h, p = x.shape
+    n = B.shape[3]
+    n_bytes = sum(t.numel() * t.element_size() for t in (x, dt, A, B, C)) \
+        + x.element_size() * (x.numel() + b * h * p * n)
+    per_head = sum(ln * (ln + 1) * (n + p) + 4 * ln * n * p
+                   for ln in (min(chunk, s - c0) for c0 in range(0, s, chunk)))
+    return n_bytes, per_head * b * h
+
+
 def bound(n_bytes, flops, ops_per_s):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / ops_per_s * 1e3
@@ -326,16 +377,12 @@ class ModeTimer:
 
 
 @contextlib.contextmanager
-def plain_serving_kernels(ops):
-    """The three serving entry points replaced by their plain PyTorch
-    versions, which take the same arguments: the same model on the card
-    without the kernels (the package itself has no such switch)."""
-    from repro_torch.kernels.flash_attention import flash_attention_torch
-    from repro_torch.kernels.flash_decode import flash_decode_torch
-    from repro_torch.kernels.rmsnorm import rmsnorm_torch
-    saved = {k: getattr(ops, k) for k in SERVE_KERNELS}
-    ops.rmsnorm, ops.flash_attention, ops.flash_decode = \
-        rmsnorm_torch, flash_attention_torch, flash_decode_torch
+def swapped(ops, **fns):
+    """Entry points of ``ops`` replaced by ``fns`` (same arguments) for
+    the span of the block (the package itself has no such switch)."""
+    saved = {k: getattr(ops, k) for k in fns}
+    for k, fn in fns.items():
+        setattr(ops, k, fn)
     try:
         yield
     finally:
@@ -343,139 +390,375 @@ def plain_serving_kernels(ops):
             setattr(ops, k, fn)
 
 
-def serve_phase(dev):
-    """Serve gemma2-2b at full width and depth in bf16 (runs A, B, C),
-    check it and time it; returns the three kernels' JSON entries."""
-    import numpy as np
+def plain_serving_kernels(ops):
+    """The serving entry points replaced by their plain PyTorch versions:
+    the same model on the card without the kernels."""
+    from repro_torch.kernels.flash_attention import flash_attention_torch
+    from repro_torch.kernels.flash_decode import flash_decode_torch
+    from repro_torch.kernels.rmsnorm import rmsnorm_torch
+    from repro_torch.kernels.ssd_scan import ssd_scan_torch
+    return swapped(ops, rmsnorm=rmsnorm_torch,
+                   flash_attention=flash_attention_torch,
+                   flash_decode=flash_decode_torch, ssd_scan=ssd_scan_torch)
+
+
+def scan_without_carry(x, dt, A, B, C, chunk):
+    """A planted fault: the kernel run on each chunk alone, from a zero
+    state, so the state carried from chunk to chunk is dropped."""
     import torch
-    import torch.nn.functional as F
 
-    from repro_torch.configs import ARCHS
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
-                                                     flash_attention_torch,
-                                                     visible)
-    from repro_torch.kernels.flash_decode import (flash_decode_cuda,
-                                                  flash_decode_torch,
-                                                  valid_slots)
-    from repro_torch.kernels.rmsnorm import rmsnorm_cuda, rmsnorm_torch
-    from repro_torch.models import ShardCtx, init_params
-    from repro_torch.models.layers import embed_tokens, softcap
-    from repro_torch.models.model import _head
-    from repro_torch.runtime import (ContinuousBatcher, Request, generate,
-                                     make_prefill, make_serve_step,
-                                     pad_cache_to, serve_loop)
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+    ys = []
+    for c0 in range(0, x.shape[1], chunk):
+        part = [t[:, c0:c0 + chunk].contiguous() for t in (x, dt, B, C)]
+        y, state = ssd_scan_cuda(part[0], part[1], A, part[2], part[3],
+                                 chunk)
+        ys.append(y)
+    return torch.cat(ys, dim=1), state
 
-    # the plain versions' einsums and the model's matmuls in full float32
-    # where they take float32 (the plain attention's scores), never TF32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    cfg = ARCHS[SERVE_ARCH]
-    n_layers = cfg.n_layers
-    gen = torch.Generator(device=dev).manual_seed(0)
-    t0 = time.perf_counter()
-    params = init_params(cfg, gen, dev)
+
+def scan_rounded_apart(x, dt, A, B, C, chunk):
+    """A planted fault: the chunked form's bf16 roundings (M and the
+    decay weights cast to x's type before their products, the diagonal
+    and off-diagonal parts of y rounded apart), as the reference's
+    ``ssd_chunked`` rounds."""
+    from repro_torch.models.ssm import ssd_chunked
+    return ssd_chunked(x, dt, A, B, C, chunk)
+
+
+def redraw(params, gen, dev):
+    """Redraw, from ``gen``, what the reference's init leaves degenerate:
+    every norm scale N(0, 0.1); Mamba-2's A in -[1, 16] (``A_log`` = log
+    U[1, 16]) and dt log-uniform in [1e-3, 1e-1] (``dt_bias`` =
+    softplus^-1 dt), as arXiv:2405.21060 initialises them, so the state
+    carried across chunks does not underflow; the shared block's LoRA
+    ``b_*`` N(0, 1)/sqrt(r), so the per-slot LoRA adds something. ``D``
+    stays 1."""
+    import math
+    import torch
+    lo, hi = math.log(1e-3), math.log(1e-1)
     with torch.no_grad():
-        for p in params.parameters():
-            if p.dim() == 1:                # every norm scale
+        for name, p in params.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf == "A_log":
+                u = torch.rand(p.shape, generator=gen, device=dev)
+                p.copy_(torch.log(1.0 + 15.0 * u))
+            elif leaf == "dt_bias":
+                u = torch.rand(p.shape, generator=gen, device=dev)
+                dt = torch.exp(lo + (hi - lo) * u)
+                p.copy_(dt + torch.log(-torch.expm1(-dt)))
+            elif leaf.startswith("b_"):
+                p.copy_(torch.randn(p.shape, generator=gen, device=dev)
+                        / math.sqrt(p.shape[0]))
+            elif p.dim() == 1 and leaf != "D":      # every norm scale
                 p.copy_(torch.randn(p.shape, generator=gen, device=dev)
                         * NORM_STD)
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in params.parameters())
-    print(f"serve: {cfg.name} {n_layers} layers d={cfg.d_model} "
-          f"params={n_params} ({n_params * 2 / 1e9:.2f} GB bf16) "
-          f"init_s={time.perf_counter() - t0:.1f}")
-    ctx = ShardCtx()
 
-    def tokens(b, s):
-        return torch.randint(0, cfg.vocab, (b, s), generator=gen, device=dev)
 
-    # warm-up (cuBLAS handles, kernel libraries loaded): not counted
-    generate(cfg, ctx, params, {"tokens": tokens(1, 16)}, 2)
-    torch.cuda.synchronize()
-
-    def key_norm(args):
-        return (tuple(args[0].shape), args[0].dtype, args[1].dtype)
-
-    def key_attn(args):
-        return shapes(args)
-
-    prompt_a = tokens(RUN_A["batch"], RUN_A["prompt"])
-    prompt_b = tokens(RUN_B["batch"], RUN_B["prompt"])
-    rng = np.random.default_rng(0)
+def ragged_requests(vocab, seed=0):
+    """RUN_C's requests: prompts of 37-700 tokens (both ends included),
+    8-24 new tokens each."""
+    import numpy as np
+    from repro_torch.runtime import Request
+    rng = np.random.default_rng(seed)
     lo, hi = RUN_C["prompt"]
     lens = [lo, hi] + rng.integers(lo, hi + 1,
                                    RUN_C["n_requests"] - 2).tolist()
     news = rng.integers(RUN_C["max_new"][0], RUN_C["max_new"][1] + 1,
                         RUN_C["n_requests"]).tolist()
-    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, n),
-                    max_new=m) for i, (n, m) in enumerate(zip(lens, news))]
+    return [Request(rid=i, prompt=rng.integers(0, vocab, n), max_new=m)
+            for i, (n, m) in enumerate(zip(lens, news))]
 
-    runs, launches = {}, {}
-    with contextlib.ExitStack() as stack:
-        spies = {k: stack.enter_context(Spy(ops, k, key, kw))
-                 for k, key, kw in (
-                     ("rmsnorm", key_norm, ("zero_centered",)),
-                     ("flash_attention", key_attn, ("window", "softcap")),
-                     ("flash_decode", key_attn, ("ring", "softcap")))}
-        for name, run in (("A", RUN_A), ("B", RUN_B), ("C", RUN_C)):
-            for s in spies.values():
-                s.launches = 0
-            with ModeTimer(serve_loop) as timer:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                if name == "C":
-                    batcher = ContinuousBatcher(cfg, params,
-                                                n_slots=run["n_slots"],
-                                                max_seq=run["max_seq"])
-                    for r in reqs:
-                        batcher.submit(r)
-                    ticks = batcher.run()
-                    out = None
-                    n_tok = sum(len(r.out) for r in reqs)
-                else:
-                    out = generate(cfg, ctx, params,
-                                   {"tokens": prompt_a if name == "A"
-                                    else prompt_b}, run["gen"])
-                    n_tok = run["batch"] * run["gen"]
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-            launches[name] = {k: s.launches for k, s in spies.items()}
-            n_pre = timer.calls.get("prefill", 0)
-            n_dec = timer.calls.get("decode", 0)
-            runs[name] = dict(
-                out=out, wall_s=wall, tokens=n_tok, prefills=n_pre,
-                decode_steps=n_dec,
-                prefill_ms=timer.seconds.get("prefill", 0.0) * 1e3 / n_pre,
-                decode_ms_per_step=timer.seconds.get("decode", 0.0) * 1e3
-                / max(n_dec, 1), tokens_per_s=n_tok / wall)
-            if name == "C":
-                runs[name]["ticks"] = ticks
-            print(f"serve run {name}: " + json.dumps(
-                {k: v for k, v in runs[name].items() if k != "out"})
-                + f" launches {launches[name]}")
-            want = {"rmsnorm": (n_pre + n_dec) * (4 * n_layers + 1),
-                    "flash_attention": n_pre * n_layers,
-                    "flash_decode": n_dec * n_layers}
-            if launches[name] != want:
-                fail(f"serve run {name}: launches {launches[name]} != "
-                     f"{want} implied by {n_pre} prefills and {n_dec} "
-                     f"decode steps")
-    for name, run in (("A", RUN_A), ("B", RUN_B)):
-        out = runs[name]["out"]
+
+def drive(label, name, run, cfg, params, spies, want, *, prompt=None,
+          reqs=None):
+    """One run through the entry points a user calls, every spied
+    kernel's count zeroed just before it and read just after: ``generate``
+    of ``prompt``, or a ``ContinuousBatcher`` over ``reqs``. Fails unless
+    the counts equal ``want(prefills, decode_steps)``. Returns the run's
+    record and its counts."""
+    import torch
+
+    from repro_torch.models import ShardCtx
+    from repro_torch.runtime import ContinuousBatcher, generate, serve_loop
+    for s in spies.values():
+        s.launches = 0
+    with ModeTimer(serve_loop) as timer:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if reqs is not None:
+            batcher = ContinuousBatcher(cfg, params, n_slots=run["n_slots"],
+                                        max_seq=run["max_seq"])
+            for r in reqs:
+                batcher.submit(r)
+            ticks = batcher.run()
+            out = None
+            n_tok = sum(len(r.out) for r in reqs)
+        else:
+            out = generate(cfg, ShardCtx(), params, {"tokens": prompt},
+                           run["gen"])
+            n_tok = run["batch"] * run["gen"]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {k: s.launches for k, s in spies.items()}
+    n_pre = timer.calls.get("prefill", 0)
+    n_dec = timer.calls.get("decode", 0)
+    rec = dict(out=out, wall_s=wall, tokens=n_tok, prefills=n_pre,
+               decode_steps=n_dec,
+               prefill_ms=timer.seconds.get("prefill", 0.0) * 1e3 / n_pre,
+               decode_ms_per_step=timer.seconds.get("decode", 0.0) * 1e3
+               / max(n_dec, 1), tokens_per_s=n_tok / wall)
+    if reqs is not None:
+        rec["ticks"] = ticks
+    print(f"{label} run {name}: " + json.dumps(
+        {k: v for k, v in rec.items() if k != "out"})
+        + f" launches {launches}")
+    if launches != want(n_pre, n_dec):
+        fail(f"{label} run {name}: launches {launches} != "
+             f"{want(n_pre, n_dec)} implied by {n_pre} prefills and {n_dec} "
+             f"decode steps")
+    if reqs is None:
         if out.shape != (run["batch"], run["gen"]) or \
                 not ((0 <= out) & (out < cfg.vocab)).all():
-            fail(f"serve run {name}: tokens of shape {tuple(out.shape)} "
+            fail(f"{label} run {name}: tokens of shape {tuple(out.shape)} "
                  f"or outside the vocabulary")
-        if runs[name]["decode_steps"] != run["gen"] - 1:
-            fail(f"serve run {name}: {runs[name]['decode_steps']} decode "
-                 f"steps for {run['gen']} tokens")
-    for r in reqs:
-        if not r.done or len(r.out) != r.max_new:
-            fail(f"serve run C: request {r.rid} gave {len(r.out)} of "
-                 f"{r.max_new} tokens")
+        if n_dec != run["gen"] - 1:
+            fail(f"{label} run {name}: {n_dec} decode steps for "
+                 f"{run['gen']} tokens")
+    else:
+        for r in reqs:
+            if not r.done or len(r.out) != r.max_new:
+                fail(f"{label} run {name}: request {r.rid} gave "
+                     f"{len(r.out)} of {r.max_new} tokens")
+    return rec, launches
 
-    # -- kernel vs plain at every path shape, plus a ragged stress shape --
+
+def check_against_plain(label, spies, plain, stress, ops):
+    """Each spied kernel against its plain version on the same device
+    tensors, at every shape the path launched and a stress shape; fails
+    outside ``close_to_plain``. Returns the largest error per kernel."""
+    import torch
+    max_err = {}
+    for name, spy in spies.items():
+        cases = [(f"path{k}", a, kw) for k, (a, kw) in spy.calls.items()]
+        cases.append(("stress", *stress[name]()))
+        max_err[name] = 0.0
+        for case, args, kw in cases:
+            got = getattr(ops, name)(*args, **kw)
+            want = plain[name](*args, **kw)
+            torch.cuda.synchronize()
+            for g, w in zip(*((got, want) if isinstance(got, tuple)
+                              else ((got,), (want,)))):
+                ok, err = close_to_plain(g, w)
+                if not ok:
+                    fail(f"{label} {name} {case}: kernel not within "
+                         f"tolerance of the plain version (max abs err "
+                         f"{err:.3e})")
+                max_err[name] = max(max_err[name], err)
+        print(f"{label} {name}: {len(cases)} shapes within tolerance of the "
+              f"plain version, max abs err {max_err[name]:.3e}")
+    return max_err
+
+
+def teacher_forced(cfg, params, prompt, toks):
+    """(B, n, V) float32 logits of the prefill of ``prompt`` and of every
+    decode step fed ``toks`` (the run's own tokens)."""
+    import torch
+
+    from repro_torch.models import ShardCtx
+    from repro_torch.runtime import make_prefill, make_serve_step, \
+        pad_cache_to
+    ctx = ShardCtx()
+    prefill, step = make_prefill(cfg, ctx), make_serve_step(cfg, ctx)
+    b, s = prompt.shape
+    logits, cache = prefill(params, {"tokens": prompt})
+    cache = pad_cache_to(cfg, cache, b, s + toks.shape[1])
+    out = [logits.float()]
+    for i in range(toks.shape[1] - 1):
+        _, logits, cache = step(params, cache, toks[:, i:i + 1], s + i)
+        out.append(logits.float())
+    return torch.stack(out, dim=1)
+
+
+def kernel_and_plain_logits(label, cfg, params, prompt, toks, ops, *,
+                            greedy=True):
+    """``teacher_forced`` logits of the kernel path and of the same model
+    on the card with the entry points swapped for their plain versions.
+    Fails on non-finite kernel-path logits, and where ``greedy``, when
+    re-running the kernel path does not give the run's own tokens."""
+    import torch
+    kern = teacher_forced(cfg, params, prompt, toks)
+    if not torch.isfinite(kern).all():
+        fail(f"{label} run A: non-finite logits on the kernel path")
+    if greedy and not torch.equal(kern.argmax(-1), toks):
+        fail(f"{label} run A: re-running the kernel path gave other greedy "
+             f"tokens")
+    with plain_serving_kernels(ops):
+        plain = teacher_forced(cfg, params, prompt, toks)
+    return kern, plain
+
+
+def check_teacher_forced(label, cfg, params, prompt, toks, ops):
+    """The run's tokens fed back: the kernel path's logits at the prefill
+    and every decode step against the plain path's."""
+    kern, ref_logits = kernel_and_plain_logits(label, cfg, params, prompt,
+                                               toks, ops)
+    d_logit = float((kern - ref_logits).abs().max())
+    scale = float(ref_logits.abs().max())
+    top1 = float((kern.argmax(-1) == ref_logits.argmax(-1)).float().mean())
+    print(f"{label} run A teacher-forced: max |dlogit| {d_logit:.4e} over "
+          f"{kern.shape[1]} positions x {kern.shape[0]} rows, bound "
+          f"{LOGIT_REL} x max|logit| {scale:.4f} = {LOGIT_REL * scale:.4e}; "
+          f"top-1 agreement {top1:.4f}")
+    # bound: the tolerance the CPU tests hold the bf16 model to against
+    # the reference (tests/test_torch_models.py), 5e-2 of the largest logit
+    if not d_logit <= LOGIT_REL * scale:
+        fail(f"{label} run A: kernel path logits off the plain versions' by "
+             f"{d_logit:.4e} > {LOGIT_REL * scale:.4e}")
+
+
+def check_teacher_forced_f32(label, cfg, params, prompt, toks, ops):
+    """Run A's tokens fed back through four versions of the same model on
+    the card: kernel and plain path, each in bf16 and with the weights
+    cast to float32. Two gates. In float32 the kernel path is within
+    ``F32_LOGIT_REL`` of the plain path's largest logit (the CPU tests'
+    float32 tolerance against the reference: the kernels differ from
+    their plain versions only in the order of float32 sums). In bf16 the
+    kernel path is no further from the float32 logits than the plain path
+    is, within ``BF16_ERR_RATIO`` (both round every activation to bf16 at
+    the same places; a random 48-layer model amplifies those roundings,
+    so their logits differ by several per cent of the largest one and a
+    fixed bound on that difference would measure the model, not the
+    kernels). The bf16 gate's power is read on every run: the kernel path
+    with ``ssd_scan`` swapped for each planted fault must fail it."""
+    import copy
+
+    import torch
+    kern, plain = kernel_and_plain_logits(label, cfg, params, prompt, toks,
+                                          ops)
+    cfg32 = cfg.replace(dtype="float32")
+    params32 = copy.deepcopy(params).float()
+    kern32, plain32 = kernel_and_plain_logits(label, cfg32, params32, prompt,
+                                              toks, ops, greedy=False)
+    del params32
+    scale = float(plain32.abs().max())
+    d32 = float((kern32 - plain32).abs().max())
+    err_kern = float((kern - plain32).abs().max())
+    err_plain = float((plain - plain32).abs().max())
+    top1 = float((kern.argmax(-1) == plain.argmax(-1)).float().mean())
+    print(f"{label} run A teacher-forced over {kern.shape[1]} positions x "
+          f"{kern.shape[0]} rows: float32 kernel vs plain max |dlogit| "
+          f"{d32:.4e}, bound {F32_LOGIT_REL} x max|logit| {scale:.4f} = "
+          f"{F32_LOGIT_REL * scale:.4e}; bf16 kernel vs plain max |dlogit| "
+          f"{float((kern - plain).abs().max()):.4e}, top-1 agreement "
+          f"{top1:.4f}; off the float32 logits: bf16 kernel path "
+          f"{err_kern:.4e}, bf16 plain path {err_plain:.4e}, ratio "
+          f"{err_kern / err_plain:.4f} (bound {BF16_ERR_RATIO})")
+    if not d32 <= F32_LOGIT_REL * scale:
+        fail(f"{label} run A: float32 kernel path logits off the plain "
+             f"versions' by {d32:.4e} > {F32_LOGIT_REL * scale:.4e}")
+    if not err_kern <= BF16_ERR_RATIO * err_plain:
+        fail(f"{label} run A: bf16 kernel path {err_kern:.4e} off the "
+             f"float32 logits, more than {BF16_ERR_RATIO} x the plain "
+             f"path's {err_plain:.4e}")
+    for name, fault in (("dropped carry", scan_without_carry),
+                        ("rounded apart", scan_rounded_apart)):
+        with swapped(ops, ssd_scan=fault):
+            err = float((teacher_forced(cfg, params, prompt, toks)
+                         - plain32).abs().max())
+        print(f"{label} run A bf16 gate, planted fault '{name}' in "
+              f"ssd_scan: {err:.4e} off the float32 logits, ratio "
+              f"{err / err_plain:.4f} (sound {err_kern / err_plain:.4f}, "
+              f"bound {BF16_ERR_RATIO})")
+        if name in GATED_FAULTS and err <= BF16_ERR_RATIO * err_plain:
+            fail(f"{label} run A: the bf16 gate passes the planted fault "
+                 f"'{name}' ({err:.4e} <= {BF16_ERR_RATIO} x {err_plain:.4e})")
+
+
+def check_batched_equals_alone(label, cfg, params, reqs, dev):
+    """Run C determinism: each request alone through ``generate``."""
+    import torch
+
+    from repro_torch.models import ShardCtx
+    from repro_torch.runtime import generate
+    for r in reqs:
+        alone = generate(cfg, ShardCtx(), params,
+                         {"tokens": torch.as_tensor(r.prompt, device=dev)
+                          .long()[None]}, len(r.out),
+                         max_seq=RUN_C["max_seq"])
+        if alone[0].tolist() != r.out:
+            fail(f"{label} run C: request {r.rid} (prompt {len(r.prompt)}) "
+                 f"decoded differently batched than alone")
+    print(f"{label} run C: {len(reqs)} requests (prompts "
+          f"{[len(r.prompt) for r in reqs]}, max_new "
+          f"{[r.max_new for r in reqs]}) equal to generate alone, token for "
+          f"token")
+
+
+def profile_step(step, breakdown):
+    """Five unsynchronised calls of ``step()`` back to back (host ms per
+    step), then ``torch.profiler`` over three: device busy ms, kernels
+    and idle share per step, and the ten kernels with the most device
+    time. Adds them to ``breakdown``."""
+    import torch
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(5):
+        step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t) * 1e3 / 5
+    breakdown["step_ms_unsynced"] = step_ms
+    try:
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                step()
+            torch.cuda.synchronize()
+        # only the device's own events: a CPU op carries its kernels'
+        # device time too (the rule of the profiler's own table footer)
+        evts = [e for e in prof.key_averages()
+                if "CUDA" in str(getattr(e, "device_type", ""))
+                and not getattr(e, "is_user_annotation", False)]
+
+        def dev_time(e):
+            return getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0))
+        dev_us = sum(dev_time(e) for e in evts)
+        n_kern = sum(e.count for e in evts)
+        breakdown["top_device_time_per_step"] = [
+            dict(name=e.key[:80], calls=e.count / 3,
+                 ms=dev_time(e) / 1e3 / 3)
+            for e in sorted(evts, key=dev_time, reverse=True)[:10]]
+        breakdown["device_busy_ms_per_step"] = dev_us / 1e3 / 3 \
+            if dev_us else "not measured"
+        breakdown["device_kernels_per_step"] = n_kern / 3 if n_kern \
+            else "not measured"
+        if dev_us:
+            breakdown["device_idle_share"] = 1.0 - dev_us / 1e3 / 3 / step_ms
+    except Exception as e:          # the profiler is untried on this machine
+        breakdown["device_busy_ms_per_step"] = f"not measured ({e!r})"
+    return breakdown
+
+
+def spy_keys():
+    """How each serving entry point's calls are told apart by the spies:
+    (key of the positional arguments, keyword arguments in the key)."""
+    def key_norm(args):
+        return (tuple(args[0].shape), args[0].dtype, args[1].dtype)
+
+    def key_scan(args):
+        return (shapes(args[:5]), args[0].dtype, args[5:])
+    return {"rmsnorm": (key_norm, ("zero_centered",)),
+            "flash_attention": (shapes, ("window", "softcap")),
+            "flash_decode": (shapes, ("ring", "softcap")),
+            "ssd_scan": (key_scan, ())}
+
+
+def stress_cases(gen, dev):
+    """A ragged stress input per kernel, off every path shape."""
+    import torch
+
     def stress_norm():
         x = torch.randn((37, 1001), generator=gen, device=dev).bfloat16()
         w = torch.randn((1001,), generator=gen, device=dev).bfloat16() * 0.1
@@ -495,75 +778,41 @@ def serve_phase(dev):
         pos = torch.tensor([5, 1000, 3000], dtype=torch.int32, device=dev)
         return [q, kc, vc, pos], {"softcap": 50.0, "ring": True}
 
-    plain = {"rmsnorm": rmsnorm_torch,
-             "flash_attention": flash_attention_torch,
-             "flash_decode": flash_decode_torch}
-    stress = {"rmsnorm": stress_norm, "flash_attention": stress_attn,
-              "flash_decode": stress_decode}
-    max_err = {}
-    for name, spy in spies.items():
-        cases = [(f"path{k}", a, kw) for k, (a, kw) in spy.calls.items()]
-        cases.append(("stress", *stress[name]()))
-        max_err[name] = 0.0
-        for label, args, kw in cases:
-            got = getattr(ops, name)(*args, **kw)
-            want = plain[name](*args, **kw)
-            torch.cuda.synchronize()
-            ok, err = close_to_plain(got, want)
-            if not ok:
-                fail(f"{name} {label}: kernel not within tolerance of the "
-                     f"plain version (max abs err {err:.3e})")
-            max_err[name] = max(max_err[name], err)
-        print(f"{name}: {len(cases)} shapes within tolerance of the plain "
-              f"version, max abs err {max_err[name]:.3e}")
+    def stress_scan():
+        # P, N and chunk off the kernel's tile grid, three groups, a
+        # ragged last chunk; A and dt as Mamba-2 initialises them
+        b, s, h, p, g, n, chunk = 3, 300, 6, 40, 3, 100, 96
+        x = torch.randn((b, s, h, p), generator=gen, device=dev)
+        u = torch.rand((b, s, h), generator=gen, device=dev)
+        dt = torch.exp(-6.9078 + 4.6052 * u)
+        A = -(1.0 + 15.0 * torch.rand((h,), generator=gen, device=dev))
+        B, C = (torch.randn((b, s, g, n), generator=gen, device=dev)
+                for _ in range(2))
+        return [x.bfloat16(), dt, A, B.bfloat16(), C.bfloat16(), chunk], {}
 
-    # -- run A teacher-forced: kernel path vs the plain versions on the card
-    def teacher_forced(prompt, toks):
-        prefill, step = make_prefill(cfg, ctx), make_serve_step(cfg, ctx)
-        b, s = prompt.shape
-        logits, cache = prefill(params, {"tokens": prompt})
-        cache = pad_cache_to(cfg, cache, b, s + toks.shape[1])
-        out = [logits.float()]
-        for i in range(toks.shape[1] - 1):
-            _, logits, cache = step(params, cache, toks[:, i:i + 1], s + i)
-            out.append(logits.float())
-        return torch.stack(out, dim=1)               # (B, n, V)
+    return {"rmsnorm": stress_norm, "flash_attention": stress_attn,
+            "flash_decode": stress_decode, "ssd_scan": stress_scan}
 
-    toks_a = runs["A"]["out"]
-    kern = teacher_forced(prompt_a, toks_a)
-    if not torch.isfinite(kern).all():
-        fail("run A: non-finite logits on the kernel path")
-    if not torch.equal(kern.argmax(-1), toks_a):
-        fail("run A: re-running the kernel path gave other greedy tokens")
-    with plain_serving_kernels(ops):
-        ref_logits = teacher_forced(prompt_a, toks_a)
-    d_logit = float((kern - ref_logits).abs().max())
-    scale = float(ref_logits.abs().max())
-    top1 = float((kern.argmax(-1) == ref_logits.argmax(-1)).float().mean())
-    print(f"run A teacher-forced: max |dlogit| {d_logit:.4e} over "
-          f"{kern.shape[1]} positions x {kern.shape[0]} rows, bound "
-          f"{LOGIT_REL} x max|logit| {scale:.4f} = {LOGIT_REL * scale:.4e}; "
-          f"top-1 agreement {top1:.4f}")
-    # bound: the tolerance the CPU tests hold the bf16 model to against
-    # the reference (tests/test_torch_models.py), 5e-2 of the largest logit
-    if not d_logit <= LOGIT_REL * scale:
-        fail(f"run A: kernel path logits off the plain versions' by "
-             f"{d_logit:.4e} > {LOGIT_REL * scale:.4e}")
-    del kern, ref_logits
 
-    # -- run C determinism: each request alone through generate -------------
-    for r in reqs:
-        alone = generate(cfg, ctx, params,
-                         {"tokens": torch.as_tensor(r.prompt, device=dev)
-                          .long()[None]}, len(r.out),
-                         max_seq=RUN_C["max_seq"])
-        if alone[0].tolist() != r.out:
-            fail(f"run C: request {r.rid} (prompt {len(r.prompt)}) decoded "
-                 f"differently batched than alone")
-    print(f"run C: {len(reqs)} requests (prompts {lens}, max_new {news}) "
-          f"equal to generate alone, token for token")
+def plain_versions():
+    from repro_torch.kernels.flash_attention import flash_attention_torch
+    from repro_torch.kernels.flash_decode import flash_decode_torch
+    from repro_torch.kernels.rmsnorm import rmsnorm_torch
+    from repro_torch.kernels.ssd_scan import ssd_scan_torch
+    return {"rmsnorm": rmsnorm_torch, "flash_attention": flash_attention_torch,
+            "flash_decode": flash_decode_torch, "ssd_scan": ssd_scan_torch}
 
-    # -- per kernel at its largest path shape --------------------------------
+
+def serving_kernel_rows(spies):
+    """Per serving kernel at its largest path shape: the kernel's, the
+    plain version's and (where one exists) the library call's ms from
+    CUDA events, the bound and what bounds it."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_decode import flash_decode_cuda
+    from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+    plain = plain_versions()
     rows = {}
     _, (nargs, nkw) = max(
         spies["rmsnorm"].calls.items(), key=lambda kv: kv[1][0][0].numel())
@@ -573,7 +822,7 @@ def serve_phase(dev):
     rows["rmsnorm"] = dict(
         shape=str(tuple(x.shape)),
         ms=cuda_ms(lambda: rmsnorm_cuda(x, w, **nkw), 50),
-        plain_ms=cuda_ms(lambda: rmsnorm_torch(x, w, **nkw), 50),
+        plain_ms=cuda_ms(lambda: plain["rmsnorm"](x, w, **nkw), 50),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=cuda_ms(lambda: F.rms_norm(x, (x.shape[-1],), w,
                                               nkw.get("eps", 1e-6)), 50),
@@ -591,27 +840,110 @@ def serve_phase(dev):
     rows["flash_attention"] = dict(
         shape=str(tuple(q.shape)) + f" window={akw.get('window')}",
         ms=cuda_ms(lambda: flash_attention_cuda(q, k, v, **akw), 3),
-        plain_ms=cuda_ms(lambda: flash_attention_torch(q, k, v, **akw), 3),
+        plain_ms=cuda_ms(lambda: plain["flash_attention"](q, k, v, **akw),
+                         3),
         bound_ms=b_ms, bound_by=b_by, library_ms=None, bytes=n_bytes,
-        flops=flops)
+        flops=flops, args=((q, k, v), akw))
 
     def dec_key(kv):
         (q, kc, vc, pos), kw = kv[1]
         return decode_cost(q, kc, vc, pos, ring=kw.get("ring", False))[0]
     _, ((dq, dkc, dvc, dpos), dkw) = max(spies["flash_decode"].calls.items(),
                                          key=dec_key)
-    n_bytes, flops = decode_cost(dq, dkc, dvc, dpos, ring=dkw["ring"])
+    n_bytes, flops = decode_cost(dq, dkc, dvc, dpos,
+                                 ring=dkw.get("ring", False))
     b_ms, b_by = bound(n_bytes, flops, BF16_OPS_PER_S)
     rows["flash_decode"] = dict(
         shape=f"q {tuple(dq.shape)} cache {tuple(dkc.shape)} "
-              f"ring={dkw['ring']} pos={dpos.tolist()}",
+              f"ring={dkw.get('ring', False)} pos={dpos.tolist()}",
         ms=cuda_ms(lambda: flash_decode_cuda(dq, dkc, dvc, dpos, **dkw), 50),
-        plain_ms=cuda_ms(lambda: flash_decode_torch(dq, dkc, dvc, dpos,
-                                                    **dkw), 50),
+        plain_ms=cuda_ms(lambda: plain["flash_decode"](dq, dkc, dvc, dpos,
+                                                       **dkw), 50),
         bound_ms=b_ms, bound_by=b_by, library_ms=None, bytes=n_bytes,
-        flops=flops)
+        flops=flops, args=((dq, dkc, dvc, dpos), dkw))
+    return rows
+
+
+def print_rows(label, rows):
     for name, row in rows.items():
-        print(f"{name} " + json.dumps(row))
+        print(f"{label} {name} " + json.dumps(
+            {k: v for k, v in row.items() if k != "args"}))
+
+
+def serve_phase(dev):
+    """Serve gemma2-2b at full width and depth in bf16 (runs A, B, C),
+    check it and time it; returns the three kernels' JSON entries."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     visible)
+    from repro_torch.kernels.flash_decode import (flash_decode_cuda,
+                                                  valid_slots)
+    from repro_torch.models import ShardCtx, init_params
+    from repro_torch.models.layers import embed_tokens, softcap
+    from repro_torch.models.model import _head
+    from repro_torch.runtime import (generate, make_prefill, make_serve_step,
+                                     pad_cache_to)
+
+    # the plain versions' einsums and the model's matmuls in full float32
+    # where they take float32 (the plain attention's scores), never TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = ARCHS[SERVE_ARCH]
+    n_layers = cfg.n_layers
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    params = init_params(cfg, gen, dev)
+    redraw(params, gen, dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"serve: {cfg.name} {n_layers} layers d={cfg.d_model} "
+          f"params={n_params} ({n_params * 2 / 1e9:.2f} GB bf16) "
+          f"init_s={time.perf_counter() - t0:.1f}")
+    ctx = ShardCtx()
+
+    def tokens(b, s):
+        return torch.randint(0, cfg.vocab, (b, s), generator=gen, device=dev)
+
+    # warm-up (cuBLAS handles, kernel libraries loaded): not counted
+    generate(cfg, ctx, params, {"tokens": tokens(1, 16)}, 2)
+    torch.cuda.synchronize()
+
+    prompt_a = tokens(RUN_A["batch"], RUN_A["prompt"])
+    prompt_b = tokens(RUN_B["batch"], RUN_B["prompt"])
+    reqs = ragged_requests(cfg.vocab)
+
+    def want(n_pre, n_dec):
+        return {"rmsnorm": (n_pre + n_dec) * (4 * n_layers + 1),
+                "flash_attention": n_pre * n_layers,
+                "flash_decode": n_dec * n_layers}
+
+    runs, launches = {}, {}
+    keys = spy_keys()
+    with contextlib.ExitStack() as stack:
+        spies = {k: stack.enter_context(Spy(ops, k, *keys[k]))
+                 for k in SERVE_KERNELS}
+        for name, run, prompt, rq in (("A", RUN_A, prompt_a, None),
+                                      ("B", RUN_B, prompt_b, None),
+                                      ("C", RUN_C, None, reqs)):
+            runs[name], launches[name] = drive(
+                "serve", name, run, cfg, params, spies, want, prompt=prompt,
+                reqs=rq)
+
+    stress = stress_cases(gen, dev)
+    max_err = check_against_plain("serve", spies, plain_versions(), stress,
+                                  ops)
+    check_teacher_forced("serve", cfg, params, prompt_a, runs["A"]["out"],
+                         ops)
+    check_batched_equals_alone("serve", cfg, params, reqs, dev)
+
+    # -- per kernel at its largest path shape --------------------------------
+    rows = serving_kernel_rows(spies)
+    print_rows("serve", rows)
 
     # side rows: no softcap, against scaled_dot_product_attention (which
     # cannot softcap), the window passed as an explicit mask
@@ -631,6 +963,7 @@ def serve_phase(dev):
                 vt.repeat_interleave(g, dim=1), **kw)
         return out.transpose(1, 2)
 
+    (q, k, v), akw = rows["flash_attention"]["args"]
     side = []
     for label, win in (("global", None), ("local", cfg.window)):
         s = q.shape[1]
@@ -646,6 +979,7 @@ def serve_phase(dev):
                                                     scale=scale), 3),
             library_ms=cuda_ms(lambda: sdpa(q, k, v, mask, True, scale), 3),
             max_abs_diff=float((got.float() - lib.float()).abs().max())))
+    (dq, dkc, dvc, dpos), dkw = rows["flash_decode"]["args"]
     dmask = valid_slots(dpos, dkc.shape[1], dkw["ring"])[:, None, None, :]
     dscale = dkw.get("scale")
     got = flash_decode_cuda(dq, dkc, dvc, dpos, ring=dkw["ring"],
@@ -694,44 +1028,8 @@ def serve_phase(dev):
         torch.cuda.synchronize()
         parts["argmax"].append(time.perf_counter() - t)
     step = make_serve_step(cfg, ctx)
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    for _ in range(5):
-        step(params, cache, tok, s)
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t) * 1e3 / 5
     breakdown = {k: float(np.median(v)) * 1e3 for k, v in parts.items()}
-    breakdown["step_ms_unsynced"] = step_ms
-    try:
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                step(params, cache, tok, s)
-            torch.cuda.synchronize()
-        # only the device's own events: a CPU op carries its kernels'
-        # device time too (the rule of the profiler's own table footer)
-        evts = [e for e in prof.key_averages()
-                if "CUDA" in str(getattr(e, "device_type", ""))
-                and not getattr(e, "is_user_annotation", False)]
-
-        def dev_time(e):
-            return getattr(e, "self_device_time_total",
-                           getattr(e, "self_cuda_time_total", 0))
-        dev_us = sum(dev_time(e) for e in evts)
-        n_kern = sum(e.count for e in evts)
-        breakdown["top_device_time_per_step"] = [
-            dict(name=e.key[:80], calls=e.count / 3,
-                 ms=dev_time(e) / 1e3 / 3)
-            for e in sorted(evts, key=dev_time, reverse=True)[:10]]
-        breakdown["device_busy_ms_per_step"] = dev_us / 1e3 / 3 \
-            if dev_us else "not measured"
-        breakdown["device_kernels_per_step"] = n_kern / 3 if n_kern \
-            else "not measured"
-        if dev_us:
-            breakdown["device_idle_share"] = 1.0 - dev_us / 1e3 / 3 / step_ms
-    except Exception as e:          # the profiler is untried on this machine
-        breakdown["device_busy_ms_per_step"] = f"not measured ({e!r})"
+    profile_step(lambda: step(params, cache, tok, s), breakdown)
     print("decode step breakdown (run A shape, host ms, synchronised per "
           "part) " + json.dumps(breakdown))
 
@@ -747,6 +1045,148 @@ def serve_phase(dev):
         plain_ms=rows[name]["plain_ms"], bound_ms=rows[name]["bound_ms"],
         bound_by=rows[name]["bound_by"], library_ms=rows[name]["library_ms"],
         shape=rows[name]["shape"]) for name in SERVE_KERNELS]
+
+
+def ssm_phase(dev):
+    """Serve mamba2-780m (runs A, B, C) and zamba2-7b (run D) at full
+    width and depth in bf16, check them and time them. Returns the
+    ``ssd_scan`` JSON entry and, per serving kernel, its counts by run
+    and its largest error against the plain version here."""
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_torch
+    from repro_torch.models import ShardCtx, init_params
+    from repro_torch.runtime import (generate, make_prefill, make_serve_step,
+                                     pad_cache_to)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ctx = ShardCtx()
+    runs, launches, breakdowns = {}, {}, {}
+    keys = spy_keys()
+
+    def load(arch):
+        cfg = ARCHS[arch]
+        gen = torch.Generator(device=dev).manual_seed(0)
+        t0 = time.perf_counter()
+        params = init_params(cfg, gen, dev)
+        redraw(params, gen, dev)
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in params.parameters())
+        print(f"ssm: {cfg.name} {cfg.n_layers} layers d={cfg.d_model} "
+              f"heads={cfg.ssm_heads}x{cfg.ssm_headdim} "
+              f"state={cfg.ssm_state} chunk={cfg.ssm_chunk} "
+              f"params={n_params} ({n_params * 2 / 1e9:.2f} GB bf16) "
+              f"init_s={time.perf_counter() - t0:.1f}")
+        generate(cfg, ctx, params, {"tokens": torch.randint(
+            0, cfg.vocab, (1, 16), generator=gen, device=dev)}, 2)  # warm-up
+        torch.cuda.synchronize()
+        return cfg, gen, params
+
+    def want_of(cfg):
+        n_rep = cfg.repeat_structure()[1] if cfg.shared_attn_every else 0
+        n = cfg.n_layers
+
+        def want(n_pre, n_dec):
+            return {"rmsnorm": (n_pre + n_dec) * (2 * n + 2 * n_rep + 1),
+                    "flash_attention": n_pre * n_rep,
+                    "flash_decode": n_dec * n_rep,
+                    "ssd_scan": n_pre * n}
+        return want
+
+    def decode_breakdown(label, cfg, params, prompt, gen_len):
+        prefill, step = make_prefill(cfg, ctx), make_serve_step(cfg, ctx)
+        logits, cache = prefill(params, {"tokens": prompt})
+        b, s = prompt.shape
+        cache = pad_cache_to(cfg, cache, b, s + gen_len)
+        tok = logits.argmax(-1)[:, None]
+        out = profile_step(lambda: step(params, cache, tok, s), {})
+        print(f"{label} decode step breakdown (host ms) " + json.dumps(out))
+        return out
+
+    with contextlib.ExitStack() as stack:
+        spies = {k: stack.enter_context(Spy(ops, k, *keys[k]))
+                 for k in SSM_KERNELS}
+
+        # -- mamba2-780m: runs A, B, C ---------------------------------------
+        cfg, gen, params = load("mamba2-780m")
+        prompt_a = torch.randint(0, cfg.vocab, (SSM_RUN_A["batch"],
+                                                SSM_RUN_A["prompt"]),
+                                 generator=gen, device=dev)
+        prompt_b = torch.randint(0, cfg.vocab, (SSM_RUN_B["batch"],
+                                                SSM_RUN_B["prompt"]),
+                                 generator=gen, device=dev)
+        reqs = ragged_requests(cfg.vocab)
+        for name, run, prompt, rq in (("A", SSM_RUN_A, prompt_a, None),
+                                      ("B", SSM_RUN_B, prompt_b, None),
+                                      ("C", RUN_C, None, reqs)):
+            runs[name], launches[name] = drive(
+                "mamba2", name, run, cfg, params, spies, want_of(cfg),
+                prompt=prompt, reqs=rq)
+        check_teacher_forced_f32("mamba2", cfg, params, prompt_a,
+                                 runs["A"]["out"], ops)
+        check_batched_equals_alone("mamba2", cfg, params, reqs, dev)
+        breakdowns["mamba2_A"] = decode_breakdown(
+            "mamba2 run A shape", cfg, params, prompt_a, SSM_RUN_A["gen"])
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- zamba2-7b: run D ------------------------------------------------
+        cfg, gen, params = load("zamba2-7b")
+        prompt_d = torch.randint(0, cfg.vocab, (SSM_RUN_D["batch"],
+                                                SSM_RUN_D["prompt"]),
+                                 generator=gen, device=dev)
+        runs["D"], launches["D"] = drive(
+            "zamba2", "D", SSM_RUN_D, cfg, params, spies, want_of(cfg),
+            prompt=prompt_d)
+        breakdowns["zamba2_D"] = decode_breakdown(
+            "zamba2 run D shape", cfg, params, prompt_d, SSM_RUN_D["gen"])
+        print(f"zamba2 peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    max_err = check_against_plain("ssm", spies, plain_versions(),
+                                  stress_cases(gen, dev), ops)
+    rows = serving_kernel_rows({k: spies[k] for k in SERVE_KERNELS})
+    print_rows("ssm", rows)
+
+    # ssd_scan at every path shape of the generate runs (A, B, D) and of
+    # run C's prompts: kernel and plain ms, bound
+    scan_rows = []
+    by_flops = sorted(spies["ssd_scan"].calls.values(),
+                      key=lambda call: -ssd_cost(*call[0])[1])
+    for args, _ in by_flops:
+        x, dt, A, B, C, chunk = args
+        n_bytes, flops = ssd_cost(x, dt, A, B, C, chunk)
+        b_ms, b_by = bound(n_bytes, flops, BF16_OPS_PER_S)
+        scan_rows.append(dict(
+            shape=f"x {tuple(x.shape)} B {tuple(B.shape)} chunk {chunk}",
+            ms=cuda_ms(lambda: ssd_scan_cuda(x, dt, A, B, C, chunk), 10),
+            plain_ms=cuda_ms(lambda: ssd_scan_torch(x, dt, A, B, C, chunk),
+                             3),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None, bytes=n_bytes,
+            flops=flops))
+        print("ssd_scan " + json.dumps(scan_rows[-1]))
+    top = scan_rows[0]
+    label = {"A": "mamba2_A", "B": "mamba2_B", "C": "mamba2_C",
+             "D": "zamba2_D"}
+    by_run = {k: {label[r]: launches[r][k] for r in launches}
+              for k in SSM_KERNELS}
+    ssd_entry = dict(
+        name="ssd_scan", route="cuda",
+        source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan.py:74",
+        launches=sum(by_run["ssd_scan"].values()),
+        launches_by_path=by_run["ssd_scan"],
+        max_abs_err=max_err["ssd_scan"], ms=top["ms"],
+        plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
+        bound_by=top["bound_by"], library_ms=None, shape=top["shape"])
+    return ssd_entry, by_run, max_err
 
 
 def main() -> int:
@@ -1074,6 +1514,14 @@ def main() -> int:
           f"fitness rel err vs f64 {fit_err:.3e}")
 
     serve_rows = serve_phase(dev)
+    gc.collect()                    # gemma2's weights go before the next
+    torch.cuda.empty_cache()
+    ssd_entry, ssm_launches, ssm_err = ssm_phase(dev)
+    for row in serve_rows:
+        name = row["name"]
+        row["launches"] += sum(ssm_launches[name].values())
+        row["launches_by_path"].update(ssm_launches[name])
+        row["max_abs_err"] = max(row["max_abs_err"], ssm_err[name])
 
     main_row = max(kernel_rows, key=lambda x: x["bytes"])
     score_row = max(score_rows, key=lambda x: x["bytes"])
@@ -1098,7 +1546,7 @@ def main() -> int:
         max_abs_err=score_err, ms=score_row["ms"],
         plain_ms=score_row["plain_ms"], bound_ms=score_row["bound_ms"],
         bound_by=score_row["bound_by"], library_ms=None,
-        shape=score_row["name"])] + serve_rows}))
+        shape=score_row["name"])] + serve_rows + [ssd_entry]}))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

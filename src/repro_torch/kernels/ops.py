@@ -23,6 +23,7 @@ from . import flash_decode as _fd
 from . import rmsnorm as _rn
 from . import sched_score as _ss
 from . import sim_step as _sim
+from . import ssd_scan as _ssd
 
 FLOAT_TYPES = (torch.float32, torch.bfloat16)
 
@@ -268,3 +269,43 @@ def flash_decode(q, k_cache, v_cache, pos, *, scale: float | None = None,
 
 
 flash_decode.launches = 0
+
+
+def ssd_scan(x, dt, A, B, C, chunk: int = 256):
+    """The Mamba-2 SSD chunked scan (see :mod:`.ssd_scan`): ``x`` (B, S,
+    H, P), float32 ``dt`` (B, S, H), float32 ``A`` (H,), ``B``/``C`` (B, S,
+    G, N) with G dividing H; x, B and C of one type (float32 or
+    bfloat16), all contiguous on one device; ``chunk`` >= 1 and any S
+    (the ragged tail acts as ``dt = 0`` padding). Returns (y (B, S, H,
+    P), final state (B, H, P, N)), both in x's type."""
+    device = _check_tensors(
+        "ssd_scan", dict(x=x, dt=dt, A=A, B=B, C=C),
+        dict(x=FLOAT_TYPES, dt=torch.float32, A=torch.float32,
+             B=FLOAT_TYPES, C=FLOAT_TYPES))
+    _check_one_type("ssd_scan", x=x, B=B, C=C)
+    _check_rank("ssd_scan.x", x, 4, "(B, S, H, P)")
+    _check_rank("ssd_scan.B", B, 4, "(B, S, G, N)")
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    check_shape("ssd_scan.dt", dt, (b, s, h))
+    check_shape("ssd_scan.A", A, (h,))
+    check_shape("ssd_scan.B", B, (b, s, g, n))
+    check_shape("ssd_scan.C", C, (b, s, g, n))
+    if g == 0 or h % g:
+        raise ValueError(f"ssd_scan: {g} groups do not divide {h} heads")
+    if not isinstance(chunk, int) or chunk < 1:
+        raise ValueError(f"ssd_scan: chunk {chunk!r} must be an int >= 1")
+    if device.type == "cpu":
+        return _ssd.ssd_scan_torch(x, dt, A, B, C, chunk)
+    why = _ssd.refusal(p, n, chunk)
+    if why is not None:
+        raise ValueError(f"ssd_scan: {why}")
+    if x.numel() == 0 or n == 0:
+        return (torch.zeros_like(x),
+                torch.zeros((b, h, p, n), dtype=x.dtype, device=device))
+    out = _ssd.ssd_scan_cuda(x, dt, A, B, C, chunk)
+    ssd_scan.launches += 1
+    return out
+
+
+ssd_scan.launches = 0

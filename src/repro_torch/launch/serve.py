@@ -3,6 +3,8 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \
         --batch 4 --prompt-len 512 --gen 32 [--reduced] [--device cpu]
 
+``--arch`` names a demo or an assigned config of a served family: dense
+(``gemma2-2b``, ...), SSM (``mamba2-780m``) or hybrid (``zamba2-7b``).
 Weights are random (``init_params`` seeded with ``--seed``); the prompt
 is ``--batch`` rows of seeded token ids. Runs on the card unless
 ``--device cpu`` is given.

@@ -6,7 +6,11 @@ a leading axis (``params["groups"][str(pos)]``, one entry per position
 :class:`~repro_torch.models.model.Layer` per layer. Layer
 ``len(prologue) + rep * len(unit) + pos`` is repeat ``rep`` of
 ``groups[str(pos)]``; the prologue and tail layers are unstacked lists
-already. Every leaf is copied as it is: the layouts are the same.
+already. A Mamba layer's tree is flat (no ``attn``/``mlp`` subtrees).
+Zamba-2's ``shared`` block is one tree; its ``shared_lora`` is stacked
+over the ``n_rep`` repeat slots and unstacked here, one
+:class:`~repro_torch.models.model.LoRA` per slot. Every leaf is copied
+as it is: the layouts are the same.
 
 The tree's leaves are NumPy arrays (``np.asarray`` of each JAX array);
 bfloat16 arrives as ml_dtypes' ``bfloat16`` and is reinterpreted bit for
@@ -32,7 +36,14 @@ def to_tensor(a, device=None) -> torch.Tensor:
     return t.to(device) if device is not None else t
 
 
+def _flat(tree: dict, device, rep: int | None = None) -> dict:
+    return {k: to_tensor(v if rep is None else v[rep], device)
+            for k, v in tree.items()}
+
+
 def _layer(tree: dict, device, rep: int | None = None) -> dict:
+    if "attn" not in tree:                      # a Mamba layer
+        return _flat(tree, device, rep)
     pick = (lambda a: a) if rep is None else (lambda a: a[rep])
     return {"norms": {k: to_tensor(pick(v), device) for k, v in tree.items()
                       if k not in ("attn", "mlp")},
@@ -55,4 +66,13 @@ def params_from_reference(tree: dict, cfg: ModelConfig,
     tensors = {"layers": layers,
                **{k: to_tensor(tree[k], device)
                   for k in ("embed", "final_norm", "head") if k in tree}}
+    if "shared" in tree:
+        sh = tree["shared"]
+        tensors["shared"] = {
+            "norms": {k: to_tensor(sh[k], device) for k in ("ln1", "ln2")},
+            "attn": _flat(sh["attn"], device),
+            "mlp": _flat(sh["mlp"], device),
+            "down": to_tensor(sh["down"], device)}
+        tensors["shared_lora"] = [_flat(tree["shared_lora"], device, rep)
+                                  for rep in range(n_rep)]
     return Model(cfg, tensors)

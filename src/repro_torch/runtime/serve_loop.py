@@ -36,19 +36,18 @@ def make_serve_step(cfg, ctx: ShardCtx):
 
 def pad_cache_to(cfg, cache, batch: int, max_seq: int):
     """Grow a prefill cache to the serving window (zeros past the filled
-    prefix) so decode can run to ``max_seq``."""
-    device = cache[0]["k"].device if cache else None
-    target = init_cache(cfg, batch, max_seq, device=device)
+    prefix) so decode can run to ``max_seq``: the sequence axis of every
+    K/V cache is padded to its size in :func:`init_cache`; Mamba layers'
+    conv tails and states have no sequence axis and are kept as they
+    are."""
+    target = init_cache(cfg, batch, max_seq, device="meta")   # shapes only
 
-    def fit(src, dst):
-        if src.shape == dst.shape:
+    def fit(name, src, dst):
+        if name not in ("k", "v") or src.shape[1] == dst.shape[1]:
             return src
-        pads = []
-        for s, d in zip(reversed(src.shape), reversed(dst.shape)):
-            pads += [0, d - s]
-        return F.pad(src, pads)
+        return F.pad(src, (0, 0, 0, 0, 0, dst.shape[1] - src.shape[1]))
 
-    return [{k: fit(src[k], dst[k]) for k in dst}
+    return [{k: fit(k, src[k], dst[k]) for k in dst}
             for src, dst in zip(cache, target)]
 
 

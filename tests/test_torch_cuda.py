@@ -16,7 +16,7 @@ import torch
 
 import repro_torch.core as T
 from repro_torch.kernels import (flash_attention, flash_decode, ops, ref,
-                                 rmsnorm, sched_score, sim_step)
+                                 rmsnorm, sched_score, sim_step, ssd_scan)
 
 pytestmark = pytest.mark.cuda
 
@@ -338,5 +338,124 @@ def test_reduced_model_generates_the_cpu_tokens_on_the_card(cuda):
             ops.flash_attention.launches - before[1],
             ops.flash_decode.launches - before[2]) == \
         (n * (4 * layers + 1), layers, (n - 1) * layers)
+    want = generate(cfg, ShardCtx(), cpu, {"tokens": prompt}, n)
+    assert torch.equal(got.cpu(), want)
+
+
+# ---------------------------------------------------------------------------
+# ssd_scan: the Mamba-2 SSD chunked scan
+# ---------------------------------------------------------------------------
+
+def ssd_inputs(device, b, s, h, p, g, n, dtype, seed):
+    """Mamba-2-like inputs made with NumPy: A in -[1, 16] and dt
+    log-uniform in [1e-3, 1e-1] (the paper's init), so that the state
+    carried across chunks is far from zero."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, s, h, p))
+    dt = np.exp(rng.uniform(np.log(1e-3), np.log(1e-1), (b, s, h)))
+    A = -rng.uniform(1.0, 16.0, h)
+    B = rng.standard_normal((b, s, g, n)) * 0.5
+    C = rng.standard_normal((b, s, g, n)) * 0.5
+    return [torch.from_numpy(x).to(device, dtype),
+            torch.from_numpy(dt).to(device, torch.float32),
+            torch.from_numpy(A).to(device, torch.float32),
+            torch.from_numpy(B).to(device, dtype),
+            torch.from_numpy(C).to(device, dtype)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", [
+    (4, 512, 48, 64, 1, 128, 256),     # mamba2-780m, run A
+    (1, 4000, 48, 64, 1, 128, 256),    # run B: 15 chunks + a ragged 160
+    (2, 700, 112, 64, 1, 64, 256),     # zamba2-7b, run D
+    (1, 37, 48, 64, 1, 128, 256),      # S < chunk
+    (1, 1, 4, 64, 1, 128, 256),        # one position
+    (2, 100, 8, 16, 2, 16, 8),         # reduced widths, two groups
+    (3, 300, 6, 40, 3, 100, 96),       # P, N, chunk off the tile grid
+])
+def test_ssd_scan_kernel_close_to_plain_version(cuda, dtype, b, s, h, p, g,
+                                                n, chunk):
+    args = ssd_inputs(cuda, b, s, h, p, g, n, dtype, s + h)
+    before = ops.ssd_scan.launches
+    y, state = ops.ssd_scan(*args, chunk)
+    assert ops.ssd_scan.launches == before + 1
+    want_y, want_state = ssd_scan.ssd_scan_torch(*args, chunk)
+    torch.cuda.synchronize()
+    assert_close_to_plain(y, want_y)
+    assert_close_to_plain(state, want_state)
+    if s > chunk:                                            # a live carry
+        assert float(want_state.float().abs().max()) > 0.1
+
+
+def test_ssd_scan_refuses_bad_input_without_falling_back(cuda):
+    x, dt, A, B, C = ssd_inputs(cuda, 1, 10, 4, 16, 2, 16, torch.float32, 0)
+    wide = ssd_inputs(cuda, 1, 10, 4, 72, 1, 16, torch.float32, 1)
+    deep = ssd_inputs(cuda, 1, 10, 4, 16, 1, 136, torch.float32, 2)
+    before = ops.ssd_scan.launches
+    for exc, call in [
+            (ValueError, lambda: ops.ssd_scan(x, dt, A.cpu(), B, C)),
+            (TypeError, lambda: ops.ssd_scan(x, dt, A, B.bfloat16(), C)),
+            (TypeError, lambda: ops.ssd_scan(x, dt.double(), A, B, C)),
+            (ValueError, lambda: ops.ssd_scan(x, dt, A, B, C, 0)),
+            (ValueError, lambda: ops.ssd_scan(*wide)),
+            (ValueError, lambda: ops.ssd_scan(*deep)),
+            (ValueError, lambda: ops.ssd_scan(x, dt, A, B, C, 100_000)),
+    ]:
+        with pytest.raises(exc):
+            call()
+    assert ops.ssd_scan.launches == before
+
+
+def test_shared_memory_need_of_a_block(cuda):
+    """The library's own count: one block per SM at mamba2-780m's widths,
+    two at zamba2-7b's; a chunk too long for a block is refused."""
+    limit = ssd_scan._library().ssd_scan_max_shared_bytes()
+    assert ssd_scan.shared_bytes(64, 128, 256) <= 136 * 1024   # mamba2-780m
+    assert 2 * ssd_scan.shared_bytes(64, 64, 256) <= limit     # zamba2-7b
+    assert ssd_scan.shared_bytes(64, 128, 20_000) > limit
+    assert ssd_scan.refusal(64, 128, 256) is None
+    assert "shared memory" in ssd_scan.refusal(64, 128, 20_000)
+
+
+@pytest.mark.parametrize("name", ["mamba2-780m", "zamba2-7b"])
+def test_reduced_ssm_model_generates_the_cpu_tokens_on_the_card(cuda, name):
+    """Reduced mamba2-780m and zamba2-7b in float32 with Mamba-2's A and
+    dt init and non-zero LoRA: prefill through ``ssd_scan`` (and, for
+    zamba2, the shared block's attention) and decode on the card give the
+    CPU's greedy tokens, and the launch counts follow the path: per
+    forward 2 norms per Mamba layer, 2 per shared-block use and 1 final;
+    per prefill one scan per Mamba layer and one attention per group;
+    per decode step one decode attention per group."""
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.models import ShardCtx, init_params
+    from repro_torch.runtime import generate
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced(ARCHS[name]).replace(dtype="float32")
+    cpu = init_params(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(1)
+    for pname, p in cpu.named_parameters():
+        leaf = pname.rsplit(".", 1)[-1]
+        if leaf == "A_log":
+            p.copy_(torch.from_numpy(np.log(rng.uniform(1.0, 16.0, p.shape))))
+        elif leaf == "dt_bias":
+            dt = np.exp(rng.uniform(np.log(1e-3), np.log(1e-1), p.shape))
+            p.copy_(torch.from_numpy(dt + np.log(-np.expm1(-dt))))
+        elif leaf.startswith("b_"):          # the LoRA's zero-init half
+            p.copy_(torch.from_numpy(rng.standard_normal(p.shape)
+                                     / np.sqrt(p.shape[0])))
+        elif p.dim() == 1 and leaf != "D":   # non-zero norm scales
+            p.copy_(torch.from_numpy(rng.standard_normal(p.shape) * 0.1))
+    card = copy.deepcopy(cpu).to(cuda)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 37)))
+    n = 8
+    counters = (ops.rmsnorm, ops.ssd_scan, ops.flash_attention,
+                ops.flash_decode)
+    before = [c.launches for c in counters]
+    got = generate(cfg, ShardCtx(), card, {"tokens": prompt.to(cuda)}, n)
+    _, n_rep, _, _ = cfg.repeat_structure()
+    groups = n_rep if cfg.shared_attn_every else 0
+    layers = cfg.n_layers
+    assert [c.launches - b for c, b in zip(counters, before)] == \
+        [n * (2 * layers + 2 * groups + 1), layers, groups, (n - 1) * groups]
     want = generate(cfg, ShardCtx(), cpu, {"tokens": prompt}, n)
     assert torch.equal(got.cpu(), want)

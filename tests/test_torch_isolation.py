@@ -43,6 +43,7 @@ def test_import_leaves_jax_and_reference_unloaded():
         "import repro_torch.launch.serve, repro_torch.models.convert\n"
         "import repro_torch.kernels.rmsnorm, repro_torch.kernels.flash_attention\n"
         "import repro_torch.kernels.flash_decode\n"
+        "import repro_torch.kernels.ssd_scan, repro_torch.models.ssm\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "assert not bad, bad\n"

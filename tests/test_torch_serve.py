@@ -119,3 +119,69 @@ def test_configs_are_copies_of_the_reference():
     assert {k: repr(v) for k, v in SHAPES.items()} == \
         {k: repr(v) for k, v in JAX_SHAPES.items()}
     assert cells() == jax_cells()
+
+
+# ---------------------------------------------------------------------------
+# the SSM and hybrid families: Mamba-2 conv/state caches, Zamba-2's
+# shared-block K/V caches
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", ["mamba2-780m", "zamba2-7b"])
+def test_batcher_with_ssm_caches_matches_reference_batcher(name):
+    """Per-slot caches holding conv tails and SSM states (and, for
+    zamba2, the shared block's K/V): the port's batcher gives the
+    reference batcher's tokens for every request, and each request
+    equals ``generate`` of it alone. The prompts (9-40 tokens) are
+    ragged against the reduced chunk of 8."""
+    from test_torch_ssm import both_models as ssm_models
+    jax_cfg, jax_params, cfg, params = ssm_models(name, seed=21)
+    want = JaxBatcher(jax_cfg, jax_params, n_slots=2, max_seq=MAX_SEQ)
+    got = ContinuousBatcher(cfg, params, n_slots=2, max_seq=MAX_SEQ)
+    for r in requests(cfg.vocab, JaxRequest):
+        want.submit(r)
+    reqs = requests(cfg.vocab, Request)
+    for r in reqs:
+        got.submit(r)
+    assert got.run() == want.run()
+    for r in reqs:
+        assert r.done and r.out == want.by_rid[r.rid].out, r.rid
+        alone = generate(cfg, ShardCtx(), params,
+                         {"tokens": torch.from_numpy(r.prompt[None]).long()},
+                         len(r.out), max_seq=MAX_SEQ)
+        assert alone[0].tolist() == r.out, r.rid
+    assert len({t for r in reqs for t in r.out}) > 3
+
+
+@pytest.mark.parametrize("s", [2, 21])     # under and over the conv width
+def test_pad_cache_to_leaves_conv_tails_and_states_alone(s):
+    """zamba2 reduced: the shared block's K/V grow along the sequence
+    axis only (zeros past the prompt); every Mamba layer's conv tails
+    and state come back as the very tensors the prefill made."""
+    from repro_torch.models import block_plan, forward
+    from test_torch_ssm import model_configs as ssm_configs
+    _, cfg = ssm_configs("zamba2-7b")
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    toks = torch.zeros((2, s), dtype=torch.long)
+    _, _, cache = forward(params, {"tokens": toks}, cfg,
+                          ShardCtx(mode="prefill"))
+    padded = pad_cache_to(cfg, cache, 2, 50)
+    for (what, _), c, p, z in zip(block_plan(cfg), cache, padded,
+                                  init_cache(cfg, 2, 50)):
+        assert sorted(p) == sorted(z)
+        assert all(p[k].shape == z[k].shape for k in z)
+        if what == "shared":
+            assert torch.equal(p["k"][:, :s], c["k"])
+            assert not p["v"][:, s:].any()
+        else:
+            assert all(p[k] is c[k] for k in c)
+            assert c["conv_x"].shape[1] == cfg.ssm_conv - 1
+
+
+def test_serve_cli_runs_mamba2_on_cpu(capsys):
+    before = (ops.rmsnorm.launches, ops.ssd_scan.launches)
+    out = serve.main(["--device", "cpu", "--reduced", "--arch",
+                      "mamba2-780m", "--batch", "2", "--prompt-len", "20",
+                      "--gen", "5"])
+    assert out.shape == (2, 5) and out.device.type == "cpu"
+    assert "arch=mamba2-780m device=cpu batch=2" in capsys.readouterr().out
+    assert (ops.rmsnorm.launches, ops.ssd_scan.launches) == before
