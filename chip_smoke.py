@@ -92,6 +92,32 @@ Run from the repository root (it puts ``src`` on ``sys.path`` itself):
    step, tokens/s; ssd_scan's kernel, plain and bound ms at every path
    shape; the bf16 gate's reading with each planted fault; a decode
    step's profile per model.
+8. Dense path, on the four shapes of phase 2: ``lint_batch`` ->
+   ``dense_lags`` -> ``ops.sim_relax(n_steps=depth)`` (the hand-written
+   ``sim_step`` kernel), its count zeroed just before and read just
+   after. Checks: ``torch.equal`` to ``sim_relax_torch`` at every shape,
+   within rtol 1e-5 of the float64 ``relax_batch_np`` and of phase 2's
+   sparse results, ``ops.sim_step`` equal to its plain version at ragged
+   stress shapes (S = 37 and 1000) with -inf, and with NaN at the same
+   places. Numbers: kernel ms per call and per sweep, plain ms, the call
+   bound (inputs once) and the streaming bound (every sweep), host ms of
+   ``dense_lags``.
+9. Device GA: ``ga_search`` with ``GAParams(device=True)`` at the
+   defaults (pop 32, 24 generations, refine 3 x 48) on the largest app
+   of the 64-core suite and on a 240-280-task app on 256 cores, twice
+   each with seed 0, ``sim_relax_pop``'s count zeroed before each run.
+   Checks: the same winner and fitness; launches = 1 + generations +
+   the refine rounds run; the final population's kernel fitness equal
+   to the scan's under ``torch.equal``; the winner's fitness within
+   rtol 1e-5 of its float64 append-only decode; ``ga_schedule`` with
+   the device GA valid and never worse than ``engine``. Numbers: search
+   wall seconds, ms per generation, the host GA's seconds at the same
+   budget, ``sim_relax_pop``'s kernel, plain and bound ms at the GA's
+   shapes.
+10. Verify: ``simulate_suite(..., verify=True)`` on the 64-core suites
+   (the kernel) and ``get_scheduler("engine", verify=True)``; a result
+   with one finish time moved before its predecessor's must raise
+   ``VerifyError``.
 
 Exits non-zero, printing no result, on any failure, when no CUDA device
 is present, or when run outside a checkout. The last line of standard
@@ -1189,6 +1215,341 @@ def ssm_phase(dev):
     return ssd_entry, by_run, max_err
 
 
+# -- 8. dense sim_step relaxation; 9. the device-resident GA; 10. the
+#       verifier ----------------------------------------------------------
+
+DEVICE_GA_APPS = ("64core", "256core")
+
+
+def dense_bounds(b, s, depth):
+    """(call bound ms, streaming bound ms, by): inputs read once and the
+    output written once over the memory rate, against two adds and a max
+    per (b, s, j) over the float32 rate; the streaming bound re-reads the
+    lags, the ends, the durations and the floors every sweep."""
+    n_bytes = 2 * b * s * s * 4 + 2 * b * s * 4 + b * s * 4
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 3 * b * s * s / FP32_OPS_PER_S * 1e3
+    per_sweep = (2 * b * s * s * 4 + 4 * b * s * 4) / HBM_BYTES_PER_S * 1e3
+    return (max(t_bytes, t_ops), depth * per_sweep,
+            "bytes" if t_bytes >= t_ops else "operations", n_bytes)
+
+
+def dense_args(batch, dur, dev):
+    """``dense_lags`` of a lowered batch, with its host ms, and the dense
+    kernel's inputs on the card (float32, contiguous)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.lowering import dense_lags
+    t0 = time.perf_counter()
+    lat, volbw = dense_lags(batch)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    args = [torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
+            for x in (lat, volbw, dur, batch.release)]
+    return args, host_ms
+
+
+def dense_phase(dev, runs):
+    """The reference's dense path on the four offline shapes:
+    ``lint_batch`` -> ``dense_lags`` -> ``ops.sim_relax(n_steps=depth)``,
+    each shape's result held to its plain version (``torch.equal``), to
+    the float64 ``relax_batch_np`` and to the sparse ``simulate_batch``
+    of phase 2 (rtol 1e-5); ``ops.sim_step`` against its plain version at
+    ragged stress shapes with -inf and NaN."""
+    import numpy as np
+    import torch
+
+    from repro_torch.analysis import lint_batch
+    from repro_torch.core import batch_scenarios, lower_scenario
+    from repro_torch.core.sim_engine import _jitter_durations, relax_batch_np
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.sim_step import (sim_relax_cuda,
+                                              sim_relax_torch, sim_step_cuda,
+                                              sim_step_torch)
+
+    shapes = []
+    for r in runs:
+        batch = batch_scenarios([lower_scenario(g, r["machine"], sc)
+                                 for g, sc in zip(r["graphs"],
+                                                  r["schedules"])])
+        lint_batch(batch)
+        dur = _jitter_durations(batch, r["jitter"], r["seeds"])
+        shapes.append((r, batch, dur))
+    ops.sim_relax.launches = ops.sim_step.launches = 0
+    outs = []
+    for r, batch, dur in shapes:
+        args, host_ms = dense_args(batch, dur, dev)
+        outs.append((args, host_ms,
+                     ops.sim_relax(*args, n_steps=batch.depth)))
+    torch.cuda.synchronize()
+    launches = ops.sim_relax.launches + ops.sim_step.launches
+    print(f"dense path launches: sim_relax {ops.sim_relax.launches}, "
+          f"sim_step {ops.sim_step.launches}")
+    if launches == 0:
+        fail("kernel sim_step was never launched on the dense path")
+
+    rows, err = [], 0.0
+    for (r, batch, dur), (args, host_ms, got) in zip(shapes, outs):
+        name, depth = r["name"], batch.depth
+        want = sim_relax_torch(*args, n_steps=depth)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"sim_step {name}: kernel != plain version, max abs err "
+                 f"{(got - want).abs().max().item():.3e}")
+        end = got.cpu().numpy().astype(np.float64)
+        for ref_name, ref in (("relax_batch_np", relax_batch_np(batch, dur)),
+                              ("sparse simulate_batch",
+                               r["res"].subtask_end)):
+            if not np.allclose(end, ref, rtol=RTOL_F32, atol=0.0):
+                rel = np.abs(end - ref) / np.maximum(np.abs(ref), 1e-30)
+                fail(f"sim_step {name}: dense vs {ref_name} rel err "
+                     f"{rel.max():.3e} > {RTOL_F32}")
+        b, s = batch.n_scenarios, batch.max_subtasks
+        bound, stream, by, n_bytes = dense_bounds(b, s, depth)
+        ms = cuda_ms(lambda: sim_relax_cuda(*args, n_steps=depth), 5)
+        end0 = torch.zeros((b, s), device=dev)
+        sweep_ms = cuda_ms(lambda: sim_step_cuda(end0, *args), 20)
+        plain_ms = cuda_ms(lambda: sim_relax_torch(*args, n_steps=depth), 2)
+        rows.append(dict(name=name, B=b, S=s, depth=depth, ms=ms,
+                         sweep_ms=sweep_ms, plain_ms=plain_ms,
+                         bound_ms=bound, streaming_bound_ms=stream,
+                         bound_by=by, bytes=n_bytes,
+                         dense_lags_host_ms=host_ms,
+                         max_abs_err=(got - want).abs().max().item()))
+        err = max(err, rows[-1]["max_abs_err"])
+        print("sim_step " + json.dumps(rows[-1]))
+        del args, got, want
+        torch.cuda.empty_cache()
+
+    # ops.sim_step against its plain version: ragged S, -inf and NaN
+    rng = np.random.default_rng(1)
+    for b, s in ((3, 37), (4, 1000)):
+        x = [rng.uniform(0.0, 50.0, (b, s)),
+             np.where(rng.random((b, s, s)) < 0.05,
+                      rng.uniform(0.0, 1e-4, (b, s, s)), -np.inf),
+             None, rng.uniform(0.1, 5.0, (b, s)),
+             rng.uniform(0.0, 20.0, (b, s))]
+        x[2] = np.where(np.isfinite(x[1]), rng.uniform(0.0, 2.0, (b, s, s)),
+                        -np.inf)
+        x = [a.astype(np.float32) for a in x]
+        args = [torch.from_numpy(a).to(dev) for a in x]
+        got, want = ops.sim_step(*args), sim_step_torch(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"sim_step stress ({b}, {s}): kernel != plain version")
+        x[1][rng.random((b, s, s)) < 1e-3] = np.nan
+        x[0][0, 5] = np.inf             # inf + -inf: NaN where no edge
+        x[3][1, :3] = np.nan
+        args = [torch.from_numpy(a).to(dev) for a in x]
+        got, want = ops.sim_step(*args), sim_step_torch(*args)
+        torch.cuda.synchronize()
+        if not torch.isnan(want).any() or not same_scores(got, want):
+            fail(f"sim_step nan ({b}, {s}): kernel != plain version")
+    print("sim_step stress (3, 37), (4, 1000) with -inf and NaN: equal")
+    main_row = max(rows, key=lambda x: x["bytes"])
+    return dict(
+        name="sim_step", route="cuda",
+        source="src/repro_torch/kernels/csrc/sim_step.cu",
+        replaces="src/repro/kernels/sim_step.py:107", launches=launches,
+        launches_by_path={"dense": launches}, max_abs_err=err,
+        ms=main_row["ms"], plain_ms=main_row["plain_ms"],
+        bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
+        library_ms=None, shape=main_row["name"],
+        sweep_ms=main_row["sweep_ms"],
+        streaming_bound_ms=main_row["streaming_bound_ms"])
+
+
+def device_ga_apps():
+    from repro_torch.core import (SynthParams, cluster_of_multicores,
+                                  generate_app, hp_bl260c,
+                                  paper_suite_64core)
+    big64 = max(paper_suite_64core(n_apps=10, seed=100),
+                key=lambda g: g.n_subtasks)
+    return [("64core", hp_bl260c(), big64),
+            ("256core", cluster_of_multicores(32),
+             generate_app(SynthParams(n_tasks=(240, 280)), seed=300))]
+
+
+def replay_device_ga(graph, machine, par, dev, seed=0):
+    """``ga_search_device``'s loop run by hand from the search's public
+    pieces (``device_inputs``, ``generation_step``,
+    ``hill_climb_device``), so that the final population and the refine
+    rounds actually run can be read. Returns ``(inp, vec, val, pop, fit,
+    rounds)``; the phase holds ``(vec, val)`` to ``ga_search``'s."""
+    import numpy as np
+    import torch
+
+    from repro_torch.search import device, hill_climb_device
+
+    n_tasks, n_cores = len(graph.tasks), machine.n_cores
+    inp = device.device_inputs(graph, machine, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    pop = torch.randint(0, max(n_cores, 1), (par.pop_size, n_tasks),
+                        generator=gen, device=dev, dtype=torch.int32)
+    fit = device.population_fitness_device(inp, pop, method="kernel")
+    step = device.generation_step(par, n_tasks=n_tasks, n_cores=n_cores,
+                                  method="kernel")
+    for _ in range(par.generations):
+        pop, fit = step(inp, gen, pop, fit)
+    best = int(torch.argmin(fit))
+    rounds = [0]
+
+    def counted(inp_, genes):
+        rounds[0] += 1
+        return device.population_fitness_device(inp_, genes,
+                                                method="kernel")
+
+    vec, val = hill_climb_device(
+        counted, inp, pop[best].cpu().numpy().astype(np.int32),
+        float(fit[best]), generator=gen, rounds=par.refine_rounds,
+        moves=par.refine_moves, n_cores=n_cores)
+    return inp, vec, val, pop, fit, rounds[0]
+
+
+def device_ga_phase(dev):
+    """``ga_search`` with ``GAParams(device=True)`` at the defaults on
+    the card: determinism, kernel fitness == scan fitness on the final
+    population, the winner's fitness against the float64 append-only
+    decode, ``ga_schedule(device=True) <= engine``, and the
+    ``sim_relax_pop`` launch count per search."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import (get_scheduler, lower_population,
+                                  simulate_batch, validate)
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.sim_step import (sim_relax_pop_cuda,
+                                              sim_relax_pop_torch)
+    from repro_torch.search import GAParams, decode, ga_schedule, ga_search
+    from repro_torch.search import device
+
+    par = GAParams(device=True)
+    rows, pop_rows, total = [], [], 0
+    for name, machine, graph in device_ga_apps():
+        runs = []
+        for _ in range(2):
+            ops.sim_relax_pop.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            vec, val = ga_search(graph, machine, seed=0, params=par)
+            torch.cuda.synchronize()
+            runs.append((vec, val, time.perf_counter() - t0,
+                         ops.sim_relax_pop.launches))
+        (v1, f1, wall1, n1), (v2, f2, wall2, n2) = runs
+        if not (np.array_equal(v1, v2) and f1 == f2):
+            fail(f"device GA {name}: two runs with seed 0 differ "
+                 f"({f1!r} vs {f2!r})")
+        inp, rv, rf, pop, fit, rounds = replay_device_ga(graph, machine,
+                                                         par, dev)
+        if not (np.array_equal(rv, v1) and rf == f1):
+            fail(f"device GA {name}: the loop replayed by hand ends at "
+                 f"{rf!r}, the search at {f1!r}")
+        if not 0 <= rounds <= par.refine_rounds:
+            fail(f"device GA {name}: {rounds} refine rounds, not within "
+                 f"0..{par.refine_rounds}")
+        for n in (n1, n2):
+            if n != 1 + par.generations + rounds:
+                fail(f"device GA {name}: {n} sim_relax_pop launches, not "
+                     f"1 + {par.generations} + {rounds} refine rounds")
+        total += n1 + n2
+        kern = device.population_fitness_device(inp, pop, method="kernel")
+        scan = device.population_fitness_device(inp, pop, method="scan")
+        torch.cuda.synchronize()
+        if not (torch.equal(kern, scan) and torch.equal(kern, fit)):
+            fail(f"device GA {name}: kernel fitness != scan fitness on the "
+                 f"final population")
+        sch = decode(graph, machine, v1, gap_fill=False)
+        f64 = simulate_batch(lower_population(graph, machine, [sch]),
+                             backend="numpy").t_exec[0]
+        if not abs(f1 - f64) <= RTOL_F32 * abs(f64):
+            fail(f"device GA {name}: winner fitness {f1!r} vs float64 "
+                 f"append-only decode {f64!r}")
+        eng = get_scheduler("engine")(graph, machine)
+        ga_sch = ga_schedule(graph, machine, seed=0, params=par)
+        validate(ga_sch, graph, machine, require_task_coherence=True)
+        if ga_sch.makespan() > eng.makespan() + 1e-9:
+            fail(f"device GA {name}: ga_schedule {ga_sch.makespan()!r} > "
+                 f"engine {eng.makespan()!r}")
+        # one generation in isolation, and the host GA for comparison
+        step = device.generation_step(par, n_tasks=len(graph.tasks),
+                                      n_cores=machine.n_cores,
+                                      method="kernel")
+        gen = torch.Generator(device=dev).manual_seed(1)
+        gpop, gfit = step(inp, gen, pop, fit)      # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            gpop, gfit = step(inp, gen, gpop, gfit)
+        torch.cuda.synchronize()
+        gen_ms = (time.perf_counter() - t0) * 1e3 / 10
+        t0 = time.perf_counter()
+        _, host_val = ga_search(graph, machine, seed=0,
+                                params=GAParams(backend="cuda"))
+        host_s = time.perf_counter() - t0
+        rows.append(dict(name=name, S=graph.n_subtasks,
+                         tasks=len(graph.tasks), cores=machine.n_cores,
+                         fitness=f1, fitness_f64_appendonly=f64,
+                         refine_rounds=rounds, launches=[n1, n2],
+                         search_s=[wall1, wall2], ms_per_generation=gen_ms,
+                         host_ga_s=host_s, host_ga_fitness=host_val,
+                         ga_schedule=ga_sch.makespan(),
+                         engine=eng.makespan()))
+        print("device ga " + json.dumps(rows[-1]))
+        args = [x.contiguous() for x in
+                device.population_gather_inputs(inp, pop)]
+        pop_rows.append(sim_row(f"device-ga-{name}{shapes(args[:1])[0]}",
+                                args, inp.n_subtasks, ops,
+                                sim_relax_pop_cuda, sim_relax_pop_torch))
+        print("sim_relax_pop " + json.dumps(pop_rows[-1]))
+    return total, pop_rows
+
+
+def verify_phase(dev, runs):
+    """``verify=True`` on the 64core suites (the kernel) and on the
+    engine scheduler; a result with one finish time moved before its
+    predecessor's must raise ``VerifyError``."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.analysis import VerifyError, verify_batch_result
+    from repro_torch.core import (batch_scenarios, get_scheduler,
+                                  lower_scenario, simulate_batch,
+                                  simulate_suite)
+    from repro_torch.kernels import ops
+
+    ops.sim_relax_pop.launches = 0
+    for r in runs:
+        if r["name"].startswith("64core"):
+            simulate_suite(r["graphs"], r["machine"], r["schedules"],
+                           jitter=r["jitter"], seeds=r["seeds"],
+                           backend="cuda", device=dev, verify=True)
+    launches = ops.sim_relax_pop.launches
+    if launches == 0:
+        fail("verify: the 64core suites never launched sim_relax_pop")
+    r = runs[0]
+    sch = get_scheduler("engine", verify=True)(r["graphs"][0], r["machine"])
+    batch = batch_scenarios([lower_scenario(r["graphs"][0], r["machine"],
+                                            sch)])
+    res = simulate_batch(batch, backend="cuda", device=dev, verify=True)
+    s = batch.max_subtasks
+    i = int(np.argmax(batch.pred[0, :, 0] < s))      # first with a pred
+    q = int(batch.pred[0, i, 0])
+    end = np.array(res.subtask_end)
+    end[0, i] = end[0, q] - 1.0                      # before its pred ends
+    bad = dataclasses.replace(res, subtask_end=end)
+    try:
+        verify_batch_result(batch, bad, rtol=RTOL_F32)
+    except VerifyError as err:
+        print(f"verify: corrupted result rejected ({sorted(err.kinds)})")
+    else:
+        fail("verify: a finish time moved before its predecessor's passed")
+    print(f"verify: 64core suites and the engine schedule proven on the "
+          f"card ({launches} sim_relax_pop launches)")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1513,6 +1874,13 @@ def main() -> int:
     print(f"ga first population: B={len(pop)} subtasks={graph.n_subtasks} "
           f"fitness rel err vs f64 {fit_err:.3e}")
 
+    dense_entry = dense_phase(dev, runs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ga_launches, ga_rows = device_ga_phase(dev)
+    kernel_rows.extend(ga_rows)
+    verify_launches = verify_phase(dev, runs)
+
     serve_rows = serve_phase(dev)
     gc.collect()                    # gemma2's weights go before the next
     torch.cuda.empty_cache()
@@ -1530,9 +1898,11 @@ def main() -> int:
         source="src/repro_torch/kernels/csrc/sim_relax_pop.cu",
         replaces="src/repro/kernels/sim_step.py:184",
         launches=launches["sim_relax_pop"]
-        + online_launches["sim_relax_pop"],
+        + online_launches["sim_relax_pop"] + ga_launches + verify_launches,
         launches_by_path={"offline": launches["sim_relax_pop"],
-                          "online": online_launches["sim_relax_pop"]},
+                          "online": online_launches["sim_relax_pop"],
+                          "device_ga": ga_launches,
+                          "verify": verify_launches},
         max_abs_err=max(x["max_abs_err"] for x in kernel_rows),
         ms=main_row["ms"], plain_ms=main_row["plain_ms"],
         bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
@@ -1546,7 +1916,8 @@ def main() -> int:
         max_abs_err=score_err, ms=score_row["ms"],
         plain_ms=score_row["plain_ms"], bound_ms=score_row["bound_ms"],
         bound_by=score_row["bound_by"], library_ms=None,
-        shape=score_row["name"])] + serve_rows + [ssd_entry]}))
+        shape=score_row["name"]), dense_entry] + serve_rows
+        + [ssd_entry]}))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -4,15 +4,17 @@
 # module for module from the JAX package. The host algorithms stay on the
 # host in NumPy; the batched simulator (core/sim_engine.py) evaluates a
 # whole suite in one call on the card through the hand-written
-# ``sim_relax_pop`` kernel.
+# ``sim_relax_pop`` kernel (the dense ``sim_step`` kernel relaxes the same
+# batch from ``dense_lags``).
 from .amtha import AMTHA, amtha_schedule
 from .convert import graph_from, machine_from, schedule_from
 from .engine import ArrayAMTHA, engine_schedule
 from .heft import etf_schedule, heft_schedule
 from .lowering import (FaultArrays, GraphArrays, MachineArrays,
-                       ScenarioArrays, ScenarioBatch, batch_scenarios,
-                       drain_matrix, graph_arrays, lower_faults,
-                       lower_population, lower_scenario, machine_arrays,
+                       PopulationArrays, ScenarioArrays, ScenarioBatch,
+                       batch_scenarios, dense_lags, drain_matrix,
+                       graph_arrays, lower_faults, lower_population,
+                       lower_scenario, machine_arrays, population_arrays,
                        repeat_batch)
 from .machine import (CommLevel, MachineModel, cluster_of_multicores,
                       dell_poweredge_1950, heterogeneous_cluster, hp_bl260c)
@@ -38,9 +40,10 @@ __all__ = [
     "paper_suite_8core", "paper_suite_64core",
     "graph_from", "machine_from", "schedule_from",
     # scenario IR + array/batched simulation
-    "FaultArrays", "GraphArrays", "MachineArrays", "ScenarioArrays",
-    "ScenarioBatch", "batch_scenarios", "drain_matrix", "graph_arrays",
-    "lower_faults", "lower_population", "lower_scenario", "machine_arrays",
+    "FaultArrays", "GraphArrays", "MachineArrays", "PopulationArrays",
+    "ScenarioArrays", "ScenarioBatch", "batch_scenarios", "dense_lags",
+    "drain_matrix", "graph_arrays", "lower_faults", "lower_population",
+    "lower_scenario", "machine_arrays", "population_arrays",
     "repeat_batch",
     "BatchSimResult", "simulate_arrays", "simulate_batch",
     "simulate_scenario", "simulate_suite",

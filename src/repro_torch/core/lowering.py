@@ -609,3 +609,138 @@ def repeat_batch(batch: ScenarioBatch, k: int) -> ScenarioBatch:
         n_scenarios=batch.n_scenarios * k,
         max_subtasks=batch.max_subtasks, max_preds=batch.max_preds,
         depth=batch.depth, **rep)
+
+
+# ---------------------------------------------------------------------------
+# population lowering — device-resident mapping search (repro_torch.search.device)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class PopulationArrays:
+    """Pre-lowered (graph, machine) constants for *device-side*
+    population fitness: everything a genome needs to decode into finish
+    times is resolved to fixed-shape arrays in one fixed topological
+    order, so a whole GA generation is pure gathers + one scan — no
+    per-candidate re-lowering, ever. All per-subtask arrays live in
+    **topological-position coordinates** (``topo_sid`` maps back to
+    sids); predecessor slots are padded to ``max_preds`` with the
+    sentinel position ``S`` (an always-zero end slot).
+
+    Built once per (graph, machine) pair and cached on the graph — the
+    population axis exists only on device, this object is candidate-free.
+    """
+
+    n_tasks: int
+    n_subtasks: int                 # S
+    n_cores: int                    # C
+    max_preds: int                  # P (>= 1)
+    topo_sid: np.ndarray            # (S,)   int32 — topo position -> sid
+    gene: np.ndarray                # (S,)   int32 — gene slot of the task
+    exec_core: np.ndarray           # (S, C) f64 — topo-permuted exec times
+    pred_pos: np.ndarray            # (S, P) int32 — pred topo position, S pad
+    pred_gene: np.ndarray           # (S, P) int32 — pred's gene slot, 0 pad
+    pred_vol: np.ndarray            # (S, P) f64 — edge volume, 0 pad
+    lat: np.ndarray                 # (C, C) f64
+    bw: np.ndarray                  # (C, C) f64
+
+
+def population_arrays(graph: AppGraph, machine: MachineModel
+                      ) -> PopulationArrays:
+    """Lower one (graph, machine) pair for device-resident search.
+
+    The topological order is the same deterministic sid-ordered Kahn
+    walk the host decoder uses (``search.encoding.topo_order``), so an
+    append-only device decode and the host ``decode(gap_fill=False)``
+    place subtasks in the same sequence."""
+    import heapq
+
+    ga = graph_arrays(graph)
+    ma = machine_arrays(machine)
+    cached = getattr(graph, "_population_arrays", None)
+    fp = (len(graph.subtasks), len(graph.edges))
+    if cached is not None and cached[0] == fp and cached[1] is ma:
+        return cached[2]
+    s = ga.n_subtasks
+    indeg = (ga.pred_ptr[1:] - ga.pred_ptr[:-1]).tolist()
+    succ_ptr, succ_sid = ga.succ_ptr.tolist(), ga.succ_sid.tolist()
+    heap = [i for i in range(s) if indeg[i] == 0]
+    heapq.heapify(heap)
+    order: list[int] = []
+    while heap:
+        sid = heapq.heappop(heap)
+        order.append(sid)
+        for j in range(succ_ptr[sid], succ_ptr[sid + 1]):
+            t = succ_sid[j]
+            indeg[t] -= 1
+            if indeg[t] == 0:
+                heapq.heappush(heap, t)
+    assert len(order) == s, "graph has a cycle"
+    topo_sid = np.asarray(order, np.int32)
+    pos_of = np.zeros(s, np.int64)
+    pos_of[topo_sid] = np.arange(s)
+    gene_of_tid = {tid: k for k, tid in enumerate(graph.tasks)}
+    gene_sid = np.asarray([gene_of_tid[st.task_id] for st in graph.subtasks],
+                          np.int32) if s else np.zeros(0, np.int32)
+    p_max = max(1, int((ga.pred_ptr[1:] - ga.pred_ptr[:-1]).max(initial=0)))
+    pred_pos = np.full((s, p_max), s, np.int32)
+    pred_gene = np.zeros((s, p_max), np.int32)
+    pred_vol = np.zeros((s, p_max))
+    ptr = ga.pred_ptr
+    for p in range(s):
+        sid = int(topo_sid[p])
+        lo, hi = int(ptr[sid]), int(ptr[sid + 1])
+        k = hi - lo
+        pred_pos[p, :k] = pos_of[ga.pred_sid[lo:hi]]
+        pred_gene[p, :k] = gene_sid[ga.pred_sid[lo:hi]]
+        pred_vol[p, :k] = ga.pred_vol[lo:hi]
+    pa = PopulationArrays(
+        n_tasks=ga.n_tasks, n_subtasks=s, n_cores=ma.n_cores,
+        max_preds=p_max,
+        topo_sid=_frozen(topo_sid),
+        gene=_frozen(gene_sid[topo_sid] if s else gene_sid),
+        exec_core=_frozen(_exec_core(ga, ma)[topo_sid]),
+        pred_pos=_frozen(pred_pos), pred_gene=_frozen(pred_gene),
+        pred_vol=_frozen(pred_vol), lat=ma.lat, bw=ma.bw,
+    )
+    graph._population_arrays = (fp, ma, pa)
+    return pa
+
+
+def dense_lags(batch: ScenarioBatch) -> tuple[np.ndarray, np.ndarray]:
+    """(B, S, S) dense latency / vol-over-bw lag tensors for the
+    ``sim_step`` kernel (``kernels/csrc/sim_step.cu``) (``-inf`` where no edge): entry ``[b, t, q]`` is
+    the lag of edge ``q -> t``. In-order core edges appear as 0-lag
+    entries; parallel edges between the same pair keep the largest
+    total lag (the only one that can win the readiness max). Fully
+    vectorized scatter (the kernel path must not pay a Python triple
+    loop per call) and cached on the batch."""
+    cached = batch.__dict__.get("_dense_lags")
+    if cached is not None:
+        return cached
+    b, s = batch.n_scenarios, batch.max_subtasks
+    # all edges incl. the zero-lag in-order one, sentinel column q = s
+    src = np.concatenate([batch.pred, batch.prev[:, :, None]], axis=2)
+    e_lat = np.concatenate(
+        [batch.pred_lat,
+         np.where(batch.prev[:, :, None] < s, 0.0, -np.inf)], axis=2)
+    e_volbw = np.concatenate(
+        [batch.pred_volbw,
+         np.where(batch.prev[:, :, None] < s, 0.0, -np.inf)], axis=2)
+    # flat (b, t, q) slot per edge, width s+1 so the sentinel lands in a
+    # dropped column; keep only the max-total-lag edge per slot
+    slot = ((np.arange(b)[:, None, None] * s
+             + np.arange(s)[None, :, None]) * (s + 1) + src).reshape(-1)
+    total = (e_lat + e_volbw).reshape(-1)
+    real = np.isfinite(total)
+    slot, total = slot[real], total[real]
+    best = np.full(b * s * (s + 1), -np.inf)
+    np.maximum.at(best, slot, total)
+    win = total == best[slot]
+    lat_flat = np.full(b * s * (s + 1), -np.inf)
+    volbw_flat = np.full(b * s * (s + 1), -np.inf)
+    lat_flat[slot[win]] = e_lat.reshape(-1)[real][win]
+    volbw_flat[slot[win]] = e_volbw.reshape(-1)[real][win]
+    lat = lat_flat.reshape(b, s, s + 1)[:, :, :s]
+    volbw = volbw_flat.reshape(b, s, s + 1)[:, :, :s]
+    object.__setattr__(batch, "_dense_lags", (lat, volbw))
+    return lat, volbw

@@ -88,19 +88,33 @@ def scheduler_entry(name: str) -> SchedulerEntry:
                          f"(have {sorted(SCHEDULERS)})") from None
 
 
-def get_scheduler(name: str) -> Callable:
-    """The mapping callable registered under ``name``."""
-    return scheduler_entry(name).fn
+def get_scheduler(name: str, *, verify: bool = False) -> Callable:
+    """The mapping callable registered under ``name``. With
+    ``verify=True`` the callable is wrapped so every schedule it emits
+    is proof-checked by :mod:`repro_torch.analysis.verify` (overlap,
+    precedence + comm cost, release floors, namespace, coherence per
+    the entry's ``task_coherent``) before being returned."""
+    entry = scheduler_entry(name)
+    if not verify:
+        return entry.fn
+    from ..analysis.verify import verified_scheduler
+    return verified_scheduler(entry)
 
 
-def get_simulator(name: str) -> Callable:
+def get_simulator(name: str, *, verify: bool = False) -> Callable:
     """The T_exec source registered under ``name`` — signature of the
-    seed ``simulate(graph, machine, schedule, contention=..., ...)``."""
+    seed ``simulate(graph, machine, schedule, contention=..., ...)``.
+    With ``verify=True`` every :class:`SimResult` it emits is checked
+    (coverage, finite ends, stranding only under faults, makespan)."""
     try:
-        return SIMULATORS[name].fn
+        entry = SIMULATORS[name]
     except KeyError:
         raise ValueError(f"unknown simulator {name!r} "
                          f"(have {sorted(SIMULATORS)})") from None
+    if not verify:
+        return entry.fn
+    from ..analysis.verify import verified_simulator
+    return verified_simulator(entry)
 
 
 register_scheduler("amtha", amtha_schedule,

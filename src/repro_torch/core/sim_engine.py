@@ -28,6 +28,10 @@ Two execution paths, both fed by :mod:`repro_torch.core.lowering`:
   (B, S, P+1) predecessor gathers in float32 — O(B·S·P) memory, so
   1k+-subtask suites fit; ``backend="torch"`` runs its plain PyTorch
   version, ``backend="numpy"`` the float64 wave-ordered pass.
+  :func:`relax_batch_np` is the float64 synchronous (Jacobi) sweep over
+  the same batch, the reference of the dense ``sim_step`` kernel
+  (``kernels/csrc/sim_step.cu``, fed by
+  :func:`~repro_torch.core.lowering.dense_lags`).
 """
 
 from __future__ import annotations
@@ -306,6 +310,32 @@ def _gather_inputs(batch: ScenarioBatch) -> tuple[np.ndarray, np.ndarray]:
     return idx, lag
 
 
+def relax_batch_np(batch: ScenarioBatch, duration: np.ndarray | None = None,
+                   n_steps: int | None = None) -> np.ndarray:
+    """NumPy relaxation over the padded CSR batch: ``(B, S)`` finish
+    times after ``n_steps`` synchronous sweeps (default: the batch's
+    fixpoint depth). ``duration`` overrides ``batch.duration`` (the
+    jitter hook). The sweep is allocation-free: gathers run through one
+    flat ``np.take`` into a preallocated buffer. The float64 reference of
+    the dense ``sim_step`` kernel's sweeps."""
+    b, s, p = batch.n_scenarios, batch.max_subtasks, batch.max_preds
+    dur = batch.duration if duration is None else duration
+    steps = batch.depth if n_steps is None else n_steps
+    idx, lag = _gather_inputs(batch)
+    end = np.zeros((b, s + 1))                 # slot s = sentinel (always 0)
+    flat = end.reshape(-1)
+    gath = np.empty((b, s, p + 1))
+    ready = np.empty((b, s))
+    for _ in range(steps):
+        np.take(flat, idx, out=gath)
+        gath += lag
+        gath.max(axis=2, out=ready)
+        np.maximum(ready, batch.release, out=ready)
+        np.maximum(ready, 0.0, out=ready)      # idle-core floor
+        np.add(ready, dur, out=end[:, :s])
+    return np.array(end[:, :s])
+
+
 def _wave_plan(batch: ScenarioBatch):
     """Wave-ordered evaluation plan, cached on the batch: every valid
     (scenario, subtask) pair sorted by topological level, with its
@@ -340,7 +370,8 @@ def _wave_plan(batch: ScenarioBatch):
 
 def relax_wave_np(batch: ScenarioBatch,
                   duration: np.ndarray | None = None) -> np.ndarray:
-    """Wave-scheduled evaluation: the synchronous sweep's fixpoint (each
+    """Wave-scheduled evaluation: identical finish times to
+    :func:`relax_batch_np`, the synchronous sweep's fixpoint (each
     subtask's value is computed from final predecessor values with the
     same expression) with every subtask touched exactly once instead of
     once per sweep — the float64 CPU path for large suites."""
@@ -468,7 +499,7 @@ def _jitter_durations(batch: ScenarioBatch, jitter: float,
 BACKENDS = ("cuda", "torch", "numpy")
 
 
-def _check_backend(backend: str, device) -> torch.device:
+def check_backend(backend: str, device) -> torch.device:
     """Resolve ``device`` for ``backend``. ``"cuda"`` launches the kernel
     and so needs a CUDA device: it raises rather than run anywhere else."""
     if backend not in BACKENDS:
@@ -488,7 +519,8 @@ def _check_backend(backend: str, device) -> torch.device:
 def simulate_batch(batch: ScenarioBatch | list[ScenarioArrays], *,
                    jitter: float = 0.0, seeds=None,
                    backend: str = "cuda",
-                   device: str | torch.device = "cuda") -> BatchSimResult:
+                   device: str | torch.device = "cuda",
+                   verify: bool = False) -> BatchSimResult:
     """Evaluate every scenario of the batch in one fixed-shape call.
 
     ``seeds`` — one jitter seed per scenario (default ``range(B)``);
@@ -500,11 +532,17 @@ def simulate_batch(batch: ScenarioBatch | list[ScenarioArrays], *,
     PyTorch version on ``device``; ``backend="numpy"`` the float64 wave
     pass (``device`` unused). Fault-carrying batches take the NumPy
     fault path on every backend: the kernel sweeps plain max-plus and
-    would miss the kills.
+    would miss the kills. ``verify=True`` lints the lowered batch before
+    the sweep and proves the result after it (:mod:`repro_torch.analysis`):
+    padding, release floors, in-order + dependency edges incl. comm lag,
+    fault stranding propagation, recomputed makespans.
     """
-    device = _check_backend(backend, device)
+    device = check_backend(backend, device)
     if not isinstance(batch, ScenarioBatch):
         batch = batch_scenarios(batch)
+    if verify:
+        from ..analysis.ir_lint import lint_batch
+        lint_batch(batch)
     dur = _jitter_durations(batch, jitter, seeds)
     if batch.has_faults:
         end = relax_wave_faults(batch, dur)
@@ -517,8 +555,17 @@ def simulate_batch(batch: ScenarioBatch | list[ScenarioArrays], *,
     # the work that finished, like SimResult under faults
     t_exec = np.where(np.isfinite(masked), masked, 0.0).max(axis=1,
                                                             initial=0.0)
-    return BatchSimResult(t_exec=t_exec, subtask_end=masked,
-                          t_est=batch.t_est, n_sub=batch.n_sub)
+    result = BatchSimResult(t_exec=t_exec, subtask_end=masked,
+                            t_est=batch.t_est, n_sub=batch.n_sub)
+    if verify:
+        from ..analysis.verify import verify_batch_result
+        # float32 sweeps (the kernel and its plain version) round each
+        # relax step; 1e-5 absorbs the accumulated ulps, the float64
+        # paths get the validator's 1e-9
+        rtol = 1e-5 if backend != "numpy" and not batch.has_faults \
+            else 1e-9
+        verify_batch_result(batch, result, duration=dur, rtol=rtol)
+    return result
 
 
 def _pop_gather_inputs(batch: ScenarioBatch
@@ -566,13 +613,14 @@ def simulate_suite(graphs: list[AppGraph], machines, schedules, *,
                    releases: list[dict[int, float] | None] | None = None,
                    faults=None,
                    backend: str = "cuda",
-                   device: str | torch.device = "cuda") -> BatchSimResult:
+                   device: str | torch.device = "cuda",
+                   verify: bool = False) -> BatchSimResult:
     """Convenience wrapper: lower ``(graph, machine, schedule)`` triples
     and evaluate them in one batched call. ``machines`` may be a single
     machine (shared by every scenario) or one per graph; ``faults`` a
     single fault script (shared) or one per graph (``None`` entries =
-    healthy)."""
-    _check_backend(backend, device)
+    healthy). ``verify`` as in :func:`simulate_batch`."""
+    check_backend(backend, device)
     if isinstance(machines, MachineModel):
         machines = [machines] * len(graphs)
     rel = releases if releases is not None else [None] * len(graphs)
@@ -588,4 +636,4 @@ def simulate_suite(graphs: list[AppGraph], machines, schedules, *,
                  for g, m, s, r, f in zip(graphs, machines, schedules,
                                           rel, faults)]
     return simulate_batch(scenarios, jitter=jitter, seeds=seeds,
-                          backend=backend, device=device)
+                          backend=backend, device=device, verify=verify)

@@ -110,6 +110,72 @@ def sim_relax_pop(pred, lat, volbw, duration, release, *,
 sim_relax_pop.launches = 0
 
 
+def _check_dense(name: str, end, lat, volbw, duration, release
+                 ) -> tuple[torch.device, int, int]:
+    """Types, contiguity, one device and the (B, S) / (B, S, S) shapes of
+    a dense sweep's inputs (``end`` may be None: ``sim_relax``)."""
+    tensors = dict(lat=lat, volbw=volbw, duration=duration, release=release)
+    if end is not None:
+        tensors["end"] = end
+    device = _check_tensors(name, tensors,
+                            {arg: torch.float32 for arg in tensors})
+    _check_rank(f"{name}.lat", lat, 3, "(B, S, S)")
+    b, s = lat.shape[:2]
+    check_shape(f"{name}.lat", lat, (b, s, s))
+    check_shape(f"{name}.volbw", volbw, (b, s, s))
+    check_shape(f"{name}.duration", duration, (b, s))
+    check_shape(f"{name}.release", release, (b, s))
+    if end is not None:
+        check_shape(f"{name}.end", end, (b, s))
+    if device.type == "cuda" and s > 0:
+        why = _sim.dense_refusal(s)
+        if why is not None:
+            raise ValueError(f"{name}: {why}")
+    return device, b, s
+
+
+def sim_step(end, lat, volbw, duration, release) -> torch.Tensor:
+    """One dense max-plus sweep (see :mod:`.sim_step`): float32 ``end``,
+    ``duration``, ``release`` (B, S) and ``lat``/``volbw`` (B, S, S) with
+    ``-inf`` non-edges, all contiguous on one device. Returns (B, S)
+    float32. NaN propagates as in ``torch.amax``."""
+    device, b, s = _check_dense("sim_step", end, lat, volbw, duration,
+                                release)
+    if b == 0 or s == 0:
+        return torch.zeros((b, s), dtype=torch.float32, device=device)
+    if device.type == "cpu":
+        return _sim.sim_step_torch(end, lat, volbw, duration, release)
+    out = _sim.sim_step_cuda(end, lat, volbw, duration, release)
+    sim_step.launches += 1
+    return out
+
+
+sim_step.launches = 0
+
+
+def sim_relax(lat, volbw, duration, release, *,
+              n_steps: int) -> torch.Tensor:
+    """``n_steps`` dense max-plus sweeps from all-zero ends (see
+    :mod:`.sim_step`), inputs as :func:`sim_step` without ``end``.
+    Returns (B, S) float32 finish times. ``launches`` counts calls that
+    ran the kernel (each runs ``n_steps`` sweeps)."""
+    device, b, s = _check_dense("sim_relax", None, lat, volbw, duration,
+                                release)
+    if n_steps < 0:
+        raise ValueError(f"sim_relax: n_steps {n_steps} < 0")
+    if b == 0 or s == 0 or n_steps == 0:
+        return torch.zeros((b, s), dtype=torch.float32, device=device)
+    if device.type == "cpu":
+        return _sim.sim_relax_torch(lat, volbw, duration, release,
+                                    n_steps=n_steps)
+    out = _sim.sim_relax_cuda(lat, volbw, duration, release, n_steps=n_steps)
+    sim_relax.launches += 1
+    return out
+
+
+sim_relax.launches = 0
+
+
 def sched_score(drain, frontiers, release) -> torch.Tensor:
     """The (apps × cores) admission screening matrix
     ``max(frontier[j], release[i]) + drain[i, j]`` (see

@@ -1,7 +1,8 @@
 """NumPy oracles of the port's kernels (copies of the JAX package's, so
 the port imports nothing from it).
 
-``pop_relax_np`` is the float32 oracle of ``sim_relax_pop`` and
+``sim_step_ref`` is the oracle of one dense ``sim_step`` sweep,
+``pop_relax_np`` the float32 oracle of ``sim_relax_pop`` and
 ``sched_score_np`` that of ``sched_score``: the same expressions in the
 same float32 arithmetic, so each kernel and its plain PyTorch version
 equal them bit for bit.
@@ -10,6 +11,19 @@ equal them bit for bit.
 from __future__ import annotations
 
 import numpy as np
+
+
+def sim_step_ref(end, lat, volbw, duration, release) -> np.ndarray:
+    """NumPy oracle for one dense relaxation sweep (dtype-preserving).
+
+    ``end`` (B, S); ``lat``/``volbw`` (B, S, S) with ``-inf`` non-edges;
+    ``duration``/``release`` (B, S)."""
+    end = np.asarray(end)
+    ready = ((end[:, None, :] + np.asarray(lat))
+             + np.asarray(volbw)).max(axis=-1, initial=-np.inf)
+    zero = end.dtype.type(0.0)
+    return np.asarray(duration) + np.maximum(np.asarray(release),
+                                             np.maximum(ready, zero))
 
 
 def pop_step_np(end, pred, lat, volbw, duration, release) -> np.ndarray:

@@ -47,13 +47,11 @@ class OnlineAMTHA:
         self.ga_refine = ga_refine
         self.ga_seed = ga_seed
         self.ga_params = ga_params
-        # the reference's proof-check after every committed admission
-        # needs the cluster verifier, which the port does not have yet
-        # (ROADMAP A5): refuse here rather than mid-admission
-        if verify:
-            raise NotImplementedError(
-                "OnlineAMTHA(verify=True) needs analysis.verify_cluster, "
-                "which is not ported yet (ROADMAP slice A5)")
+        # proof-check the whole cluster after every committed admission
+        # (repro_torch.analysis.verify_cluster); off by default — it is
+        # O(all live work), the per-admission cost the transaction design
+        # exists to avoid, so it is a debug/CI switch, not a default
+        self.verify = verify
 
     # ------------------------------------------------------------------
     def predict(self, arrival: AppArrival, at: float | None = None) -> float:
@@ -108,6 +106,9 @@ class OnlineAMTHA:
         reserved = self.state.allot_offset(arrival.graph)
         assert reserved == off
         admitted = self.state.commit(arrival, off, t_admit=t)
+        if self.verify:
+            from ..analysis.verify import verify_cluster
+            verify_cluster(self.state)
         if self.ga_refine and self._can_refine():
             self.refine_ga(seed=self.ga_seed, params=self.ga_params)
         return admitted

@@ -54,15 +54,9 @@ class RecoveryParams:
     ga_refine: bool = False         # polish with the frozen GA pass
     ga_seed: int = 0
     ga_params: object = None
-    # the reference proves the committed plan with the cluster verifier,
-    # which the port does not have yet (ROADMAP A5): refused on creation
+    # prove the committed plan with repro_torch.analysis.verify_cluster
+    # after the pass completes (post-shed/-refine, so namespaces are settled)
     verify: bool = False
-
-    def __post_init__(self) -> None:
-        if self.verify:
-            raise NotImplementedError(
-                "RecoveryParams(verify=True) needs analysis.verify_cluster, "
-                "which is not ported yet (ROADMAP slice A5)")
 
 
 @dataclass
@@ -359,6 +353,12 @@ def recover(engine: OnlineAMTHA, det: Detection,
         a.t_est_finish = max(tl.placements[s].end for s in a.global_sids())
     if par.ga_refine and engine._can_refine():
         engine.refine_ga(seed=par.ga_seed, params=par.ga_params)
+    if par.verify:
+        # after drop_apps/_rebase: mid-pass the shed sids are off the
+        # timeline while their apps still hold the namespace, which is
+        # exactly the transient the verifier would (rightly) reject
+        from ..analysis.verify import verify_cluster
+        verify_cluster(state)
     report.new_makespan = state.schedule.makespan()
     return report
 

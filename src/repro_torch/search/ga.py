@@ -31,8 +31,9 @@ using a Bias-Elitist Genetic Algorithm"). The scheme here:
   final best vector with batched single-task move evaluations.
 
 Registered as ``SCHEDULERS["ga"]`` (task-coherent, offline), so
-callers reach it by name. The reference's device-resident loop
-(``GAParams(device=True)``) is not ported yet and raises.
+callers reach it by name. ``GAParams(device=True)`` runs the whole
+loop on one device instead (``search/device.py``): on the card with
+``backend="cuda"``, on the CPU with ``backend="torch"``.
 """
 
 from __future__ import annotations
@@ -65,7 +66,7 @@ class GAParams:
     refine_rounds: int = 3          # hill-climbing rounds on the winner
     refine_moves: int = 48          # sampled single-task moves per round
     backend: str = "cuda"           # fitness path: "cuda" | "torch" | "numpy"
-    device: bool = False            # device-resident loop (not ported yet)
+    device: bool = False            # device-resident loop (search/device)
 
     def __post_init__(self) -> None:
         if self.pop_size < 1:
@@ -91,6 +92,10 @@ class GAParams:
         if self.backend not in FITNESS_DEVICE:
             raise ValueError(f"unknown fitness backend {self.backend!r} "
                              f"(expected one of {sorted(FITNESS_DEVICE)})")
+        if self.device and self.backend == "numpy":
+            raise ValueError("device=True runs on a torch device: backend "
+                             "'cuda' (the card) or 'torch' (the CPU), not "
+                             "'numpy'")
 
 
 def population_fitness(graph: AppGraph, machine: MachineModel, population,
@@ -162,16 +167,17 @@ def ga_search(graph: AppGraph, machine: MachineModel, *, seed: int = 0,
     started/finished placements into every candidate (recovery's
     mid-flight re-mapping).
 
-    ``params.device=True`` asks for the reference's device-resident
-    loop, which is not ported yet: it raises ``NotImplementedError``.
-    With ``frozen`` history the reference stays on this host loop, and
-    so does the port."""
+    ``params.device=True`` routes the whole loop through the
+    device-resident twin (``repro_torch.search.device``): decode,
+    fitness, selection and mutation as tensor ops on one device,
+    append-only decode semantics, float32 fitness. ``frozen`` history
+    has data-dependent shapes and stays on the host path."""
     par = params or GAParams()
     if par.device and not frozen:
-        raise NotImplementedError(
-            "GAParams(device=True): the device-resident GA "
-            "(search/device.py) is not ported yet (ROADMAP slice A4, "
-            "device half); use the host loop (device=False)")
+        from .device import ga_search_device
+
+        return ga_search_device(graph, machine, seed=seed, params=par,
+                                elites=elites, releases=releases)
     graph.finalize()
     n_tasks = len(graph.tasks)
     n_cores = machine.n_cores

@@ -9,13 +9,17 @@ all sampled neighbors of a round are decoded and lowered into one
 accept (best neighbor if it improves), stop on the first round with no
 improvement.
 
-The reference's device-resident twin, :func:`hill_climb_device`, is not
-ported yet and raises.
+:func:`hill_climb_device` is the device-resident twin: the same
+neighborhood and accept rule, but neighbors are drawn from the device
+GA's ``torch.Generator`` (no host RNG) and scored by a device fitness
+callable (``repro_torch.search.device``), so the refine stage of
+``GAParams(device=True)`` runs is deterministic under one seed too.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..core import lowering
 from ..core.machine import MachineModel
@@ -79,8 +83,35 @@ def hill_climb(graph: AppGraph, machine: MachineModel, vec: np.ndarray,
     return vec, fit
 
 
-def hill_climb_device(*args, **kwargs):
-    """The reference's device-scored hill climb: not ported yet."""
-    raise NotImplementedError(
-        "hill_climb_device: the device-resident GA (search/device.py) is "
-        "not ported yet (ROADMAP slice A4, device half); use hill_climb")
+def hill_climb_device(fitness_fn, inp, vec: np.ndarray, fit: float, *,
+                      generator: torch.Generator, rounds: int = 3,
+                      moves: int = 48,
+                      n_cores: int) -> tuple[np.ndarray, float]:
+    """Device-scored hill climb: ``fitness_fn(inp, genes)`` maps a
+    (M, n_tasks) population on ``inp``'s device to (M,) makespans (the
+    device GA's fitness callable); neighbors are the first ``M`` of a
+    ``randperm`` of the flat (task, new-core) index drawn from
+    ``generator`` — sampling without replacement. Same neighborhood,
+    accept rule and stop rule as :func:`hill_climb`."""
+    vec = np.asarray(vec, np.int32)
+    n_tasks = len(vec)
+    if n_cores < 2 or n_tasks == 0:
+        return vec, fit
+    dev = inp.device
+    full = n_tasks * (n_cores - 1)
+    m = min(moves, full)
+    rows = torch.arange(m, device=dev)
+    for _ in range(rounds):
+        flat = torch.randperm(full, generator=generator, device=dev)[:m]
+        tasks = flat // (n_cores - 1)
+        shift = flat % (n_cores - 1)
+        base = torch.as_tensor(vec, device=dev)
+        new_core = torch.where(shift < base[tasks], shift, shift + 1)
+        neigh = base.repeat(m, 1)
+        neigh[rows, tasks] = new_core.to(torch.int32)
+        f = fitness_fn(inp, neigh).cpu().numpy()
+        best = int(np.argmin(f))
+        if f[best] >= fit - 1e-12:
+            break
+        vec, fit = neigh[best].cpu().numpy().astype(np.int32), float(f[best])
+    return vec, fit

@@ -1,10 +1,11 @@
 """The CUDA kernels on the card: each equal to its plain PyTorch version
-(bit for bit for the scheduling kernels; within the tolerance stated at
+(bit for bit for the scheduling kernels and the dense ``sim_step``; within the tolerance stated at
 ``assert_close_to_plain`` for the serving kernels), counted once per
 launch and guarded like the CPU path; the ``backend="cuda"`` simulator
 and GA fitness within the float32 tolerance of float64; kernel-scored
-admission placing exactly as the plain version does; reduced-model
-greedy decoding on the card giving the CPU's tokens.
+admission placing exactly as the plain version does; the device GA's
+kernel fitness equal to its scan; reduced-model greedy decoding on the
+card giving the CPU's tokens.
 Every test needs an NVIDIA GPU with ``nvcc``; elsewhere they skip. On
 the card: ``python3 -m pytest -q -m cuda tests/test_torch_cuda.py``."""
 
@@ -37,6 +38,21 @@ def pop_inputs(seed, b, s, p1, pad_frac=0.3):
     rel = np.where(rng.random((b, s)) < 0.2,
                    rng.uniform(0.0, 20.0, (b, s)), 0.0).astype(np.float32)
     return pred, lat, volbw, dur, rel
+
+
+def dense_inputs(seed, b, s, edge_frac=0.2):
+    """Random dense sweep inputs made with NumPy, float32: ``-inf``
+    non-edges, lags drawn as the reference's kernel test draws them (a
+    range where no sum is subnormal)."""
+    rng = np.random.default_rng(seed)
+    lat = np.where(rng.uniform(size=(b, s, s)) < edge_frac,
+                   rng.uniform(0.0, 1e-4, (b, s, s)), -np.inf)
+    volbw = np.where(lat > -np.inf, rng.uniform(0.0, 2.0, (b, s, s)),
+                     -np.inf)
+    end = rng.uniform(0.0, 50.0, (b, s))
+    dur = rng.uniform(0.1, 5.0, (b, s))
+    rel = rng.uniform(0.0, 20.0, (b, s))
+    return [x.astype(np.float32) for x in (end, lat, volbw, dur, rel)]
 
 
 @pytest.fixture
@@ -459,3 +475,131 @@ def test_reduced_ssm_model_generates_the_cpu_tokens_on_the_card(cuda, name):
         [n * (2 * layers + 2 * groups + 1), layers, groups, (n - 1) * groups]
     want = generate(cfg, ShardCtx(), cpu, {"tokens": prompt}, n)
     assert torch.equal(got.cpu(), want)
+
+
+# ---------------------------------------------------------------------------
+# sim_step / sim_relax (dense) and the device GA
+# ---------------------------------------------------------------------------
+
+def same_or_both_nan(got, want):
+    nan = torch.isnan(want)
+    return (torch.equal(torch.isnan(got), nan)
+            and torch.equal(got[~nan], want[~nan]))
+
+
+@pytest.mark.parametrize("b,s", [(1, 1), (3, 37), (2, 1000), (4, 815),
+                                 (1, 33)])
+def test_sim_step_kernel_equals_plain_version(cuda, b, s):
+    args = on(cuda, dense_inputs(b * 1000 + s, b, s))
+    before = ops.sim_step.launches
+    got = ops.sim_step(*args)
+    assert ops.sim_step.launches == before + 1
+    want = sim_step.sim_step_torch(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    np.testing.assert_array_equal(
+        got.cpu().numpy(),
+        ref.sim_step_ref(*[x.cpu().numpy() for x in args]))
+
+
+def test_sim_step_kernel_propagates_nan_and_inf_like_the_plain_version(cuda):
+    end, lat, volbw, dur, rel = dense_inputs(3, 3, 1000)
+    rng = np.random.default_rng(4)
+    lat[rng.random(lat.shape) < 1e-4] = np.nan
+    volbw[rng.random(volbw.shape) < 1e-4] = np.inf
+    end[2, 17] = np.inf             # inf + -inf non-edges: NaN
+    dur[0, :5] = np.nan
+    rel[1, :5] = -np.inf
+    args = on(cuda, (end, lat, volbw, dur, rel))
+    got, want = ops.sim_step(*args), sim_step.sim_step_torch(*args)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(want).any()) and bool(torch.isinf(want).any())
+    assert same_or_both_nan(got, want)
+
+
+@pytest.mark.parametrize("kind", ["8core", "64core"])
+def test_sim_relax_kernel_equals_plain_on_a_lowered_suite(cuda, kind):
+    from repro_torch.core.lowering import dense_lags
+    from repro_torch.core.sim_engine import relax_batch_np
+    m = T.dell_poweredge_1950() if kind == "8core" else T.hp_bl260c()
+    graphs = [T.generate_app(T.SynthParams(n_tasks=(30, 60)), seed=40 + i)
+              for i in range(3)]
+    batch = T.batch_scenarios([T.lower_scenario(g, m, T.engine_schedule(g, m))
+                               for g in graphs])
+    lat, volbw = dense_lags(batch)
+    args = on(cuda, [np.ascontiguousarray(x, np.float32) for x in
+                     (lat, volbw, batch.duration, batch.release)])
+    for steps in (batch.depth // 3, batch.depth):
+        before = ops.sim_relax.launches
+        got = ops.sim_relax(*args, n_steps=steps)
+        assert ops.sim_relax.launches == before + 1
+        want = sim_step.sim_relax_torch(*args, n_steps=steps)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    np.testing.assert_allclose(got.cpu().numpy(), relax_batch_np(batch),
+                               rtol=1e-5, atol=0.0)
+
+
+def test_dense_launch_geometry(cuda):
+    """The end row staged in shared memory, as the library counts it:
+    the size the guard checks on the card, refused past the limit."""
+    limit = sim_step._dense_library().sim_step_max_shared_bytes()
+    assert sim_step.dense_shared_bytes(815) == 3260
+    assert sim_step.dense_shared_bytes(1235) == 4940
+    assert sim_step.dense_shared_bytes(58_112) <= limit
+    assert sim_step.dense_shared_bytes(58_113) > limit
+    assert sim_step.dense_refusal(58_112) is None
+    assert "shared memory" in sim_step.dense_refusal(58_113)
+
+
+def test_dense_kernels_refuse_bad_input_without_falling_back(cuda):
+    end, lat, volbw, dur, rel = on(cuda, dense_inputs(1, 2, 40))
+    with pytest.raises(ValueError, match="several devices"):
+        ops.sim_step(end, lat, volbw, dur.cpu(), rel)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.sim_relax(lat.transpose(1, 2), volbw, dur, rel, n_steps=2)
+    with pytest.raises(TypeError):
+        ops.sim_relax(lat.double(), volbw, dur, rel, n_steps=2)
+    before = ops.sim_relax.launches
+    assert torch.equal(ops.sim_relax(lat, volbw, dur, rel, n_steps=0),
+                       torch.zeros_like(dur))
+    assert ops.sim_relax.launches == before
+
+
+def test_device_ga_on_the_card(cuda):
+    """Kernel fitness equals the scan's under ``torch.equal`` on the card;
+    the search is deterministic under its seed, launches the kernel once
+    per fitness call, and ``ga <= engine`` holds."""
+    from repro_torch.search import GAParams, ga_schedule, ga_search
+    from repro_torch.search import device as D
+    m = T.hp_bl260c()
+    g = T.generate_app(T.SynthParams(n_tasks=(40, 60)), seed=31)
+    inp = D.device_inputs(g, m, device=cuda)
+    pop = torch.from_numpy(np.random.default_rng(0).integers(
+        0, m.n_cores, (16, len(g.tasks)), dtype=np.int32)).to(cuda)
+    kern = D.population_fitness_device(inp, pop, method="kernel")
+    scan = D.population_fitness_device(inp, pop, method="scan")
+    torch.cuda.synchronize()
+    assert torch.equal(kern, scan)
+    cpu = D.population_fitness_device(D.device_inputs(g, m, device="cpu"),
+                                      pop.cpu(), method="scan")
+    assert torch.equal(kern.cpu(), cpu)
+    par = GAParams(pop_size=12, generations=4, refine_rounds=0, device=True)
+    before = ops.sim_relax_pop.launches
+    v1, f1 = ga_search(g, m, seed=3, params=par)
+    assert ops.sim_relax_pop.launches == before + 1 + par.generations
+    v2, f2 = ga_search(g, m, seed=3, params=par)
+    assert np.array_equal(v1, v2) and f1 == f2
+    eng = T.get_scheduler("engine")(g, m)
+    sch = ga_schedule(g, m, seed=0, params=par)
+    T.validate(sch, g, m, require_task_coherence=True)
+    assert sch.makespan() <= eng.makespan() + 1e-9
+
+
+def test_simulate_suite_verify_on_the_card(cuda):
+    m = T.hp_bl260c()
+    graphs = [T.generate_app(T.SynthParams(n_tasks=(60, 90)), seed=60 + i)
+              for i in range(2)]
+    scheds = [T.engine_schedule(g, m) for g in graphs]
+    T.simulate_suite(graphs, m, scheds, jitter=0.01, verify=True,
+                     device=cuda)

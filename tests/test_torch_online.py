@@ -367,10 +367,3 @@ def test_reference_recovery_fault_is_shared():
     assert out[1] == out[0]
     assert out[0][1], "the reference's recovery fault is gone: update " \
                       "ROADMAP §C and this test"
-
-
-def test_verify_raises_not_implemented_at_construction():
-    with pytest.raises(NotImplementedError, match="A5"):
-        TO.OnlineAMTHA(cluster(TO), verify=True)
-    with pytest.raises(NotImplementedError, match="A5"):
-        TO.RecoveryParams(verify=True)

@@ -147,17 +147,38 @@ def test_hill_climb_equals_reference():
 
 
 def test_frozen_device_ga_stays_on_the_host_like_the_reference():
+    """With ``frozen`` history ``GAParams(device=True)`` runs the host
+    loop in both packages: the same search as ``device=False``. The
+    device loop needs a torch backend (``"numpy"`` is refused), so the
+    port's runs take the plain float32 fitness (``backend="torch"``),
+    held to the reference's at float32 tolerance; the port's float64
+    host search (``backend="numpy"``) equals the reference's exactly."""
     (gr, mr), (gt, mt) = pair("8core", 4)
     fr, relr = frozen_history(gr, mr, R)
     ft, relt = frozen_history(gt, mt, T)
-    want = RS.ga_search(gr, mr, seed=1, params=RS.GAParams(device=True,
-                                                           **GA_KW),
-                        releases=relr, frozen=fr)
-    got = TS.ga_search(gt, mt, seed=1,
-                       params=TS.GAParams(device=True, backend="numpy",
-                                          **GA_KW),
-                       releases=relt, frozen=ft)
-    assert np.array_equal(got[0], want[0]) and got[1] == want[1]
+    runs = []
+    for device in (True, False):
+        want = RS.ga_search(gr, mr, seed=1,
+                            params=RS.GAParams(device=device, **GA_KW),
+                            releases=relr, frozen=fr)
+        got = TS.ga_search(gt, mt, seed=1,
+                           params=TS.GAParams(device=device, backend="torch",
+                                              **GA_KW),
+                           releases=relt, frozen=ft)
+        runs.append((want, got))
+    (want_dev, got_dev), (want_host, got_host) = runs
+    assert np.array_equal(want_dev[0], want_host[0]) \
+        and want_dev[1] == want_host[1]
+    assert np.array_equal(got_dev[0], got_host[0]) \
+        and got_dev[1] == got_host[1]
+    np.testing.assert_allclose(got_dev[1], want_dev[1], rtol=RTOL_F32,
+                               atol=0.0)
+    # the port's float64 host search is the reference's, bit for bit
+    got_f64 = TS.ga_search(gt, mt, seed=1,
+                           params=TS.GAParams(backend="numpy", **GA_KW),
+                           releases=relt, frozen=ft)
+    assert np.array_equal(got_f64[0], want_dev[0]) \
+        and got_f64[1] == want_dev[1]
 
 
 def online_pair(n_apps=6, seed=2):
@@ -207,12 +228,3 @@ def test_default_fitness_runs_on_the_card(monkeypatch):
 def test_gaparams_validated_on_construction(bad):
     with pytest.raises(ValueError):
         TS.GAParams(**bad)
-
-
-def test_device_resident_search_not_ported_yet():
-    (_, _), (gt, mt) = pair("8core", 0)
-    with pytest.raises(NotImplementedError, match="A4"):
-        TS.ga_search(gt, mt, params=TS.GAParams(device=True, **GA_KW))
-    with pytest.raises(NotImplementedError, match="A4"):
-        TS.hill_climb_device(None, None, np.zeros(3, np.int32), 1.0, key=None,
-                             n_cores=8)
