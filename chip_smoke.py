@@ -6,7 +6,8 @@ Run from the repository root (it puts ``src`` on ``sys.path`` itself):
     python3 chip_smoke.py
 
 1. Builds every CUDA kernel of the path from ``src/repro_torch/kernels/csrc``
-   and prints nvcc's register/spill report.
+   and prints nvcc's register/spill report and the count of ``HGMMA``
+   (wgmma) instructions in each library's SASS (``cuobjdump -sass``).
 2. Main path, at the paper's real suite sizes: synthetic MPAHA suites
    (the 64-core paper suite on hp_bl260c; 4 apps of 240-280 tasks on a
    256-core cluster of multicores), mapped with AMTHA
@@ -62,9 +63,12 @@ Run from the repository root (it puts ``src`` on ``sys.path`` itself):
    ``generate`` of each alone, token for token. Numbers: per run prefill
    ms, decode ms per step, tokens/s; per kernel at its largest path
    shape the kernel's, plain version's and library call's ms and the
-   bound; side rows without softcap against
-   ``scaled_dot_product_attention``; where one decode step's time goes
-   (host parts, the profiler's device time and top kernels).
+   bound, ``flash_attention`` (the bf16 tensor-core kernel) also with
+   TFLOP/s against the bound's operation count; ``rmsnorm`` against
+   ``F.rms_norm`` at every prefill width, device ms from a CUDA graph;
+   side rows without softcap against ``scaled_dot_product_attention``;
+   where one decode step's time goes (host parts, the profiler's device
+   time and top kernels).
 7. SSM and hybrid serving: mamba2-780m (48 layers, d 1536, 48 heads of
    64, state 128, chunk 256) and zamba2-7b (81 Mamba-2 layers in 13 groups
    of 6 plus 3, a shared attention block on 7168 wide at the head of each
@@ -90,8 +94,11 @@ Run from the repository root (it puts ``src`` on ``sys.path`` itself):
    fault in ``ssd_scan`` (the carry between chunks dropped); run C equal
    to ``generate`` alone. Numbers: per run prefill ms, decode ms per
    step, tokens/s; ssd_scan's kernel, plain and bound ms at every path
-   shape; the bf16 gate's reading with each planted fault; a decode
-   step's profile per model.
+   shape; ``rmsnorm`` at every prefill width (1536, 3072, 3584, 7168)
+   against ``F.rms_norm``; ``flash_attention`` at zamba2's (2, 700, 32,
+   224) against causal ``scaled_dot_product_attention``, which computes
+   the same function there (no softcap, no window); the bf16 gate's
+   reading with each planted fault; a decode step's profile per model.
 8. Dense path, on the four shapes of phase 2: ``lint_batch`` ->
    ``dense_lags`` -> ``ops.sim_relax(n_steps=depth)`` (the hand-written
    ``sim_step`` kernel), its count zeroed just before and read just
@@ -128,6 +135,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import itertools
 import json
 import subprocess
 import sys
@@ -138,6 +146,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory rate
+L2_BYTES = 50 * 2 ** 20             # H100 SXM L2 cache
 FP32_OPS_PER_S = 67e12              # H100 SXM float32 rate outside tensor cores
 RTOL_F32 = 1e-5                     # the reference's float32 tolerance
 JITTER, DRAWS = 0.01, 16
@@ -165,6 +174,52 @@ def cuda_ms(fn, n: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / n
+
+
+def graph_ms(fn, n: int) -> float:
+    """Mean device milliseconds of ``fn()`` over ``n`` calls captured in
+    one CUDA graph and replayed, from CUDA events: the kernels' own time
+    without the host's dispatch between them, which a back-to-back
+    ``cuda_ms`` of a short kernel measures instead."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):   # warm-up off the capture
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / n
+
+
+def sdpa(q, k, v, mask, causal, scale):
+    """``scaled_dot_product_attention`` on the (B, S, H, D) layout: one
+    library call, timed beside the kernels and used nowhere in the port.
+    GQA natively where this PyTorch has ``enable_gqa``, else K/V
+    repeated."""
+    import torch.nn.functional as F
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    kw = dict(attn_mask=mask, is_causal=causal and mask is None, scale=scale)
+    try:
+        out = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True,
+                                             **kw)
+    except TypeError:
+        g = q.shape[2] // k.shape[2]
+        out = F.scaled_dot_product_attention(
+            qt, kt.repeat_interleave(g, dim=1),
+            vt.repeat_interleave(g, dim=1), **kw)
+    return out.transpose(1, 2)
 
 
 def snapshot(x):
@@ -829,30 +884,89 @@ def plain_versions():
             "flash_decode": flash_decode_torch, "ssd_scan": ssd_scan_torch}
 
 
-def serving_kernel_rows(spies):
-    """Per serving kernel at its largest path shape: the kernel's, the
-    plain version's and (where one exists) the library call's ms from
-    CUDA events, the bound and what bounds it."""
+def norm_row(x, w, nkw):
+    """``rmsnorm`` at one shape: the kernel's, the plain version's and
+    ``F.rms_norm``'s device ms from a CUDA graph of 50 calls (a short
+    kernel's back-to-back time is the host's dispatch), their
+    back-to-back ms beside them (``*_eager_ms``), the bound and what
+    bounds it. Successive calls take turns over copies of ``x`` that
+    together hold three times the L2 cache, so each call reads its input
+    from device memory, as the bound counts it."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
-    from repro_torch.kernels.flash_decode import flash_decode_cuda
-    from repro_torch.kernels.rmsnorm import rmsnorm_cuda
-    plain = plain_versions()
-    rows = {}
-    _, (nargs, nkw) = max(
-        spies["rmsnorm"].calls.items(), key=lambda kv: kv[1][0][0].numel())
-    x, w = nargs
+    from repro_torch.kernels.rmsnorm import rmsnorm_cuda, rmsnorm_torch
     n_bytes = x.numel() * 2 * x.element_size() + w.numel() * w.element_size()
     b_ms, b_by = bound(n_bytes, 4 * x.numel(), FP32_OPS_PER_S)
-    rows["rmsnorm"] = dict(
-        shape=str(tuple(x.shape)),
-        ms=cuda_ms(lambda: rmsnorm_cuda(x, w, **nkw), 50),
-        plain_ms=cuda_ms(lambda: plain["rmsnorm"](x, w, **nkw), 50),
+    copies = [x] + [x.clone() for _ in range(-(-3 * L2_BYTES // n_bytes))]
+    turn = itertools.count()
+
+    def x_():
+        return copies[next(turn) % len(copies)]
+
+    def kernel():
+        return rmsnorm_cuda(x_(), w, **nkw)
+
+    def plain():
+        return rmsnorm_torch(x_(), w, **nkw)
+
+    def library():
+        return F.rms_norm(x_(), (x.shape[-1],), w, nkw.get("eps", 1e-6))
+    return dict(
+        shape=str(tuple(x.shape)), ms=graph_ms(kernel, 50),
+        plain_ms=graph_ms(plain, 50), bound_ms=b_ms, bound_by=b_by,
+        library_ms=graph_ms(library, 50), eager_ms=cuda_ms(kernel, 50),
+        library_eager_ms=cuda_ms(library, 50), bytes=n_bytes)
+
+
+def norm_rows_by_width(label, spy):
+    """``norm_row`` at every prefill width the path launched (the call
+    with the most rows per width), printed; returns the rows by width."""
+    widest = {}
+    for (args, kw) in spy.calls.values():
+        x = args[0]
+        if x.dim() == 3 and x.shape[1] > 1 and (
+                x.shape[-1] not in widest
+                or x.numel() > widest[x.shape[-1]][0][0].numel()):
+            widest[x.shape[-1]] = (args, kw)
+    rows = {}
+    for d in sorted(widest):
+        (x, w), kw = widest[d]
+        rows[d] = norm_row(x, w, kw)
+        print(f"{label} rmsnorm at prefill width {d} "
+              f"(vs F.rms_norm, device ms from a CUDA graph) "
+              + json.dumps(rows[d]))
+    return rows
+
+
+def attention_row(q, k, v, akw, library=None):
+    """``flash_attention`` at one shape: the kernel's ms, the plain
+    version's, the library call's where given, TFLOP/s against the
+    bound's operation count, the bound and what bounds it."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_cuda, flash_attention_torch)
+    n_bytes, flops = attn_cost(q, k, v, causal=akw.get("causal", True),
+                               window=akw.get("window"))
+    b_ms, b_by = bound(n_bytes, flops, BF16_OPS_PER_S)
+    ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, **akw), 20)
+    return dict(
+        shape=str(tuple(q.shape)) + f" window={akw.get('window')} "
+              f"softcap={akw.get('softcap')}",
+        ms=ms, tflops=flops / ms / 1e9,
+        plain_ms=cuda_ms(lambda: flash_attention_torch(q, k, v, **akw), 3),
         bound_ms=b_ms, bound_by=b_by,
-        library_ms=cuda_ms(lambda: F.rms_norm(x, (x.shape[-1],), w,
-                                              nkw.get("eps", 1e-6)), 50),
-        bytes=n_bytes)
+        library_ms=None if library is None else cuda_ms(library, 20),
+        bytes=n_bytes, flops=flops, args=((q, k, v), akw))
+
+
+def serving_kernel_rows(label, spies):
+    """Per serving kernel at its largest path shape: the kernel's, the
+    plain version's and (where one exists) the library call's ms from
+    CUDA events, the bound and what bounds it; ``rmsnorm`` at every
+    prefill width, printed."""
+    from repro_torch.kernels.flash_decode import flash_decode_cuda
+    plain = plain_versions()
+    rows = {"rmsnorm": max(norm_rows_by_width(label, spies["rmsnorm"])
+                           .values(), key=lambda row: row["bytes"])}
 
     def attn_key(kv):
         (q, k, v), kw = kv[1]
@@ -860,16 +974,14 @@ def serving_kernel_rows(spies):
                          window=kw.get("window"))[1]
     _, ((q, k, v), akw) = max(spies["flash_attention"].calls.items(),
                               key=attn_key)
-    n_bytes, flops = attn_cost(q, k, v, causal=akw.get("causal", True),
-                               window=akw.get("window"))
-    b_ms, b_by = bound(n_bytes, flops, BF16_OPS_PER_S)
-    rows["flash_attention"] = dict(
-        shape=str(tuple(q.shape)) + f" window={akw.get('window')}",
-        ms=cuda_ms(lambda: flash_attention_cuda(q, k, v, **akw), 3),
-        plain_ms=cuda_ms(lambda: plain["flash_attention"](q, k, v, **akw),
-                         3),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None, bytes=n_bytes,
-        flops=flops, args=((q, k, v), akw))
+    # no library call softcaps; without a softcap and a window, causal
+    # scaled_dot_product_attention computes the same function
+    library = None
+    if akw.get("softcap") is None and akw.get("window") is None:
+        def library():
+            return sdpa(q, k, v, None, akw.get("causal", True),
+                        akw.get("scale"))
+    rows["flash_attention"] = attention_row(q, k, v, akw, library)
 
     def dec_key(kv):
         (q, kc, vc, pos), kw = kv[1]
@@ -901,7 +1013,6 @@ def serve_phase(dev):
     check it and time it; returns the three kernels' JSON entries."""
     import numpy as np
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.configs import ARCHS
     from repro_torch.kernels import ops
@@ -968,27 +1079,11 @@ def serve_phase(dev):
     check_batched_equals_alone("serve", cfg, params, reqs, dev)
 
     # -- per kernel at its largest path shape --------------------------------
-    rows = serving_kernel_rows(spies)
+    rows = serving_kernel_rows("serve", spies)
     print_rows("serve", rows)
 
     # side rows: no softcap, against scaled_dot_product_attention (which
     # cannot softcap), the window passed as an explicit mask
-    def sdpa(q, k, v, mask, causal, scale):
-        """One library call on the (B, S, H, D) layout; GQA natively
-        where this PyTorch has ``enable_gqa``, else K/V repeated."""
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        kw = dict(attn_mask=mask, is_causal=causal and mask is None,
-                  scale=scale)
-        try:
-            out = F.scaled_dot_product_attention(qt, kt, vt,
-                                                 enable_gqa=True, **kw)
-        except TypeError:
-            g = q.shape[2] // k.shape[2]
-            out = F.scaled_dot_product_attention(
-                qt, kt.repeat_interleave(g, dim=1),
-                vt.repeat_interleave(g, dim=1), **kw)
-        return out.transpose(1, 2)
-
     (q, k, v), akw = rows["flash_attention"]["args"]
     side = []
     for label, win in (("global", None), ("local", cfg.window)):
@@ -998,13 +1093,12 @@ def serve_phase(dev):
             visible(s, causal=True, window=win, device=dev)
         got = flash_attention_cuda(q, k, v, window=win, scale=scale)
         lib = sdpa(q, k, v, mask, True, scale)
+        row = attention_row(q, k, v, dict(window=win, scale=scale),
+                            lambda: sdpa(q, k, v, mask, True, scale))
         side.append(dict(
             kernel="flash_attention", softcap=None, layer=label,
-            shape=str(tuple(q.shape)),
-            ms=cuda_ms(lambda: flash_attention_cuda(q, k, v, window=win,
-                                                    scale=scale), 3),
-            library_ms=cuda_ms(lambda: sdpa(q, k, v, mask, True, scale), 3),
-            max_abs_diff=float((got.float() - lib.float()).abs().max())))
+            max_abs_diff=float((got.float() - lib.float()).abs().max()),
+            **{k_: v_ for k_, v_ in row.items() if k_ != "args"}))
     (dq, dkc, dvc, dpos), dkw = rows["flash_decode"]["args"]
     dmask = valid_slots(dpos, dkc.shape[1], dkw["ring"])[:, None, None, :]
     dscale = dkw.get("scale")
@@ -1082,6 +1176,7 @@ def ssm_phase(dev):
 
     from repro_torch.configs import ARCHS
     from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_torch
     from repro_torch.models import ShardCtx, init_params
     from repro_torch.runtime import (generate, make_prefill, make_serve_step,
@@ -1178,8 +1273,21 @@ def ssm_phase(dev):
 
     max_err = check_against_plain("ssm", spies, plain_versions(),
                                   stress_cases(gen, dev), ops)
-    rows = serving_kernel_rows({k: spies[k] for k in SERVE_KERNELS})
+    rows = serving_kernel_rows("ssm", {k: spies[k] for k in SERVE_KERNELS})
     print_rows("ssm", rows)
+    # zamba2's shared block has no softcap and no window: causal
+    # scaled_dot_product_attention computes the same function
+    (q, k, v), akw = rows["flash_attention"]["args"]
+    if rows["flash_attention"]["library_ms"] is not None:
+        got = flash_attention_cuda(q, k, v, **akw)
+        lib = sdpa(q, k, v, None, akw.get("causal", True), akw.get("scale"))
+        print("ssm side row (no softcap, no window) vs "
+              "scaled_dot_product_attention " + json.dumps(dict(
+                  kernel="flash_attention", shape=str(tuple(q.shape)),
+                  ms=rows["flash_attention"]["ms"],
+                  library_ms=rows["flash_attention"]["library_ms"],
+                  max_abs_diff=float((got.float() - lib.float()).abs()
+                                     .max()))))
 
     # ssd_scan at every path shape of the generate runs (A, B, D) and of
     # run C's prompts: kernel and plain ms, bound
@@ -1587,10 +1695,16 @@ def main() -> int:
     built = build.build()
     print(f"build: {len(built)} kernel(s) in "
           f"{time.perf_counter() - t0:.1f} s")
+    cuobjdump = Path(build.nvcc()).with_name("cuobjdump")
     for k in built.values():
         for line in k.log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {k.name}: {line.strip()}")
+        sass = subprocess.run([str(cuobjdump), "-sass", str(k.path)],
+                              capture_output=True, text=True, check=True,
+                              timeout=120).stdout
+        print(f"  {k.name}: {sass.count('HGMMA')} HGMMA instructions in "
+              f"the SASS (cuobjdump -sass)")
 
     # -- 2. main path ---------------------------------------------------
     suites = [

@@ -18,24 +18,42 @@
 // element are nothing beside it.
 //
 // What the design does about it.
-//  * One block of 256 threads per row: neighbouring threads read
-//    neighbouring elements, so every pass over the row is coalesced.
+//  * 16-byte loads and stores: a thread moves 8 bfloat16 or 4 float32
+//    elements of x, w and out at once, so a warp's load is 512 bytes.
+//  * One read: a thread keeps its slice of the row in registers (at most
+//    4 vectors, 32 bf16 or 16 float32 elements) from the sum of squares
+//    to the scaled write, so device memory sees each byte of x once.
+//  * Threads per row sized by d: the fewest of 32, 64, ..., 1024 that
+//    hold the row in 4 vectors each (bf16: a warp up to d = 1024, 64
+//    threads at 1536, 128 at 2304, 3072 and 3584, 256 at 7168), and
+//    128-thread blocks hold 128 / that many rows (wider rows take a block
+//    each), so a 4,000-row prefill fills the card in small blocks and a
+//    1-4-row decode call is one short launch. Of 128, 256 and 512 threads
+//    per block and 2, 4 and 8 vectors per thread, 128 and 4 were the
+//    fastest pair at the serving path's widths on an H100.
 //  * The sum of squares is reduced by warp shuffles, then across the
-//    eight warps through shared memory; no atomics, so the result does
-//    not depend on scheduling.
-//  * The second pass reads the row again; at d = 2304 it is 4.6 KB and
-//    comes from L1, so device memory sees each byte once.
+//    row's warps through shared memory, in a fixed order; no atomics, so
+//    the result does not depend on scheduling.
+//  * A scalar path (one 128-thread block per row, two passes, the second
+//    from L1) takes what the vector path cannot: d not a multiple of the
+//    vector, a pointer not 16-byte aligned, or a row longer than 1024
+//    threads x 4 vectors.
 //  * 1 / sqrtf (both IEEE-rounded without --use_fast_math), not rsqrtf,
-//    and (x * r) * w in the reference's order.
+//    and (x * r) * w' in the reference's order, on both paths.
 //  * bfloat16 is converted only with the intrinsics (__bfloat162float,
 //    and __float2bfloat16, round to nearest even).
+
+#include <cstdint>
+#include <cstring>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;      // threads per block (both paths)
+constexpr int kMaxVecs = 4;        // 16-byte vectors a thread holds
+constexpr int kMaxRowThreads = 1024;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -56,10 +74,100 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// ---------------------------------------------------------------------------
+// vector path
+// ---------------------------------------------------------------------------
+
+// n elements of T at p (n * sizeof(T) is 8, 16 or 32 bytes, p aligned to
+// it or to 16) as float32
+template <typename T, int n>
+__device__ __forceinline__ void load_f32(const T* p, float (&f)[n]) {
+  constexpr int kBytes = n * static_cast<int>(sizeof(T));
+  T tmp[n];
+  if constexpr (kBytes == 8) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    memcpy(tmp, &raw, 8);
+  } else {
+#pragma unroll
+    for (int i = 0; i < kBytes / 16; ++i) {
+      const uint4 raw = reinterpret_cast<const uint4*>(p)[i];
+      memcpy(reinterpret_cast<char*>(tmp) + 16 * i, &raw, 16);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < n; ++i) f[i] = to_f32(tmp[i]);
+}
+
+// kTpr threads per row, kThreads / kTpr rows per block (one row per block
+// when kTpr > kThreads); V elements of x per 16-byte vector.
+template <typename TX, typename TW, int kTpr>
+__global__ void __launch_bounds__(kTpr > kThreads ? kTpr : kThreads)
+rmsnorm_vec_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
+                   TX* __restrict__ out, long long rows, int d, float eps,
+                   int zero_centered) {
+  constexpr int V = 16 / static_cast<int>(sizeof(TX));
+  constexpr int kBlock = kTpr > kThreads ? kTpr : kThreads;
+  constexpr int kRows = kBlock / kTpr;
+  constexpr int kWarps = kTpr / 32;
+  __shared__ float partial[kRows][kWarps];
+  const int group = threadIdx.x / kTpr;
+  const int lane = threadIdx.x % kTpr;
+  const long long row = static_cast<long long>(blockIdx.x) * kRows + group;
+  const bool live = row < rows;
+  const int nv = d / V;
+  const TX* xr = x + row * d;
+
+  float xv[kMaxVecs][V];
+  float ss = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kMaxVecs; ++i) {
+    const int vi = lane + i * kTpr;
+    if (live && vi < nv) {
+      load_f32<TX, V>(xr + vi * V, xv[i]);
+#pragma unroll
+      for (int e = 0; e < V; ++e) ss = fmaf(xv[i][e], xv[i][e], ss);
+    }
+  }
+  ss = warp_sum(ss);
+  if constexpr (kWarps > 1) {
+    if (threadIdx.x % 32 == 0) partial[group][lane / 32] = ss;
+    __syncthreads();
+    ss = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kWarps; ++i) ss += partial[group][i];
+  }
+  if (!live) return;
+  const float r = 1.0f / sqrtf(ss / static_cast<float>(d) + eps);
+
+  TX* orow = out + row * d;
+#pragma unroll
+  for (int i = 0; i < kMaxVecs; ++i) {
+    const int vi = lane + i * kTpr;
+    if (vi < nv) {
+      float wv[V];
+      load_f32<TW, V>(w + vi * V, wv);
+      TX o[V];
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const float wi = zero_centered ? 1.0f + wv[e] : wv[e];
+        o[e] = from_f32<TX>((xv[i][e] * r) * wi);
+      }
+      uint4 raw;
+      memcpy(&raw, o, 16);
+      *reinterpret_cast<uint4*>(orow + vi * V) = raw;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// scalar path
+// ---------------------------------------------------------------------------
+
 template <typename TX, typename TW>
 __global__ void __launch_bounds__(kThreads)
-rmsnorm_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
-               TX* __restrict__ out, int d, float eps, int zero_centered) {
+rmsnorm_scalar_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
+                      TX* __restrict__ out, int d, float eps,
+                      int zero_centered) {
   __shared__ float partial[kThreads / 32];
   __shared__ float inv_rms;
   const long long row = blockIdx.x;
@@ -77,7 +185,8 @@ rmsnorm_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
   if (threadIdx.x < 32) {
     float t = threadIdx.x < kThreads / 32 ? partial[threadIdx.x] : 0.0f;
     t = warp_sum(t);
-    if (threadIdx.x == 0) inv_rms = 1.0f / sqrtf(t / static_cast<float>(d) + eps);
+    if (threadIdx.x == 0)
+      inv_rms = 1.0f / sqrtf(t / static_cast<float>(d) + eps);
   }
   __syncthreads();
 
@@ -89,12 +198,67 @@ rmsnorm_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
   }
 }
 
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// Threads per row of the vector path for a row of d elements of TX, or 0
+// when only the scalar path can take it.
+template <typename TX> int row_threads(int d) {
+  constexpr int V = 16 / static_cast<int>(sizeof(TX));
+  if (d % V) return 0;
+  const int nv = d / V;
+  for (int tpr = 32; tpr <= kMaxRowThreads; tpr *= 2)
+    if (nv <= tpr * kMaxVecs) return tpr;
+  return 0;
+}
+
+template <typename TX, typename TW, int kTpr>
+void launch_vec(const void* x, const void* w, void* out, long long rows,
+                int d, float eps, int zero_centered, cudaStream_t stream) {
+  constexpr int kBlock = kTpr > kThreads ? kTpr : kThreads;
+  constexpr int kRows = kBlock / kTpr;
+  const long long blocks = (rows + kRows - 1) / kRows;
+  rmsnorm_vec_kernel<TX, TW, kTpr>
+      <<<static_cast<unsigned>(blocks), kBlock, 0, stream>>>(
+          static_cast<const TX*>(x), static_cast<const TW*>(w),
+          static_cast<TX*>(out), rows, d, eps, zero_centered);
+}
+
 template <typename TX, typename TW>
 void launch(const void* x, const void* w, void* out, long long rows, int d,
             float eps, int zero_centered, cudaStream_t stream) {
-  rmsnorm_kernel<TX, TW><<<static_cast<unsigned>(rows), kThreads, 0, stream>>>(
-      static_cast<const TX*>(x), static_cast<const TW*>(w),
-      static_cast<TX*>(out), d, eps, zero_centered);
+  const int tpr = aligned16(x) && aligned16(w) && aligned16(out)
+                      ? row_threads<TX>(d) : 0;
+  switch (tpr) {
+    case 32:
+      return launch_vec<TX, TW, 32>(x, w, out, rows, d, eps, zero_centered,
+                                    stream);
+    case 64:
+      return launch_vec<TX, TW, 64>(x, w, out, rows, d, eps, zero_centered,
+                                    stream);
+    case 128:
+      return launch_vec<TX, TW, 128>(x, w, out, rows, d, eps, zero_centered,
+                                     stream);
+    case 256:
+      return launch_vec<TX, TW, 256>(x, w, out, rows, d, eps, zero_centered,
+                                     stream);
+    case 512:
+      return launch_vec<TX, TW, 512>(x, w, out, rows, d, eps, zero_centered,
+                                     stream);
+    case 1024:
+      return launch_vec<TX, TW, 1024>(x, w, out, rows, d, eps,
+                                      zero_centered, stream);
+    default:
+      rmsnorm_scalar_kernel<TX, TW>
+          <<<static_cast<unsigned>(rows), kThreads, 0, stream>>>(
+              static_cast<const TX*>(x), static_cast<const TW*>(w),
+              static_cast<TX*>(out), d, eps, zero_centered);
+  }
 }
 
 }  // namespace
@@ -118,6 +282,12 @@ extern "C" int rmsnorm(const void* x, const void* w, void* out,
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Threads per row the vector path gives a row of d elements of dtype code
+// x_dtype when the pointers are aligned (0: the scalar path).
+extern "C" int rmsnorm_row_threads(int d, int x_dtype) {
+  return x_dtype == 0 ? row_threads<float>(d) : row_threads<__nv_bfloat16>(d);
 }
 
 extern "C" const char* rmsnorm_error_string(int err) {

@@ -9,9 +9,15 @@ when a window is set (the last ``window`` keys including the query
 itself, the HF convention of the reference). The softcap
 ``cap * tanh(s / cap)`` is applied to the scaled scores before the mask.
 Scores and sums are float32; any S is accepted (the TPU kernel wanted a
-multiple of its 512-row blocks). The CUDA kernel lives in
-``csrc/flash_attention.cu``; :func:`repro_torch.kernels.ops.flash_attention`
-is the guarded entry point that picks between the two.
+multiple of its 512-row blocks).
+
+``csrc/flash_attention.cu`` holds two CUDA kernels, chosen by dtype:
+bfloat16 launches the tensor-core kernel (wgmma products, TMA loads,
+warp-specialised; its loads need head dims that are multiples of 8 and
+16-byte aligned tensors, see :func:`refusal`), float32 the SIMT kernel,
+whose float32 FMAs keep float32's tolerance.
+:func:`repro_torch.kernels.ops.flash_attention` is the guarded entry point
+that picks between the plain version and the CUDA kernels.
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ import torch
 from . import build
 
 NEG_INF = -2.0e38
-MAX_HEAD_DIM = 256                  # the kernel's accumulator size
+MAX_HEAD_DIM = 256                  # the kernels' accumulator size
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -66,38 +72,69 @@ def flash_attention_torch(q, k, v, *, causal: bool = True,
 
 
 @functools.cache
-def _launcher():
+def _library():
     lib = build.load("flash_attention")
-    fn = lib.flash_attention
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 \
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-           ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err_str = lib.flash_attention_error_string
-    err_str.argtypes = [ctypes.c_int]
-    err_str.restype = ctypes.c_char_p
-    return fn, err_str
+    lib.flash_attention.argtypes = [ctypes.c_void_p] * 4 \
+        + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                                ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    lib.flash_attention.restype = ctypes.c_int
+    lib.flash_attention_fits.argtypes = [ctypes.c_int] * 2 \
+        + [ctypes.c_void_p] * 3 + [ctypes.c_int]
+    lib.flash_attention_fits.restype = ctypes.c_int
+    lib.flash_attention_max_head_dim.argtypes = []
+    lib.flash_attention_max_head_dim.restype = ctypes.c_int
+    lib.flash_attention_error_string.argtypes = [ctypes.c_int]
+    lib.flash_attention_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def refusal(q, k, v) -> str | None:
+    """Why the CUDA kernel of these tensors' dtype cannot take them (the
+    rule as the library states it), or None. The bfloat16 tensor-core
+    kernel reads q, k and v through TMA tensor maps, whose row strides and
+    base addresses must be multiples of 16 bytes: head dims that are
+    multiples of 8 and 16-byte aligned data. The float32 SIMT kernel takes
+    any head dim up to the library's maximum."""
+    lib = _library()
+    d, dv = q.shape[-1], v.shape[-1]
+    why = lib.flash_attention_fits(d, dv, q.data_ptr(), k.data_ptr(),
+                                   v.data_ptr(), DTYPE_CODES[q.dtype])
+    if why == 1:
+        return (f"head dims ({d}, {dv}) exceed the kernel's "
+                f"{lib.flash_attention_max_head_dim()}")
+    if why == 2:
+        return (f"head dims ({d}, {dv}) are not multiples of 8, which the "
+                f"bfloat16 kernel's TMA loads need")
+    if why == 3:
+        off = [n for n, x in (("q", q), ("k", k), ("v", v))
+               if x.data_ptr() % 16]
+        return (f"{', '.join(off)} not 16-byte aligned, which the bfloat16 "
+                f"kernel's TMA loads need")
+    return None
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True,
                          scale: float | None = None,
                          window: int | None = None,
                          softcap: float | None = None) -> torch.Tensor:
-    """Launch the kernel on the current stream of the inputs' device.
-    Unguarded: the caller has checked shapes (head dims at most
-    ``MAX_HEAD_DIM``), types, contiguity and that nothing is empty."""
-    fn, err_str = _launcher()
+    """Launch the kernel of the inputs' dtype (bfloat16: tensor cores;
+    float32: SIMT) on the current stream of their device. Unguarded: the
+    caller has checked shapes (head dims at most ``MAX_HEAD_DIM``),
+    types, contiguity, :func:`refusal` and that nothing is empty."""
+    lib = _library()
     b, s, hq, d = q.shape
     hkv, dv = k.shape[2], v.shape[-1]
     scale = d ** -0.5 if scale is None else scale
     out = torch.empty((b, s, hq, dv), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 b, s, hq, hkv, d, dv, scale, int(causal),
-                 0 if window is None else window,
-                 0.0 if softcap is None else softcap, DTYPE_CODES[q.dtype],
-                 torch.cuda.current_stream().cuda_stream)
+        err = lib.flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b, s, hq, hkv, d, dv, scale, int(causal),
+            0 if window is None else window,
+            0.0 if softcap is None else softcap, DTYPE_CODES[q.dtype],
+            torch.cuda.current_stream().cuda_stream)
     if err != 0:
+        what = lib.flash_attention_error_string(err).decode()
         raise RuntimeError(f"flash_attention launch failed: CUDA error "
-                           f"{err} ({err_str(err).decode()})")
+                           f"{err} ({what})")
     return out

@@ -219,7 +219,10 @@ def _check_rank(name: str, x: torch.Tensor, rank: int, layout: str) -> None:
 
 def _check_attention_options(name: str, hq: int, hkv: int, d: int, dv: int,
                              softcap, device: torch.device,
-                             window=None) -> None:
+                             window=None, tensors=None) -> None:
+    """What the kernels of ``name`` cannot take; ``tensors`` (q, k, v),
+    where given, are also held to :func:`flash_attention.refusal` on the
+    card (the bfloat16 kernel's TMA loads)."""
     if hkv == 0 or hq % hkv:
         raise ValueError(f"{name}: {hq} q heads are not a multiple of "
                          f"{hkv} kv heads")
@@ -230,6 +233,10 @@ def _check_attention_options(name: str, hq: int, hkv: int, d: int, dv: int,
     if device.type == "cuda" and max(d, dv) > _fa.MAX_HEAD_DIM:
         raise ValueError(f"{name}: head dims ({d}, {dv}) exceed the "
                          f"kernel's {_fa.MAX_HEAD_DIM}")
+    if device.type == "cuda" and tensors is not None:
+        why = _fa.refusal(*tensors)
+        if why is not None:
+            raise ValueError(f"{name}: {why}")
 
 
 def rmsnorm(x, w, *, eps: float = 1e-6,
@@ -261,8 +268,10 @@ def flash_attention(q, k, v, *, causal: bool = True,
     """Prefill attention (see :mod:`.flash_attention`): ``q`` (B, S, Hq,
     D), ``k`` (B, S, Hkv, D), ``v`` (B, S, Hkv, Dv), one type (float32
     or bfloat16), contiguous on one device; Hq a multiple of Hkv,
-    ``window`` None or >= 1, ``softcap`` None or > 0. Returns (B, S, Hq,
-    Dv) in q's type."""
+    ``window`` None or >= 1, ``softcap`` None or > 0; on the card, head
+    dims at most 256, and for bfloat16 multiples of 8 with 16-byte aligned
+    tensors (:func:`.flash_attention.refusal`). Returns (B, S, Hq, Dv) in
+    q's type."""
     device = _check_tensors("flash_attention", dict(q=q, k=k, v=v),
                             dict(q=FLOAT_TYPES, k=FLOAT_TYPES,
                                  v=FLOAT_TYPES))
@@ -274,7 +283,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     check_shape("flash_attention.k", k, (b, s, hkv, d))
     check_shape("flash_attention.v", v, (b, s, hkv, dv))
     _check_attention_options("flash_attention", hq, hkv, d, dv, softcap,
-                             device, window)
+                             device, window, tensors=(q, k, v))
     if device.type == "cpu":
         return _fa.flash_attention_torch(q, k, v, causal=causal, scale=scale,
                                          window=window, softcap=softcap)

@@ -38,6 +38,13 @@ def rmsnorm_torch(x, w, *, eps: float = 1e-6,
     return ((xf * torch.rsqrt(var + eps)) * wf).to(x.dtype)
 
 
+def row_threads(d: int, dtype: torch.dtype) -> int:
+    """Threads per row the kernel's vector path gives a row of ``d``
+    elements of ``dtype`` with aligned pointers; 0 where only its scalar
+    path can take the row (from the library)."""
+    return _launcher()[2](d, DTYPE_CODES[dtype])
+
+
 @functools.cache
 def _launcher():
     lib = build.load("rmsnorm")
@@ -49,7 +56,10 @@ def _launcher():
     err_str = lib.rmsnorm_error_string
     err_str.argtypes = [ctypes.c_int]
     err_str.restype = ctypes.c_char_p
-    return fn, err_str
+    threads = lib.rmsnorm_row_threads
+    threads.argtypes = [ctypes.c_int, ctypes.c_int]
+    threads.restype = ctypes.c_int
+    return fn, err_str, threads
 
 
 def rmsnorm_cuda(x, w, *, eps: float = 1e-6,
@@ -57,7 +67,7 @@ def rmsnorm_cuda(x, w, *, eps: float = 1e-6,
     """Launch the kernel on the current stream of the inputs' device.
     Unguarded: the caller has checked shapes, types, contiguity and that
     the tensor is not empty; a launch the card refuses raises here."""
-    fn, err_str = _launcher()
+    fn, err_str, _ = _launcher()
     d = x.shape[-1]
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):

@@ -278,6 +278,134 @@ def test_flash_attention_kernel_close_to_plain_version(
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,hq,hkv,d,causal,window,softcap", [
+    (2, 700, 32, 32, 224, True, None, None),   # zamba2-7b's shared block
+    (1, 200, 4, 2, 80, True, None, None),      # head dims off 64 and 128
+    (1, 200, 4, 2, 96, True, 64, 50.0),
+    (1, 1, 4, 2, 128, True, None, None),       # S around the 128-row tile
+    (1, 64, 4, 2, 128, True, None, None),
+    (2, 127, 4, 2, 256, True, None, 50.0),
+    (1, 128, 4, 2, 256, True, None, None),
+    (2, 129, 4, 2, 64, True, None, 30.0),
+    (1, 300, 4, 2, 64, True, 16, None),        # a window inside a KV tile
+    (1, 300, 4, 2, 128, True, 200, 50.0),      # one across KV tiles
+    (1, 300, 4, 2, 64, True, 300, None),       # windows >= S
+    (1, 300, 4, 2, 64, True, 1000, None),
+    (1, 333, 16, 2, 128, True, None, None),    # GQA 8:1
+    (2, 250, 4, 2, 64, False, 100, None),      # bidirectional window
+])
+def test_flash_attention_kernels_at_the_tile_edges(
+        cuda, dtype, b, s, hq, hkv, d, causal, window, softcap):
+    """bfloat16 through the tensor-core kernel, float32 through the SIMT
+    kernel, at head dims, sequence lengths and windows around their
+    tiles (64-column boxes, 128 query rows, 64-key tiles)."""
+    q = rand(cuda, (b, s, hq, d), dtype, 13)
+    k = rand(cuda, (b, s, hkv, d), dtype, 14)
+    v = rand(cuda, (b, s, hkv, d), dtype, 15)
+    before = ops.flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=causal, window=window,
+                              softcap=softcap)
+    assert ops.flash_attention.launches == before + 1
+    want = flash_attention.flash_attention_torch(
+        q, k, v, causal=causal, window=window, softcap=softcap)
+    torch.cuda.synchronize()
+    assert_close_to_plain(got, want)
+
+
+def test_flash_attention_bf16_launches_are_bitwise_equal(cuda):
+    """No atomics and a fixed order of products: two launches of the
+    tensor-core kernel on the same inputs give the same bits."""
+    q = rand(cuda, (2, 1000, 8, 256), torch.bfloat16, 16)
+    k = rand(cuda, (2, 1000, 4, 256), torch.bfloat16, 17)
+    v = rand(cuda, (2, 1000, 4, 256), torch.bfloat16, 18)
+    kw = dict(window=300, softcap=50.0)
+    first = ops.flash_attention(q, k, v, **kw)
+    second = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,d,window,softcap", [
+    (1, 700, 8, 4, 256, 256, 50.0), (2, 300, 32, 32, 224, None, None),
+    (1, 129, 4, 1, 80, None, 30.0)])
+def test_flash_attention_float32_meets_rtol_through_the_simt_kernel(
+        cuda, b, s, hq, hkv, d, window, softcap):
+    """float32 stays on the SIMT kernel (no tensor-core form keeps float32's
+    rtol 1e-5)."""
+    q, k, v = (rand(cuda, (b, s, h, d), torch.float32, 19 + i)
+               for i, h in enumerate((hq, hkv, hkv)))
+    kw = dict(window=window, softcap=softcap)
+    got = ops.flash_attention(q, k, v, **kw)
+    want = flash_attention.flash_attention_torch(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert_close_to_plain(got, want)
+
+
+def test_flash_attention_refuses_what_its_tma_loads_cannot_take(cuda):
+    """bfloat16 on the card: head dims that are multiples of 8 and 16-byte
+    aligned tensors, or a ValueError before anything launches; float32
+    (the SIMT kernel) takes both. The rule is the library's
+    (``flash_attention_fits``), read through ``refusal``."""
+    def qkv(d, dtype, offset=0):
+        flat = rand(cuda, (3 * 2 * 40 * 4 * d + offset,), dtype, 20)
+        return [flat[offset + i * 320 * d:offset + (i + 1) * 320 * d]
+                .view(2, 40, 4, d) for i in range(3)]
+    fa = flash_attention
+    assert fa.refusal(*qkv(16, torch.bfloat16)) is None
+    assert "multiples of 8" in fa.refusal(*qkv(20, torch.bfloat16))
+    assert "q, k, v not 16-byte aligned" in fa.refusal(
+        *qkv(16, torch.bfloat16, 1))
+    assert fa.refusal(*qkv(20, torch.float32)) is None
+    assert fa.refusal(*qkv(16, torch.float32, 1)) is None
+    assert "exceed the kernel's 256" in fa.refusal(*qkv(264, torch.float32))
+    counts = ops.flash_attention.launches
+    for args in (qkv(20, torch.bfloat16), qkv(64, torch.bfloat16, 1)):
+        assert all(x.is_contiguous() for x in args)
+        with pytest.raises(ValueError, match="TMA"):
+            ops.flash_attention(*args)
+    assert ops.flash_attention.launches == counts
+    for args in (qkv(20, torch.float32), qkv(64, torch.float32, 1)):
+        got = ops.flash_attention(*args)
+        torch.cuda.synchronize()
+        assert_close_to_plain(got,
+                              flash_attention.flash_attention_torch(*args))
+    assert ops.flash_attention.launches == counts + 2
+
+
+@pytest.mark.parametrize("rows", [1, 4000])
+@pytest.mark.parametrize("d", [1536, 3072, 3584, 7168])
+def test_rmsnorm_kernel_at_the_path_widths(cuda, rows, d):
+    """The serving path's widths (mamba2-780m, zamba2-7b and its shared
+    block), one decode row and a 4,000-row prefill, through the vector
+    path."""
+    assert rmsnorm.row_threads(d, torch.bfloat16) > 0
+    x = rand(cuda, (rows, d), torch.bfloat16, 21)
+    w = rand(cuda, (d,), torch.bfloat16, 22, 0.1)
+    got = ops.rmsnorm(x, w, zero_centered=True)
+    want = rmsnorm.rmsnorm_torch(x, w, zero_centered=True)
+    torch.cuda.synchronize()
+    assert_close_to_plain(got, want)
+
+
+def test_rmsnorm_kernel_scalar_path(cuda):
+    """What the vector path cannot take goes through the scalar one: an
+    ``x[..., 1:]`` copy made contiguous at d = 1001 (not a multiple of the
+    vector), and a contiguous view 2 bytes off 16-byte alignment at
+    d = 1000."""
+    assert rmsnorm.row_threads(1001, torch.bfloat16) == 0
+    assert rmsnorm.row_threads(1000, torch.bfloat16) == 32
+    base = rand(cuda, (37, 1002), torch.bfloat16, 23)
+    flat = rand(cuda, (37 * 1000 + 1,), torch.bfloat16, 24)
+    for x in (base[..., 1:].contiguous(), flat[1:].view(37, 1000)):
+        assert x.is_contiguous()
+        w = rand(cuda, x.shape[-1:], torch.float32, 25, 0.1)
+        got = ops.rmsnorm(x, w)
+        want = rmsnorm.rmsnorm_torch(x, w)
+        torch.cuda.synchronize()
+        assert_close_to_plain(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,t,hq,hkv,d,ring,softcap,pos", [
     (4, 544, 8, 4, 256, False, 50.0, [511, 300, 0, 543]),
     (4, 544, 8, 4, 256, True, 50.0, [600, 543, 10, 2000]),

@@ -294,6 +294,13 @@ def test_entry_points_reject_what_their_kernels_do_not_take():
     for exc, call in bad:
         with pytest.raises(exc):
             call()
+    # on the card, the bfloat16 kernel's TMA loads also need head dims that
+    # are multiples of 8 and 16-byte aligned tensors (the library's rule,
+    # held on the card by test_torch_cuda.py); the CPU runs the plain
+    # version, which needs neither
+    flat = torch.zeros(3 * 40 * 20 + 1, dtype=torch.bfloat16)
+    ops.flash_attention(*[flat[1 + i * 800:1 + (i + 1) * 800]
+                          .view(1, 10, 4, 20) for i in range(3)])
 
 
 def test_cpu_calls_run_the_plain_versions_without_counting():
