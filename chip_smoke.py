@@ -19,10 +19,14 @@ Run from the repository root (it puts ``src`` on ``sys.path`` itself):
    (one float32 rounding per relaxation step); T_exec == T_est at jitter
    0 (the analytic simulator reproduces the schedule); the kernel equal
    to its plain PyTorch version with ``torch.equal`` on the same device
-   tensors at every main-path shape; a non-zero launch count.
+   tensors at every main-path shape, and the sweeps each row ran equal to
+   the plain stop's (``fixpoint_sweeps_torch``); a non-zero launch count.
 4. Numbers: per shape, the kernel's time from CUDA events, the plain
-   version's, the bound and what bounds it; a host-side breakdown of
-   ``simulate_batch``.
+   version's, the bound (from the inputs alone: read once, or one
+   topological pass of operations) and what bounds it, the launch plan
+   (cluster size k, staged or L2 variant) and the sweeps the rows ran
+   before their fixpoint (max, median) against ``n_steps``; a host-side
+   breakdown of ``simulate_batch``.
 5. Online path, at 256 cores (``cluster_of_multicores(n_blades=32)``):
    64 bursty arrivals at rho=0.9 admitted by
    ``make_policy("batched", k=16, scorer="kernel", device="cuda")``
@@ -93,12 +97,14 @@ Run from the repository root (it puts ``src`` on ``sys.path`` itself):
    plain path is, a gate that must fail the kernel path with a planted
    fault in ``ssd_scan`` (the carry between chunks dropped); run C equal
    to ``generate`` alone. Numbers: per run prefill ms, decode ms per
-   step, tokens/s; ssd_scan's kernel, plain and bound ms at every path
-   shape; ``rmsnorm`` at every prefill width (1536, 3072, 3584, 7168)
-   against ``F.rms_norm``; ``flash_attention`` at zamba2's (2, 700, 32,
-   224) against causal ``scaled_dot_product_attention``, which computes
-   the same function there (no softcap, no window); the bf16 gate's
-   reading with each planted fault; a decode step's profile per model.
+   step, tokens/s; ssd_scan's kernel, plain and bound ms and its error
+   over the 2-ulp gate's bound at every path shape, and the device ms of
+   each of its passes at the largest; ``rmsnorm`` at every prefill width
+   (1536, 3072, 3584, 7168) against ``F.rms_norm``; ``flash_attention``
+   at zamba2's (2, 700, 32, 224) against causal
+   ``scaled_dot_product_attention``, which computes the same function
+   there (no softcap, no window); the bf16 gate's reading with each
+   planted fault; a decode step's profile per model.
 8. Dense path, on the four shapes of phase 2: ``lint_batch`` ->
    ``dense_lags`` -> ``ops.sim_relax(n_steps=depth)`` (the hand-written
    ``sim_step`` kernel), its count zeroed just before and read just
@@ -119,8 +125,9 @@ Run from the repository root (it puts ``src`` on ``sys.path`` itself):
    rtol 1e-5 of its float64 append-only decode; ``ga_schedule`` with
    the device GA valid and never worse than ``engine``. Numbers: search
    wall seconds, ms per generation, the host GA's seconds at the same
-   budget, ``sim_relax_pop``'s kernel, plain and bound ms at the GA's
-   shapes.
+   budget, ``sim_relax_pop``'s kernel, plain and bound ms, plan and
+   sweeps run against ``n_steps = S`` at the GA's shapes (the kernels
+   line reports the larger of the two).
 10. Verify: ``simulate_suite(..., verify=True)`` on the 64-core suites
    (the kernel) and ``get_scheduler("engine", verify=True)``; a result
    with one finish time moved before its predecessor's must raise
@@ -318,21 +325,40 @@ def same_scores(got, want) -> bool:
 
 
 def sim_row(name, args, steps, ops, sim_relax_pop_cuda, sim_relax_pop_torch):
-    """Kernel vs plain on the same device tensors, times and bound."""
+    """Kernel vs plain on the same device tensors, times and bound, the
+    launch plan (cluster size k, variant) and the sweeps the rows ran
+    against ``n_steps``."""
     import torch
+
+    from repro_torch.kernels.sim_step import (fixpoint_sweeps_torch,
+                                              pop_plan)
     got = ops.sim_relax_pop(*args, n_steps=steps)
     want = sim_relax_pop_torch(*args, n_steps=steps)
+    _, sweeps = sim_relax_pop_cuda(*args, n_steps=steps, with_sweeps=True)
+    stopped, want_sweeps = fixpoint_sweeps_torch(*args, n_steps=steps)
     torch.cuda.synchronize()
     if not torch.equal(got, want):
         fail(f"{name}: kernel != plain version, max abs err "
              f"{(got - want).abs().max().item():.3e}")
+    if not torch.equal(stopped, want):
+        fail(f"{name}: the plain stop at the fixpoint != {steps} sweeps")
+    if not torch.equal(sweeps, want_sweeps):
+        fail(f"{name}: the kernel's sweeps (max {int(sweeps.max())}) != "
+             f"the plain stop's (max {int(want_sweeps.max())})")
     b, s, p1 = args[0].shape
+    plan = pop_plan(b, s, p1)
     ms = cuda_ms(lambda: sim_relax_pop_cuda(*args, n_steps=steps), 20)
     plain_ms = cuda_ms(lambda: sim_relax_pop_torch(*args, n_steps=steps), 5)
     n_bytes = sum(x.numel() * x.element_size() for x in args) + b * s * 4
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    # from the inputs alone: one pass in topological order (the scan
+    # population_ends) gives the result, 3 operations per (b, s, p)
     t_ops = b * s * p1 * 3 / FP32_OPS_PER_S * 1e3
     return dict(name=name, B=b, S=s, P1=p1, depth=steps,
+                sweeps_max=int(sweeps.max()),
+                sweeps_median=float(sweeps.float().median()),
+                k=plan.k, variant=plan.variant,
+                shared_bytes=plan.shared_bytes,
                 max_abs_err=(got - want).abs().max().item(), ms=ms,
                 plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -351,6 +377,8 @@ RUN_C = dict(n_slots=4, max_seq=1024, n_requests=8, prompt=(37, 700),
 SSM_RUN_A = dict(batch=4, prompt=512, gen=32)  # two whole chunks of 256
 SSM_RUN_B = dict(batch=1, prompt=4000, gen=16)  # 15 chunks + a ragged 160
 SSM_RUN_D = dict(batch=2, prompt=700, gen=16)  # zamba2-7b
+SCAN_RUNS = {(4, 512, 48, 64): "mamba2_A", (1, 4000, 48, 64): "mamba2_B",
+             (2, 700, 112, 64): "zamba2_D"}   # ssd_scan's bf16 x by run
 BF16_OPS_PER_S = 989e12             # H100 SXM dense bf16 tensor-core rate
 NORM_STD = 0.1                      # norm scales redrawn N(0, 0.1)
 LOGIT_REL = 5e-2                    # teacher-forced logits: check_teacher_forced
@@ -366,18 +394,30 @@ def close_to_plain(got, want):
     1e-5 x max|want| (sums in another order; outputs that cancel near
     zero). bfloat16: at most 2 bfloat16 ulps of max(|want|, max|want| /
     256): both versions compute in float32 and round once."""
-    import torch
     g, w = got.double(), want.double()
     err = (g - w).abs()
+    ok = got.shape == want.shape and got.dtype == want.dtype \
+        and bool((err <= plain_bound(want)).all())
+    return ok, float(err.max()) if err.numel() else 0.0
+
+
+def plain_bound(want):
+    """``close_to_plain``'s bound on each element's error."""
+    import torch
+    w = want.double()
     amax = float(w.abs().max()) if w.numel() else 0.0
     if want.dtype == torch.float32:
-        bound = 1e-5 * w.abs() + 1e-5 * amax
-    else:
-        mag = torch.clamp(w.abs(), min=max(amax / 256, 2.0 ** -126))
-        bound = 2 * torch.exp2(torch.floor(torch.log2(mag)) - 7)
-    ok = got.shape == want.shape and got.dtype == want.dtype \
-        and bool((err <= bound).all())
-    return ok, float(err.max()) if err.numel() else 0.0
+        return 1e-5 * w.abs() + 1e-5 * amax
+    mag = torch.clamp(w.abs(), min=max(amax / 256, 2.0 ** -126))
+    return 2 * torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def gate_ratio(got, want):
+    """The largest error over ``close_to_plain``'s bound (<= 1 passes)."""
+    if not want.numel():
+        return 0.0
+    err = (got.double() - want.double()).abs()
+    return float((err / plain_bound(want)).max())
 
 
 def visible_pairs(s, causal, window):
@@ -1298,8 +1338,13 @@ def ssm_phase(dev):
         x, dt, A, B, C, chunk = args
         n_bytes, flops = ssd_cost(x, dt, A, B, C, chunk)
         b_ms, b_by = bound(n_bytes, flops, BF16_OPS_PER_S)
+        got, want = ssd_scan_cuda(*args), ssd_scan_torch(*args)
         scan_rows.append(dict(
+            run=(SCAN_RUNS.get(tuple(x.shape), "other")
+                 if x.dtype == torch.bfloat16 else "float32 check"),
             shape=f"x {tuple(x.shape)} B {tuple(B.shape)} chunk {chunk}",
+            gate_ratio_y=gate_ratio(got[0], want[0]),
+            gate_ratio_state=gate_ratio(got[1], want[1]),
             ms=cuda_ms(lambda: ssd_scan_cuda(x, dt, A, B, C, chunk), 10),
             plain_ms=cuda_ms(lambda: ssd_scan_torch(x, dt, A, B, C, chunk),
                              3),
@@ -1307,6 +1352,14 @@ def ssm_phase(dev):
             flops=flops))
         print("ssd_scan " + json.dumps(scan_rows[-1]))
     top = scan_rows[0]
+    # where the largest call's time goes: device ms per launch of each
+    # pass (the profiler's total over the launches it saw)
+    x, dt, A, B, C, chunk = by_flops[0][0]
+    passes = profile_step(lambda: ssd_scan_cuda(x, dt, A, B, C, chunk),
+                          {}).get("top_device_time_per_step", [])
+    top["passes_ms"] = {e["name"]: e["ms"] / e["calls"] for e in passes}
+    print(f"ssd_scan passes at {top['shape']} "
+          + json.dumps(top["passes_ms"]))
     label = {"A": "mamba2_A", "B": "mamba2_B", "C": "mamba2_C",
              "D": "zamba2_D"}
     by_run = {k: {label[r]: launches[r][k] for r in launches}
@@ -2005,7 +2058,10 @@ def main() -> int:
         row["launches_by_path"].update(ssm_launches[name])
         row["max_abs_err"] = max(row["max_abs_err"], ssm_err[name])
 
-    main_row = max(kernel_rows, key=lambda x: x["bytes"])
+    # the device GA's largest shape: where the path spends its launches
+    main_row = max((r for r in kernel_rows
+                    if r["name"].startswith("device-ga")),
+                   key=lambda x: x["bytes"])
     score_row = max(score_rows, key=lambda x: x["bytes"])
     print(json.dumps({"kernels": [dict(
         name="sim_relax_pop", route="cuda",
@@ -2020,7 +2076,10 @@ def main() -> int:
         max_abs_err=max(x["max_abs_err"] for x in kernel_rows),
         ms=main_row["ms"], plain_ms=main_row["plain_ms"],
         bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
-        library_ms=None, shape=main_row["name"]), dict(
+        library_ms=None, shape=main_row["name"], k=main_row["k"],
+        variant=main_row["variant"], sweeps_max=main_row["sweeps_max"],
+        sweeps_median=main_row["sweeps_median"],
+        n_steps=main_row["depth"]), dict(
         name="sched_score", route="cuda",
         source="src/repro_torch/kernels/csrc/sched_score.cu",
         replaces="src/repro/kernels/sched_score.py:47",

@@ -94,11 +94,11 @@ def sim_relax_pop(pred, lat, volbw, duration, release, *,
     if device.type == "cpu":
         return _sim.sim_relax_pop_torch(pred, lat, volbw, duration, release,
                                         n_steps=n_steps)
-    if _sim.shared_bytes(s) > _sim.MAX_SHARED_BYTES:
+    need = _sim.pop_plan(b, s, p1).shared_bytes
+    if need > _sim.MAX_SHARED_BYTES:
         raise ValueError(
-            f"sim_relax_pop: S={s} needs {_sim.shared_bytes(s)} bytes of "
-            f"shared memory per block, more than the "
-            f"{_sim.MAX_SHARED_BYTES} a block may use")
+            f"sim_relax_pop: S={s} needs {need} bytes of shared memory per "
+            f"block, more than the {_sim.MAX_SHARED_BYTES} a block may use")
     if b == 0 or s == 0:
         return torch.zeros((b, s), dtype=torch.float32, device=device)
     out = _sim.sim_relax_pop_cuda(pred, lat, volbw, duration, release,

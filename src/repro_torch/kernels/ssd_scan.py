@@ -20,7 +20,10 @@ sum (a parallel scan on the card, a sequential one here). Any S >= 1 is
 taken: the ragged last chunk behaves as ``dt = 0`` padding (exact: decay
 1, no update), and ``y`` covers the real positions only.
 
-The CUDA kernel lives in ``csrc/ssd_scan.cu``;
+The CUDA kernel lives in ``csrc/ssd_scan.cu``: three passes (the
+chunks' local states, the carry between chunks, the chunks' outputs),
+bf16 products on the tensor cores with float32 operands split into bf16
+hi + lo, float32 on SIMT FMAs;
 :func:`repro_torch.kernels.ops.ssd_scan` is the guarded entry point that
 picks between the two.
 """
@@ -86,7 +89,7 @@ def ssd_scan_torch(x, dt, A, B, C, chunk: int = 256):
 @functools.cache
 def _library():
     lib = build.load("ssd_scan")
-    lib.ssd_scan.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 \
+    lib.ssd_scan.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 \
         + [ctypes.c_void_p]
     lib.ssd_scan.restype = ctypes.c_int
     lib.ssd_scan_error_string.argtypes = [ctypes.c_int]
@@ -125,19 +128,30 @@ def shared_bytes(p: int, n: int, chunk: int) -> int:
 
 
 def ssd_scan_cuda(x, dt, A, B, C, chunk: int = 256):
-    """Launch the kernel on the current stream of the inputs' device.
+    """Launch the kernel's three passes on the current stream of the
+    inputs' device, with scratch for the chunks' cumsums and states
+    (float32; in bf16 also the entering states split into hi + lo).
     Unguarded: the caller has checked shapes (:func:`refusal`), types,
     contiguity and that nothing is empty."""
     lib = _library()
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
+    nc = -(-s // chunk)
     y = torch.empty_like(x)
     state = torch.empty((b, h, p, n), dtype=x.dtype, device=x.device)
+    cs = torch.empty((b, h, nc * chunk), dtype=torch.float32,
+                     device=x.device)
+    local = torch.empty((b, h, nc, p, n), dtype=torch.float32,
+                        device=x.device)
+    split = torch.empty((b, h, nc, 2, p, n) if x.dtype == torch.bfloat16
+                        else (0,), dtype=torch.int16, device=x.device)
     with torch.cuda.device(x.device):
-        err = lib.ssd_scan(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-                 C.data_ptr(), y.data_ptr(), state.data_ptr(), b, s, h, p,
-                 g, n, chunk, DTYPE_CODES[x.dtype],
-                 torch.cuda.current_stream().cuda_stream)
+        err = lib.ssd_scan(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+            C.data_ptr(), y.data_ptr(), state.data_ptr(), cs.data_ptr(),
+            local.data_ptr(), split.data_ptr(), b, s, h, p, g, n, chunk,
+            DTYPE_CODES[x.dtype],
+            torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan launch failed: CUDA error {err} "
                            f"({lib.ssd_scan_error_string(err).decode()})")

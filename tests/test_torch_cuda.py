@@ -80,6 +80,86 @@ def test_kernel_equals_plain_version(cuda, b, s, p1, n_steps):
     assert torch.equal(got, want)
 
 
+def dag_inputs(seed, b, s, p1):
+    """``pop_inputs`` made acyclic (every source before its subtask, else
+    the sentinel), so that rows settle and the kernel's stop shows."""
+    pred, lat, volbw, dur, rel = pop_inputs(seed, b, s, p1)
+    pred = np.where(pred < np.arange(s)[None, :, None], pred,
+                    s).astype(np.int32)
+    return pred, lat, volbw, dur, rel
+
+
+def staging_limit(b, p1):
+    """The least S at which ``pop_plan`` leaves the staged variant."""
+    s = 32
+    while sim_step.pop_plan(b, s, p1).variant == "staged":
+        s += 1
+    return s
+
+
+# (B, S, P+1, n_steps, inputs, k, variant): every cluster size the rule
+# picks, both variants, cyclic inputs, n_steps 0, 1 and below the depth,
+# odd B; S = None is just under / over the staging limit at (1, *, 64)
+POP_PLAN_CASES = [
+    (132, 300, 5, 300, "dag", 1, "staged"),
+    (66, 300, 5, 300, "dag", 2, "staged"),
+    (33, 300, 5, 300, "dag", 4, "staged"),
+    (16, 600, 5, 600, "dag", 8, "staged"),
+    (3, 2000, 9, 2000, "dag", 16, "staged"),
+    (160, 815, 28, 200, "dag", 1, "l2"),
+    (40, 2000, 23, 300, "dag", 2, "l2"),
+    (1, "under", 64, 400, "dag", 16, "staged"),
+    (1, "over", 64, 400, "dag", 16, "l2"),
+    (33, 400, 6, 50, "cyclic", 4, "staged"),
+    (5, 1300, 7, 20, "cyclic", 16, "staged"),
+    (33, 500, 5, 0, "dag", 4, "staged"),
+    (33, 500, 5, 1, "dag", 4, "staged"),
+    (33, 500, 5, 3, "dag", 4, "staged"),
+]
+
+
+@pytest.mark.parametrize("b,s,p1,n_steps,kind,k,variant", POP_PLAN_CASES)
+def test_sim_relax_pop_equals_plain_under_every_plan(cuda, b, s, p1, n_steps,
+                                                     kind, k, variant):
+    """Bit for bit against the plain version for each cluster size and
+    variant, with the rows' sweeps no more than ``n_steps`` and equal to
+    the plain stop's count (``fixpoint_sweeps_torch`` on the CPU)."""
+    if not isinstance(s, int):
+        limit = staging_limit(b, p1)
+        s = limit - 1 if s == "under" else limit
+    plan = sim_step.pop_plan(b, s, p1)
+    assert (plan.k, plan.variant) == (k, variant)
+    arrays = (dag_inputs if kind == "dag" else pop_inputs)(b + s, b, s, p1)
+    args = on(cuda, arrays)
+    before = ops.sim_relax_pop.launches
+    got = ops.sim_relax_pop(*args, n_steps=n_steps)
+    assert ops.sim_relax_pop.launches == before + 1
+    again, sweeps = sim_step.sim_relax_pop_cuda(*args, n_steps=n_steps,
+                                                with_sweeps=True)
+    want = sim_step.sim_relax_pop_torch(*args, n_steps=n_steps)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(again, want)
+    _, cpu_sweeps = sim_step.fixpoint_sweeps_torch(
+        *on("cpu", arrays), n_steps=n_steps)
+    assert torch.equal(sweeps.cpu(), cpu_sweeps)
+    assert int(sweeps.max()) <= n_steps
+    if kind == "cyclic":
+        assert int(sweeps.min()) == n_steps
+
+
+def test_sim_relax_pop_plans_fit_the_card(cuda):
+    """The occupancy query accepts the plan at the main paths' largest
+    shapes and at the staging limit, and refuses a block past the
+    shared memory one may use."""
+    for b, s, p1 in [(32, 1090, 27), (160, 815, 28), (4, 1235, 31),
+                     (64, 1235, 31), (32, 5628, 8), (1, 4785, 64),
+                     (3, 17, 4)]:
+        assert sim_step.max_active_clusters(
+            sim_step.pop_plan(b, s, p1), 0) >= 1
+    too_big = sim_step.PopPlan(1, "l2", sim_step.MAX_SHARED_BYTES + 4, 32)
+    assert sim_step.max_active_clusters(too_big, 0) == 0
+
+
 def test_kernel_guards_on_the_card(cuda):
     pred, lat, volbw, dur, rel = on(cuda, pop_inputs(1, 2, 10, 3))
     bad = pred.clone()
@@ -516,6 +596,10 @@ def ssd_inputs(device, b, s, h, p, g, n, dtype, seed):
     (1, 1, 4, 64, 1, 128, 256),        # one position
     (2, 100, 8, 16, 2, 16, 8),         # reduced widths, two groups
     (3, 300, 6, 40, 3, 100, 96),       # P, N, chunk off the tile grid
+    (1, 700, 48, 64, 1, 128, 256),     # run C's longest prompt
+    (1, 200, 4, 64, 1, 128, 1),        # chunk 1
+    (2, 300, 8, 64, 2, 64, 64),        # chunk 64, two groups, ragged
+    (1, 1, 4, 64, 2, 64, 64),          # one position, two groups
 ])
 def test_ssd_scan_kernel_close_to_plain_version(cuda, dtype, b, s, h, p, g,
                                                 n, chunk):

@@ -1,5 +1,6 @@
 """The port stands alone: importing it loads neither JAX nor the JAX
-package, and no module of it (nor ``chip_smoke.py``) imports either."""
+package, and no module of it (nor ``chip_smoke.py`` or ``tools/*.py``)
+imports either."""
 
 import ast
 import subprocess
@@ -10,7 +11,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"]
+    + [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 

@@ -125,6 +125,11 @@ def test_shared_memory_need_of_a_block():
     assert sim_step.shared_bytes(1700) < 48 * 1024
     assert sim_step.shared_bytes(29_055) <= sim_step.MAX_SHARED_BYTES
     assert sim_step.shared_bytes(29_056) > sim_step.MAX_SHARED_BYTES
+    # a CTA also holds the two vote flags: the launch plan's limit
+    assert sim_step.pop_plan(1, 29_053, 1).shared_bytes \
+        <= sim_step.MAX_SHARED_BYTES
+    assert sim_step.pop_plan(1, 29_054, 1).shared_bytes \
+        > sim_step.MAX_SHARED_BYTES
 
 
 def test_build_route_flags_and_ignored_output_dir(monkeypatch):
