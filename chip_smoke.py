@@ -69,8 +69,12 @@ Run from the repository root (it puts ``src`` on ``sys.path`` itself):
    shape the kernel's, plain version's and library call's ms and the
    bound, ``flash_attention`` (the bf16 tensor-core kernel) also with
    TFLOP/s against the bound's operation count; ``rmsnorm`` against
-   ``F.rms_norm`` at every prefill width, device ms from a CUDA graph;
-   side rows without softcap against ``scaled_dot_product_attention``;
+   ``F.rms_norm`` at every prefill width and ``flash_decode`` (and, with
+   no softcap, ``scaled_dot_product_attention``) at its largest path
+   shape, device ms from a CUDA graph over input copies past the L2,
+   back-to-back ms beside them; ``flash_decode`` also bitwise equal
+   across two launches at every path shape; side rows without softcap
+   against ``scaled_dot_product_attention``;
    where one decode step's time goes (host parts, the profiler's device
    time and top kernels).
 7. SSM and hybrid serving: mamba2-780m (48 layers, d 1536, 48 heads of
@@ -107,12 +111,23 @@ Run from the repository root (it puts ``src`` on ``sys.path`` itself):
    planted fault; a decode step's profile per model.
 8. Dense path, on the four shapes of phase 2: ``lint_batch`` ->
    ``dense_lags`` -> ``ops.sim_relax(n_steps=depth)`` (the hand-written
-   ``sim_step`` kernel), its count zeroed just before and read just
-   after. Checks: ``torch.equal`` to ``sim_relax_torch`` at every shape,
+   ``sim_step`` kernels: the lags compacted on the card, then
+   ``sim_relax_pop`` stopped at each row's fixpoint), its counts (calls
+   and variants) zeroed just before and read just after. Checks: the
+   compact variant gave every shape and ``ops.sim_relax_pop``'s count
+   did not move; ``torch.equal`` to ``sim_relax_torch`` at every shape,
    within rtol 1e-5 of the float64 ``relax_batch_np`` and of phase 2's
-   sparse results, ``ops.sim_step`` equal to its plain version at ragged
-   stress shapes (S = 37 and 1000) with -inf, and with NaN at the same
-   places. Numbers: kernel ms per call and per sweep, plain ms, the call
+   sparse results; the compaction equal to ``compact_lags_torch`` and
+   each row's sweeps equal to ``fixpoint_sweeps_torch``'s on the compact
+   form; the dense variant alone equal to the plain version;
+   ``ops.sim_step`` equal to its plain version at ragged stress shapes
+   (S = 37 and 1000) with -inf, and with NaN at the same places;
+   ``ops.sim_relax`` at S = 256 and 257 on a clean scenario (compact),
+   NaN lags and an +inf duration (dense) and ends that overflow
+   (compact, redone dense), equal to the plain version with NaN at the
+   same places and both variant counts moved. Numbers: the call's ms,
+   the compaction's and the stopped relaxation's, the dense variant's,
+   one sweep's, the plain ms, P+1, the sweeps (max, median), the call
    bound (inputs once) and the streaming bound (every sweep), host ms of
    ``dense_lags``.
 9. Device GA: ``ga_search`` with ``GAParams(device=True)`` at the
@@ -144,6 +159,7 @@ import contextlib
 import gc
 import itertools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -668,6 +684,9 @@ def check_against_plain(label, spies, plain, stress, ops):
             got = getattr(ops, name)(*args, **kw)
             want = plain[name](*args, **kw)
             torch.cuda.synchronize()
+            if name == "flash_decode" and not torch.equal(
+                    getattr(ops, name)(*args, **kw), got):
+                fail(f"{label} {name} {case}: two launches differ")
             for g, w in zip(*((got, want) if isinstance(got, tuple)
                               else ((got,), (want,)))):
                 ok, err = close_to_plain(g, w)
@@ -677,7 +696,9 @@ def check_against_plain(label, spies, plain, stress, ops):
                          f"{err:.3e})")
                 max_err[name] = max(max_err[name], err)
         print(f"{label} {name}: {len(cases)} shapes within tolerance of the "
-              f"plain version, max abs err {max_err[name]:.3e}")
+              f"plain version, max abs err {max_err[name]:.3e}"
+              + (", bitwise equal across launches"
+                 if name == "flash_decode" else ""))
     return max_err
 
 
@@ -998,13 +1019,70 @@ def attention_row(q, k, v, akw, library=None):
         bytes=n_bytes, flops=flops, args=((q, k, v), akw))
 
 
+def decode_row(q, kc, vc, pos, dkw):
+    """``flash_decode`` at one shape: the kernel's, the plain version's
+    and (without a softcap, where it computes the same function)
+    ``scaled_dot_product_attention``'s device ms from a CUDA graph of
+    calls that take turns over copies of the cache holding three times
+    the L2, so each reads the cache from device memory as the path's
+    layers do; the kernel's and the library's back-to-back ms on one
+    cache beside them (``*_eager_ms``, the path's launch cost and an L2
+    that is warm); the bound and what bounds it."""
+    from repro_torch.kernels.flash_decode import (flash_decode_cuda,
+                                                  flash_decode_torch,
+                                                  valid_slots)
+    ring = dkw.get("ring", False)
+    n_bytes, flops = decode_cost(q, kc, vc, pos, ring=ring)
+    b_ms, b_by = bound(n_bytes, flops, BF16_OPS_PER_S)
+    cache = kc.numel() * kc.element_size() + vc.numel() * vc.element_size()
+    copies = [(kc, vc)] + [(kc.clone(), vc.clone())
+                           for _ in range(-(-3 * L2_BYTES // cache))]
+    turn = itertools.count()
+    mask = valid_slots(pos, kc.shape[1], ring)[:, None, None, :]
+
+    def kernel():
+        k, v = copies[next(turn) % len(copies)]
+        return flash_decode_cuda(q, k, v, pos, **dkw)
+
+    def plain():
+        k, v = copies[next(turn) % len(copies)]
+        return flash_decode_torch(q, k, v, pos, **dkw)
+
+    def library(k=kc, v=vc):
+        return sdpa(q[:, None], k, v, mask, False, dkw.get("scale"))[:, 0]
+
+    def library_turns():
+        return library(*copies[next(turn) % len(copies)])
+    plain_lib = dkw.get("softcap") is None
+
+    def ten_calls():
+        for _ in range(10):
+            kernel()
+    # the device ms of each of the kernel's launches (split, combine)
+    by_kernel = {}
+    for e in profile_step(ten_calls, {}).get("top_device_time_per_step", []):
+        name = re.search(r"decode_\w+_kernel", e["name"])
+        if name:
+            by_kernel[name.group(0)] = e["ms"] / 10
+    return dict(
+        shape=f"q {tuple(q.shape)} cache {tuple(kc.shape)} ring={ring} "
+              f"softcap={dkw.get('softcap')} pos={pos.tolist()}",
+        ms=graph_ms(kernel, 50), plain_ms=graph_ms(plain, 10),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=graph_ms(library_turns, 50) if plain_lib else None,
+        eager_ms=cuda_ms(lambda: flash_decode_cuda(q, kc, vc, pos, **dkw),
+                         50),
+        library_eager_ms=cuda_ms(library, 50) if plain_lib else None,
+        device_ms_by_kernel=by_kernel or "not measured",
+        copies=len(copies), bytes=n_bytes, flops=flops,
+        args=((q, kc, vc, pos), dkw))
+
+
 def serving_kernel_rows(label, spies):
     """Per serving kernel at its largest path shape: the kernel's, the
     plain version's and (where one exists) the library call's ms from
     CUDA events, the bound and what bounds it; ``rmsnorm`` at every
     prefill width, printed."""
-    from repro_torch.kernels.flash_decode import flash_decode_cuda
-    plain = plain_versions()
     rows = {"rmsnorm": max(norm_rows_by_width(label, spies["rmsnorm"])
                            .values(), key=lambda row: row["bytes"])}
 
@@ -1028,17 +1106,7 @@ def serving_kernel_rows(label, spies):
         return decode_cost(q, kc, vc, pos, ring=kw.get("ring", False))[0]
     _, ((dq, dkc, dvc, dpos), dkw) = max(spies["flash_decode"].calls.items(),
                                          key=dec_key)
-    n_bytes, flops = decode_cost(dq, dkc, dvc, dpos,
-                                 ring=dkw.get("ring", False))
-    b_ms, b_by = bound(n_bytes, flops, BF16_OPS_PER_S)
-    rows["flash_decode"] = dict(
-        shape=f"q {tuple(dq.shape)} cache {tuple(dkc.shape)} "
-              f"ring={dkw.get('ring', False)} pos={dpos.tolist()}",
-        ms=cuda_ms(lambda: flash_decode_cuda(dq, dkc, dvc, dpos, **dkw), 50),
-        plain_ms=cuda_ms(lambda: plain["flash_decode"](dq, dkc, dvc, dpos,
-                                                       **dkw), 50),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None, bytes=n_bytes,
-        flops=flops, args=((dq, dkc, dvc, dpos), dkw))
+    rows["flash_decode"] = decode_row(dq, dkc, dvc, dpos, dkw)
     return rows
 
 
@@ -1141,21 +1209,14 @@ def serve_phase(dev):
             **{k_: v_ for k_, v_ in row.items() if k_ != "args"}))
     (dq, dkc, dvc, dpos), dkw = rows["flash_decode"]["args"]
     dmask = valid_slots(dpos, dkc.shape[1], dkw["ring"])[:, None, None, :]
-    dscale = dkw.get("scale")
-    got = flash_decode_cuda(dq, dkc, dvc, dpos, ring=dkw["ring"],
-                            scale=dscale)
-
-    def sdpa_decode():
-        return sdpa(dq[:, None], dkc, dvc, dmask, False, dscale)[:, 0]
+    nkw = dict(ring=dkw["ring"], scale=dkw.get("scale"))
+    got = flash_decode_cuda(dq, dkc, dvc, dpos, **nkw)
+    lib = sdpa(dq[:, None], dkc, dvc, dmask, False, nkw["scale"])[:, 0]
+    row = decode_row(dq, dkc, dvc, dpos, nkw)
     side.append(dict(
-        kernel="flash_decode", softcap=None, shape=rows["flash_decode"]
-        ["shape"],
-        ms=cuda_ms(lambda: flash_decode_cuda(dq, dkc, dvc, dpos,
-                                             ring=dkw["ring"], scale=dscale),
-                   50),
-        library_ms=cuda_ms(sdpa_decode, 50),
-        max_abs_diff=float((got.float() - sdpa_decode().float()).abs()
-                           .max())))
+        kernel="flash_decode", softcap=None,
+        max_abs_diff=float((got.float() - lib.float()).abs().max()),
+        **{k_: v_ for k_, v_ in row.items() if k_ != "args"}))
     for row in side:
         print("side row (no softcap) vs scaled_dot_product_attention "
               + json.dumps(row))
@@ -1424,7 +1485,12 @@ def dense_phase(dev, runs):
     from repro_torch.core import batch_scenarios, lower_scenario
     from repro_torch.core.sim_engine import _jitter_durations, relax_batch_np
     from repro_torch.kernels import ops
-    from repro_torch.kernels.sim_step import (sim_relax_cuda,
+    from repro_torch.kernels.sim_step import (_dense_relax_cuda,
+                                              compact_lags_cuda,
+                                              compact_lags_torch,
+                                              fixpoint_sweeps_torch, pop_plan,
+                                              sim_relax_cuda,
+                                              sim_relax_pop_cuda,
                                               sim_relax_torch, sim_step_cuda,
                                               sim_step_torch)
 
@@ -1437,6 +1503,8 @@ def dense_phase(dev, runs):
         dur = _jitter_durations(batch, r["jitter"], r["seeds"])
         shapes.append((r, batch, dur))
     ops.sim_relax.launches = ops.sim_step.launches = 0
+    ops.sim_relax.variants = {"compact": 0, "dense": 0}
+    ops.sim_relax_pop.launches = 0
     outs = []
     for r, batch, dur in shapes:
         args, host_ms = dense_args(batch, dur, dev)
@@ -1444,10 +1512,17 @@ def dense_phase(dev, runs):
                      ops.sim_relax(*args, n_steps=batch.depth)))
     torch.cuda.synchronize()
     launches = ops.sim_relax.launches + ops.sim_step.launches
-    print(f"dense path launches: sim_relax {ops.sim_relax.launches}, "
-          f"sim_step {ops.sim_step.launches}")
+    variants = dict(ops.sim_relax.variants)
+    print(f"dense path launches: sim_relax {ops.sim_relax.launches} "
+          f"(variants {variants}), sim_step {ops.sim_step.launches}, "
+          f"ops.sim_relax_pop {ops.sim_relax_pop.launches}")
     if launches == 0:
         fail("kernel sim_step was never launched on the dense path")
+    if variants != {"compact": len(shapes), "dense": 0}:
+        fail(f"sim_relax: the compact variant did not give every shape "
+             f"({variants})")
+    if ops.sim_relax_pop.launches:
+        fail("sim_relax moved ops.sim_relax_pop's count")
 
     rows, err = [], 0.0
     for (r, batch, dur), (args, host_ms, got) in zip(shapes, outs):
@@ -1466,12 +1541,44 @@ def dense_phase(dev, runs):
                 fail(f"sim_step {name}: dense vs {ref_name} rel err "
                      f"{rel.max():.3e} > {RTOL_F32}")
         b, s = batch.n_scenarios, batch.max_subtasks
+        # the compaction and the stopped relaxation, each against its
+        # plain version: the same form, the same sweeps per row
+        _, info = sim_relax_cuda(*args, n_steps=depth, with_info=True)
+        comp = compact_lags_cuda(*args)
+        want_comp = compact_lags_torch(*args)
+        if not all(torch.equal(x.cpu(), y.cpu())
+                   for x, y in zip(comp, want_comp)):
+            fail(f"sim_step {name}: compact_lags kernel != plain version")
+        _, want_sweeps = fixpoint_sweeps_torch(*want_comp[:3], *args[2:],
+                                               n_steps=depth)
+        if not (bool(info.compact.all())
+                and torch.equal(info.sweeps, want_sweeps.cpu())):
+            fail(f"sim_step {name}: compact variant's sweeps (max "
+                 f"{int(info.sweeps.max())}) != the plain stop's (max "
+                 f"{int(want_sweeps.max())}) or a scenario went dense")
+        del want_comp
         bound, stream, by, n_bytes = dense_bounds(b, s, depth)
         ms = cuda_ms(lambda: sim_relax_cuda(*args, n_steps=depth), 5)
+        compact_ms = cuda_ms(lambda: compact_lags_cuda(*args), 5)
+        relax_ms = cuda_ms(lambda: sim_relax_pop_cuda(
+            *comp[:3], *args[2:], n_steps=depth, with_sweeps=True,
+            with_overflow=True), 10)
+        dense_out = torch.empty((b, s), device=dev)
+        dense_ms = cuda_ms(lambda: _dense_relax_cuda(
+            *args, depth, None, dense_out), 2)
+        if not torch.equal(dense_out, want):
+            fail(f"sim_step {name}: dense variant != plain version")
         end0 = torch.zeros((b, s), device=dev)
         sweep_ms = cuda_ms(lambda: sim_step_cuda(end0, *args), 20)
         plain_ms = cuda_ms(lambda: sim_relax_torch(*args, n_steps=depth), 2)
+        plan = pop_plan(*comp.pred.shape)
         rows.append(dict(name=name, B=b, S=s, depth=depth, ms=ms,
+                         variant="compact", P1=info.p1,
+                         sweeps_max=int(info.sweeps.max()),
+                         sweeps_median=float(info.sweeps.float().median()),
+                         relax_plan=f"k {plan.k} {plan.variant}",
+                         compact_ms=compact_ms, relax_ms=relax_ms,
+                         dense_variant_ms=dense_ms,
                          sweep_ms=sweep_ms, plain_ms=plain_ms,
                          bound_ms=bound, streaming_bound_ms=stream,
                          bound_by=by, bytes=n_bytes,
@@ -1479,7 +1586,7 @@ def dense_phase(dev, runs):
                          max_abs_err=(got - want).abs().max().item()))
         err = max(err, rows[-1]["max_abs_err"])
         print("sim_step " + json.dumps(rows[-1]))
-        del args, got, want
+        del args, got, want, comp, dense_out
         torch.cuda.empty_cache()
 
     # ops.sim_step against its plain version: ragged S, -inf and NaN
@@ -1507,6 +1614,37 @@ def dense_phase(dev, runs):
         if not torch.isnan(want).any() or not same_scores(got, want):
             fail(f"sim_step nan ({b}, {s}): kernel != plain version")
     print("sim_step stress (3, 37), (4, 1000) with -inf and NaN: equal")
+
+    # ops.sim_relax: a clean scenario (compact), NaN lags and an +inf
+    # duration (dense from the start), ends that overflow (compact,
+    # flagged, redone dense); 16-byte and 4-byte dense rows
+    for b, s in ((4, 256), (4, 257)):
+        lat = np.where(rng.random((b, s, s)) < 0.05,
+                       rng.uniform(0.0, 1e-4, (b, s, s)), -np.inf)
+        volbw = np.where(lat > -np.inf, rng.uniform(0.0, 2.0, (b, s, s)),
+                         -np.inf)
+        dur = rng.uniform(0.1, 5.0, (b, s))
+        rel = rng.uniform(0.0, 20.0, (b, s))
+        lat[1][tuple(np.argwhere(lat[1] > -np.inf)[0])] = np.nan
+        dur[2, 3] = np.inf
+        dur[3] = 2e37
+        args = [torch.from_numpy(a.astype(np.float32)).to(dev)
+                for a in (lat, volbw, dur, rel)]
+        before = dict(ops.sim_relax.variants)
+        got = ops.sim_relax(*args, n_steps=60)
+        want = sim_relax_torch(*args, n_steps=60)
+        _, info = sim_relax_cuda(*args, n_steps=60, with_info=True)
+        torch.cuda.synchronize()
+        if ops.sim_relax.variants != {k: v + 1 for k, v in before.items()}:
+            fail(f"sim_relax stress ({b}, {s}): variant counts "
+                 f"{ops.sim_relax.variants} from {before}")
+        if (info.compact.tolist() != [True, False, False, False]
+                or info.redone.tolist() != [False, False, False, True]):
+            fail(f"sim_relax stress ({b}, {s}): variants {info}")
+        if not torch.isnan(want[3]).any() or not same_scores(got, want):
+            fail(f"sim_relax stress ({b}, {s}): kernel != plain version")
+    print("sim_relax stress (4, 256), (4, 257) with NaN, +inf and overflow: "
+          "equal; compact and dense variants both ran")
     main_row = max(rows, key=lambda x: x["bytes"])
     return dict(
         name="sim_step", route="cuda",
@@ -1516,6 +1654,8 @@ def dense_phase(dev, runs):
         ms=main_row["ms"], plain_ms=main_row["plain_ms"],
         bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
         library_ms=None, shape=main_row["name"],
+        variants=variants, compact_ms=main_row["compact_ms"],
+        relax_ms=main_row["relax_ms"], sweeps_max=main_row["sweeps_max"],
         sweep_ms=main_row["sweep_ms"],
         streaming_bound_ms=main_row["streaming_bound_ms"])
 

@@ -57,6 +57,10 @@
 //    shared bytes, threads) is kernels/sim_step.py:pop_plan, by shape.
 //  * A final cluster barrier before exit: no CTA leaves while a peer may
 //    still touch its shared memory.
+//  * An optional overflow flag per row (`overflow[b]`, zeroed by the
+//    caller): set when any end the row computed, at any sweep, was +inf or
+//    NaN. The dense sim_relax relaxes the compacted form of its lags
+//    through this kernel and redoes a flagged row densely (sim_step.cu).
 //
 // Exactness: max and + only, in float32, with the two-add order
 // (g + lat) + volbw (lat + volbw is not pre-summed: it is not the same
@@ -64,6 +68,7 @@
 // plain version, so the result is equal bit for bit. Build without
 // --use_fast_math.
 
+#include <cfloat>
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -103,7 +108,8 @@ sim_relax_pop_kernel(const int* __restrict__ pred,
                      const float* __restrict__ dur,
                      const float* __restrict__ rel,
                      float* __restrict__ out, int* __restrict__ sweeps,
-                     int S, int P1, int n_steps, int slice) {
+                     int* __restrict__ overflow, int S, int P1, int n_steps,
+                     int slice) {
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int k = static_cast<int>(cluster.num_blocks());
@@ -143,6 +149,7 @@ sim_relax_pop_kernel(const int* __restrict__ pred,
   cluster_barrier();
 
   int t = 0;
+  int bad = 0;                      // an end was +inf or NaN (overflow)
   while (t < n_steps) {
     const int par = t & 1;
     int changed = 0;
@@ -171,6 +178,7 @@ sim_relax_pop_kernel(const int* __restrict__ pred,
       }
       const float v = d + fmaxf(r, fmaxf(ready, 0.0f));
       changed |= __float_as_uint(v) != __float_as_uint(cur[s]);
+      bad |= !(v <= FLT_MAX);
       for (int j = 0; j < k; ++j) *cluster.map_shared_rank(nxt + s, j) = v;
     }
     const int any = __syncthreads_or(changed);
@@ -188,6 +196,9 @@ sim_relax_pop_kernel(const int* __restrict__ pred,
 
   for (int s = s0 + tid; s < s1; s += blockDim.x) out[row + s] = cur[s];
   if (sweeps != nullptr && rank == 0 && tid == 0) sweeps[blockIdx.x / k] = t;
+  if (overflow != nullptr) {        // the same branch in every thread
+    if (__syncthreads_or(bad) && tid == 0) overflow[blockIdx.x / k] = 1;
+  }
   cluster_barrier();                // no CTA exits while peers may write it
 }
 
@@ -248,14 +259,16 @@ extern "C" int sim_relax_pop_max_active_clusters(int k, int staged,
 }
 
 // Launch on `stream`: B clusters of k CTAs of `threads` threads and `smem`
-// bytes of shared memory (the plan's); `sweeps` may be null. Returns
+// bytes of shared memory (the plan's); `sweeps` and `overflow` (zeroed by
+// the caller) may be null. Returns
 // cudaGetLastError() after the launch (0 = ok). The caller has checked
 // shapes, types, index bounds, that B and S are non-zero and, with
 // sim_relax_pop_max_active_clusters, that such a cluster can run.
 extern "C" int sim_relax_pop(const void* pred, const void* lat,
                              const void* volbw, const void* dur,
-                             const void* rel, void* out, void* sweeps, int B,
-                             int S, int P1, int n_steps, int k, int staged,
+                             const void* rel, void* out, void* sweeps,
+                             void* overflow, int B, int S, int P1,
+                             int n_steps, int k, int staged,
                              int threads, long long smem, void* stream) {
   if (k < 1 || k > kMaxCluster || threads < 1 || threads > kMaxThreads ||
       smem > kMaxShared)
@@ -273,12 +286,13 @@ extern "C" int sim_relax_pop(const void* pred, const void* lat,
   const float* re = static_cast<const float*>(rel);
   float* o = static_cast<float*>(out);
   int* sw = static_cast<int*>(sweeps);
+  int* ov = static_cast<int*>(overflow);
   err = staged ? cudaLaunchKernelEx(&l.config, sim_relax_pop_kernel<true>, p,
-                                    la, vb, du, re, o, sw, S, P1, n_steps,
+                                    la, vb, du, re, o, sw, ov, S, P1, n_steps,
                                     slice)
                : cudaLaunchKernelEx(&l.config, sim_relax_pop_kernel<false>,
-                                    p, la, vb, du, re, o, sw, S, P1, n_steps,
-                                    slice);
+                                    p, la, vb, du, re, o, sw, ov, S, P1,
+                                    n_steps, slice);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

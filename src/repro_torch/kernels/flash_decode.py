@@ -8,25 +8,86 @@ of the token just inserted; the result is (B, Hq, Dv) in q's type. Slot
 ``t < min(pos + 1, T)`` (``ring``: a sliding-window ring buffer; slot
 order does not matter because RoPE was applied at insert). The scaled
 scores are softcapped, masked with -2e38 and turned into probabilities
-in float32. The CUDA kernel (``csrc/flash_decode.cu``) splits the cache
-into slices of ``SLICE`` slots and combines them in a second pass;
+in float32. The CUDA kernel (``csrc/flash_decode.cu``) cuts each (b, kv
+head) pair's cache into ``splits`` ranges of ``chunk`` slots by
+:func:`decode_plan`, streams each range through a ring of 32-slot tiles
+and combines the ranges in a second, small launch;
 :func:`repro_torch.kernels.ops.flash_decode` is the guarded entry point
-that picks between the two.
+that picks between the kernel and the plain version.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from . import build
 
 NEG_INF = -2.0e38
-MAX_HEAD_DIM = 256                  # the kernel keeps a K row in registers
-SLICE = 64                          # cache slots per pass-1 block
+MAX_HEAD_DIM = 256                  # q is held in registers up to this width
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+WARPS = 8                           # warps of one split block
+TILE = 32                           # cache slots per tile of the ring
+STAGES = 3                          # tiles of the ring
+SMS = 132                           # H100 SXM streaming multiprocessors
+SM_SHARED_BYTES = 233_472           # shared memory of one SM (228 KB)
+CTA_RESERVED_BYTES = 1_024          # shared memory the system keeps per block
+MAX_BLOCKS_PER_SM = 2               # blocks per SM the split rule aims at
+
+
+class DecodePlan(NamedTuple):
+    """How ``flash_decode`` launches for one shape: each (b, kv head)
+    pair's cache cut into ``splits`` ranges of ``chunk`` slots, ``gr`` q
+    heads per block (``gchunks`` blocks per kv head), the dynamic shared
+    memory of one block and the blocks of the split launch."""
+    splits: int
+    chunk: int
+    gr: int
+    gchunks: int
+    shared_bytes: int
+    blocks: int
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def decode_shared_bytes(d: int, dv: int, gr: int, itemsize: int) -> int:
+    """Shared memory of one split block (the layout of
+    ``csrc/flash_decode.cu``, whose launch refuses other bytes): the ring
+    of ``STAGES`` K and V tiles of ``TILE`` rows padded to the 16-byte
+    vector, or the warps' float accumulators if larger, then each warp's
+    running max and sum per head."""
+    vec = 16 // itemsize
+    dp, dvp = _round_up(d, vec), _round_up(dv, vec)
+    region = max(STAGES * TILE * (dp + dvp) * itemsize, 4 * WARPS * gr * dvp)
+    return region + 8 * WARPS * gr
+
+
+@functools.lru_cache(maxsize=256)
+def decode_plan(b: int, t: int, hkv: int, d: int, *, dv: int | None = None,
+                g: int = 1, itemsize: int = 2) -> DecodePlan:
+    """The launch rule of ``flash_decode``, by shape alone. A block takes
+    up to 4 q heads of one kv head (``gr`` 1, 2 or 4 by G). The blocks
+    that fit an SM at once (by shared memory, at most 2) times the 132
+    SMs is the target; the splits per (b, kv head, head chunk) are that
+    target over the pairs, at least 1 and at most T // 32 (each range at
+    least one tile), and ``chunk`` = ceil(T / splits), so the ranges are
+    even and none is empty."""
+    dv = d if dv is None else dv
+    gr = 1 if g == 1 else 2 if g == 2 else 4
+    gchunks = -(-g // gr)
+    shared = decode_shared_bytes(d, dv, gr, itemsize)
+    per_sm = max(1, min(MAX_BLOCKS_PER_SM,
+                        SM_SHARED_BYTES // (shared + CTA_RESERVED_BYTES)))
+    pairs = b * hkv * gchunks
+    splits = max(1, min(per_sm * SMS // pairs, t // TILE))
+    chunk = -(-t // splits)
+    splits = -(-t // chunk)
+    return DecodePlan(splits, chunk, gr, gchunks, shared, pairs * splits)
 
 
 def valid_slots(pos: torch.Tensor, t: int, ring: bool) -> torch.Tensor:
@@ -60,50 +121,53 @@ def flash_decode_torch(q, k_cache, v_cache, pos, *,
 
 
 @functools.cache
-def _launcher():
+def _library():
     lib = build.load("flash_decode")
     fn = lib.flash_decode
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 \
-        + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-           ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 \
+        + [ctypes.c_longlong, ctypes.c_float, ctypes.c_float] \
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    err_str = lib.flash_decode_error_string
-    err_str.argtypes = [ctypes.c_int]
-    err_str.restype = ctypes.c_char_p
-    if lib.flash_decode_slice() != SLICE:
-        raise RuntimeError("flash_decode: the library's slice length "
-                           f"{lib.flash_decode_slice()} != {SLICE}")
-    return fn, err_str
+    lib.flash_decode_error_string.argtypes = [ctypes.c_int]
+    lib.flash_decode_error_string.restype = ctypes.c_char_p
+    lib.flash_decode_shared_bytes.argtypes = [ctypes.c_int] * 4
+    lib.flash_decode_shared_bytes.restype = ctypes.c_longlong
+    return lib
 
 
 def flash_decode_cuda(q, k_cache, v_cache, pos, *,
                       scale: float | None = None,
                       softcap: float | None = None,
                       ring: bool = False) -> torch.Tensor:
-    """Launch both passes on the current stream of the inputs' device.
-    Unguarded: the caller has checked shapes (D at most
-    ``MAX_HEAD_DIM``), types, contiguity, the range of ``pos`` and that
-    nothing is empty."""
-    fn, err_str = _launcher()
+    """Launch the split kernel and the combine on the current stream of
+    the inputs' device, with :func:`decode_plan`'s ranges and one float32
+    workspace for the ranges' partials. The cp.async path needs q and
+    the caches 16-byte aligned and D, Dv multiples of the 16-byte vector;
+    other inputs take the kernel's plain-load copy. Unguarded: the caller
+    has checked shapes (D and Dv at most ``MAX_HEAD_DIM``), types,
+    contiguity, the range of ``pos`` and that nothing is empty."""
+    lib = _library()
     b, hq, d = q.shape
     t, hkv = k_cache.shape[1], k_cache.shape[2]
     dv = v_cache.shape[-1]
-    g = hq // hkv
-    n_splits = -(-t // SLICE)
+    size = q.element_size()
+    plan = decode_plan(b, t, hkv, d, dv=dv, g=hq // hkv, itemsize=size)
+    vec = 16 // size
+    aligned = (d % vec == 0 and dv % vec == 0
+               and all(x.data_ptr() % 16 == 0 for x in (q, k_cache, v_cache)))
     scale = d ** -0.5 if scale is None else scale
     out = torch.empty((b, hq, dv), dtype=q.dtype, device=q.device)
-    part_acc = torch.empty((b * hkv, n_splits, g, dv), dtype=torch.float32,
-                           device=q.device)
-    part_ml = torch.empty((b * hkv, n_splits, g, 2), dtype=torch.float32,
-                          device=q.device)
+    ws = torch.empty(b * hq * plan.splits * (dv + 2), dtype=torch.float32,
+                     device=q.device)
     with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                 pos.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
-                 part_ml.data_ptr(), b, t, hq, hkv, d, dv, scale,
-                 0.0 if softcap is None else softcap, int(ring),
-                 DTYPE_CODES[q.dtype],
-                 torch.cuda.current_stream().cuda_stream)
+        err = lib.flash_decode(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            pos.data_ptr(), out.data_ptr(), ws.data_ptr(), b, t, hq, hkv, d,
+            dv, plan.splits, plan.chunk, plan.gr, plan.shared_bytes, scale,
+            0.0 if softcap is None else softcap, int(ring), int(aligned),
+            DTYPE_CODES[q.dtype], torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"flash_decode launch failed: CUDA error {err} "
-                           f"({err_str(err).decode()})")
+        raise RuntimeError(
+            f"flash_decode launch failed: CUDA error {err} "
+            f"({lib.flash_decode_error_string(err).decode()})")
     return out

@@ -155,10 +155,13 @@ sim_step.launches = 0
 
 def sim_relax(lat, volbw, duration, release, *,
               n_steps: int) -> torch.Tensor:
-    """``n_steps`` dense max-plus sweeps from all-zero ends (see
+    """What ``n_steps`` dense max-plus sweeps from all-zero ends give (see
     :mod:`.sim_step`), inputs as :func:`sim_step` without ``end``.
     Returns (B, S) float32 finish times. ``launches`` counts calls that
-    ran the kernel (each runs ``n_steps`` sweeps)."""
+    ran the kernels; ``variants`` counts, per variant (``"compact"``: the
+    lags compacted on the card and relaxed to each row's fixpoint;
+    ``"dense"``: the ``n_steps`` sweeps), the calls in which it gave at
+    least one scenario's result."""
     device, b, s = _check_dense("sim_relax", None, lat, volbw, duration,
                                 release)
     if n_steps < 0:
@@ -168,12 +171,16 @@ def sim_relax(lat, volbw, duration, release, *,
     if device.type == "cpu":
         return _sim.sim_relax_torch(lat, volbw, duration, release,
                                     n_steps=n_steps)
-    out = _sim.sim_relax_cuda(lat, volbw, duration, release, n_steps=n_steps)
+    out, info = _sim.sim_relax_cuda(lat, volbw, duration, release,
+                                    n_steps=n_steps, with_info=True)
     sim_relax.launches += 1
+    sim_relax.variants["compact"] += int(info.compact.any())
+    sim_relax.variants["dense"] += int(not info.compact.all())
     return out
 
 
 sim_relax.launches = 0
+sim_relax.variants = {"compact": 0, "dense": 0}
 
 
 def sched_score(drain, frontiers, release) -> torch.Tensor:

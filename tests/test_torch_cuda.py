@@ -492,6 +492,11 @@ def test_rmsnorm_kernel_scalar_path(cuda):
     (1, 4096, 8, 4, 256, True, 50.0, [4700]),
     (2, 40, 4, 2, 16, False, None, [3, 39]),
     (3, 100, 8, 1, 64, True, 30.0, [0, 99, 150]),
+    (2, 716, 32, 32, 224, False, None, [700, 715]),   # zamba2-7b run D
+    (1, 4624, 8, 4, 256, False, 50.0, [4623]),        # gemma2-2b run B
+    (3, 300, 6, 2, 20, False, None, [0, 1, 298]),     # D off the vector
+    (2, 333, 4, 2, 20, True, 50.0, [2, 5000]),        # and a wrapped ring
+    (4, 130, 8, 4, 256, True, None, [0, 129, 130, 9999]),
 ])
 def test_flash_decode_kernel_close_to_plain_version(
         cuda, dtype, b, t, hq, hkv, d, ring, softcap, pos):
@@ -506,6 +511,29 @@ def test_flash_decode_kernel_close_to_plain_version(
                                            ring=ring)
     torch.cuda.synchronize()
     assert_close_to_plain(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_launches_are_bitwise_equal(cuda, dtype):
+    """Two launches at run B's shape (66 ranges per kv head) give the same
+    bits: the combine sums the ranges in a fixed order, no atomics."""
+    q = rand(cuda, (1, 8, 256), dtype, 1)
+    kc = rand(cuda, (1, 4624, 4, 256), dtype, 2)
+    vc = rand(cuda, (1, 4624, 4, 256), dtype, 3)
+    p = torch.tensor([4623], dtype=torch.int32, device=cuda)
+    first = ops.flash_decode(q, kc, vc, p, softcap=50.0)
+    for _ in range(3):
+        assert torch.equal(ops.flash_decode(q, kc, vc, p, softcap=50.0),
+                           first)
+
+
+def test_flash_decode_plan_bytes_match_the_library(cuda):
+    lib = flash_decode._library()
+    for d, dv, gr, size in ((256, 256, 2, 2), (224, 224, 1, 2),
+                            (20, 20, 4, 2), (256, 256, 2, 4),
+                            (64, 32, 4, 4)):
+        assert lib.flash_decode_shared_bytes(d, dv, gr, size) == \
+            flash_decode.decode_shared_bytes(d, dv, gr, size)
 
 
 def test_serving_kernels_refuse_bad_input_without_falling_back(cuda):
@@ -743,13 +771,48 @@ def test_sim_relax_kernel_equals_plain_on_a_lowered_suite(cuda, kind):
                      (lat, volbw, batch.duration, batch.release)])
     for steps in (batch.depth // 3, batch.depth):
         before = ops.sim_relax.launches
+        variants = dict(ops.sim_relax.variants)
         got = ops.sim_relax(*args, n_steps=steps)
         assert ops.sim_relax.launches == before + 1
+        assert ops.sim_relax.variants == {
+            "compact": variants["compact"] + 1, "dense": variants["dense"]}
         want = sim_step.sim_relax_torch(*args, n_steps=steps)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
+        _, info = sim_step.sim_relax_cuda(*args, n_steps=steps,
+                                          with_info=True)
+        comp = sim_step.compact_lags_torch(*args)
+        _, sweeps = sim_step.fixpoint_sweeps_torch(*comp[:3], *args[2:],
+                                                   n_steps=steps)
+        assert torch.equal(info.sweeps, sweeps.cpu())
     np.testing.assert_allclose(got.cpu().numpy(), relax_batch_np(batch),
                                rtol=1e-5, atol=0.0)
+    got = sim_step.compact_lags_cuda(*args)
+    want = sim_step.compact_lags_torch(*args)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b.cpu())
+
+
+def test_sim_relax_sends_nan_inf_and_overflow_to_the_dense_variant(cuda):
+    """Four scenarios: clean (compact), NaN lags, +inf durations (both
+    dense from the start) and one whose ends overflow (compact, flagged,
+    redone dense); the result equals the plain version, NaN at the same
+    places, and both variant counts move."""
+    _, lat, volbw, dur, rel = dense_inputs(8, 4, 256, edge_frac=0.05)
+    lat[1][np.argwhere(lat[1] > -np.inf)[0][0]] = np.nan
+    dur[2, 3] = np.inf
+    dur[3] = 2e37
+    args = on(cuda, (lat, volbw, dur, rel))
+    before = dict(ops.sim_relax.variants)
+    got = ops.sim_relax(*args, n_steps=60)
+    want = sim_step.sim_relax_torch(*args, n_steps=60)
+    torch.cuda.synchronize()
+    assert ops.sim_relax.variants == {k: v + 1 for k, v in before.items()}
+    assert bool(torch.isnan(want[3]).any())
+    assert same_or_both_nan(got, want)
+    _, info = sim_step.sim_relax_cuda(*args, n_steps=60, with_info=True)
+    assert info.compact.tolist() == [True, False, False, False]
+    assert info.redone.tolist() == [False, False, False, True]
 
 
 def test_dense_launch_geometry(cuda):

@@ -1,6 +1,7 @@
-"""The two kernels redesigned for Hopper, held on the CPU to what the card
+"""The kernels redesigned for Hopper, held on the CPU to what the card
 computes: ``sim_relax_pop``'s exact stop at the fixpoint and its launch
-rule, and ``ssd_scan``'s three-pass bf16 arithmetic.
+rule, ``ssd_scan``'s three-pass bf16 arithmetic, the dense ``sim_relax``'s
+compact variant and ``flash_decode``'s split rule and arithmetic.
 
 ``sim_relax_pop`` (``csrc/sim_relax_pop.cu``) stops a row at its first
 sweep that leaves the ends unchanged bit for bit.
@@ -30,6 +31,25 @@ mamba2-780m's (H 48, P 64, N 128) and zamba2-7b's (N 64) head shapes,
 A and dt drawn as Mamba-2's init so that the carried state shows. M as
 one bf16 (no lo part) must fail that gate by more than 4x at every shape.
 
+The dense ``sim_relax`` (``csrc/sim_step.cu``) compacts the (B, S, S)
+lags on the card into that gather form (``compact_lags_torch`` is the
+pass in plain PyTorch) and relaxes it with the stop at the fixpoint; the
+result must equal ``n_steps`` dense sweeps bit for bit. Here, on lowered
+batches of small apps on the 64-core and 256-core machines, at the depth
+and below it, the compact form stopped at its fixpoint equals
+``sim_relax_torch`` and the reference's Pallas ``sim_relax`` in interpret
+mode; ``sim_relax_variants_torch`` (the card's choice of variant with the
+plain versions) sends a scenario with NaN or +inf inputs, a lag pair with
+one side -inf, or a row too wide to the dense variant, and redoes one
+that overflows, with the dense plain result.
+
+``flash_decode`` (``csrc/flash_decode.cu``) cuts each (b, kv head)'s
+cache into ranges by ``decode_plan``, runs an online softmax over
+32-slot tiles in each range and combines the ranges. The plan is pinned
+at the serving paths' shapes, and :func:`split_decode_emulation`, that
+arithmetic in plain PyTorch, stays within the card's gate of the plain
+version and of the reference's Pallas kernel in interpret mode.
+
 Inputs are drawn with NumPy from a seed.
 """
 
@@ -47,7 +67,10 @@ import repro.search.device as RD
 import repro_torch.core as T
 import repro_torch.search.device as TD
 from repro.kernels import ops as jax_ops
+from repro.kernels.sim_step import sim_relax as jax_sim_relax
+from repro_torch.core.lowering import dense_lags
 from repro_torch.core.sim_engine import _pop_gather_inputs
+from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import sim_step
 from repro_torch.kernels.ssd_scan import chunk_cumsum, ssd_scan_torch
 
@@ -341,3 +364,312 @@ def test_m_as_one_bf16_fails_the_gate(b, s, h, p, g, n, chunk):
     assert gate_ratio(y, want_y) > CONTROL_MARGIN
     y, _ = three_pass_emulation(*args, chunk)
     assert gate_ratio(y, want_y) <= 1
+
+
+# ---------------------------------------------------------------------------
+# the dense sim_relax: compact the lags, stop at the fixpoint
+# ---------------------------------------------------------------------------
+
+
+@functools.cache
+def small_dense_batch(kind):
+    """A lowered batch of three small apps (20-40 tasks) on the 64-core
+    paper machine or the 256-core cluster, engine schedules, and its
+    dense inputs in float32."""
+    m = T.hp_bl260c() if kind == "64core" else T.cluster_of_multicores(32)
+    graphs = [T.generate_app(T.SynthParams(n_tasks=(20, 40)), seed=50 + i)
+              for i in range(3)]
+    batch = T.batch_scenarios([T.lower_scenario(g, m, T.engine_schedule(g, m))
+                               for g in graphs])
+    lat, volbw = dense_lags(batch)
+    arrays = [np.ascontiguousarray(x, np.float32)
+              for x in (lat, volbw, batch.duration, batch.release)]
+    return batch, arrays
+
+
+def dense_tensors(arrays):
+    return [torch.from_numpy(a.copy()) for a in arrays]
+
+
+@pytest.mark.parametrize("kind", ["64core", "256core"])
+@pytest.mark.parametrize("below_depth", [False, True])
+def test_compact_form_stopped_at_its_fixpoint_equals_the_dense_sweeps(
+        kind, below_depth):
+    batch, arrays = small_dense_batch(kind)
+    args = dense_tensors(arrays)
+    steps = batch.depth // 3 if below_depth else batch.depth
+    comp = sim_step.compact_lags_torch(*args)
+    assert comp.rows.tolist() == [0, 1, 2]
+    p1 = comp.pred.shape[2]
+    assert 2 <= p1 <= batch.max_preds + 1 < batch.max_subtasks // 4
+    ends, sweeps = sim_step.fixpoint_sweeps_torch(*comp[:3], *args[2:],
+                                                  n_steps=steps)
+    want = sim_step.sim_relax_torch(*args, n_steps=steps)
+    assert torch.equal(ends, want)
+    assert int(sweeps.max()) <= steps
+    if below_depth:
+        assert torch.equal(sweeps, torch.full((3,), steps, dtype=torch.int32))
+    got, info = sim_step.sim_relax_variants_torch(*args, n_steps=steps)
+    assert torch.equal(got, want)
+    assert bool(info.compact.all()) and not bool(info.redone.any())
+    assert torch.equal(info.sweeps, sweeps) and info.p1 == p1
+
+
+def test_compact_variant_equals_the_reference_pallas_sim_relax():
+    batch, arrays = small_dense_batch("64core")
+    got, info = sim_step.sim_relax_variants_torch(*dense_tensors(arrays),
+                                                  n_steps=batch.depth)
+    assert bool(info.compact.all())
+    want = np.asarray(jax_sim_relax(*arrays, n_steps=batch.depth,
+                                    interpret=True))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def same_or_both_nan(got, want):
+    nan = torch.isnan(want)
+    return (torch.equal(torch.isnan(got), nan)
+            and torch.equal(got[~nan], want[~nan]))
+
+
+def spoil(arrays, how):
+    """Scenario 1 of the batch made unfit for the compact variant."""
+    lat, volbw, dur, rel = (a.copy() for a in arrays)
+    edge = np.argwhere(lat[1] > -np.inf)[3]
+    gap = np.argwhere(lat[1] == -np.inf)[5]
+    if how == "nan lat":
+        lat[1][tuple(edge)] = np.nan
+    elif how == "nan in a non-edge":
+        volbw[1][tuple(gap)] = np.nan
+    elif how == "+inf volbw":
+        volbw[1][tuple(edge)] = np.inf
+    elif how == "+inf in a non-edge":
+        lat[1][tuple(gap)] = np.inf
+    elif how == "nan dur":
+        dur[1, 4] = np.nan
+    elif how == "+inf rel":
+        rel[1, 7] = np.inf
+    elif how == "one lag -inf":
+        lat[1][tuple(edge)] = -np.inf
+    return [lat, volbw, dur, rel]
+
+
+@pytest.mark.parametrize("how", ["nan lat", "nan in a non-edge",
+                                 "+inf volbw", "+inf in a non-edge",
+                                 "nan dur", "+inf rel", "one lag -inf"])
+def test_compaction_refuses_nan_and_inf_inputs(how):
+    batch, arrays = small_dense_batch("64core")
+    args = dense_tensors(spoil(arrays, how))
+    assert sim_step.compact_lags_torch(*args).rows.tolist() == [0, 2]
+    want = sim_step.sim_relax_torch(*args, n_steps=batch.depth)
+    got, info = sim_step.sim_relax_variants_torch(*args, n_steps=batch.depth)
+    assert info.compact.tolist() == [True, False, True]
+    assert same_or_both_nan(got, want)
+
+
+def test_a_row_wider_than_the_compact_width_goes_dense():
+    b, s = 2, 100
+    rng = np.random.default_rng(5)
+    lat = np.where(rng.random((b, s, s)) < 0.1,
+                   rng.uniform(0.0, 1e-3, (b, s, s)), -np.inf)
+    lat[1, 7, :sim_step.COMPACT_MAX + 1] = 1e-4   # 65 entries in one row
+    volbw = np.where(lat > -np.inf, rng.uniform(0.0, 2.0, (b, s, s)), -np.inf)
+    dur = rng.uniform(0.1, 5.0, (b, s))
+    rel = rng.uniform(0.0, 20.0, (b, s))
+    args = [torch.from_numpy(x.astype(np.float32))
+            for x in (lat, volbw, dur, rel)]
+    assert sim_step.compact_width(s) == sim_step.COMPACT_MAX
+    assert sim_step.compact_lags_torch(*args).rows.tolist() == [0]
+    got, info = sim_step.sim_relax_variants_torch(*args, n_steps=s)
+    assert info.compact.tolist() == [True, False]
+    assert torch.equal(got, sim_step.sim_relax_torch(*args, n_steps=s))
+
+
+def test_overflow_is_detected_and_gives_the_dense_plain_result():
+    """A chain whose ends pass the float32 range: the compact sweeps
+    reach +inf (where the dense sweeps turn it into NaN through the -inf
+    non-edges), the flag sends the scenario back to the dense variant,
+    and the result is the plain one, NaN at the same places."""
+    batch, arrays = small_dense_batch("64core")
+    lat, volbw, dur, rel = (a.copy() for a in arrays)
+    dur[2] = 1e38
+    args = dense_tensors((lat, volbw, dur, rel))
+    comp = sim_step.compact_lags_torch(*args)
+    assert comp.rows.tolist() == [0, 1, 2]      # finite inputs: compacted
+    _, _, over = sim_step.fixpoint_sweeps_torch(
+        *comp[:3], *args[2:], n_steps=batch.depth, with_overflow=True)
+    assert over.tolist() == [False, False, True]
+    want = sim_step.sim_relax_torch(*args, n_steps=batch.depth)
+    assert bool(torch.isnan(want[2]).any())
+    got, info = sim_step.sim_relax_variants_torch(*args, n_steps=batch.depth)
+    assert info.compact.tolist() == [True, True, False]
+    assert info.redone.tolist() == [False, False, True]
+    assert same_or_both_nan(got, want)
+
+
+# ---------------------------------------------------------------------------
+# flash_decode: the split rule and its arithmetic
+# ---------------------------------------------------------------------------
+
+# (B, T, Hkv, D, Dv, G) of the serving paths: gemma2-2b run A (B=4, 544
+# slots), run B's global layers (4,624) and its local layers' 4,096-slot
+# ring, run C's batcher (4 slots of 1,024), zamba2-7b run D
+DECODE_PATH_SHAPES = [
+    (4, 544, 4, 256, 256, 2),
+    (1, 4624, 4, 256, 256, 2),
+    (1, 4096, 4, 256, 256, 2),
+    (4, 1024, 4, 256, 256, 2),
+    (2, 716, 32, 224, 224, 1),
+]
+
+
+@pytest.mark.parametrize("b,t,hkv,d,dv,g", DECODE_PATH_SHAPES)
+def test_decode_plan_fills_the_card_at_the_path_shapes(b, t, hkv, d, dv, g):
+    """bf16: two blocks fit an SM, so the split launch holds between one
+    and two blocks per SM of the 132, in one wave; every range holds at
+    least one tile and none is empty."""
+    plan = fd.decode_plan(b, t, hkv, d, dv=dv, g=g, itemsize=2)
+    assert plan.gr == g and plan.gchunks == 1
+    assert 2 * (plan.shared_bytes + fd.CTA_RESERVED_BYTES) \
+        <= fd.SM_SHARED_BYTES
+    assert fd.SMS <= plan.blocks <= 2 * fd.SMS
+    assert plan.blocks == b * hkv * plan.splits
+    assert plan.chunk >= fd.TILE
+    assert (plan.splits - 1) * plan.chunk < t <= plan.splits * plan.chunk
+
+
+def test_decode_plan_at_a_tiny_cache_and_in_float32():
+    assert fd.decode_plan(1, 16, 4, 256, g=2).splits == 1
+    assert fd.decode_plan(4, 40, 4, 256, g=2).splits == 1
+    plan = fd.decode_plan(1, 4624, 4, 256, g=2, itemsize=4)
+    assert plan.shared_bytes > fd.SM_SHARED_BYTES // 2   # one block per SM
+    assert plan.blocks == fd.SMS
+    plan = fd.decode_plan(1, 200, 1, 64, g=8)            # MQA: 2 chunks of 4
+    assert (plan.gr, plan.gchunks) == (4, 2)
+
+
+def online_merge(ms, ls, accs):
+    """States (running max, sum, accumulator) stacked on dim 0, merged in
+    order: rescaled to their common max and added."""
+    w = torch.exp(ms - ms.amax(0))
+    return ms.amax(0), (ls * w).sum(0), (accs * w[..., None]).sum(0)
+
+
+def split_decode_emulation(q, kc, vc, pos, *, scale=None, softcap=None,
+                           ring=False):
+    """The card's arithmetic in plain PyTorch, float32: per (b, kv head)
+    the ranges of ``decode_plan``; in each range, 32-slot tiles whose
+    slots 4w .. 4w+3 belong to warp w, each warp an online softmax over
+    its slots (running max from -2e38, rescale, running sum and
+    accumulator); the warps' states merged, then the ranges that hold a
+    valid slot, and the sum divided by the rescaled sum (at least
+    1e-30)."""
+    b, hq, d = q.shape
+    t, hkv, dv = kc.shape[1], kc.shape[2], vc.shape[-1]
+    g = hq // hkv
+    plan = fd.decode_plan(b, t, hkv, d, dv=dv, g=g,
+                          itemsize=q.element_size())
+    per_warp = fd.TILE // fd.WARPS
+    scale = d ** -0.5 if scale is None else scale
+    qs = (q.float() * scale).view(b, hkv, g, d)
+    kf, vf = kc.float(), vc.float()
+    out = torch.empty((b, hkv, g, dv))
+    for bi in range(b):
+        p = int(pos[bi])
+        lim = (min(p, t - 1) if ring else p) + 1
+        ranges = []
+        for t0 in range(0, lim, plan.chunk):
+            n = min(plan.chunk, lim - t0)
+            nt = -(-n // fd.TILE)
+            pad = (0, 0, 0, 0, 0, nt * fd.TILE - n)
+            k = torch.nn.functional.pad(kf[bi, t0:t0 + n], pad)
+            v = torch.nn.functional.pad(vf[bi, t0:t0 + n], pad) \
+                .view(nt, fd.WARPS, per_warp, hkv, dv)
+            s = torch.einsum("kgd,tkd->kgt", qs[bi], k)
+            if softcap is not None:
+                s = softcap * torch.tanh(s / softcap)
+            valid = (torch.arange(nt * fd.TILE) < n) \
+                .view(nt, fd.WARPS, 1, 1, per_warp)
+            s = s.view(hkv, g, nt, fd.WARPS, per_warp).permute(2, 3, 0, 1, 4)
+            s = s.masked_fill(~valid, fd.NEG_INF)
+            m = torch.full((fd.WARPS, hkv, g), fd.NEG_INF)
+            l_ = torch.zeros((fd.WARPS, hkv, g))
+            acc = torch.zeros((fd.WARPS, hkv, g, dv))
+            for it in range(nt):            # each warp's online softmax
+                m_new = torch.maximum(m, s[it].amax(-1))
+                alpha = torch.exp(m - m_new)
+                pr = torch.where(valid[it], torch.exp(s[it] - m_new[..., None]),
+                                 0.0)
+                l_ = l_ * alpha + pr.sum(-1)
+                acc = acc * alpha[..., None] \
+                    + torch.einsum("wkgt,wtkd->wkgd", pr, v[it])
+                m = m_new
+            ranges.append(online_merge(m, l_, acc))
+        _, l_, acc = online_merge(*(torch.stack(x) for x in zip(*ranges)))
+        out[bi] = acc / l_.clamp_min(1e-30)[..., None]
+    return out.reshape(b, hq, dv).to(q.dtype)
+
+
+def decode_inputs(seed, b, t, hq, hkv, d, dtype):
+    rng = np.random.default_rng(seed)
+    q, kc, vc = (torch.from_numpy(rng.standard_normal(shape)
+                                  .astype(np.float32)).to(dtype)
+                 for shape in ((b, hq, d), (b, t, hkv, d), (b, t, hkv, d)))
+    return q, kc, vc
+
+
+def within_gate(got, want):
+    """The card's tolerance (``tests/test_torch_cuda.py``
+    ``assert_close_to_plain``): rtol 1e-5 with a floor of 1e-5 x max|want|
+    in float32, 2 bf16 ulps of max(|want|, max|want| / 256) in bf16."""
+    if want.dtype == torch.bfloat16:
+        return gate_ratio(got, want) <= 1
+    g, w = got.double(), want.double()
+    return bool(((g - w).abs() <= 1e-5 * w.abs()
+                 + 1e-5 * float(w.abs().max())).all())
+
+
+# (B, T, Hq, Hkv, D, ring, softcap, pos): the path shapes at the
+# positions the runs reach, then ragged and small ones
+DECODE_CASES = [
+    (4, 544, 8, 4, 256, False, 50.0, [511, 300, 0, 543]),
+    (1, 4624, 8, 4, 256, False, 50.0, [4623]),
+    (1, 4096, 8, 4, 256, True, 50.0, [4620]),
+    (2, 716, 32, 32, 224, False, None, [700, 715]),
+    (3, 1001, 8, 4, 256, True, 50.0, [5, 1000, 3000]),
+    (2, 100, 4, 2, 20, False, None, [37, 99]),
+    (1, 200, 8, 1, 64, False, 30.0, [0]),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,hq,hkv,d,ring,softcap,pos", DECODE_CASES)
+def test_split_decode_within_the_gate_of_the_plain_version(
+        dtype, b, t, hq, hkv, d, ring, softcap, pos):
+    q, kc, vc = decode_inputs(t + hq, b, t, hq, hkv, d, dtype)
+    p = torch.tensor(pos, dtype=torch.int32)
+    got = split_decode_emulation(q, kc, vc, p, softcap=softcap, ring=ring)
+    want = fd.flash_decode_torch(q, kc, vc, p, softcap=softcap, ring=ring)
+    assert within_gate(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,hq,hkv,d,ring,softcap,pos", [
+    (2, 100, 4, 2, 32, False, None, [37, 99]),     # linear, ragged T
+    (1, 200, 8, 1, 64, False, 30.0, [0]),          # softcap, MQA
+    (2, 128, 4, 4, 32, True, None, [60, 300]),     # ring: not yet, wrapped
+    (3, 64, 4, 2, 16, True, 50.0, [15, 16, 40]),   # ring, softcap
+])
+def test_split_decode_within_the_gate_of_the_reference_kernel(
+        dtype, b, t, hq, hkv, d, ring, softcap, pos):
+    """The reference's Pallas ``flash_decode`` in interpret mode (kv_block
+    64; ring caches of a whole number of blocks, where its padded slots
+    stay masked)."""
+    q, kc, vc = decode_inputs(t + hq, b, t, hq, hkv, d, dtype)
+    p = torch.tensor(pos, dtype=torch.int32)
+    got = split_decode_emulation(q, kc, vc, p, softcap=softcap, ring=ring)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    want = jax_ops.flash_decode(
+        *(jnp.asarray(x.float().numpy(), jdt) for x in (q, kc, vc)),
+        jnp.asarray(pos, jnp.int32), ring=ring, softcap=softcap, kv_block=64)
+    assert within_gate(got, torch.from_numpy(
+        np.array(want, np.float32)).to(dtype))

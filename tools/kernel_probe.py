@@ -1,0 +1,136 @@
+"""Time ``flash_decode`` and the dense ``sim_relax`` with the kernels of
+one checkout of this repository, so that a parent and a change can be
+compared on one card in one call (run the probe once per tree, in turns).
+
+    python3 tools/kernel_probe.py [--tree DIR] [--label NAME]
+
+``--tree`` is the checkout whose ``src`` is timed (default: this one);
+the timing code is this checkout's ``chip_smoke.py``, the same for every
+tree. Measured, on one CUDA device:
+
+- ``flash_decode``, bf16, random q and cache from seed 0, ``pos`` at the
+  last slot (a wrapped ring for the local layers), at the serving paths'
+  shapes: gemma2-2b run A (q (4, 8, 256), cache (4, 544, 4, 256)), run B
+  (1, 4624) and its local layers' 4,096-slot ring, softcap 50, and
+  zamba2-7b run D (q (2, 32, 224), cache (2, 716, 32, 224)), no softcap;
+  run B's shape also at ``pos`` 0, where one slot is valid (the launches'
+  fixed cost).
+  ``chip_smoke.decode_row``: device ms from a CUDA graph of 50 calls over
+  copies of the cache that hold 3x the L2, the plain version's the same
+  way, back-to-back ms on one cache; without a softcap also
+  ``scaled_dot_product_attention`` (run B's shape is timed both ways).
+- ``sim_relax`` at the four offline shapes of ``chip_smoke.py`` phase 2
+  (``dense_lags`` of the lowered 64- and 256-core suites, jitter 0 and
+  0.01 x 16): ms of one call from CUDA events over 5 calls after 2
+  warm-ups, and whether it equals the plain version bit for bit.
+
+Prints the card's name and power limit, then the results as one JSON
+line (the last).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parents[1]
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--tree", default=str(HERE))
+    ap.add_argument("--label", default="tree")
+    args = ap.parse_args()
+    tree = Path(args.tree).resolve()
+    sys.path.insert(0, str(HERE))
+    import chip_smoke as cs                 # puts this tree's src first
+    sys.path.insert(0, str(tree / "src"))   # the timed tree's, before it
+
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_probe: no CUDA device", file=sys.stderr)
+        return 1
+    import repro_torch
+    from repro_torch.core import (SynthParams, batch_scenarios,
+                                  cluster_of_multicores, generate_app,
+                                  get_scheduler, hp_bl260c, lower_scenario,
+                                  paper_suite_64core)
+    from repro_torch.core.sim_engine import _jitter_durations
+    from repro_torch.kernels import build
+    from repro_torch.kernels.sim_step import sim_relax_cuda, sim_relax_torch
+    if Path(repro_torch.__file__).resolve().parents[1] != tree / "src":
+        print(f"kernel_probe: imported {repro_torch.__file__}, not the "
+              f"tree's", file=sys.stderr)
+        return 1
+
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=False).stdout.strip()
+    print(smi)
+    build.build(["flash_decode", "sim_step", "sim_relax_pop"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    decode = {}
+    for name, b, t, hq, hkv, d, ring, cap, p in (
+            ("gemma2_A", 4, 544, 8, 4, 256, False, 50.0, 543),
+            ("gemma2_B", 1, 4624, 8, 4, 256, False, 50.0, 4623),
+            ("gemma2_B_ring", 1, 4096, 8, 4, 256, True, 50.0, 4623),
+            ("gemma2_B_pos0", 1, 4624, 8, 4, 256, False, 50.0, 0),
+            ("zamba2_D", 2, 716, 32, 32, 224, False, None, 715)):
+        q = torch.randn((b, hq, d), generator=gen, device=dev).bfloat16()
+        kc, vc = (torch.randn((b, t, hkv, d), generator=gen,
+                              device=dev).bfloat16() for _ in range(2))
+        pos = torch.full((b,), p, dtype=torch.int32, device=dev)
+        kw = dict(ring=ring, softcap=cap, scale=d ** -0.5)
+        decode[name] = cs.decode_row(q, kc, vc, pos, kw)
+        if name == "gemma2_B":
+            decode["gemma2_B_no_softcap"] = cs.decode_row(
+                q, kc, vc, pos, dict(kw, softcap=None))
+        del q, kc, vc
+    for row in decode.values():
+        row.pop("args")
+    torch.cuda.empty_cache()
+
+    mapper = get_scheduler("engine")
+    relax = {}
+    for suite, machine, graphs in (
+            ("64core", hp_bl260c(), paper_suite_64core(n_apps=10, seed=100)),
+            ("256core", cluster_of_multicores(32),
+             [generate_app(SynthParams(n_tasks=(240, 280)), seed=300 + i)
+              for i in range(4)])):
+        schedules = [mapper(g, machine) for g in graphs]
+        for tag, jitter, draws in (("plain", 0.0, 1),
+                                   ("jitter", cs.JITTER, cs.DRAWS)):
+            gs, ss = graphs * draws, schedules * draws
+            batch = batch_scenarios([lower_scenario(g, machine, sc)
+                                     for g, sc in zip(gs, ss)])
+            dur = _jitter_durations(batch, jitter, list(range(len(gs))))
+            dargs, host_ms = cs.dense_args(batch, dur, dev)
+            depth = batch.depth
+            got = sim_relax_cuda(*dargs, n_steps=depth)
+            want = sim_relax_torch(*dargs, n_steps=depth)
+            torch.cuda.synchronize()
+            relax[f"{suite}-{tag}"] = dict(
+                B=batch.n_scenarios, S=batch.max_subtasks, depth=depth,
+                ms=cs.cuda_ms(lambda: sim_relax_cuda(*dargs, n_steps=depth),
+                              5),
+                equal=bool(torch.equal(got, want)),
+                bound_ms=cs.dense_bounds(batch.n_scenarios,
+                                         batch.max_subtasks, depth)[0])
+            del dargs, got, want
+            torch.cuda.empty_cache()
+
+    out = dict(label=args.label, tree=str(tree), device=smi,
+               flash_decode=decode, sim_relax=relax)
+    print(json.dumps(out))
+    return 0 if all(r["equal"] for r in relax.values()) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
