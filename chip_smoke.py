@@ -38,16 +38,22 @@ Run from the repository root (it puts ``src`` on ``sys.path`` itself):
    at merged-cluster shapes. Both kernels' counts are zeroed just before
    and read just after. Checks: placements equal to the same admission
    with ``device="cpu"`` (the plain version), exactly; ``sched_score``
-   equal to its plain version under ``torch.equal`` at every shape the
-   path launched, at a ragged stress shape and with +-inf, and with NaN
-   propagated at the same places; ``sim_relax_pop`` equal to its plain
-   version at the GA's shapes; the GA's first population's fitness on
-   the card within rtol 1e-5 of float64; both kernels launched; the
-   GA-refined makespan at most that of the greedy re-map it starts from
-   (losing a core may lengthen the plan, the GA must not);
-   ``validate()`` after admission and after recovery. Numbers:
-   kernel/plain/bound ms and launches, admission/evaluate/recovery wall
-   seconds with a host breakdown of their layers, the recovery report.
+   (the fused kernel: the matrix and each row's minimum in one launch)
+   equal to its plain version under ``torch.equal``, the matrix and the
+   minima, at every shape the path launched, at a ragged stress shape
+   (scalar loads; the path's C = 256 takes 16-byte loads) and with
+   +-inf, and with NaN propagated at the same places; ``sim_relax_pop``
+   equal to its plain version at the GA's shapes; the GA's first
+   population's fitness on the card within rtol 1e-5 of float64; both
+   kernels launched; the GA-refined makespan at most that of the greedy
+   re-map it starts from (losing a core may lengthen the plan, the GA
+   must not); ``validate()`` after admission and after recovery.
+   Numbers: kernel/plain/bound ms and launches (``sched_score``'s device
+   ms from a CUDA graph over input copies past the L2, beside an empty
+   kernel's on its grid, the launch floor), ``kernel_scores``' host ms
+   per batch after ``drain_matrix`` (replayed on each batch's frozen
+   inputs), admission/evaluate/recovery wall seconds with a host
+   breakdown of their layers, the recovery report.
 6. Serving path: gemma2-2b at full width and depth in bf16, weights from
    ``init_params`` with a CUDA generator seeded 0 and every norm scale
    redrawn N(0, 0.1) from it. Run A: ``generate`` at B=4, prompt 512, 32
@@ -147,6 +153,12 @@ Run from the repository root (it puts ``src`` on ``sys.path`` itself):
    (the kernel) and ``get_scheduler("engine", verify=True)``; a result
    with one finish time moved before its predecessor's must raise
    ``VerifyError``.
+11. Analysis: the port's lint (``repro_torch.analysis.lint``) over its
+   package, tests, this script and ``tools/``, and its tracecheck
+   (``repro_torch.analysis.tracecheck``, ``--quick``) on the card over
+   the manifest; any finding fails, each entry must launch its kernel
+   once per call (``TRACE_LAUNCHES``) and the admission scorer must read
+   back exactly once per call.
 
 Exits non-zero, printing no result, on any failure, when no CUDA device
 is present, or when run outside a checkout. The last line of standard
@@ -297,18 +309,22 @@ class Spy:
 
 class Timed:
     """Adds up the host wall seconds of every call to ``owner.name``
-    while it stands in. The stand-in is a plain function, so a method
-    put on a class still binds."""
+    while it stands in, and keeps ``keep(*args, **kwargs)`` of each call
+    where given. The stand-in is a plain function, so a method put on a
+    class still binds."""
 
-    def __init__(self, owner, name):
+    def __init__(self, owner, name, keep=None):
         self.owner, self.name = owner, name
         self.fn = getattr(owner, name)
         self.seconds, self.calls = 0.0, 0
+        self.keep, self.kept = keep, []
 
     def __enter__(self):
         fn = self.fn
 
         def timed(*args, **kwargs):
+            if self.keep is not None:
+                self.kept.append(self.keep(*args, **kwargs))
             t0 = time.perf_counter()
             try:
                 return fn(*args, **kwargs)
@@ -338,6 +354,88 @@ def same_scores(got, want) -> bool:
     nan = torch.isnan(want)
     return (torch.equal(torch.isnan(got), nan)
             and torch.equal(got[~nan], want[~nan]))
+
+
+def score_row(args):
+    """``sched_score`` at one path shape: the fused kernel's (matrix and
+    row minima, the path's launch) device ms from a CUDA graph of calls
+    that take turns over copies of the inputs holding three times the L2,
+    so each reads them from device memory as the bound counts it; the
+    same for an empty kernel on the kernel's grid (the launch floor); the
+    plain version's device ms from a graph of 200 calls (its inputs warm
+    in the L2); the back-to-back ms of the kernel's wrapper (ctypes and
+    two allocations, what the path pays per launch); the bound and what
+    bounds it (inputs once, the matrix and the minima written once; a
+    max, an add and a compare per element)."""
+    from repro_torch.kernels.sched_score import (empty_cuda,
+                                                 sched_score_cuda,
+                                                 sched_score_torch)
+    drain, f, r = args
+    a, c = drain.shape
+    n_bytes = 4 * (2 * a * c + a + c + a)
+    b_ms, b_by = bound(n_bytes, 3 * a * c, FP32_OPS_PER_S)
+    per_call = 4 * (a * c + a + c)
+    n = -(-3 * L2_BYTES // per_call)
+    copies = [args] + [[x.clone() for x in args] for _ in range(n - 1)]
+    turn = itertools.count()
+
+    def kernel():
+        return sched_score_cuda(*copies[next(turn) % n], row_min=True)
+
+    def plain():
+        return sched_score_torch(*copies[next(turn) % n], row_min=True)
+
+    row = dict(
+        name=f"online({a}, {c})", A=a, C=c, ms=graph_ms(kernel, n),
+        floor_ms=graph_ms(lambda: empty_cuda(a, drain.device), n),
+        plain_ms=graph_ms(plain, 200), bound_ms=b_ms, bound_by=b_by,
+        eager_ms=cuda_ms(lambda: sched_score_cuda(*args, row_min=True), 200),
+        copies=n, bytes=n_bytes)
+    del copies
+    return row
+
+
+class FrozenEngine:
+    """What ``BatchedPolicy.kernel_scores`` reads of an ``OnlineAMTHA``
+    (its machine and the cluster's frontiers), frozen at one batch so the
+    call can be replayed after the admission has moved on."""
+
+    def __init__(self, eng):
+        self.machine = eng.machine
+        self.state = self
+        self._frontiers = list(eng.state.frontiers())
+
+    def frontiers(self):
+        return self._frontiers
+
+
+def kernel_scores_host_ms(calls, reps=200):
+    """Host ms per batch of ``kernel_scores`` after ``drain_matrix``: for
+    each recorded ``(policy, batch, frozen engine, now)``, the median of
+    ``reps`` calls with the batch's drain matrix computed beforehand (the
+    policies module's ``drain_matrix`` stands in with it) and the
+    frontiers frozen (a list read, where the live engine computes them).
+    Each call ends in its read-back, so its time is the host's wait for
+    the card too. Returns the per-batch values."""
+    import statistics
+
+    from repro_torch.online import policies
+
+    real = policies.drain_matrix
+    out = []
+    try:
+        for policy, batch, eng, now in calls:
+            drain = real([a.graph for a in batch], eng.machine)
+            policies.drain_matrix = lambda graphs, machine, d=drain: d
+            times = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                policy.kernel_scores(batch, eng, now)
+                times.append((time.perf_counter() - t0) * 1e3)
+            out.append(statistics.median(times))
+    finally:
+        policies.drain_matrix = real
+    return out
 
 
 def sim_row(name, args, steps, ops, sim_relax_pop_cuda, sim_relax_pop_torch):
@@ -1851,6 +1949,46 @@ def verify_phase(dev, runs):
     return launches
 
 
+#: each tracecheck entry's kernel launches per call on the card
+TRACE_LAUNCHES = {"search.generation_step": {"sim_relax_pop": 1},
+                  "sim.relax_pop": {"sim_relax_pop": 1},
+                  "kernels.sched_score": {"sched_score": 1},
+                  "online.admission_score": {"sched_score": 1},
+                  "kernels.flash_attention": {"flash_attention": 1}}
+
+
+def analysis_phase(dev):
+    """The port's lint over its tree and its tracecheck (``--quick``) on
+    the card over the manifest; any finding fails. Each entry must launch
+    its kernel once per call, and the admission scorer must read back
+    exactly once per call."""
+    from repro_torch.analysis import lint, tracecheck
+    bad = lint.lint_paths(lint.default_paths())
+    print(f"lint: {len(bad)} finding(s) over the port's tree")
+    if bad:
+        fail("lint: " + "; ".join(str(v) for v in bad))
+    t0 = time.perf_counter()
+    reports = tracecheck.run_tracecheck(quick=True, device=dev)
+    for r in reports:
+        print("tracecheck " + json.dumps(r.row()))
+    print(f"tracecheck: {len(reports)} entries on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    bad = [str(v) for r in reports for v in r.violations]
+    if bad:
+        fail("tracecheck: " + "; ".join(bad))
+    by = {r.entry: r for r in reports}
+    if set(by) != set(TRACE_LAUNCHES):
+        fail(f"tracecheck ran {sorted(by)}, not {sorted(TRACE_LAUNCHES)}")
+    for name, want in TRACE_LAUNCHES.items():
+        if by[name].launches != want:
+            fail(f"tracecheck {name}: launches {by[name].launches}, "
+                 f"expected {want}")
+    syncs = by["online.admission_score"].host_syncs
+    if len(syncs) != 1:
+        fail(f"admission scorer: {len(syncs)} host read-backs per call "
+             f"({syncs}), expected exactly 1")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1867,8 +2005,8 @@ def main() -> int:
                                              simulate_batch)
     from repro_torch.faults import random_script
     from repro_torch.kernels import build, ops
-    from repro_torch.kernels.sched_score import (sched_score_cuda,
-                                                 sched_score_torch)
+    from repro_torch.kernels.sched_score import (sched_score_torch,
+                                                 vector_path)
     from repro_torch.kernels.sim_step import (sim_relax_pop_cuda,
                                               sim_relax_pop_torch)
     from repro_torch.online import (ArrivalParams, BatchedPolicy,
@@ -2038,6 +2176,10 @@ def main() -> int:
     with contextlib.ExitStack() as stack:
         timed = {k: stack.enter_context(Timed(*v))
                  for k, v in timers.items()}
+        score_calls = stack.enter_context(Timed(
+            BatchedPolicy, "order_batch",
+            keep=lambda pol, batch, eng, now: (pol, list(batch),
+                                               FrozenEngine(eng), now)))
         score_spy = stack.enter_context(Spy(ops, "sched_score", shapes))
         relax_spy = stack.enter_context(Spy(ops, "sim_relax_pop", shapes))
         fit_spy = stack.enter_context(
@@ -2139,28 +2281,35 @@ def main() -> int:
     score_err = 0.0
     for name, args in cases:
         got = ops.sched_score(*args)
-        want = sched_score_torch(*args)
+        fused, mins = ops.sched_score(*args, row_min=True)
+        want, want_min = sched_score_torch(*args, row_min=True)
         torch.cuda.synchronize()
-        if name.startswith("nan"):
-            if not same_scores(got, want):
-                fail(f"sched_score {name}: kernel != plain version")
-            continue
-        if not torch.equal(got, want):
+        if not (same_scores(got, want) and same_scores(fused, want)):
             fail(f"sched_score {name}: kernel != plain version")
-        score_err = max(score_err, (got - want).abs().max().item())
+        if not same_scores(mins, want_min):
+            fail(f"sched_score {name}: row minima != the plain version's")
+        vec = vector_path(args[0], args[1], fused)
+        if vec != (args[0].shape[1] % 4 == 0):
+            fail(f"sched_score {name}: 16-byte path {vec} at C="
+                 f"{args[0].shape[1]}")
+        if name.startswith("nan"):
+            if not torch.isnan(want_min).any():
+                fail("sched_score: the NaN stress has no NaN minimum")
+            continue
+        score_err = max(score_err, (got - want).abs().max().item(),
+                        (mins - want_min).abs().max().item())
     score_rows = []
     for (dshape, _, _), (args, _) in score_spy.calls.items():
-        a, c = dshape
-        t_bytes = 4 * (2 * a * c + a + c) / HBM_BYTES_PER_S * 1e3
-        t_ops = 2 * a * c / FP32_OPS_PER_S * 1e3
-        score_rows.append(dict(
-            name=f"online({a}, {c})", A=a, C=c,
-            ms=cuda_ms(lambda: sched_score_cuda(*args), 200),
-            plain_ms=cuda_ms(lambda: sched_score_torch(*args), 200),
-            bound_ms=max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
-            bytes=4 * (2 * a * c + a + c)))
+        score_rows.append(score_row(args))
         print("sched_score " + json.dumps(score_rows[-1]))
+    # admission's host time per batch (4 batches of 16 apps), replayed on
+    # the frozen inputs of each batch
+    calls = [c for c in score_calls.kept if c[0].scorer == "kernel"]
+    host_ms = kernel_scores_host_ms(calls)
+    print("kernel_scores host ms per batch after drain_matrix "
+          + json.dumps(host_ms))
+    for row in score_rows:
+        row["kernel_scores_host_ms"] = host_ms
 
     # sim_relax_pop at the GA's merged-cluster shapes
     for (pshape, *_), (args, kwargs) in relax_spy.calls.items():
@@ -2198,11 +2347,13 @@ def main() -> int:
         row["launches_by_path"].update(ssm_launches[name])
         row["max_abs_err"] = max(row["max_abs_err"], ssm_err[name])
 
+    analysis_phase(dev)
+
     # the device GA's largest shape: where the path spends its launches
     main_row = max((r for r in kernel_rows
                     if r["name"].startswith("device-ga")),
                    key=lambda x: x["bytes"])
-    score_row = max(score_rows, key=lambda x: x["bytes"])
+    main_score = max(score_rows, key=lambda x: x["bytes"])
     print(json.dumps({"kernels": [dict(
         name="sim_relax_pop", route="cuda",
         source="src/repro_torch/kernels/csrc/sim_relax_pop.cu",
@@ -2226,10 +2377,13 @@ def main() -> int:
         launches=online_launches["sched_score"],
         launches_by_path={"offline": launches["sched_score"],
                           "online": online_launches["sched_score"]},
-        max_abs_err=score_err, ms=score_row["ms"],
-        plain_ms=score_row["plain_ms"], bound_ms=score_row["bound_ms"],
-        bound_by=score_row["bound_by"], library_ms=None,
-        shape=score_row["name"]), dense_entry] + serve_rows
+        max_abs_err=score_err, ms=main_score["ms"],
+        plain_ms=main_score["plain_ms"], bound_ms=main_score["bound_ms"],
+        bound_by=main_score["bound_by"], library_ms=None,
+        shape=main_score["name"], floor_ms=main_score["floor_ms"],
+        eager_ms=main_score["eager_ms"],
+        kernel_scores_host_ms=main_score["kernel_scores_host_ms"]),
+        dense_entry] + serve_rows
         + [ssd_entry]}))
 
     smi = subprocess.run(

@@ -183,12 +183,14 @@ sim_relax.launches = 0
 sim_relax.variants = {"compact": 0, "dense": 0}
 
 
-def sched_score(drain, frontiers, release) -> torch.Tensor:
+def sched_score(drain, frontiers, release, *, row_min: bool = False):
     """The (apps × cores) admission screening matrix
     ``max(frontier[j], release[i]) + drain[i, j]`` (see
     :mod:`.sched_score`): float32 ``drain`` (A, C), ``frontiers`` (C,),
     ``release`` (A,), all contiguous on one device. Returns (A, C)
-    float32. NaN propagates as in ``np.maximum``."""
+    float32; with ``row_min``, ``(matrix, row minima (A,))`` from the
+    same launch (C must then be non-zero). NaN propagates as in
+    ``np.maximum`` and ``ndarray.min``."""
     device = _check_tensors(
         "sched_score", dict(drain=drain, frontiers=frontiers,
                             release=release),
@@ -200,11 +202,15 @@ def sched_score(drain, frontiers, release) -> torch.Tensor:
     a, c = drain.shape
     check_shape("sched_score.frontiers", frontiers, (c,))
     check_shape("sched_score.release", release, (a,))
+    if row_min and c == 0:
+        raise ValueError("sched_score: row minima of zero columns")
     if device.type == "cpu":
-        return _ss.sched_score_torch(drain, frontiers, release)
+        return _ss.sched_score_torch(drain, frontiers, release,
+                                     row_min=row_min)
     if a == 0 or c == 0:
-        return torch.empty((a, c), dtype=torch.float32, device=device)
-    out = _ss.sched_score_cuda(drain, frontiers, release)
+        out = torch.empty((a, c), dtype=torch.float32, device=device)
+        return (out, out.new_empty((a,))) if row_min else out
+    out = _ss.sched_score_cuda(drain, frontiers, release, row_min=row_min)
     sched_score.launches += 1
     return out
 
@@ -332,7 +338,9 @@ def flash_decode(q, k_cache, v_cache, pos, *, scale: float | None = None,
     if t == 0:
         raise ValueError("flash_decode: empty cache (T = 0)")
     if pos.numel():
-        lo, hi = torch.stack(torch.aminmax(pos)).tolist()   # one sync
+        # the pos range guard: one read-back per call (moving it out of
+        # the call is the CUDA-graph work)
+        lo, hi = torch.stack(torch.aminmax(pos)).tolist()  # lint: sync-ok
         top = None if ring else t - 1
         if lo < 0 or (top is not None and hi > top):
             raise IndexError(f"flash_decode.pos: positions span [{lo}, {hi}]"

@@ -260,7 +260,8 @@ def compact_lags_cuda(lat, volbw, duration, release) -> CompactLags:
                                cvolbw.data_ptr(), counts.data_ptr(),
                                info.data_ptr(), b, s, w, stream)
     _raise_on(err, "compact_lags", err_str)
-    widest, bad = info.cpu().unbind(1)
+    # the one read-back that sizes the compact form
+    widest, bad = info.cpu().unbind(1)  # lint: sync-ok
     rows = ((bad == 0) & (widest <= w)).nonzero().flatten()
     n = rows.numel()
     p1 = max(1, int(widest[rows].max())) if n else 1
@@ -301,7 +302,8 @@ def sim_relax_cuda(lat, volbw, duration, release, *, n_steps: int,
         ends, sw, over = sim_relax_pop_cuda(
             pred, lat_c, volbw_c, dur, rel, n_steps=steps, with_sweeps=True,
             with_overflow=True)
-        sw, over = torch.stack((sw, over)).cpu()
+        # the overflow flags pick the rows the dense variant redoes
+        sw, over = torch.stack((sw, over)).cpu()  # lint: sync-ok
         return ends, sw, over.bool()
 
     def dense(rows, out):
@@ -419,7 +421,7 @@ def compact_lags_torch(lat, volbw, duration, release) -> CompactLags:
     widest = keep.sum(2).amax(1)
     ok = ~_bad_inputs(lat, volbw, duration, release) \
         & (widest <= compact_width(s))
-    rows = ok.nonzero().flatten().cpu()
+    rows = ok.nonzero().flatten().cpu()  # lint: sync-ok plain version
     n = rows.numel()
     p1 = max(1, int(widest[ok].max())) if n else 1
     pred = torch.full((n, s, p1), s, dtype=torch.int32, device=lat.device)
@@ -490,7 +492,7 @@ def sim_relax_variants_torch(lat, volbw, duration, release, *,
     def relax(*args):
         ends, sw, over = fixpoint_sweeps_torch(*args[:5], n_steps=args[5],
                                                with_overflow=True)
-        return ends, sw.cpu(), over.cpu()
+        return ends, sw.cpu(), over.cpu()  # lint: sync-ok plain version
 
     def dense(rows, out):
         sel = rows.to(out.device)

@@ -44,7 +44,8 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 def chunk_cumsum(da: torch.Tensor) -> torch.Tensor:
     """Inclusive cumsum over the last axis, summed in float64 and
     rounded once to float32 (what the kernel computes)."""
-    return torch.cumsum(da.double(), dim=-1).float()
+    # the kernel sums in float64 too
+    return torch.cumsum(da.double(), dim=-1).float()  # lint: dtype-ok
 
 
 def ssd_scan_torch(x, dt, A, B, C, chunk: int = 256):

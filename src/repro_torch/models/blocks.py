@@ -133,7 +133,7 @@ def _cache_insert(cache, k, v, positions, window):
     (ring when local) cache, in place; return (k_cache, v_cache)."""
     kc, vc = cache["k"], cache["v"]
     t = kc.shape[1]
-    pos = int(positions)
+    pos = int(positions)  # lint: sync-ok decode passes the host's int
     slot = pos % t if window is not None else pos
     if not 0 <= slot < t:
         raise IndexError(f"decode position {pos} outside the linear cache "

@@ -25,11 +25,12 @@ handed to :class:`~repro_torch.online.online_amtha.OnlineAMTHA`:
     is scored in **one** ``sched_score`` call (drain-on-one-core
     completion estimates against the per-core frontiers) — a screening
     pass whose cost does not grow with timeline length at all. On a
-    CUDA ``device`` (the default) that is the hand-written kernel
-    ``kernels/csrc/sched_score.cu``; ``device="cpu"`` runs its plain
-    PyTorch version. Ordering may differ from the exact scorer where
-    drain estimates invert true what-if finishes; every admission itself
-    still runs the exact engine.
+    CUDA ``device`` (the default) that is one upload, one launch of the
+    hand-written kernel ``kernels/csrc/sched_score.cu`` (the matrix and
+    each app's best core in one pass) and one read-back of A floats;
+    ``device="cpu"`` runs its plain PyTorch version. Ordering may differ
+    from the exact scorer where drain estimates invert true what-if
+    finishes; every admission itself still runs the exact engine.
 
 All policies share one invariant: a queued app's release floor is its
 admission instant, never earlier, so the produced timeline is causal.
@@ -37,7 +38,6 @@ admission instant, never earlier, so the produced timeline is causal.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from ..core.lowering import drain_matrix
@@ -124,6 +124,7 @@ class BatchedPolicy(Policy):
         self.k = k
         self.scorer = scorer
         self.device = torch.device(device)     # where the kernel scorer runs
+        self._staging = torch.empty(0, dtype=torch.float32)
 
     def batch_size(self) -> int:
         return self.k
@@ -140,23 +141,48 @@ class BatchedPolicy(Policy):
                       for a in batch]
         return [a for _, _, a in sorted(scored, key=lambda s: s[:2])]
 
+    def _stage(self, n: int) -> torch.Tensor:
+        """The first ``n`` floats of the host buffer the scorer packs its
+        operands into: pinned where the scorer runs on the card, so that
+        its upload is one asynchronous copy. Kept across batches and grown
+        by doubling."""
+        if self._staging.numel() < n:
+            cap = max(n, 2 * self._staging.numel())
+            self._staging = torch.empty(
+                cap, dtype=torch.float32,
+                pin_memory=self.device.type == "cuda")
+        return self._staging[:n]
+
     def kernel_scores(self, batch, eng, now) -> list[float]:
         """One batched ``sched_score`` call over the (apps × cores)
         candidate matrix on ``self.device``; per-app score = best core's
         drain estimate, relative to ``now`` like the exact scorer. The
         drain matrix comes off the shared scenario IR
         (``core.lowering``). Drains, frontiers and releases are cast to
-        float32 on the host before the max, the row minimum is taken on
-        the host from the downloaded matrix, and ``- now`` in float64.
-        A CUDA device launches the kernel or raises."""
+        float32 on the host before the max, packed into one staging
+        buffer and uploaded with one copy; the kernel takes each row's
+        minimum in the same launch, and only those A floats come back.
+        ``- now`` is taken in float64 on the host. A CUDA device launches
+        the kernel or raises."""
         drain = drain_matrix([a.graph for a in batch], eng.machine)
         frontiers = eng.state.frontiers()
         release = [max(now, a.t_arrival) for a in batch]
-        # row-major copies: the drain gather comes out column-major
-        args = [torch.from_numpy(np.ascontiguousarray(x, np.float32))
-                .to(self.device) for x in (drain, frontiers, release)]
-        matrix = ops.sched_score(*args).cpu().numpy()
-        return [float(v) - now for v in matrix.min(axis=1)]
+        a, c = drain.shape
+        host = self._stage(a * c + c + a)
+        packed = host.numpy()
+        # the float32 casts of np.asarray(x, np.float32), row-major (the
+        # drain gather comes out column-major)
+        packed[:a * c].reshape(a, c)[...] = drain
+        packed[a * c:a * c + c] = frontiers
+        packed[a * c + c:] = release
+        # One upload. It may run after this returns to the host loop, but
+        # the read-back below waits for the stream, so the staging buffer
+        # is free again before the next batch writes it.
+        dev = host.to(self.device, non_blocking=True)
+        _, mins = ops.sched_score(dev[:a * c].view(a, c),
+                                  dev[a * c:a * c + c], dev[a * c + c:],
+                                  row_min=True)
+        return [float(v) - now for v in mins.cpu().numpy()]
 
 
 class CriticalityPolicy(Policy):

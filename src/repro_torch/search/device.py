@@ -327,7 +327,8 @@ def ga_search_device(graph: AppGraph, machine: MachineModel, *,
         pop, fit = step(inp, gen, pop, fit)
 
     best = int(torch.argmin(fit))
-    vec = pop[best].cpu().numpy().astype(np.int32)
+    # the winner leaves the card once per search
+    vec = pop[best].cpu().numpy().astype(np.int32)  # lint: sync-ok
     val = float(fit[best])
     if par.refine_rounds > 0 and n_tasks > 0 and n_cores > 1:
         vec, val = hill_climb_device(fitness, inp, vec, val, generator=gen,

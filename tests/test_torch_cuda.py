@@ -241,6 +241,18 @@ def test_sched_score_kernel_equals_plain_version(cuda, a, c):
     finite = [x.nan_to_num(nan=1.0) for x in args]
     assert torch.equal(ops.sched_score(*finite),
                        sched_score.sched_score_torch(*finite))
+    # the fused row minimum: the same launch, equal under == to the
+    # matrix's (the sign of a zero minimum is not pinned), NaN rows alike
+    before = ops.sched_score.launches
+    got, mins = ops.sched_score(*args, row_min=True)
+    assert ops.sched_score.launches == before + 1
+    assert_same_scores(got, want)
+    want_min = want.amin(dim=1)
+    nan = torch.isnan(want_min)
+    assert torch.equal(torch.isnan(mins), nan)
+    assert torch.equal(mins[~nan], want_min[~nan])
+    np.testing.assert_array_equal(mins.cpu().numpy(),
+                                  oracle.numpy().min(axis=1))
 
 
 def test_sched_score_empty_and_guarded_on_the_card(cuda):
@@ -256,6 +268,70 @@ def test_sched_score_empty_and_guarded_on_the_card(cuda):
         ops.sched_score(d, f.cpu(), r)
     with pytest.raises(TypeError, match="dtype"):
         ops.sched_score(d.double(), f, r)
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2])
+@pytest.mark.parametrize("a,c", [(16, 256), (9, 64), (1000, 777)])
+def test_sched_score_vector_and_scalar_paths_on_the_card(cuda, a, c, offset):
+    """16-byte loads where C % 4 == 0 and the operands are aligned, scalar
+    loads on views that start off 16 bytes and on a ragged C; both give
+    the plain version's matrix and minima."""
+    d, f, r = score_inputs(a + c + offset, a, c)
+    flat = torch.from_numpy(np.concatenate(
+        [np.zeros(offset, np.float32), d.ravel(), f, r])).to(cuda)
+    args = (flat[offset:offset + a * c].view(a, c),
+            flat[offset + a * c:offset + a * c + c],
+            flat[offset + a * c + c:])
+    want, want_min = sched_score.sched_score_torch(*args, row_min=True)
+    got, mins = ops.sched_score(*args, row_min=True)
+    assert sched_score.vector_path(args[0], args[1], got) \
+        == (c % 4 == 0 and offset == 0)
+    assert_same_scores(got, want)
+    nan = torch.isnan(want_min)
+    assert torch.equal(torch.isnan(mins), nan)
+    assert torch.equal(mins[~nan], want_min[~nan])
+
+
+def test_kernel_scores_stage_once_and_read_back_the_minima(cuda):
+    """On the card, each batch packs its operands into one pinned buffer
+    kept on the policy (grown, never shrunk), launches once and returns
+    the plain version's scores."""
+    from repro_torch.online import (ArrivalParams, BatchedPolicy,
+                                    OnlineAMTHA, generate_workload)
+    m = T.cluster_of_multicores(n_blades=4)
+    wl = generate_workload(ArrivalParams(rate=0.9 * 32 / 550), n_apps=20,
+                           seed=4)
+    eng = OnlineAMTHA(m)
+    for arr in wl[:4]:
+        eng.admit(arr)
+    pol = BatchedPolicy(k=8, scorer="kernel", device=cuda)
+    cpu = BatchedPolicy(k=8, scorer="kernel", device="cpu")
+    now = wl[4].t_arrival
+    before = ops.sched_score.launches
+    caps = []
+    for batch in (wl[4:7], wl[4:16], wl[4:6]):
+        assert pol.kernel_scores(batch, eng, now) \
+            == cpu.kernel_scores(batch, eng, now)
+        caps.append(pol._staging.numel())
+        assert pol._staging.is_pinned()
+    assert ops.sched_score.launches == before + 3
+    assert caps[0] < caps[1] == caps[2]
+    assert not cpu._staging.is_pinned()
+
+
+def test_tracecheck_on_the_card(cuda):
+    """Every manifest entry clean on the card; the kernels' launches seen
+    through their counts; the admission scorer's one read-back."""
+    from repro_torch.analysis.tracecheck import assert_clean, run_tracecheck
+    reports = assert_clean(run_tracecheck(quick=True, device=cuda))
+    by = {r.entry: r for r in reports}
+    assert by["online.admission_score"].launches == {"sched_score": 1}
+    assert by["online.admission_score"].host_syncs \
+        == ("_to_copy(cuda->cpu)",)
+    assert by["kernels.sched_score"].launches == {"sched_score": 1}
+    assert by["kernels.sched_score"].host_syncs == ()
+    assert by["sim.relax_pop"].launches == {"sim_relax_pop": 1}
+    assert by["kernels.flash_attention"].launches == {"flash_attention": 1}
 
 
 def test_kernel_scored_admission_places_like_the_plain_version(cuda):

@@ -47,6 +47,8 @@ def test_import_leaves_jax_and_reference_unloaded():
         "import repro_torch.kernels.ssd_scan, repro_torch.models.ssm\n"
         "import repro_torch.analysis, repro_torch.analysis.verify\n"
         "import repro_torch.analysis.ir_lint, repro_torch.search.device\n"
+        "import repro_torch.analysis.lint, repro_torch.analysis.tracecheck\n"
+        "import repro_torch.analysis.entrypoints\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "assert not bad, bad\n"

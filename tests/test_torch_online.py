@@ -28,7 +28,7 @@ import repro_torch.online as TO
 from repro.kernels.sched_ref import sched_score_np as ref_sched_score_np
 from repro.kernels.sched_score import sched_score as ref_sched_score
 from repro.search.ga import GAParams as RGAParams
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, sched_score
 from repro_torch.kernels.ref import sched_score_np
 from repro_torch.kernels.sched_score import sched_score_torch
 from repro_torch.search.ga import GAParams as TGAParams
@@ -123,6 +123,111 @@ def test_ops_sched_score_guard_and_cpu_launch_count():
                                 torch.zeros(a))
         assert empty.shape == (a, c)
     assert ops.sched_score.launches == before
+
+
+def admission_inputs(pkg, machine_name):
+    """The admission scorer's operands as the reference's tracecheck entry
+    ``online.admission_score`` builds them: three apps admitted on the
+    suite's machine, the next three scored against the live frontiers."""
+    machines = {"8core": lambda m: m.dell_poweredge_1950(),
+                "64core": lambda m: m.hp_bl260c(),
+                "256core": lambda m: m.cluster_of_multicores(n_blades=32)}
+    core = R if pkg is RO else T
+    lowering = R.lowering if pkg is RO else T.lowering
+    machine = machines[machine_name](core)
+    eng = pkg.OnlineAMTHA(machine)
+    arrivals = pkg.generate_workload(pkg.ArrivalParams(), n_apps=6, seed=0)
+    for a in arrivals[:3]:
+        eng.admit(a)
+    batch = arrivals[3:]
+    drain = np.asarray(lowering.drain_matrix([a.graph for a in batch],
+                                             machine), np.float32)
+    frontiers = np.asarray(eng.state.frontiers(), np.float32)
+    release = np.asarray([a.t_arrival for a in batch], np.float32)
+    return drain, frontiers, release
+
+
+STRESS = {"inf": lambda: score_inputs(11, 16, 256),
+          "nan": lambda: nan_inputs(12, 16, 256, nan_frontier=False),
+          "ragged-nan": lambda: nan_inputs(13, 37, 77, nan_frontier=True)}
+
+
+def nan_inputs(seed, a, c, nan_frontier):
+    """+inf frontiers and -inf releases, then NaN drains and releases
+    (rows whose NaN sits among finite scores, rows that are NaN
+    throughout) and, with ``nan_frontier``, one NaN frontier, which makes
+    every row's minimum NaN."""
+    drain, f, r = score_inputs(seed, a, c, special=False)
+    rng = np.random.default_rng(seed + 1)
+    f[rng.random(c) < 0.1] = np.inf           # ±inf that sum to no NaN
+    r[rng.random(a) < 0.1] = -np.inf
+    drain[rng.random((a, c)) < 0.002] = np.nan
+    r[rng.random(a) < 0.1] = np.nan
+    if nan_frontier:
+        f[c // 2] = np.nan
+    return drain, f, r
+
+
+@pytest.mark.parametrize("case", ["8core", "64core", "256core",
+                                  *sorted(STRESS)])
+def test_fused_plain_row_min_equals_reference(case):
+    """The plain version's matrix and row minima against the NumPy oracle
+    and the reference's Pallas kernel in interpret mode, on the admission
+    inputs of each suite and on the ±inf / NaN stress."""
+    if case in STRESS:
+        drain, f, r = STRESS[case]()
+    else:
+        drain, f, r = admission_inputs(RO, case)
+        port = admission_inputs(TO, case)
+        assert all(np.array_equal(x, y) for x, y in zip((drain, f, r), port))
+    got, mins = sched_score_torch(torch.from_numpy(drain),
+                                  torch.from_numpy(f), torch.from_numpy(r),
+                                  row_min=True)
+    got, mins = got.numpy(), mins.numpy()
+    want = ref_sched_score_np(drain, f, r)
+    assert np.array_equal(bits(got), bits(want))
+    assert np.array_equal(mins, want.min(axis=1), equal_nan=True)
+    assert np.array_equal(mins, sched_score_np(drain, f, r).min(axis=1),
+                          equal_nan=True)
+    pallas = np.asarray(ref_sched_score(drain, f, r, interpret=True))
+    assert np.array_equal(got, pallas, equal_nan=True)
+    assert np.array_equal(mins, pallas.min(axis=1), equal_nan=True)
+    if case == "nan":
+        assert np.isnan(mins).any() and not np.isnan(mins).all()
+    if case == "ragged-nan":
+        assert np.isnan(mins).all()
+
+
+def test_ops_sched_score_row_min_guard_and_cpu_path():
+    drain, f, r = (torch.from_numpy(x)
+                   for x in score_inputs(2, 5, 8, special=False))
+    before = ops.sched_score.launches
+    out, mins = ops.sched_score(drain, f, r, row_min=True)
+    assert torch.equal(out, sched_score_torch(drain, f, r))
+    assert torch.equal(mins, out.amin(dim=1))
+    assert ops.sched_score.launches == before
+    with pytest.raises(ValueError, match="zero columns"):
+        ops.sched_score(torch.zeros(3, 0), torch.zeros(0), torch.zeros(3),
+                        row_min=True)
+    with pytest.raises(ValueError, match="shape"):
+        ops.sched_score(drain, f, r[:-1], row_min=True)
+    out, mins = ops.sched_score(torch.zeros(0, 4), torch.zeros(4),
+                                torch.zeros(0), row_min=True)
+    assert out.shape == (0, 4) and mins.shape == (0,)
+
+
+@pytest.mark.parametrize("c,offset,vec", [(256, 0, True), (777, 0, False),
+                                          (256, 1, False), (64, 4, True)])
+def test_sched_score_vector_path_rule(c, offset, vec):
+    """The launch rule: 16-byte loads only where C % 4 == 0 and every
+    operand the kernel moves in float4 starts on 16 bytes."""
+    a = 3
+    flat = torch.zeros(offset + a * c + c + a)
+    drain = flat[offset:offset + a * c].view(a, c)
+    f = flat[offset + a * c:offset + a * c + c]
+    out = torch.empty(a, c)
+    assert out.data_ptr() % 16 == 0
+    assert sched_score.vector_path(drain, f, out) == vec
 
 
 # ---------------------------------------------------------------------------
@@ -254,6 +359,28 @@ def test_kernel_scores_equal_reference():
     assert [a.app_id for a in pol.order_batch(wt[5:12], et, now)] \
         == [a.app_id for a in RO.BatchedPolicy(k=7, scorer="kernel")
             .order_batch(wr[5:12], er, now)]
+
+
+def test_kernel_scores_reuse_one_staging_buffer_on_the_cpu():
+    """Every batch packs into the policy's one staging buffer, grown by
+    doubling and never shrunk; scores stay the reference's."""
+    wr, wt = workload(RO), workload(TO)
+    er, et = RO.OnlineAMTHA(cluster(RO)), TO.OnlineAMTHA(cluster(TO))
+    for a in wr[:3]:
+        er.admit(a)
+    for a in wt[:3]:
+        et.admit(a)
+    pol = TO.BatchedPolicy(k=4, scorer="kernel", device="cpu")
+    caps = []
+    for lo, hi in ((3, 5), (3, 12), (5, 8), (3, 4)):
+        now = wr[hi - 1].t_arrival
+        assert pol.kernel_scores(wt[lo:hi], et, now) \
+            == RO.BatchedPolicy.kernel_scores(wr[lo:hi], er, now)
+        caps.append(pol._staging.numel())
+    n_cores = et.machine.n_cores
+    assert caps[0] == 2 * n_cores + n_cores + 2
+    assert caps[1] == 9 * n_cores + n_cores + 9
+    assert caps[1:] == [caps[1]] * 3
 
 
 def test_replay_fifo_and_compact_equal_reference():

@@ -1,12 +1,15 @@
-"""Time ``flash_decode`` and the dense ``sim_relax`` with the kernels of
-one checkout of this repository, so that a parent and a change can be
-compared on one card in one call (run the probe once per tree, in turns).
+"""Time ``flash_decode``, the dense ``sim_relax`` and ``sched_score``
+with the kernels of one checkout of this repository, so that a parent and
+a change can be compared on one card in one call (run the probe once per
+tree, in turns: parent, change, change, parent).
 
     python3 tools/kernel_probe.py [--tree DIR] [--label NAME]
+                                  [--kernels NAME ...]
 
 ``--tree`` is the checkout whose ``src`` is timed (default: this one);
 the timing code is this checkout's ``chip_smoke.py``, the same for every
-tree. Measured, on one CUDA device:
+tree. ``--kernels`` picks what to time (default: all three). Measured,
+on one CUDA device:
 
 - ``flash_decode``, bf16, random q and cache from seed 0, ``pos`` at the
   last slot (a wrapped ring for the local layers), at the serving paths'
@@ -23,6 +26,19 @@ tree. Measured, on one CUDA device:
   (``dense_lags`` of the lowered 64- and 256-core suites, jitter 0 and
   0.01 x 16): ms of one call from CUDA events over 5 calls after 2
   warm-ups, and whether it equals the plain version bit for bit.
+- ``sched_score`` on ``chip_smoke.py``'s online path (64 bursty arrivals
+  on 256 cores admitted by ``make_policy("batched", k=16,
+  scorer="kernel")``): at each shape the path launched, the tree's
+  kernel as the path launches it (with the row minimum where the tree's
+  launcher takes ``row_min``) timed from a CUDA graph over input copies
+  past 3x the L2, an empty kernel on its grid the same way where the
+  tree has one (the launch floor), the wrapper's back-to-back ms;
+  ``kernel_scores``' host ms per batch after ``drain_matrix``
+  (``chip_smoke.kernel_scores_host_ms``: the drain matrix computed
+  beforehand, the frontiers frozen), the host ms of one
+  ``ClusterState.frontiers()`` on the admitted state (what the live path
+  adds to each batch, the same code in both trees), the placements'
+  count.
 
 Prints the card's name and power limit, then the results as one JSON
 line (the last).
@@ -37,12 +53,15 @@ import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
+KERNELS = ("flash_decode", "sim_relax", "sched_score")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=str(HERE))
     ap.add_argument("--label", default="tree")
+    ap.add_argument("--kernels", nargs="+", default=list(KERNELS),
+                    choices=KERNELS)
     args = ap.parse_args()
     tree = Path(args.tree).resolve()
     sys.path.insert(0, str(HERE))
@@ -54,13 +73,7 @@ def main() -> int:
         print("kernel_probe: no CUDA device", file=sys.stderr)
         return 1
     import repro_torch
-    from repro_torch.core import (SynthParams, batch_scenarios,
-                                  cluster_of_multicores, generate_app,
-                                  get_scheduler, hp_bl260c, lower_scenario,
-                                  paper_suite_64core)
-    from repro_torch.core.sim_engine import _jitter_durations
     from repro_torch.kernels import build
-    from repro_torch.kernels.sim_step import sim_relax_cuda, sim_relax_torch
     if Path(repro_torch.__file__).resolve().parents[1] != tree / "src":
         print(f"kernel_probe: imported {repro_torch.__file__}, not the "
               f"tree's", file=sys.stderr)
@@ -72,9 +85,25 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=False).stdout.strip()
     print(smi)
-    build.build(["flash_decode", "sim_step", "sim_relax_pop"])
+    sources = {"flash_decode": ["flash_decode"],
+               "sim_relax": ["sim_step", "sim_relax_pop"],
+               "sched_score": ["sched_score"]}
+    build.build([src for k in args.kernels for src in sources[k]])
     torch.backends.cuda.matmul.allow_tf32 = False
+    out = dict(label=args.label, tree=str(tree), device=smi)
+    if "flash_decode" in args.kernels:
+        out["flash_decode"] = probe_decode(cs, dev)
+    if "sim_relax" in args.kernels:
+        out["sim_relax"] = probe_relax(cs, dev)
+    if "sched_score" in args.kernels:
+        out["sched_score"] = probe_score(cs, dev)
+    print(json.dumps(out))
+    return 0 if all(r["equal"] for r in out.get("sim_relax", {}).values()) \
+        else 1
 
+
+def probe_decode(cs, dev):
+    import torch
     gen = torch.Generator(device=dev).manual_seed(0)
     decode = {}
     for name, b, t, hq, hkv, d, ring, cap, p in (
@@ -96,7 +125,17 @@ def main() -> int:
     for row in decode.values():
         row.pop("args")
     torch.cuda.empty_cache()
+    return decode
 
+
+def probe_relax(cs, dev):
+    import torch
+    from repro_torch.core import (SynthParams, batch_scenarios,
+                                  cluster_of_multicores, generate_app,
+                                  get_scheduler, hp_bl260c, lower_scenario,
+                                  paper_suite_64core)
+    from repro_torch.core.sim_engine import _jitter_durations
+    from repro_torch.kernels.sim_step import sim_relax_cuda, sim_relax_torch
     mapper = get_scheduler("engine")
     relax = {}
     for suite, machine, graphs in (
@@ -125,7 +164,65 @@ def main() -> int:
                                          batch.max_subtasks, depth)[0])
             del dargs, got, want
             torch.cuda.empty_cache()
+    return relax
 
+
+def probe_score(cs, dev):
+    import contextlib
+    import inspect
+    import itertools
+    import statistics
+    import time
+
+    import torch
+    from repro_torch.core import cluster_of_multicores
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sched_score as ss
+    from repro_torch.online import (ArrivalParams, BatchedPolicy,
+                                    generate_workload, make_policy)
+    machine = cluster_of_multicores(n_blades=cs.ONLINE_BLADES)
+    workload = generate_workload(
+        ArrivalParams(rate=0.9 * machine.n_cores / cs.MEAN_APP_WORK_S,
+                      process="bursty"), n_apps=cs.ONLINE_APPS, seed=3)
+    with contextlib.ExitStack() as stack:
+        spy = stack.enter_context(cs.Spy(ops, "sched_score", cs.shapes))
+        calls = stack.enter_context(cs.Timed(
+            BatchedPolicy, "order_batch",
+            keep=lambda pol, batch, eng, now: (pol, list(batch),
+                                               cs.FrozenEngine(eng), now)))
+        state = make_policy("batched", k=cs.ONLINE_K, scorer="kernel",
+                            device=dev).run(machine, workload)
+    kw = {"row_min": True} if "row_min" in inspect.signature(
+        ss.sched_score_cuda).parameters else {}
+    rows = {}
+    for (dshape, _, _), (args, _) in spy.calls.items():
+        a, c = dshape
+        n = -(-3 * cs.L2_BYTES // (4 * (a * c + a + c)))
+        copies = [args] + [[x.clone() for x in args] for _ in range(n - 1)]
+        turn = itertools.count()
+
+        def kernel():
+            return ss.sched_score_cuda(*copies[next(turn) % n], **kw)
+        floor = getattr(ss, "empty_cuda", None)
+        rows[str(dshape)] = dict(
+            ms=cs.graph_ms(kernel, n),
+            floor_ms=None if floor is None
+            else cs.graph_ms(lambda: floor(a, dev), n),
+            eager_ms=cs.cuda_ms(lambda: ss.sched_score_cuda(*args, **kw),
+                                200),
+            row_min=bool(kw), copies=n)
+        del copies
+        torch.cuda.empty_cache()
+    host = cs.kernel_scores_host_ms(
+        [c for c in calls.kept if c[0].scorer == "kernel"])
+    frontiers = []
+    for _ in range(50):
+        t0 = time.perf_counter()
+        state.frontiers()
+        frontiers.append((time.perf_counter() - t0) * 1e3)
+    return dict(shapes=rows, kernel_scores_host_ms=host,
+                frontiers_ms=statistics.median(frontiers),
+                placements=len(state.schedule.placements))
     out = dict(label=args.label, tree=str(tree), device=smi,
                flash_decode=decode, sim_relax=relax)
     print(json.dumps(out))
