@@ -159,6 +159,47 @@ Run from the repository root (it puts ``src`` on ``sys.path`` itself):
    the manifest; any finding fails, each entry must launch its kernel
    once per call (``TRACE_LAUNCHES``) and the admission scorer must read
    back exactly once per call.
+12. The paper's evaluation: its 8-core suite (20 apps of 15-25 tasks,
+   seed 0) on ``dell_poweredge_1950`` and its 64-core suite (8 apps,
+   seed 100) on ``hp_bl260c``, mapped by ``get_scheduler("engine")``
+   (T_est = makespan). T_exec from the contention-aware event simulator
+   (jitter 0.01), ``simulate_suite(backend="cuda")`` (``sim_relax_pop``,
+   count zeroed before and read after) and the threaded executor
+   (``execute_threaded``, one thread per core, ``time_scale`` 1e-3,
+   wall-clock). Checks: every threaded T_exec >= T_est, T_exec ==
+   wall_seconds / time_scale, ``dif_rel`` exactly Eq. 4, the batched
+   result within rtol 1e-5 of float64, the kernel launched. Numbers: per
+   source n, mean, max and min %Dif_rel beside the paper's band (4 % at
+   8 cores, 6 % at 64), printed and not gated (the threaded T_exec is
+   wall-clock on a shared host); the executor's wall seconds per suite.
+13. MoE and MLA serving in bf16, weights from ``init_params`` with a CUDA
+   generator seeded 0 and every norm scale (``kv_norm`` too) redrawn
+   N(0, 0.1); one model on the card at a time, its peak memory printed.
+   deepseek-v2-lite-16b whole (27 layers, d 2048, 16 heads, MLA L 512 /
+   nope 128 / rope 64 / v 128, layer 0 dense, 26 MoE layers of 64
+   experts top-6 of 1408 plus 2 shared): run A ``generate`` B=4, 512 +
+   32; run B B=1, 4096 + 16; run C the batcher over phase 6's requests
+   (latent caches padded at each join). qwen3-moe-235b-a22b at full
+   width (d 4096, 64/4 heads of 128, qk-norm, 128 experts top-8 of 1536)
+   cut from 94 to 8 layers: run A. Checks: exact counts (rmsnorm 2 per
+   layer, +1 per MLA layer, +2 per qk-norm layer, +1 per forward;
+   flash_attention one per layer per prefill; flash_decode one per
+   layer per decode step for qwen3 and none for deepseek, whose absorbed
+   MLA decode is plain PyTorch); each kernel within ``close_to_plain``
+   at every shape the path launched (MLA's D 192 against Dv 128, qwen3's
+   16 q heads per kv head); deepseek run A teacher-forced against the
+   plain path with each MoE layer's routes recorded on both (the share
+   of (token, layer) routes that differ printed: a rounding difference
+   moves a token to other experts, and that token moves every later
+   one through attention), and the plain path run again on the kernel
+   path's routes, its logits within 5e-2 of the largest at every
+   position; the same in float32 on deepseek cut to 4 layers within
+   1e-4; run C equal to ``generate`` alone. Numbers:
+   per run prefill ms, decode ms per step, tokens/s; ``flash_attention``
+   at the runs' prefill shapes beside causal
+   ``scaled_dot_product_attention``; ``flash_decode`` at qwen3's shape
+   beside it; ``rmsnorm`` at every prefill width; a decode step's
+   profile per model beside the bound of reading every weight once.
 
 Exits non-zero, printing no result, on any failure, when no CUDA device
 is present, or when run outside a checkout. The last line of standard
@@ -981,6 +1022,25 @@ def profile_step(step, breakdown):
     return breakdown
 
 
+def decode_breakdown(label, cfg, params, prompt, gen_len, extra=None):
+    """``profile_step`` of one decode step after the prefill of
+    ``prompt`` (cache padded for ``gen_len`` tokens), with ``extra``
+    (e.g. a bound) beside it, printed."""
+    from repro_torch.models import ShardCtx
+    from repro_torch.runtime import (make_prefill, make_serve_step,
+                                     pad_cache_to)
+    ctx = ShardCtx()
+    prefill, step = make_prefill(cfg, ctx), make_serve_step(cfg, ctx)
+    logits, cache = prefill(params, {"tokens": prompt})
+    b, s = prompt.shape
+    cache = pad_cache_to(cfg, cache, b, s + gen_len)
+    tok = logits.argmax(-1)[:, None]
+    out = profile_step(lambda: step(params, cache, tok, s), {})
+    out.update(extra or {})
+    print(f"{label} decode step breakdown (host ms) " + json.dumps(out))
+    return out
+
+
 def spy_keys():
     """How each serving entry point's calls are told apart by the spies:
     (key of the positional arguments, keyword arguments in the key)."""
@@ -1083,7 +1143,7 @@ def norm_rows_by_width(label, spy):
     widest = {}
     for (args, kw) in spy.calls.values():
         x = args[0]
-        if x.dim() == 3 and x.shape[1] > 1 and (
+        if x.dim() >= 3 and x.shape[1] > 1 and (
                 x.shape[-1] not in widest
                 or x.numel() > widest[x.shape[-1]][0][0].numel()):
             widest[x.shape[-1]] = (args, kw)
@@ -1378,8 +1438,7 @@ def ssm_phase(dev):
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.ssd_scan import ssd_scan_cuda, ssd_scan_torch
     from repro_torch.models import ShardCtx, init_params
-    from repro_torch.runtime import (generate, make_prefill, make_serve_step,
-                                     pad_cache_to)
+    from repro_torch.runtime import generate
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1415,16 +1474,6 @@ def ssm_phase(dev):
                     "flash_decode": n_dec * n_rep,
                     "ssd_scan": n_pre * n}
         return want
-
-    def decode_breakdown(label, cfg, params, prompt, gen_len):
-        prefill, step = make_prefill(cfg, ctx), make_serve_step(cfg, ctx)
-        logits, cache = prefill(params, {"tokens": prompt})
-        b, s = prompt.shape
-        cache = pad_cache_to(cfg, cache, b, s + gen_len)
-        tok = logits.argmax(-1)[:, None]
-        out = profile_step(lambda: step(params, cache, tok, s), {})
-        print(f"{label} decode step breakdown (host ms) " + json.dumps(out))
-        return out
 
     with contextlib.ExitStack() as stack:
         spies = {k: stack.enter_context(Spy(ops, k, *keys[k]))
@@ -1989,6 +2038,372 @@ def analysis_phase(dev):
              f"({syncs}), expected exactly 1")
 
 
+# -- 12. the paper's evaluation: T_est, and T_exec from the event
+#        simulator, the batched simulator on the card and the threaded
+#        executor; 13. MoE and MLA serving --------------------------------
+
+PAPER_SUITES = (("8core", 20, 0, 4.0), ("64core", 8, 100, 6.0))  # band %
+EXEC_SCALE = 1e-3                   # model seconds -> wall seconds
+
+
+def dif_row(name, difs, band):
+    """n, mean, max and min %Dif_rel of one source beside the paper's
+    band (|%Dif| below it), as ``benchmarks/paper_tables.py`` reports."""
+    import numpy as np
+    d = np.asarray(difs, dtype=float)
+    return dict(source=name, n=int(d.size), mean=float(d.mean()),
+                max=float(d.max()), min=float(d.min()), band=band,
+                within_band=bool((np.abs(d) < band).all()))
+
+
+def paper_phase(dev):
+    """The paper's 8-core suite (20 apps of 15-25 tasks, seed 0) on
+    ``dell_poweredge_1950`` and its 64-core suite (8 apps, seed 100) on
+    ``hp_bl260c``, mapped by ``get_scheduler("engine")`` (T_est = the
+    makespan). T_exec from three sources: the contention-aware event
+    simulator (jitter 0.01, seed i), ``simulate_suite(backend="cuda")``
+    (``sim_relax_pop``, jitter 0.01) and ``execute_threaded`` at
+    ``time_scale`` 1e-3, wall-clock. Checks: each threaded T_exec >=
+    T_est, its T_exec == wall_seconds / time_scale, ``dif_rel`` exactly
+    Eq. 4; the batched result within rtol 1e-5 of the float64 backend;
+    ``sim_relax_pop`` launched. The band is printed, not gated: the
+    threaded T_exec is wall-clock on a shared host. Returns the kernel's
+    launches."""
+    import numpy as np
+
+    from repro_torch.core import (dell_poweredge_1950, execute_threaded,
+                                  get_scheduler, hp_bl260c,
+                                  paper_suite_8core, paper_suite_64core,
+                                  simulate, simulate_suite)
+    from repro_torch.kernels import ops
+
+    mapper = get_scheduler("engine")
+    launches = 0
+    for name, n_apps, seed, band in PAPER_SUITES:
+        machine, graphs = (
+            (dell_poweredge_1950(), paper_suite_8core(n_apps, seed=seed))
+            if name == "8core" else
+            (hp_bl260c(), paper_suite_64core(n_apps, seed=seed)))
+        t0 = time.perf_counter()
+        schedules = [mapper(g, machine) for g in graphs]
+        map_s = time.perf_counter() - t0
+        t_est = [s.makespan() for s in schedules]
+        seeds = list(range(len(graphs)))
+        event = [simulate(g, machine, s, contention=True, jitter=JITTER,
+                          seed=i).dif_rel(t_est[i])
+                 for i, (g, s) in enumerate(zip(graphs, schedules))]
+        ops.sim_relax_pop.launches = 0
+        batched = simulate_suite(graphs, machine, schedules, jitter=JITTER,
+                                 seeds=seeds, backend="cuda", device=dev)
+        launches += ops.sim_relax_pop.launches
+        if ops.sim_relax_pop.launches == 0:
+            fail(f"paper {name}: simulate_suite never launched "
+                 f"sim_relax_pop")
+        f64 = simulate_suite(graphs, machine, schedules, jitter=JITTER,
+                             seeds=seeds, backend="numpy")
+        if not np.allclose(batched.subtask_end, f64.subtask_end,
+                           rtol=RTOL_F32, atol=0.0):
+            fail(f"paper {name}: batched T_exec off the float64 backend "
+                 f"beyond rtol {RTOL_F32}")
+        t0 = time.perf_counter()
+        threaded = [execute_threaded(g, machine, s, time_scale=EXEC_SCALE)
+                    for g, s in zip(graphs, schedules)]
+        exec_s = time.perf_counter() - t0
+        for i, (r, est) in enumerate(zip(threaded, t_est)):
+            if not r.t_exec >= est:
+                fail(f"paper {name} app {i}: threaded T_exec {r.t_exec!r} "
+                     f"below T_est {est!r}")
+            if r.t_exec != r.wall_seconds / EXEC_SCALE:
+                fail(f"paper {name} app {i}: T_exec {r.t_exec!r} is not "
+                     f"wall_seconds {r.wall_seconds!r} / {EXEC_SCALE}")
+            if r.dif_rel(est) != (r.t_exec - est) / r.t_exec * 100.0:
+                fail(f"paper {name} app {i}: dif_rel is not Eq. 4")
+        rows = [dif_row("event", event, band),
+                dif_row("batched_cuda", batched.dif_rel(), band),
+                dif_row("threaded", [r.dif_rel(e) for r, e in
+                                     zip(threaded, t_est)], band)]
+        for row in rows:
+            print(f"paper {name} %Dif_rel " + json.dumps(row))
+        print(f"paper {name}: machine={machine.name!r} apps={len(graphs)} "
+              f"subtasks={sum(g.n_subtasks for g in graphs)} "
+              f"map_s={map_s:.3f} executor_wall_s={exec_s:.3f} (sum of "
+              f"T_exec x time_scale "
+              f"{sum(r.wall_seconds for r in threaded):.3f}) "
+              f"sim_relax_pop launches {ops.sim_relax_pop.launches}")
+    return launches
+
+
+MOE_RUN_B = dict(batch=1, prompt=4096, gen=16)   # runs A and C: gemma2's
+QWEN3_LAYERS = 8                    # of 94: about 42 GB in bf16, one card
+
+
+@contextlib.contextmanager
+def recorded_routes(forced=None):
+    """Every ``router_topk`` call's ids (T, k), in call order, while the
+    block runs. With ``forced`` (a list of ids from another run of the
+    same calls) call i takes the experts ``forced[i]`` instead of its own
+    top-k: its weights are its own float32 softmax probabilities at those
+    ids, renormalised, its aux loss the Switch loss over them, as
+    ``router_topk`` computes both."""
+    import torch
+
+    from repro_torch.models import moe
+    calls = []
+    real = moe.router_topk
+
+    def router_topk(x, w_router, top_k):
+        out = real(x, w_router, top_k)
+        if forced is not None:
+            ids = forced[len(calls)]
+            probs = torch.softmax(torch.einsum(
+                "td,de->te", x.float(), w_router.float()), dim=-1)
+            w = probs.gather(1, ids)
+            w = w / w.sum(-1, keepdim=True).clamp_min(1e-9)
+            ce = torch.bincount(ids.reshape(-1), minlength=probs.shape[1]) \
+                .float() / ids.numel()
+            out = (w, ids, probs.shape[1] * torch.sum(probs.mean(0) * ce))
+        calls.append(out[1])
+        return out
+    moe.router_topk = router_topk
+    try:
+        yield calls
+    finally:
+        moe.router_topk = real
+
+
+def routes_by_position(calls, n_moe, b, s, n):
+    """``recorded_routes`` of a ``teacher_forced`` run (one prefill of
+    (B, S) tokens, then n - 1 decode steps) as (B, S + n - 1, layers, k)
+    sorted ids: token position by MoE layer."""
+    import torch
+    if len(calls) != n_moe * n:
+        fail(f"router called {len(calls)} times, expected {n_moe} layers "
+             f"x {n} forwards")
+    pre = torch.stack([c.reshape(b, s, -1) for c in calls[:n_moe]], dim=2)
+    dec = [torch.stack([c.reshape(b, 1, -1) for c in
+                        calls[n_moe * (i + 1):n_moe * (i + 2)]], dim=2)
+           for i in range(n - 1)]
+    return torch.cat([pre] + dec, dim=1).sort(dim=-1).values
+
+
+def check_teacher_forced_routed(label, cfg, params, prompt, toks, ops, rel,
+                                greedy=True):
+    """``teacher_forced`` logits of the kernel path against the plain
+    path (the three entry points swapped for their plain versions), with
+    each MoE layer's chosen experts recorded on both.
+
+    Routing is discrete: a rounding difference can send a token to other
+    experts, and a token sent elsewhere changes every later token through
+    attention. So the plain path runs twice. On its own routes it gives
+    the share of (token, layer) routes that differ (overall and by
+    layer), the share of positions held (the logits' position and every
+    token before it routed alike on every layer) and the largest logit
+    difference at a held position: printed. On the kernel path's routes
+    (``recorded_routes(forced=...)``: the same experts, the plain path's
+    own router weights at them) every position is routed alike by
+    construction, and the gate holds the logits within ``rel`` of the
+    largest logit at every position: the kernels against their plain
+    versions through the whole MoE model."""
+    import torch
+    n_moe = sum(k.startswith("moe") for k in cfg.layer_kinds())
+    b, s = prompt.shape
+    n = toks.shape[1]
+    with recorded_routes() as rk:
+        kern = teacher_forced(cfg, params, prompt, toks)
+    if not torch.isfinite(kern).all():
+        fail(f"{label}: non-finite logits on the kernel path")
+    if greedy and not torch.equal(kern.argmax(-1), toks):
+        fail(f"{label}: re-running the kernel path gave other greedy tokens")
+    with plain_serving_kernels(ops), recorded_routes() as rp:
+        plain = teacher_forced(cfg, params, prompt, toks)
+    with plain_serving_kernels(ops), recorded_routes(forced=rk) as rf:
+        forced = teacher_forced(cfg, params, prompt, toks)
+    route_k = routes_by_position(rk, n_moe, b, s, n)
+    if not torch.equal(routes_by_position(rf, n_moe, b, s, n), route_k):
+        fail(f"{label}: the forced plain run did not take the kernel "
+             f"path's routes")
+    differ = (route_k != routes_by_position(rp, n_moe, b, s, n)).any(-1)
+    # logits position 0 is the prompt's last token's, i the i-th fed
+    # token's; each depends on every token up to its own
+    moved = differ.any(-1).cumsum(1) > 0             # (B, S + n - 1)
+    same = ~moved[:, s - 1:]                         # (B, n)
+    d = (kern - plain).abs().amax(-1)                # (B, n)
+    scale = float(plain.abs().max())
+    d_forced = float((kern - forced).abs().max())
+    out = dict(positions=int(same.numel()), routes=int(differ.numel()),
+               route_differ_share=float(differ.float().mean()),
+               route_differ_share_by_layer=[
+                   round(float(x), 5) for x in differ.float().mean((0, 1))],
+               held=float(same.float().mean()),
+               max_dlogit_held=float(d[same].max()) if same.any() else None,
+               max_dlogit_own_routes=float(d.max()),
+               max_dlogit_forced_routes=d_forced, bound=rel * scale,
+               max_logit=scale,
+               top1_forced=float((kern.argmax(-1) == forced.argmax(-1))
+                                 .float().mean()))
+    print(f"{label} teacher-forced ({cfg.dtype}) " + json.dumps(out))
+    if not d_forced <= rel * scale:
+        fail(f"{label}: kernel path logits off the plain path's on the "
+             f"same routes by {d_forced:.4e} > {rel * scale:.4e}")
+    return out
+
+
+def weight_read_bound(params):
+    """What one decode step must read at least: every weight but the
+    embedding table (only its B rows are gathered), and of them the
+    routed experts, in bytes and in ms at the memory rate."""
+    every = sum(p.numel() * p.element_size()
+                for name, p in params.named_parameters() if name != "embed")
+    experts = sum(p.numel() * p.element_size()
+                  for name, p in params.named_parameters()
+                  if ".moe.w" in name)
+    return dict(weight_bytes=every, expert_bytes=experts,
+                bound_ms=every / HBM_BYTES_PER_S * 1e3,
+                expert_bound_ms=experts / HBM_BYTES_PER_S * 1e3)
+
+
+def moe_phase(dev):
+    """Serve deepseek-v2-lite-16b whole (runs A, B, C) and
+    qwen3-moe-235b-a22b at full width cut to 8 layers (run A) in bf16,
+    check them and time them. Returns, per serving kernel, its counts by
+    run and its largest error against the plain version here."""
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_decode import decode_plan
+    from repro_torch.models import ShardCtx, init_params
+    from repro_torch.runtime import generate
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ctx = ShardCtx()
+    keys = spy_keys()
+    launches = {}
+
+    def load(cfg, dtype="bfloat16"):
+        cfg = cfg.replace(dtype=dtype)
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device=dev).manual_seed(0)
+        t0 = time.perf_counter()
+        params = init_params(cfg, gen, dev)
+        redraw(params, gen, dev)
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in params.parameters())
+        size = sum(p.numel() * p.element_size() for p in params.parameters())
+        print(f"moe: {cfg.name} {cfg.n_layers} layers d={cfg.d_model} "
+              f"heads={cfg.n_heads}/{cfg.n_kv_heads} experts="
+              f"{cfg.n_experts} top-{cfg.top_k} of {cfg.d_ff_expert} "
+              f"shared={cfg.n_shared_experts} kv_lora={cfg.kv_lora_rank} "
+              f"{cfg.dtype} params={n_params} ({size / 1e9:.2f} GB) "
+              f"init_s={time.perf_counter() - t0:.1f}")
+        generate(cfg, ctx, params, {"tokens": torch.randint(
+            0, cfg.vocab, (1, 16), generator=gen, device=dev)}, 2)  # warm-up
+        torch.cuda.synchronize()
+        return cfg, gen, params
+
+    def want_of(cfg):
+        norms = 2 + bool(cfg.kv_lora_rank) + 2 * cfg.qk_norm
+        n = cfg.n_layers
+
+        def want(n_pre, n_dec):
+            return {"rmsnorm": (n_pre + n_dec) * (norms * n + 1),
+                    "flash_attention": n_pre * n,
+                    "flash_decode": 0 if cfg.kv_lora_rank else n_dec * n}
+        return want
+
+    def freed(label):
+        """Print the model's peak device memory once its last reference
+        is gone, and give its memory back before the next is built."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"{label} peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+    with contextlib.ExitStack() as stack:
+        spies = {k: stack.enter_context(Spy(ops, k, *keys[k]))
+                 for k in SERVE_KERNELS}
+
+        # -- deepseek-v2-lite-16b, whole: runs A, B, C -----------------------
+        cfg, gen, params = load(ARCHS["deepseek-v2-lite-16b"])
+        prompt_a = torch.randint(0, cfg.vocab, (RUN_A["batch"],
+                                                RUN_A["prompt"]),
+                                 generator=gen, device=dev)
+        prompt_b = torch.randint(0, cfg.vocab, (MOE_RUN_B["batch"],
+                                                MOE_RUN_B["prompt"]),
+                                 generator=gen, device=dev)
+        reqs = ragged_requests(cfg.vocab)
+        runs = {}
+        for name, run, prompt, rq in (("A", RUN_A, prompt_a, None),
+                                      ("B", MOE_RUN_B, prompt_b, None),
+                                      ("C", RUN_C, None, reqs)):
+            runs[name], launches[f"deepseek_{name}"] = drive(
+                "deepseek", name, run, cfg, params, spies, want_of(cfg),
+                prompt=prompt, reqs=rq)
+        if any(launches[f"deepseek_{r}"]["flash_decode"] for r in runs):
+            fail("deepseek: the MLA decode launched flash_decode")
+        check_teacher_forced_routed("deepseek run A", cfg, params, prompt_a,
+                                    runs["A"]["out"], ops, LOGIT_REL)
+        check_batched_equals_alone("deepseek", cfg, params, reqs, dev)
+        decode_breakdown("deepseek run A shape", cfg, params, prompt_a,
+                         RUN_A["gen"], weight_read_bound(params))
+        del params
+        freed("deepseek")
+
+        # float32, cut to 4 layers (the dense layer and 3 MoE)
+        print("reduced: deepseek float32 check n_layers 27 -> 4 (the dense "
+              "layer and 3 MoE layers)")
+        cfg4, _, params = load(cfg.replace(n_layers=4), dtype="float32")
+        check_teacher_forced_routed(
+            "deepseek float32 4 layers run A", cfg4, params, prompt_a,
+            runs["A"]["out"], ops, F32_LOGIT_REL, greedy=False)
+        del params
+        freed("deepseek float32")
+
+        # -- qwen3-moe-235b-a22b at full width, cut in depth: run A ----------
+        full = ARCHS["qwen3-moe-235b-a22b"]
+        print(f"reduced: n_layers {full.n_layers} -> {QWEN3_LAYERS} (one "
+              f"80 GB card)")
+        cfg, gen, params = load(full.replace(n_layers=QWEN3_LAYERS))
+        prompt_q = torch.randint(0, cfg.vocab, (RUN_A["batch"],
+                                                RUN_A["prompt"]),
+                                 generator=gen, device=dev)
+        _, launches["qwen3_A"] = drive("qwen3", "A", RUN_A, cfg, params,
+                                       spies, want_of(cfg), prompt=prompt_q)
+        decode_breakdown("qwen3 run A shape", cfg, params, prompt_q,
+                         RUN_A["gen"], weight_read_bound(params))
+        del params
+        freed("qwen3")
+
+    max_err = check_against_plain("moe", spies, plain_versions(),
+                                  stress_cases(gen, dev), ops)
+    norm_rows_by_width("moe", spies["rmsnorm"])
+    # flash_attention at each prefill shape of runs A and B (MLA's D 192
+    # against Dv 128; qwen3's GQA 64/4 of 128) beside causal
+    # scaled_dot_product_attention, which accepts Dv != D
+    prefills = {(r["batch"], r["prompt"]) for r in (RUN_A, MOE_RUN_B)}
+    for (q, k, v), akw in spies["flash_attention"].calls.values():
+        if q.dtype == torch.bfloat16 and tuple(q.shape[:2]) in prefills:
+            def library(q=q, k=k, v=v, scale=akw.get("scale")):
+                return sdpa(q, k, v, None, True, scale)
+            row = attention_row(q, k, v, akw, library)
+            print("moe flash_attention " + json.dumps(
+                {k_: v_ for k_, v_ in row.items() if k_ != "args"}))
+    for (q, kc, vc, pos), dkw in spies["flash_decode"].calls.values():
+        if q.shape[0] == RUN_A["batch"] and q.dtype == torch.bfloat16:
+            plan = decode_plan(q.shape[0], kc.shape[1], kc.shape[2],
+                               q.shape[2], dv=vc.shape[-1],
+                               g=q.shape[1] // kc.shape[2])
+            row = decode_row(q, kc, vc, pos, dkw)
+            row["plan"] = plan._asdict()
+            print("moe flash_decode " + json.dumps(
+                {k_: v_ for k_, v_ in row.items() if k_ != "args"}))
+            break
+    by_run = {k: {r: launches[r][k] for r in launches}
+              for k in SERVE_KERNELS}
+    return by_run, max_err
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2348,6 +2763,15 @@ def main() -> int:
         row["max_abs_err"] = max(row["max_abs_err"], ssm_err[name])
 
     analysis_phase(dev)
+    paper_launches = paper_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_launches, moe_err = moe_phase(dev)
+    for row in serve_rows:
+        name = row["name"]
+        row["launches"] += sum(moe_launches[name].values())
+        row["launches_by_path"].update(moe_launches[name])
+        row["max_abs_err"] = max(row["max_abs_err"], moe_err[name])
 
     # the device GA's largest shape: where the path spends its launches
     main_row = max((r for r in kernel_rows
@@ -2359,11 +2783,13 @@ def main() -> int:
         source="src/repro_torch/kernels/csrc/sim_relax_pop.cu",
         replaces="src/repro/kernels/sim_step.py:184",
         launches=launches["sim_relax_pop"]
-        + online_launches["sim_relax_pop"] + ga_launches + verify_launches,
+        + online_launches["sim_relax_pop"] + ga_launches + verify_launches
+        + paper_launches,
         launches_by_path={"offline": launches["sim_relax_pop"],
                           "online": online_launches["sim_relax_pop"],
                           "device_ga": ga_launches,
-                          "verify": verify_launches},
+                          "verify": verify_launches,
+                          "paper": paper_launches},
         max_abs_err=max(x["max_abs_err"] for x in kernel_rows),
         ms=main_row["ms"], plain_ms=main_row["plain_ms"],
         bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],

@@ -4,10 +4,14 @@
         --batch 4 --prompt-len 512 --gen 32 [--reduced] [--device cpu]
 
 ``--arch`` names a demo or an assigned config of a served family: dense
-(``gemma2-2b``, ...), SSM (``mamba2-780m``) or hybrid (``zamba2-7b``).
-Weights are random (``init_params`` seeded with ``--seed``); the prompt
-is ``--batch`` rows of seeded token ids. Runs on the card unless
-``--device cpu`` is given.
+(``gemma2-2b``, ...), MoE (``deepseek-v2-lite-16b`` with MLA,
+``qwen3-moe-235b-a22b`` with GQA; on one 80 GB card the latter fits
+only cut in depth, which this CLI does not do), SSM (``mamba2-780m``) or
+hybrid (``zamba2-7b``); ``--reduced`` gives any of them tiny, in
+float32, for the CPU (``--reduced --device cpu``). Weights are random
+(``init_params`` seeded with ``--seed``); the prompt is ``--batch`` rows
+of seeded token ids. Runs on the card unless ``--device cpu`` is
+given.
 """
 
 from __future__ import annotations

@@ -1,25 +1,32 @@
-"""Per-layer blocks of the dense, SSM and hybrid families: init + forward.
+"""Per-layer blocks of the dense, MoE, SSM and hybrid families: init +
+forward.
 
 Kinds: ``dense_global`` / ``dense_local`` (attention + GLU MLP, optional
-qk-norm / softcap / post-block norms), ``ssm`` (Mamba-2), and the
-Zamba-2 shared transformer block (weights reused across its slots, a
-LoRA of q/k/v per slot). MLA (``kv_lora_rank``), MoE and the patch/frame
-frontends are ported in later slices; asking for one raises
-``NotImplementedError``.
+qk-norm / softcap / post-block norms), ``moe_global`` (attention + the
+MoE FFN of :mod:`repro_torch.models.moe` + optional shared experts),
+``ssm`` (Mamba-2), and the Zamba-2 shared transformer block (weights
+reused across its slots, a LoRA of q/k/v per slot). Deepseek-style MLA
+replaces the attention projections when ``cfg.kv_lora_rank > 0``: the
+prefill materialises per-head K/V, decode runs the *absorbed* form
+(scores in the latent space, so the cache stays (T, kv_lora + rope) per
+token). The patch/frame frontends are ported in a later slice; asking
+for one raises ``NotImplementedError``.
 
 Init functions return dicts of tensors in the reference's layouts
 (``wq`` (d, H, Dh), ``wo`` (H, Dh, d), ``wi`` (d, 2, F), ``wx`` (d,
-d_inner), ``conv_x`` (K, d_inner)); the modules of
-:mod:`repro_torch.models.model` hold them as parameters, and the forward
-functions here read them as attributes of those modules.
+d_inner), ``conv_x`` (K, d_inner), an expert ``wi`` (E, d, 2, F)); the
+modules of :mod:`repro_torch.models.model` hold them as parameters, and
+the forward functions here read them as attributes of those modules.
 
 Every forward returns ``(x, aux_loss, new_cache)``; the cache is None
 outside decode/prefill. KV caches of ``dense_local`` layers are ring
 buffers of length ``window`` (RoPE is applied at insert with absolute
-positions, so slot order is irrelevant to attention). A Mamba layer's
-cache holds the last K-1 pre-activation conv inputs (``conv_x``,
-``conv_B``, ``conv_C``) and the (B, H, P, N) state. Decode writes the
-new token into the cache tensors in place and returns the same dict.
+positions, so slot order is irrelevant to attention). An MLA layer's
+cache holds the normed latent (B, T, kv_lora) and the roped shared key
+``k_rope`` (B, T, rope). A Mamba layer's cache holds the last K-1
+pre-activation conv inputs (``conv_x``, ``conv_B``, ``conv_C``) and the
+(B, H, P, N) state. Decode writes the new token into the cache tensors
+in place and returns the same dict.
 """
 
 from __future__ import annotations
@@ -30,29 +37,26 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
-from .layers import (apply_rope, attention, attention_decode, glu_mlp,
-                     rms_norm)
+from .layers import (NEG_INF, apply_rope, attention, attention_decode,
+                     glu_mlp, rms_norm)
+from .moe import moe_ffn
 from .ssm import ssd_decode_step
 
 LATER_SLICES = {
-    "mla": "MLA attention (kv_lora_rank > 0) is ported with the MLA slice",
-    "moe": "MoE layers are ported with the MoE slice",
     "encoder": "frame frontends are ported with the frontends slice",
     "vlm": "patch frontends are ported with the frontends slice",
 }
-SERVED_FAMILIES = ("dense", "ssm", "hybrid")
+SERVED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def check_supported(cfg) -> None:
     """Raise ``NotImplementedError`` for anything outside the families
-    the port serves: dense, SSM (Mamba-2) and hybrid (Zamba-2), with the
-    token frontend."""
+    the port serves: dense and MoE (GQA or MLA attention), SSM (Mamba-2)
+    and hybrid (Zamba-2), with the token frontend."""
     if cfg.family not in SERVED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet: "
             f"{LATER_SLICES.get(cfg.family, 'no slice planned')}")
-    if cfg.kv_lora_rank:
-        raise NotImplementedError(f"{cfg.name}: {LATER_SLICES['mla']}")
     if cfg.frontend != "token":
         raise NotImplementedError(
             f"{cfg.name}: frontend {cfg.frontend!r} is not ported yet "
@@ -71,17 +75,36 @@ def _init(gen, shape, fan_in, dtype, device):
 # ---------------------------------------------------------------------------
 
 def init_attention(cfg, gen, dtype, device, d_in=None) -> dict:
+    """GQA: ``wq`` (d, H, Dh), ``wk``/``wv`` (d, Hkv, Dh), ``wo`` (H, Dh,
+    d). MLA (``kv_lora_rank`` L > 0): ``wq`` (d, H, nope + rope),
+    ``wkv_a`` (d, L + rope), ``kv_norm`` (L,) zero, ``wkv_b`` (L, H,
+    nope + v), ``wo`` (H, v, d). With qk-norm, ``qnorm``/``knorm`` of
+    the q head width (nope + rope under MLA, whose forward, as the
+    reference's, does not apply them)."""
     d = d_in or cfg.d_model
-    p = {
-        "wq": _init(gen, (d, cfg.n_heads, cfg.head_dim), d, dtype, device),
-        "wk": _init(gen, (d, cfg.n_kv_heads, cfg.head_dim), d, dtype, device),
-        "wv": _init(gen, (d, cfg.n_kv_heads, cfg.head_dim), d, dtype, device),
-        "wo": _init(gen, (cfg.n_heads, cfg.head_dim, d),
-                    cfg.n_heads * cfg.head_dim, dtype, device),
-    }
+    h, lat = cfg.n_heads, cfg.kv_lora_rank
+    if lat:
+        dq = cfg.qk_nope_dim + cfg.qk_rope_dim
+        p = {
+            "wq": _init(gen, (d, h, dq), d, dtype, device),
+            "wkv_a": _init(gen, (d, lat + cfg.qk_rope_dim), d, dtype, device),
+            "kv_norm": torch.zeros((lat,), dtype=dtype, device=device),
+            "wkv_b": _init(gen, (lat, h, cfg.qk_nope_dim + cfg.v_head_dim),
+                           lat, dtype, device),
+            "wo": _init(gen, (h, cfg.v_head_dim, d), h * cfg.v_head_dim,
+                        dtype, device),
+        }
+    else:
+        dq = cfg.head_dim
+        p = {
+            "wq": _init(gen, (d, h, dq), d, dtype, device),
+            "wk": _init(gen, (d, cfg.n_kv_heads, dq), d, dtype, device),
+            "wv": _init(gen, (d, cfg.n_kv_heads, dq), d, dtype, device),
+            "wo": _init(gen, (h, dq, d), h * dq, dtype, device),
+        }
     if cfg.qk_norm:
-        p["qnorm"] = torch.zeros((cfg.head_dim,), dtype=dtype, device=device)
-        p["knorm"] = torch.zeros((cfg.head_dim,), dtype=dtype, device=device)
+        p["qnorm"] = torch.zeros((dq,), dtype=dtype, device=device)
+        p["knorm"] = torch.zeros((dq,), dtype=dtype, device=device)
     return p
 
 
@@ -99,6 +122,9 @@ def _qkv(p, x, lora=None):
 
 def attn_forward(p, x, *, cfg, kind, mode, positions, cache=None):
     """Returns (attn_out (B,S,d), new_cache)."""
+    if cfg.kv_lora_rank:
+        return _mla_forward(p, x, cfg=cfg, mode=mode, positions=positions,
+                            cache=cache)
     local = kind.endswith("local")
     theta = cfg.rope_theta_local if local else cfg.rope_theta
     window = cfg.window if local else None
@@ -159,7 +185,82 @@ def _prefill_cache(k, v, window):
 
 
 # ---------------------------------------------------------------------------
-# dense transformer layers
+# MLA (deepseek): the prefill materialises per-head K/V; decode is absorbed
+# ---------------------------------------------------------------------------
+
+def _mla_forward(p, x, *, cfg, mode, positions, cache):
+    """Multi-head latent attention. q = x·wq splits into (nope, rope)
+    parts; x·wkv_a gives the latent (normed by ``kv_norm`` through the
+    ``rmsnorm`` kernel) and one shared ``k_rope`` for all heads. RoPE
+    turns ``q_rope`` and ``k_rope`` only. The scale is (nope + rope)^-0.5
+    (``cfg.head_dim`` is 0 under MLA).
+
+    Prefill (and train) materialise per-head K = [k_nope, k_rope] and V
+    from latent·wkv_b and run the ``flash_attention`` kernel (head dims
+    nope + rope for q/k, v for V); the prefill cache holds the normed
+    latent and the roped ``k_rope``.
+
+    Decode is absorbed: q_eff = q_nope·W_b^K is a (B, 1, H, L) query,
+    attended with q_rope over [latent, k_rope] with the latent as V, then
+    ·W_b^V. That is one kv head of 576 (q, k) and 512 (v) at deepseek's
+    widths, above the 256 the ``flash_decode`` kernel takes, so this step
+    runs in plain PyTorch with the reference's ``_decode_attn`` rounding
+    (scores in the input type, softmax in float32, probabilities cast
+    back before P·V) and launches no ``flash_decode``. An MLA decode
+    kernel is a lead in ROADMAP.md; nothing is tried and given up here."""
+    b, s, _ = x.shape
+    h, lat = cfg.n_heads, cfg.kv_lora_rank
+    nope, rope_d = cfg.qk_nope_dim, cfg.qk_rope_dim
+    q = torch.einsum("bsd,dhk->bshk", x, p.wq)
+    q_nope = q[..., :nope]
+    q_rope = apply_rope(q[..., nope:], positions, cfg.rope_theta)
+    kv_a = torch.einsum("bsd,dk->bsk", x, p.wkv_a)
+    latent = rms_norm(kv_a[..., :lat], p.kv_norm)
+    k_rope = apply_rope(kv_a[..., None, lat:], positions,
+                        cfg.rope_theta)                       # (B,S,1,rope)
+    scale = (nope + rope_d) ** -0.5
+
+    if mode == "decode":
+        wb_k, wb_v = p.wkv_b[..., :nope], p.wkv_b[..., nope:]
+        q_eff = torch.einsum("bshk,lhk->bshl", q_nope, wb_k)  # (B,1,H,L)
+        lc, rc = _mla_cache_insert(cache, latent, k_rope[:, :, 0], positions)
+        qcat = torch.cat([q_eff, q_rope], dim=-1)             # (B,1,H,L+r)
+        kcat = torch.cat([lc, rc], dim=-1)                    # (B,T,L+r)
+        scores = torch.einsum("bshc,btc->bhst", qcat, kcat) * scale
+        valid = torch.arange(lc.shape[1], device=x.device) <= positions
+        scores = scores.float().masked_fill(~valid, NEG_INF)
+        probs = torch.softmax(scores, dim=-1).to(x.dtype)
+        out_l = torch.einsum("bhst,btl->bshl", probs, lc)      # (B,1,H,L)
+        out = torch.einsum("bshl,lhv->bshv", out_l, wb_v)
+        new_cache = cache
+    else:
+        kv = torch.einsum("bsl,lhk->bshk", latent, p.wkv_b)
+        k = torch.cat([kv[..., :nope], k_rope.expand(b, s, h, rope_d)],
+                      dim=-1)
+        out = attention(torch.cat([q_nope, q_rope], dim=-1), k,
+                        kv[..., nope:], causal=cfg.causal, scale=scale)
+        new_cache = {"latent": latent, "k_rope": k_rope[:, :, 0]
+                     .contiguous()} if mode == "prefill" else None
+    return torch.einsum("bshv,hvd->bsd", out, p.wo), new_cache
+
+
+def _mla_cache_insert(cache, latent, k_rope, positions):
+    """Write one token's normed latent (B, 1, L) and roped ``k_rope``
+    (B, 1, rope) at scalar absolute position ``positions`` of the linear
+    cache, in place; return (latent cache, k_rope cache)."""
+    lc, rc = cache["latent"], cache["k_rope"]
+    t = lc.shape[1]
+    pos = int(positions)  # lint: sync-ok decode passes the host's int
+    if not 0 <= pos < t:
+        raise IndexError(f"decode position {pos} outside the linear cache "
+                         f"of {t} slots")
+    lc[:, pos] = latent[:, 0].to(lc.dtype)
+    rc[:, pos] = k_rope[:, 0].to(rc.dtype)
+    return lc, rc
+
+
+# ---------------------------------------------------------------------------
+# dense and MoE transformer layers
 # ---------------------------------------------------------------------------
 
 def init_mlp(cfg, gen, dtype, device, d_in=None) -> dict:
@@ -171,24 +272,40 @@ def init_mlp(cfg, gen, dtype, device, d_in=None) -> dict:
 
 def init_layer(kind, cfg, gen, dtype, device) -> dict:
     """{"norms": {...}, "attn": {...}, "mlp": {...}} for one dense layer
-    (``kind`` is ``dense_global`` or ``dense_local``), the flat tensors
-    of :func:`init_mamba` for an ``ssm`` layer; all norm scales zero
-    (identity under the zero-centred norm)."""
+    (``kind`` is ``dense_global`` or ``dense_local``); for a
+    ``moe_global`` layer ``"moe"`` ({"router" (d, E) in float32 whatever
+    the model's type, "wi" (E, d, 2, F), "wo" (E, F, d)}, F =
+    ``d_ff_expert``) and, with shared experts, ``"shared_mlp"`` (a GLU
+    MLP of width F · ``n_shared_experts``) in place of ``"mlp"``; the
+    flat tensors of :func:`init_mamba` for an ``ssm`` layer. All norm
+    scales zero (identity under the zero-centred norm)."""
     if kind == "ssm":
         return init_mamba(cfg, gen, dtype, device)
     d = cfg.d_model
     names = ["ln1", "ln2"] + (["post_ln1", "post_ln2"]
                               if cfg.post_block_norms else [])
-    return {"norms": {n: torch.zeros((d,), dtype=dtype, device=device)
-                      for n in names},
-            "attn": init_attention(cfg, gen, dtype, device),
-            "mlp": init_mlp(cfg, gen, dtype, device)}
+    p = {"norms": {n: torch.zeros((d,), dtype=dtype, device=device)
+                   for n in names},
+         "attn": init_attention(cfg, gen, dtype, device)}
+    if not kind.startswith("moe"):
+        p["mlp"] = init_mlp(cfg, gen, dtype, device)
+        return p
+    e, f = cfg.n_experts, cfg.d_ff_expert
+    p["moe"] = {"router": _init(gen, (d, e), d, torch.float32, device),
+                "wi": _init(gen, (e, d, 2, f), d, dtype, device),
+                "wo": _init(gen, (e, f, d), f, dtype, device)}
+    if cfg.n_shared_experts:
+        fs = f * cfg.n_shared_experts
+        p["shared_mlp"] = {"wi": _init(gen, (d, 2, fs), d, dtype, device),
+                           "wo": _init(gen, (fs, d), fs, dtype, device)}
+    return p
 
 
 def layer_forward(kind, p, x, *, cfg, mode, positions, cache=None):
     """One layer ``p`` (a :class:`repro_torch.models.model.Layer`, or a
     :class:`~repro_torch.models.model.MambaLayer` for ``ssm``). Returns
-    (x, aux, new_cache)."""
+    (x, aux, new_cache): ``aux`` is the router's load-balancing loss of
+    a MoE layer, 0.0 for the others."""
     if kind == "ssm":
         y, new_cache = mamba_forward(p, x, cfg=cfg, mode=mode, cache=cache)
         return x + y, 0.0, new_cache
@@ -201,10 +318,17 @@ def layer_forward(kind, p, x, *, cfg, mode, positions, cache=None):
     x = x + attn_out
 
     h = rms_norm(x, p.ln2)
-    ff = glu_mlp(h, p.mlp.wi, p.mlp.wo, cfg.activation)
+    if kind.startswith("moe"):
+        ff, aux = moe_ffn(h, p.moe, cfg)
+        if cfg.n_shared_experts:
+            ff = ff + glu_mlp(h, p.shared_mlp.wi, p.shared_mlp.wo,
+                              cfg.activation)
+    else:
+        ff = glu_mlp(h, p.mlp.wi, p.mlp.wo, cfg.activation)
+        aux = 0.0                          # dense layers add no aux loss
     if cfg.post_block_norms:
         ff = rms_norm(ff, p.post_ln2)
-    return x + ff, 0.0, new_cache          # dense layers add no aux loss
+    return x + ff, aux, new_cache
 
 
 # ---------------------------------------------------------------------------

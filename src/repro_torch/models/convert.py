@@ -6,7 +6,10 @@ a leading axis (``params["groups"][str(pos)]``, one entry per position
 :class:`~repro_torch.models.model.Layer` per layer. Layer
 ``len(prologue) + rep * len(unit) + pos`` is repeat ``rep`` of
 ``groups[str(pos)]``; the prologue and tail layers are unstacked lists
-already. A Mamba layer's tree is flat (no ``attn``/``mlp`` subtrees).
+already. A Mamba layer's tree is flat (no ``attn``/``mlp`` subtrees); a
+MoE layer has ``moe`` ({"router", "wi", "wo"}) and, with shared
+experts, ``shared_mlp`` subtrees in place of ``mlp``; an MLA layer's
+``attn`` holds ``wq``, ``wkv_a``, ``kv_norm``, ``wkv_b``, ``wo``.
 Zamba-2's ``shared`` block is one tree; its ``shared_lora`` is stacked
 over the ``n_rep`` repeat slots and unstacked here, one
 :class:`~repro_torch.models.model.LoRA` per slot. Every leaf is copied
@@ -41,16 +44,17 @@ def _flat(tree: dict, device, rep: int | None = None) -> dict:
             for k, v in tree.items()}
 
 
+SUBTREES = ("attn", "mlp", "moe", "shared_mlp")
+
+
 def _layer(tree: dict, device, rep: int | None = None) -> dict:
     if "attn" not in tree:                      # a Mamba layer
         return _flat(tree, device, rep)
-    pick = (lambda a: a) if rep is None else (lambda a: a[rep])
-    return {"norms": {k: to_tensor(pick(v), device) for k, v in tree.items()
-                      if k not in ("attn", "mlp")},
-            "attn": {k: to_tensor(pick(v), device)
-                     for k, v in tree["attn"].items()},
-            "mlp": {k: to_tensor(pick(v), device)
-                    for k, v in tree["mlp"].items()}}
+    out = {"norms": _flat({k: v for k, v in tree.items()
+                           if k not in SUBTREES}, device, rep)}
+    out.update({k: _flat(tree[k], device, rep) for k in SUBTREES
+                if k in tree})
+    return out
 
 
 def params_from_reference(tree: dict, cfg: ModelConfig,

@@ -17,6 +17,8 @@ import torch.nn.functional as F
 
 from ..kernels import ops
 
+NEG_INF = -2.0e38          # a masked score: exp() of it underflows to 0
+
 
 # ---------------------------------------------------------------------------
 # norms / activations / embeddings

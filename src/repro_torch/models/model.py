@@ -1,13 +1,14 @@
-"""Model assembly of the dense, SSM and hybrid families: embedding ->
-layers (and, for Zamba-2, the shared block at the head of each repeat
+"""Model assembly of the dense, MoE, SSM and hybrid families: embedding
+-> layers (and, for Zamba-2, the shared block at the head of each repeat
 group) -> head.
 
 The modules (:class:`Model`, :class:`Layer`, :class:`MambaLayer`,
-:class:`SharedBlock`, :class:`LoRA`, :class:`Attention`, :class:`MLP`)
-hold the reference's parameter layouts, one layer module per layer and
-one :class:`LoRA` per repeat slot (the reference stacks repeat groups
-and slots for ``lax.scan``; :mod:`repro_torch.models.convert` unstacks
-them), so converting the JAX package's weights is a plain copy.
+:class:`SharedBlock`, :class:`LoRA`, :class:`Attention`, :class:`MLP`,
+:class:`MoE`) hold the reference's parameter layouts, one layer module
+per layer and one :class:`LoRA` per repeat slot (the reference stacks
+repeat groups and slots for ``lax.scan``;
+:mod:`repro_torch.models.convert` unstacks them), so converting the JAX
+package's weights is a plain copy.
 
 Modes: ``train`` (logits for every position), ``prefill`` (last-token
 logits + a filled cache), ``decode`` (one token against the cache). The
@@ -16,10 +17,11 @@ order the forward runs its blocks in: for the dense and SSM families one
 per layer; for Zamba-2 one per layer plus one (a linear ``{"k", "v"}``)
 per use of the shared block, before the layers of its group. Attention
 layers hold ``{"k", "v"}`` (``dense_local`` layers as ring buffers of
-length ``window``), Mamba layers ``{"conv_x", "conv_B", "conv_C",
-"state"}``. Decode updates the cache tensors in place and hands the same
-list back. Parameters are created with ``requires_grad=False``: the port
-serves, and training (with the flash backward) comes later.
+length ``window``), MLA layers ``{"latent", "k_rope"}``, Mamba layers
+``{"conv_x", "conv_B", "conv_C", "state"}``. Decode updates the cache
+tensors in place and hands the same list back. Parameters are created
+with ``requires_grad=False``: the port serves, and training (with the
+flash backward) comes later.
 """
 
 from __future__ import annotations
@@ -78,16 +80,33 @@ class MLP(nn.Module):
         _params(self, tensors)
 
 
+class MoE(nn.Module):
+    """A MoE layer's routed experts: ``router`` (d, E) float32, ``wi``
+    (E, d, 2, F) fused gate+up, ``wo`` (E, F, d); read by
+    :func:`repro_torch.models.moe.moe_ffn`."""
+
+    def __init__(self, tensors: dict):
+        super().__init__()
+        _params(self, tensors)
+
+
 class Layer(nn.Module):
-    """One dense layer: norms ``ln1``/``ln2`` (and ``post_ln1``/
-    ``post_ln2`` with post-block norms), ``attn`` and ``mlp``."""
+    """One dense or MoE layer: norms ``ln1``/``ln2`` (and ``post_ln1``/
+    ``post_ln2`` with post-block norms), ``attn`` (GQA or MLA), and
+    ``mlp``, or for a ``moe_*`` kind ``moe`` and, with shared experts,
+    ``shared_mlp``."""
 
     def __init__(self, kind: str, tensors: dict):
         super().__init__()
         self.kind = kind
         _params(self, tensors["norms"])
         self.attn = Attention(tensors["attn"])
-        self.mlp = MLP(tensors["mlp"])
+        if kind.startswith("moe"):
+            self.moe = MoE(tensors["moe"])
+            if "shared_mlp" in tensors:
+                self.shared_mlp = MLP(tensors["shared_mlp"])
+        else:
+            self.mlp = MLP(tensors["mlp"])
 
     def forward(self, x, *, cfg, mode, positions, cache=None):
         return layer_forward(self.kind, self, x, cfg=cfg, mode=mode,
@@ -191,9 +210,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device=None) -> Model:
     """Random weights at the reference's scales: every matrix N(0, 1) /
     sqrt(fan_in) (the embedding too: 1/sqrt(d) keeps tied-head logits
-    O(1)), every norm scale zero; Mamba layers with A = -1 (``A_log``
-    0), ``dt_bias`` 0 and ``D`` 1, and the shared block's LoRA ``b_*``
-    zero, as in the reference. Draws from ``generator``, whose device
+    O(1); a MoE router drawn in float32 and kept so), every norm scale
+    zero; Mamba layers with A = -1 (``A_log`` 0), ``dt_bias`` 0 and
+    ``D`` 1, and the shared block's LoRA ``b_*`` zero, as in the
+    reference. Draws from ``generator``, whose device
     must be ``device``."""
     check_supported(cfg)
     dt = DTYPES[cfg.dtype]
@@ -229,10 +249,12 @@ def _head(params: Model, x, cfg):
 @torch.no_grad()
 def forward(params: Model, batch: dict, cfg: ModelConfig, ctx: ShardCtx):
     """train -> (logits, aux); prefill -> (last_logits, aux, cache);
-    decode -> (logits (B,V), aux, cache). ``batch["tokens"]`` (B, S)
-    int64; decode adds ``batch["pos"]`` (an int: the absolute position
-    of the token) and ``batch["cache"]`` (from :func:`init_cache` or a
-    prefill, updated in place)."""
+    decode -> (logits (B,V), aux, cache). ``aux`` is the float32 sum of
+    the MoE layers' load-balancing losses (0 without MoE layers), on the
+    device of the tokens. ``batch["tokens"]`` (B, S) int64; decode adds
+    ``batch["pos"]`` (an int: the absolute position of the token) and
+    ``batch["cache"]`` (from :func:`init_cache` or a prefill, updated in
+    place)."""
     mode = ctx.mode
     decode = mode == "decode"
     caches = batch["cache"] if decode else None
@@ -254,7 +276,7 @@ def forward(params: Model, batch: dict, cfg: ModelConfig, ctx: ShardCtx):
                                         positions=positions, cache=c)
             aux = aux + a
         new_cache.append(nc)
-    aux = torch.tensor(aux, dtype=torch.float32)
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=x.device)
 
     if mode == "train":
         return _head(params, x, cfg), aux
@@ -278,6 +300,9 @@ def _layer_cache(kind, cfg, b, max_seq, dt, device):
                 "conv_B": zeros(b, k, gn), "conv_C": zeros(b, k, gn),
                 "state": zeros(b, cfg.ssm_heads, cfg.ssm_headdim,
                                cfg.ssm_state)}
+    if cfg.kv_lora_rank:
+        return {"latent": zeros(b, max_seq, cfg.kv_lora_rank),
+                "k_rope": zeros(b, max_seq, cfg.qk_rope_dim)}
     t = min(cfg.window, max_seq) if kind.endswith("local") else max_seq
     return {"k": zeros(b, t, cfg.n_kv_heads, cfg.head_dim),
             "v": zeros(b, t, cfg.n_kv_heads, cfg.head_dim)}

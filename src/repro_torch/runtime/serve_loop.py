@@ -36,18 +36,23 @@ def make_serve_step(cfg, ctx: ShardCtx):
 
 def pad_cache_to(cfg, cache, batch: int, max_seq: int):
     """Grow a prefill cache to the serving window (zeros past the filled
-    prefix) so decode can run to ``max_seq``: the sequence axis of every
-    K/V cache is padded to its size in :func:`init_cache`; Mamba layers'
-    conv tails and states have no sequence axis and are kept as they
-    are."""
+    prefix) so decode can run to ``max_seq``: every tensor shorter than
+    its shape in :func:`init_cache` is padded at the end of each axis, as
+    the reference pads, which grows the sequence axis of the K/V caches
+    (B, T, Hkv, D) and of MLA's ``latent`` and ``k_rope`` (B, T, ·);
+    Mamba layers' conv tails and states have their shapes already and
+    are kept as they are."""
     target = init_cache(cfg, batch, max_seq, device="meta")   # shapes only
 
-    def fit(name, src, dst):
-        if name not in ("k", "v") or src.shape[1] == dst.shape[1]:
+    def fit(src, dst):
+        if src.shape == dst.shape:
             return src
-        return F.pad(src, (0, 0, 0, 0, 0, dst.shape[1] - src.shape[1]))
+        pad = []
+        for have, want in zip(reversed(src.shape), reversed(dst.shape)):
+            pad += [0, want - have]
+        return F.pad(src, pad)
 
-    return [{k: fit(k, src[k], dst[k]) for k in dst}
+    return [{k: fit(src[k], dst[k]) for k in dst}
             for src, dst in zip(cache, target)]
 
 

@@ -468,6 +468,31 @@ def test_flash_attention_kernels_at_the_tile_edges(
     assert_close_to_plain(got, want)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,d,dv", [
+    (4, 512, 16, 192, 128),        # deepseek-v2-lite MLA prefill, run A
+    (1, 4096, 16, 192, 128),       # run B
+    (2, 77, 4, 192, 128),          # ragged S
+    (1, 300, 4, 96, 64),           # D and Dv in two tile sizes
+    (1, 130, 4, 64, 128),          # Dv > D
+])
+def test_flash_attention_kernel_with_d_unequal_dv(cuda, dtype, b, s, h, d,
+                                                  dv):
+    """q/k heads of D, v heads of Dv != D (MLA's nope + rope against v):
+    the tensor-core kernel pads to max(D, Dv) (Q and K maps D wide, V
+    Dv wide, O stored at Dv); causal, scale (D)^-0.5 as the model's."""
+    q = rand(cuda, (b, s, h, d), dtype, 21)
+    k = rand(cuda, (b, s, h, d), dtype, 22)
+    v = rand(cuda, (b, s, h, dv), dtype, 23)
+    before = ops.flash_attention.launches
+    got = ops.flash_attention(q, k, v, scale=d ** -0.5)
+    assert ops.flash_attention.launches == before + 1
+    assert got.shape == (b, s, h, dv)
+    want = flash_attention.flash_attention_torch(q, k, v, scale=d ** -0.5)
+    torch.cuda.synchronize()
+    assert_close_to_plain(got, want)
+
+
 def test_flash_attention_bf16_launches_are_bitwise_equal(cuda):
     """No atomics and a fixed order of products: two launches of the
     tensor-core kernel on the same inputs give the same bits."""
@@ -573,6 +598,8 @@ def test_rmsnorm_kernel_scalar_path(cuda):
     (3, 300, 6, 2, 20, False, None, [0, 1, 298]),     # D off the vector
     (2, 333, 4, 2, 20, True, 50.0, [2, 5000]),        # and a wrapped ring
     (4, 130, 8, 4, 256, True, None, [0, 129, 130, 9999]),
+    (4, 544, 64, 4, 128, False, None, [511, 543, 512, 530]),  # qwen3 G=16
+    (1, 37, 64, 4, 128, False, None, [36]),
 ])
 def test_flash_decode_kernel_close_to_plain_version(
         cuda, dtype, b, t, hq, hkv, d, ring, softcap, pos):
@@ -666,6 +693,44 @@ def test_reduced_model_generates_the_cpu_tokens_on_the_card(cuda):
             ops.flash_attention.launches - before[1],
             ops.flash_decode.launches - before[2]) == \
         (n * (4 * layers + 1), layers, (n - 1) * layers)
+    want = generate(cfg, ShardCtx(), cpu, {"tokens": prompt}, n)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("name", ["deepseek-v2-lite-16b",
+                                  "qwen3-moe-235b-a22b"])
+def test_reduced_moe_model_generates_the_cpu_tokens_on_the_card(cuda, name):
+    """Reduced deepseek (MLA) and qwen3 (GQA, qk-norm), MoE layers in
+    both, in float32: the card gives the CPU's greedy tokens, and the
+    counts follow the path: per forward 2 norms per layer, 1 more per
+    MLA layer (``kv_norm``), 2 more per qk-norm layer and 1 final; one
+    attention per layer per prefill; one decode attention per layer per
+    decode step for GQA and none for MLA (its absorbed decode is plain
+    PyTorch)."""
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.models import ShardCtx, init_params
+    from repro_torch.runtime import generate
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced(ARCHS[name]).replace(dtype="float32")
+    cpu = init_params(cfg, torch.Generator().manual_seed(0))
+    for p in cpu.parameters():
+        if p.dim() == 1:                    # non-zero norm scales
+            p.copy_(torch.randn(p.shape, generator=torch.Generator()
+                                .manual_seed(p.numel())) * 0.1)
+    card = copy.deepcopy(cpu).to(cuda)
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 40)))
+    n = 8
+    before = (ops.rmsnorm.launches, ops.flash_attention.launches,
+              ops.flash_decode.launches)
+    got = generate(cfg, ShardCtx(), card, {"tokens": prompt.to(cuda)}, n)
+    layers = cfg.n_layers
+    norms = 2 + bool(cfg.kv_lora_rank) + 2 * cfg.qk_norm
+    assert (ops.rmsnorm.launches - before[0],
+            ops.flash_attention.launches - before[1],
+            ops.flash_decode.launches - before[2]) == \
+        (n * (norms * layers + 1), layers,
+         0 if cfg.kv_lora_rank else (n - 1) * layers)
     want = generate(cfg, ShardCtx(), cpu, {"tokens": prompt}, n)
     assert torch.equal(got.cpu(), want)
 

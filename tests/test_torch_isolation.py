@@ -49,6 +49,7 @@ def test_import_leaves_jax_and_reference_unloaded():
         "import repro_torch.analysis.ir_lint, repro_torch.search.device\n"
         "import repro_torch.analysis.lint, repro_torch.analysis.tracecheck\n"
         "import repro_torch.analysis.entrypoints\n"
+        "import repro_torch.core.executor, repro_torch.models.moe\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "assert not bad, bad\n"

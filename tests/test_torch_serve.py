@@ -1,7 +1,8 @@
 """The port's serving runtime on the CPU: continuous batching against the
-JAX package's batcher on the same weights and requests, each request
-equal to ``generate`` of it alone, the cache padding, and the serve CLI
-with ``--device cpu``."""
+JAX package's batcher on the same weights and requests (dense K/V, MLA
+latent, Mamba-2 conv/state caches), each request equal to ``generate``
+of it alone, the cache padding, and the serve CLI with ``--device
+cpu``."""
 
 import numpy as np
 import pytest
@@ -175,6 +176,49 @@ def test_pad_cache_to_leaves_conv_tails_and_states_alone(s):
         else:
             assert all(p[k] is c[k] for k in c)
             assert c["conv_x"].shape[1] == cfg.ssm_conv - 1
+
+
+@pytest.mark.parametrize("name", ["deepseek-v2-lite-16b",
+                                  "qwen3-moe-235b-a22b"])
+def test_batcher_with_moe_and_mla_caches_matches_reference_batcher(name):
+    """Per-slot MLA caches (latent and ``k_rope``, padded to ``max_seq``
+    at each join) for deepseek, GQA K/V caches with qk-norm for qwen3,
+    MoE layers in both: the port's batcher gives the reference batcher's
+    tokens for every request, and each request equals ``generate`` of it
+    alone."""
+    jax_cfg, jax_params, cfg, params = both_models(name, seed=21)
+    want = JaxBatcher(jax_cfg, jax_params, n_slots=2, max_seq=MAX_SEQ)
+    got = ContinuousBatcher(cfg, params, n_slots=2, max_seq=MAX_SEQ)
+    for r in requests(cfg.vocab, JaxRequest):
+        want.submit(r)
+    reqs = requests(cfg.vocab, Request)
+    for r in reqs:
+        got.submit(r)
+    assert got.run() == want.run()
+    for r in reqs:
+        assert r.done and r.out == want.by_rid[r.rid].out, r.rid
+        alone = generate(cfg, ShardCtx(), params,
+                         {"tokens": torch.from_numpy(r.prompt[None]).long()},
+                         len(r.out), max_seq=MAX_SEQ)
+        assert alone[0].tolist() == r.out, r.rid
+    assert len({t for r in reqs for t in r.out}) > 3
+    if cfg.kv_lora_rank:
+        assert all(sorted(c) == ["k_rope", "latent"]
+                   and c["latent"].shape == (1, MAX_SEQ, cfg.kv_lora_rank)
+                   for slot in got.caches for c in slot)
+
+
+@pytest.mark.parametrize("name", ["deepseek-v2-lite-16b",
+                                  "qwen3-moe-235b-a22b"])
+def test_serve_cli_runs_moe_on_cpu(capsys, name):
+    counts = (ops.rmsnorm.launches, ops.flash_attention.launches,
+              ops.flash_decode.launches)
+    out = serve.main(["--device", "cpu", "--reduced", "--arch", name,
+                      "--batch", "2", "--prompt-len", "20", "--gen", "5"])
+    assert out.shape == (2, 5) and out.device.type == "cpu"
+    assert f"arch={name} device=cpu batch=2" in capsys.readouterr().out
+    assert (ops.rmsnorm.launches, ops.flash_attention.launches,
+            ops.flash_decode.launches) == counts
 
 
 def test_serve_cli_runs_mamba2_on_cpu(capsys):
