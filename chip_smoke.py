@@ -200,6 +200,44 @@ Run from the repository root (it puts ``src`` on ``sys.path`` itself):
    ``scaled_dot_product_attention``; ``flash_decode`` at qwen3's shape
    beside it; ``rmsnorm`` at every prefill width; a decode step's
    profile per model beside the bound of reading every weight once.
+14. The patch and frame frontends in bf16 at full size, weights as in
+   phase 13. paligemma-3b (18 layers, d 2048, 8/1 heads of 256, vocab
+   257,216, 256 patches): ``generate`` at B=2 with 256 seeded patches
+   and 512 prompt tokens, 16 new tokens; hubert-xlarge (48 layers, d
+   1280, 16 heads of 80, bidirectional, gelu, vocab 504): one encoder
+   forward of B=2 x 1,000 frames. Checks: exact counts (rmsnorm 2 per
+   layer + 1 per forward, flash_attention one per layer per prefill or
+   forward, flash_decode one per layer per decode step); a prefill
+   launch carrying the prefix of 256; paligemma's teacher-forced logits
+   and hubert's logits within 5e-2 of the plain path's largest; both cut
+   to 4 layers in float32 within 1e-4; each kernel within
+   ``close_to_plain`` at every path shape; ``flash_attention`` with the
+   prefix at (1, 768, 8/1, 256, prefix 256) and bidirectional at
+   hubert's (2, 1000, 16, 80), each with its lse, held to the plain
+   version and timed beside ``scaled_dot_product_attention``.
+15. Training on one card. gemma2-2b at full width and depth in bf16
+   (remat full, AdamW at its defaults): ``Trainer`` to its checkpoint
+   at step 2 on B=2 x 1,024 tokens from ``TokenPipeline``, then step 3
+   by ``make_train_step``; a fresh state restored from the checkpoint
+   and stepped once must give step 3's loss and every parameter bit for
+   bit (one checkpoint is 26 GB: the run writes one, not two). One
+   ``make_train_step`` (after a warm-up step, two timed) of paligemma-3b
+   (B=1, 256 patches + 768 tokens) and hubert-xlarge (B=2 x 1,000
+   frames) at full size. The
+   float32 gradient gate of each model at full width cut to 2 layers:
+   loss within 1e-5 and every parameter's gradient within 1e-4 of its
+   largest against the same step with every kernel, forward and
+   backward, swapped for its plain version. Checks: exact counts (under
+   remat each layer's norms and attention run forward twice and
+   backward once); ``flash_attention_bwd`` and ``rmsnorm_bwd`` within
+   ``close_to_plain`` at every shape the phase launched (and MLA's 192 /
+   128 at (1, 1024, 16)), the forward kernels too (dw of a float32
+   ``rmsnorm_bwd``, a sum over every row, within 1e-5 of its largest x
+   max(1, sqrt(rows) / 10)). Numbers: step ms, tokens/s and peak memory
+   per model, gemma2's step profile (device busy ms and idle share);
+   each backward kernel's graph-timed ms, plain ms, bound and library
+   ms (autograd backward of ``scaled_dot_product_attention`` without a
+   softcap, of ``F.rms_norm``).
 
 Exits non-zero, printing no result, on any failure, when no CUDA device
 is present, or when run outside a checkout. The last line of standard
@@ -575,8 +613,13 @@ def gate_ratio(got, want):
     return float((err / plain_bound(want)).max())
 
 
-def visible_pairs(s, causal, window):
-    """(query, key) pairs the attention mask lets through."""
+def visible_pairs(s, causal, window, prefix=0):
+    """(query, key) pairs the attention mask lets through; ``prefix``
+    (causal, no window) adds the keys past each query inside the
+    prefix."""
+    if causal and prefix:
+        p = min(prefix, s)
+        return s * (s + 1) // 2 + p * (p - 1) // 2
     if not causal:
         return s * s if window is None else \
             sum(min(s, i + window) for i in range(s))
@@ -585,12 +628,14 @@ def visible_pairs(s, causal, window):
     return window * (window + 1) // 2 + (s - window) * window
 
 
-def attn_cost(q, k, v, *, causal, window):
+def attn_cost(q, k, v, *, causal, window, prefix_len=None):
     b, s, hq, d = q.shape
     hkv, dv = k.shape[2], v.shape[-1]
     n_bytes = q.element_size() * (q.numel() + k.numel() + v.numel()
                                   + b * s * hq * dv)
-    flops = 2 * b * hq * visible_pairs(s, causal, window) * (d + dv)
+    pairs = [visible_pairs(s, causal, window, p) for p in
+             (prefix_len.tolist() if prefix_len is not None else [0] * b)]
+    flops = 2 * hq * sum(pairs) * (d + dv)
     return n_bytes, flops
 
 
@@ -667,15 +712,19 @@ def swapped(ops, **fns):
 
 
 def plain_serving_kernels(ops):
-    """The serving entry points replaced by their plain PyTorch versions:
-    the same model on the card without the kernels."""
-    from repro_torch.kernels.flash_attention import flash_attention_torch
+    """The entry points of the serving and training paths, forward and
+    backward, replaced by their plain PyTorch versions: the same model on
+    the card without the kernels."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_torch, flash_attention_torch)
     from repro_torch.kernels.flash_decode import flash_decode_torch
-    from repro_torch.kernels.rmsnorm import rmsnorm_torch
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd_torch, rmsnorm_torch
     from repro_torch.kernels.ssd_scan import ssd_scan_torch
     return swapped(ops, rmsnorm=rmsnorm_torch,
                    flash_attention=flash_attention_torch,
-                   flash_decode=flash_decode_torch, ssd_scan=ssd_scan_torch)
+                   flash_decode=flash_decode_torch, ssd_scan=ssd_scan_torch,
+                   rmsnorm_bwd=rmsnorm_bwd_torch,
+                   flash_attention_bwd=flash_attention_bwd_torch)
 
 
 def scan_without_carry(x, dt, A, B, C, chunk):
@@ -747,12 +796,13 @@ def ragged_requests(vocab, seed=0):
 
 
 def drive(label, name, run, cfg, params, spies, want, *, prompt=None,
-          reqs=None):
+          reqs=None, extra=None):
     """One run through the entry points a user calls, every spied
     kernel's count zeroed just before it and read just after: ``generate``
-    of ``prompt``, or a ``ContinuousBatcher`` over ``reqs``. Fails unless
-    the counts equal ``want(prefills, decode_steps)``. Returns the run's
-    record and its counts."""
+    of ``prompt`` (with the batch entries ``extra``, a VLM's patches), or
+    a ``ContinuousBatcher`` over ``reqs``. Fails unless the counts equal
+    ``want(prefills, decode_steps)``. Returns the run's record and its
+    counts."""
     import torch
 
     from repro_torch.models import ShardCtx
@@ -771,8 +821,8 @@ def drive(label, name, run, cfg, params, spies, want, *, prompt=None,
             out = None
             n_tok = sum(len(r.out) for r in reqs)
         else:
-            out = generate(cfg, ShardCtx(), params, {"tokens": prompt},
-                           run["gen"])
+            out = generate(cfg, ShardCtx(), params,
+                           {"tokens": prompt, **(extra or {})}, run["gen"])
             n_tok = run["batch"] * run["gen"]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -841,9 +891,10 @@ def check_against_plain(label, spies, plain, stress, ops):
     return max_err
 
 
-def teacher_forced(cfg, params, prompt, toks):
-    """(B, n, V) float32 logits of the prefill of ``prompt`` and of every
-    decode step fed ``toks`` (the run's own tokens)."""
+def teacher_forced(cfg, params, prompt, toks, extra=None):
+    """(B, n, V) float32 logits of the prefill of ``prompt`` (with the
+    batch entries ``extra``: a VLM's patches, which come first) and of
+    every decode step fed ``toks`` (the run's own tokens)."""
     import torch
 
     from repro_torch.models import ShardCtx
@@ -852,7 +903,9 @@ def teacher_forced(cfg, params, prompt, toks):
     ctx = ShardCtx()
     prefill, step = make_prefill(cfg, ctx), make_serve_step(cfg, ctx)
     b, s = prompt.shape
-    logits, cache = prefill(params, {"tokens": prompt})
+    if extra and "patches" in extra:
+        s += cfg.n_patches
+    logits, cache = prefill(params, {"tokens": prompt, **(extra or {})})
     cache = pad_cache_to(cfg, cache, b, s + toks.shape[1])
     out = [logits.float()]
     for i in range(toks.shape[1] - 1):
@@ -862,28 +915,28 @@ def teacher_forced(cfg, params, prompt, toks):
 
 
 def kernel_and_plain_logits(label, cfg, params, prompt, toks, ops, *,
-                            greedy=True):
+                            greedy=True, extra=None):
     """``teacher_forced`` logits of the kernel path and of the same model
     on the card with the entry points swapped for their plain versions.
     Fails on non-finite kernel-path logits, and where ``greedy``, when
     re-running the kernel path does not give the run's own tokens."""
     import torch
-    kern = teacher_forced(cfg, params, prompt, toks)
+    kern = teacher_forced(cfg, params, prompt, toks, extra)
     if not torch.isfinite(kern).all():
         fail(f"{label} run A: non-finite logits on the kernel path")
     if greedy and not torch.equal(kern.argmax(-1), toks):
         fail(f"{label} run A: re-running the kernel path gave other greedy "
              f"tokens")
     with plain_serving_kernels(ops):
-        plain = teacher_forced(cfg, params, prompt, toks)
+        plain = teacher_forced(cfg, params, prompt, toks, extra)
     return kern, plain
 
 
-def check_teacher_forced(label, cfg, params, prompt, toks, ops):
+def check_teacher_forced(label, cfg, params, prompt, toks, ops, extra=None):
     """The run's tokens fed back: the kernel path's logits at the prefill
     and every decode step against the plain path's."""
     kern, ref_logits = kernel_and_plain_logits(label, cfg, params, prompt,
-                                               toks, ops)
+                                               toks, ops, extra=extra)
     d_logit = float((kern - ref_logits).abs().max())
     scale = float(ref_logits.abs().max())
     top1 = float((kern.argmax(-1) == ref_logits.argmax(-1)).float().mean())
@@ -1164,12 +1217,15 @@ def attention_row(q, k, v, akw, library=None):
     from repro_torch.kernels.flash_attention import (
         flash_attention_cuda, flash_attention_torch)
     n_bytes, flops = attn_cost(q, k, v, causal=akw.get("causal", True),
-                               window=akw.get("window"))
+                               window=akw.get("window"),
+                               prefix_len=akw.get("prefix_len"))
     b_ms, b_by = bound(n_bytes, flops, BF16_OPS_PER_S)
     ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, **akw), 20)
+    pre = akw.get("prefix_len")
     return dict(
         shape=str(tuple(q.shape)) + f" window={akw.get('window')} "
-              f"softcap={akw.get('softcap')}",
+              f"softcap={akw.get('softcap')} causal={akw.get('causal', True)}"
+              + ("" if pre is None else f" prefix={pre.tolist()}"),
         ms=ms, tflops=flops / ms / 1e9,
         plain_ms=cuda_ms(lambda: flash_attention_torch(q, k, v, **akw), 3),
         bound_ms=b_ms, bound_by=b_by,
@@ -2312,14 +2368,6 @@ def moe_phase(dev):
                     "flash_decode": 0 if cfg.kv_lora_rank else n_dec * n}
         return want
 
-    def freed(label):
-        """Print the model's peak device memory once its last reference
-        is gone, and give its memory back before the next is built."""
-        gc.collect()
-        torch.cuda.empty_cache()
-        print(f"{label} peak device memory "
-              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-
     with contextlib.ExitStack() as stack:
         spies = {k: stack.enter_context(Spy(ops, k, *keys[k]))
                  for k in SERVE_KERNELS}
@@ -2402,6 +2450,684 @@ def moe_phase(dev):
     by_run = {k: {r: launches[r][k] for r in launches}
               for k in SERVE_KERNELS}
     return by_run, max_err
+
+
+# -- 14. the patch and frame frontends: paligemma-3b served, hubert-xlarge
+#        encoded; 15. training on one card -----------------------------------
+
+VLM_RUN = dict(batch=2, prompt=512, gen=16)     # after 256 patches
+ENC_RUN = dict(batch=2, frames=1000)
+PREFIX_ROW = (1, 768, 8, 1, 256, 256)           # b, s, hq, hkv, d, prefix
+TRAIN_ARCH = "gemma2-2b"
+TRAIN_RUN = dict(batch=2, seq=1024, steps=3, ckpt_at=2)
+VLM_TRAIN = dict(batch=1, seq=1024)             # 256 patches + 768 tokens
+ENC_TRAIN = dict(batch=2, seq=1000)
+GRAD_LAYERS = 2                                 # the float32 gradient gate
+GRAD_LOSS_REL = 1e-5                            # |dloss| / |loss|
+GRAD_REL = 1e-4                                 # per parameter, of max|g|
+MLA_BWD_ROW = (1, 1024, 16, 192, 128)           # b, s, h, d, dv
+TRAIN_KERNELS = ("rmsnorm", "flash_attention", "rmsnorm_bwd",
+                 "flash_attention_bwd")
+
+
+def freed(label):
+    """Print the peak device memory since the last reset once the
+    model's last reference is gone, and give the memory back."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"{label} peak device memory {peak:.2f} GB")
+    torch.cuda.reset_peak_memory_stats()
+    return peak
+
+
+def load_model(label, cfg, dev, seed=0):
+    """``init_params`` from a CUDA generator seeded ``seed``, every norm
+    scale redrawn N(0, 0.1); prints the model's size."""
+    import torch
+
+    from repro_torch.models import init_params
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    params = init_params(cfg, gen, dev)
+    redraw(params, gen, dev)
+    torch.cuda.synchronize()
+    size = sum(p.numel() * p.element_size() for p in params.parameters())
+    print(f"{label}: {cfg.name} {cfg.n_layers} layers d={cfg.d_model} "
+          f"heads={cfg.n_heads}/{cfg.n_kv_heads}x{cfg.head_dim} "
+          f"{cfg.family} {cfg.frontend} causal={cfg.causal} {cfg.dtype} "
+          f"params={sum(p.numel() for p in params.parameters())} "
+          f"({size / 1e9:.2f} GB) init_s={time.perf_counter() - t0:.1f}")
+    return gen, params
+
+
+def encode(cfg, params, frames):
+    """The encoder's forward (``Model.forward`` in train mode: logits
+    for every frame) under ``torch.inference_mode()``, float32 logits."""
+    import torch
+
+    from repro_torch.models import ShardCtx
+    with torch.inference_mode():
+        logits, _ = params({"frames": frames}, ShardCtx(mode="train"))
+    return logits.float()
+
+
+def prefix_rows(gen, dev, enc_args, ops):
+    """``flash_attention`` with the prefix-LM mask at paligemma's
+    (1, 768, 8/1, 256, prefix 256) and bidirectional at hubert's path
+    shape, bf16: each held to its plain version (and its lse) and timed
+    beside ``scaled_dot_product_attention`` (a boolean mask for the
+    prefix)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import (flash_attention_torch,
+                                                     visible)
+    b, s, hq, hkv, d, p = PREFIX_ROW
+    q = torch.randn((b, s, hq, d), generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn((b, s, hkv, d), generator=gen, device=dev)
+            .bfloat16() for _ in range(2))
+    pre = torch.full((b,), p, dtype=torch.int32, device=dev)
+    mask = visible(s, causal=True, window=None, prefix_len=pre,
+                   device=dev)[:, None]
+    cases = [("prefix", (q, k, v), dict(prefix_len=pre, scale=d ** -0.5),
+              lambda: sdpa(q, k, v, mask, False, d ** -0.5))]
+    (eq, ek, ev), ekw = enc_args
+    cases.append(("bidirectional", (eq, ek, ev), ekw,
+                  lambda: sdpa(eq, ek, ev, None, False, ekw.get("scale"))))
+    rows = {}
+    for name, args, akw, library in cases:
+        got, lse = ops.flash_attention(*args, return_lse=True, **akw)
+        want, want_lse = flash_attention_torch(*args, return_lse=True, **akw)
+        torch.cuda.synchronize()
+        ok, err = close_to_plain(got, want)
+        lse_err = float((lse - want_lse).abs().max())
+        if not ok or not lse_err <= 1e-5 * max(1.0, float(want_lse.abs()
+                                                          .max())):
+            fail(f"frontends flash_attention {name}: off the plain version "
+                 f"(max abs err {err:.3e}, lse {lse_err:.3e})")
+        rows[name] = attention_row(*args, akw, library)
+        rows[name].update(max_abs_err=err, lse_max_abs_err=lse_err)
+        print(f"frontends flash_attention {name} " + json.dumps(
+            {k_: v_ for k_, v_ in rows[name].items() if k_ != "args"}))
+    return rows
+
+
+def frontend_phase(dev):
+    """Serve paligemma-3b (``generate`` with 256 patches) and encode with
+    hubert-xlarge at full size in bf16, check them against the plain
+    path and time them; returns the serving kernels' counts by run and
+    their largest errors here."""
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import ops
+    from repro_torch.models import ShardCtx
+    from repro_torch.runtime import generate
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    keys = spy_keys()
+    launches = {}
+    torch.cuda.reset_peak_memory_stats()
+    with contextlib.ExitStack() as stack:
+        spies = {k: stack.enter_context(Spy(ops, k, *keys[k]))
+                 for k in SERVE_KERNELS}
+
+        # -- paligemma-3b: generate with patches ------------------------
+        cfg = ARCHS["paligemma-3b"]
+        gen, params = load_model("frontends", cfg, dev)
+        n = cfg.n_layers
+        prompt = torch.randint(0, cfg.vocab, (VLM_RUN["batch"],
+                                              VLM_RUN["prompt"]),
+                               generator=gen, device=dev)
+        extra = {"patches": torch.randn(
+            (VLM_RUN["batch"], cfg.n_patches, cfg.d_model), generator=gen,
+            device=dev)}
+        generate(cfg, ShardCtx(), params, {"tokens": prompt[:1, :16],
+                                           "patches": extra["patches"][:1]},
+                 2)                                    # warm-up
+        torch.cuda.synchronize()
+
+        def want(n_pre, n_dec):
+            return {"rmsnorm": (n_pre + n_dec) * (2 * n + 1),
+                    "flash_attention": n_pre * n,
+                    "flash_decode": n_dec * n}
+        rec, launches["paligemma_A"] = drive(
+            "paligemma", "A", VLM_RUN, cfg, params, spies, want,
+            prompt=prompt, extra=extra)
+        pre_calls = [kw.get("prefix_len") for (_, kw) in
+                     spies["flash_attention"].calls.values()]
+        if not any(p is not None and bool((p == cfg.n_patches).all())
+                   for p in pre_calls):
+            fail("paligemma: no flash_attention launch carried the prefix "
+                 f"of {cfg.n_patches} patches")
+        check_teacher_forced("paligemma", cfg, params, prompt, rec["out"],
+                             ops, extra=extra)
+        del params
+        freed("paligemma")
+
+        print(f"reduced: paligemma float32 check n_layers {n} -> 4")
+        cfg4 = cfg.replace(n_layers=4, dtype="float32")
+        _, params = load_model("frontends", cfg4, dev)
+        kern, plain = kernel_and_plain_logits(
+            "paligemma float32 4 layers", cfg4, params, prompt, rec["out"],
+            ops, greedy=False, extra=extra)
+        d32, scale = float((kern - plain).abs().max()), \
+            float(plain.abs().max())
+        print(f"paligemma float32 4 layers teacher-forced: max |dlogit| "
+              f"{d32:.4e}, bound {F32_LOGIT_REL} x max|logit| {scale:.4f}")
+        if not d32 <= F32_LOGIT_REL * scale:
+            fail(f"paligemma float32: kernel path off the plain path by "
+                 f"{d32:.4e}")
+        del params, kern, plain
+        freed("paligemma float32")
+
+        # -- hubert-xlarge: one encoder forward ---------------------------
+        cfg = ARCHS["hubert-xlarge"]
+        gen, params = load_model("frontends", cfg, dev)
+        n = cfg.n_layers
+        frames = torch.randn((ENC_RUN["batch"], ENC_RUN["frames"],
+                              cfg.d_model), generator=gen, device=dev)
+        encode(cfg, params, frames[:, :16])            # warm-up
+        for sp in spies.values():
+            sp.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = encode(cfg, params, frames)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches["hubert_encode"] = {k: sp.launches
+                                     for k, sp in spies.items()}
+        want_enc = {"rmsnorm": 2 * n + 1, "flash_attention": n,
+                    "flash_decode": 0}
+        print(f"hubert encode: B={ENC_RUN['batch']} frames="
+              f"{ENC_RUN['frames']} wall_ms={wall * 1e3:.2f} frames_per_s="
+              f"{ENC_RUN['batch'] * ENC_RUN['frames'] / wall:.1f} launches "
+              f"{launches['hubert_encode']}")
+        if launches["hubert_encode"] != want_enc:
+            fail(f"hubert: launches {launches['hubert_encode']} != "
+                 f"{want_enc}")
+        if logits.shape != (ENC_RUN["batch"], ENC_RUN["frames"], cfg.vocab) \
+                or not torch.isfinite(logits).all():
+            fail(f"hubert: logits of shape {tuple(logits.shape)} or not "
+                 f"finite")
+        with plain_serving_kernels(ops):
+            plain = encode(cfg, params, frames)
+        d_logit, scale = float((logits - plain).abs().max()), \
+            float(plain.abs().max())
+        top1 = float((logits.argmax(-1) == plain.argmax(-1)).float().mean())
+        print(f"hubert encode vs plain path: max |dlogit| {d_logit:.4e}, "
+              f"bound {LOGIT_REL} x max|logit| {scale:.4f} = "
+              f"{LOGIT_REL * scale:.4e}; top-1 agreement {top1:.4f}")
+        if not d_logit <= LOGIT_REL * scale:
+            fail(f"hubert: kernel path logits off the plain path's by "
+                 f"{d_logit:.4e}")
+        enc_call = next((a, kw) for (a, kw) in
+                        spies["flash_attention"].calls.values()
+                        if a[0].shape[1] == ENC_RUN["frames"])
+        del params, logits, plain
+        freed("hubert")
+
+        print(f"reduced: hubert float32 check n_layers {n} -> 4")
+        _, params = load_model("frontends", cfg.replace(
+            n_layers=4, dtype="float32"), dev)
+        kern = encode(cfg.replace(n_layers=4, dtype="float32"), params,
+                      frames)
+        with plain_serving_kernels(ops):
+            plain = encode(cfg.replace(n_layers=4, dtype="float32"), params,
+                           frames)
+        d32, scale = float((kern - plain).abs().max()), \
+            float(plain.abs().max())
+        print(f"hubert float32 4 layers: max |dlogit| {d32:.4e}, bound "
+              f"{F32_LOGIT_REL} x max|logit| {scale:.4f}")
+        if not d32 <= F32_LOGIT_REL * scale:
+            fail(f"hubert float32: kernel path off the plain path by "
+                 f"{d32:.4e}")
+        del params, kern, plain
+        freed("hubert float32")
+
+    max_err = check_against_plain("frontends", spies, plain_versions(),
+                                  stress_cases(gen, dev), ops)
+    rows = prefix_rows(gen, dev, ((enc_call[0][0], enc_call[0][1],
+                                   enc_call[0][2]), enc_call[1]), ops)
+    by_run = {k: {r: launches[r][k] for r in launches}
+              for k in SERVE_KERNELS}
+    return by_run, max_err, rows
+
+
+def bwd_cost(q, k, v, *, causal=True, window=None, prefix_len=None, **_):
+    """Bytes (q, k, v, out, dout and lse read once; dq, dk, dv written
+    once) and the operations the backward needs: per visible (query,
+    key) pair and q head the recomputed score (2 D), dP and dV (2 Dv
+    each), dQ and dK (2 D each)."""
+    b, s, hq, d = q.shape
+    dv = v.shape[-1]
+    el = q.element_size()
+    n_bytes = el * (2 * q.numel() + 2 * k.numel() + 2 * v.numel()
+                    + 2 * b * s * hq * dv) + 4 * b * hq * s
+    pairs = [visible_pairs(s, causal, window, p) for p in
+             (prefix_len.tolist() if prefix_len is not None else [0] * b)]
+    return n_bytes, 2 * hq * sum(pairs) * (3 * d + 2 * dv)
+
+
+def turns(*tensors):
+    """Copies of ``tensors`` that together hold three times the L2, and
+    a function giving the next set in turn."""
+    size = sum(t.numel() * t.element_size() for t in tensors)
+    copies = [tensors] + [tuple(t.clone() for t in tensors)
+                          for _ in range(-(-3 * L2_BYTES // size))]
+    turn = itertools.count()
+    return lambda: copies[next(turn) % len(copies)]
+
+
+def attention_bwd_row(args, kw, library=True):
+    """``flash_attention_bwd`` at one shape: the kernel's and the plain
+    version's device ms from a CUDA graph over input copies past 3x the
+    L2, the library's (autograd backward of
+    ``scaled_dot_product_attention``, back to back on a graph kept for
+    it, without a softcap only), the bound and what bounds it."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_bwd_torch, visible)
+    q, k, v, out, dout, lse = args
+    n_bytes, flops = bwd_cost(q, k, v, **kw)
+    rate = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else FP32_OPS_PER_S
+    b_ms, b_by = bound(n_bytes, flops, rate)
+    nxt = turns(q, k, v, out, dout, lse)
+    akw = {k_: kw[k_] for k_ in ("causal", "scale", "window", "softcap",
+                                 "prefix_len") if k_ in kw}
+    ms = graph_ms(lambda: flash_attention_bwd_cuda(*nxt(), **akw), 10)
+    plain_ms = graph_ms(lambda: flash_attention_bwd_torch(*nxt(), **akw), 2)
+    lib_ms = None
+    if library and akw.get("softcap") is None:
+        pre = akw.get("prefix_len")
+        s = q.shape[1]
+        mask = None
+        if pre is not None or akw.get("window") is not None:
+            mask = visible(s, causal=akw.get("causal", True),
+                           window=akw.get("window"), prefix_len=pre,
+                           device=q.device)
+            mask = mask[:, None] if mask.dim() == 3 else mask
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        lout = sdpa(*leaves, mask, akw.get("causal", True) and mask is None,
+                    akw.get("scale"))
+        lib_ms = cuda_ms(lambda: torch.autograd.grad(
+            lout, leaves, dout, retain_graph=True), 10)
+    pre = akw.get("prefix_len")
+    return dict(shape=f"q {tuple(q.shape)} k {tuple(k.shape)} v "
+                      f"{tuple(v.shape)} {str(q.dtype)[6:]} causal="
+                      f"{akw.get('causal', True)} window={akw.get('window')} "
+                      f"softcap={akw.get('softcap')}"
+                      + ("" if pre is None else f" prefix={pre.tolist()}"),
+                ms=ms, tflops=flops / ms / 1e9, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                bytes=n_bytes, flops=flops)
+
+
+def norm_bwd_row(x, w, dy, kw):
+    """``rmsnorm_bwd`` at one shape: kernel and plain device ms from a
+    CUDA graph over input copies past 3x the L2, the library's (autograd
+    backward of ``F.rms_norm``, back to back), the bound (x and dy read,
+    dx written, w read and dw written once) and what bounds it."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd_cuda, \
+        rmsnorm_bwd_torch
+    n_bytes = 3 * x.numel() * x.element_size() \
+        + 2 * w.numel() * w.element_size()
+    b_ms, b_by = bound(n_bytes, 10 * x.numel(), FP32_OPS_PER_S)
+    nxt = turns(x, dy)
+    def kernel():
+        x_, dy_ = nxt()
+        return rmsnorm_bwd_cuda(x_, w, dy_, **kw)
+    ms = graph_ms(kernel, 20)
+    plain_ms = graph_ms(lambda: rmsnorm_bwd_torch(x, w, dy, **kw), 5)
+    lx = x.detach().clone().requires_grad_(True)
+    lw = (1.0 + w if kw.get("zero_centered", True) else w).detach().clone() \
+        .requires_grad_(True)
+    lout = F.rms_norm(lx, (x.shape[-1],), lw, kw.get("eps", 1e-6))
+    lib_ms = cuda_ms(lambda: torch.autograd.grad(lout, (lx, lw), dy,
+                                                 retain_graph=True), 20)
+    return dict(shape=f"{tuple(x.shape)} {str(x.dtype)[6:]} w "
+                      f"{str(w.dtype)[6:]}", ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                bytes=n_bytes)
+
+
+def spy_train_keys():
+    def key_norm(args):
+        return (tuple(args[0].shape), args[0].dtype, args[1].dtype)
+
+    def key_attn(args):
+        return shapes(args[:3]) + (str(args[0].dtype),)
+    attn_kw = ("causal", "window", "softcap", "return_lse")
+    return {"rmsnorm": (key_norm, ("zero_centered",)),
+            "rmsnorm_bwd": (key_norm, ("zero_centered",)),
+            "flash_attention": (key_attn, attn_kw),
+            "flash_attention_bwd": (key_attn, attn_kw[:3])}
+
+
+def train_counts(cfg, steps, remat=True):
+    """The launches ``steps`` training steps of ``cfg`` make: each norm
+    and attention of a layer runs forward twice under remat (the forward
+    and its recomputation in the backward) and backward once; the final
+    norm runs outside the recomputed layers."""
+    norms = 2 + 2 * cfg.post_block_norms + 2 * cfg.qk_norm
+    n = cfg.n_layers
+    fwd = 2 if remat else 1
+    return {"rmsnorm": steps * (fwd * norms * n + 1),
+            "rmsnorm_bwd": steps * (norms * n + 1),
+            "flash_attention": steps * fwd * n,
+            "flash_attention_bwd": steps * n}
+
+
+def grad_gate(label, cfg, dev, batch_of, ops):
+    """Loss and every parameter's gradient of one float32 step at full
+    width, ``GRAD_LAYERS`` layers, kernel path against the same step with
+    every kernel (forward and backward) swapped for its plain version."""
+    import torch
+
+    from repro_torch.models import ShardCtx
+    from repro_torch.runtime.train_loop import make_loss_fn
+    cfg = cfg.replace(n_layers=GRAD_LAYERS, dtype="float32")
+    _, params = load_model(f"{label} gradient gate", cfg, dev, seed=3)
+    params.requires_grad_(True)
+    batch = batch_of(cfg)
+    out = {}
+    for path in ("kernel", "plain"):
+        params.zero_grad(set_to_none=True)
+        ctx = plain_serving_kernels(ops) if path == "plain" \
+            else contextlib.nullcontext()
+        with ctx:
+            total, (loss, _) = make_loss_fn(cfg, ShardCtx())(params, batch)
+            total.backward()
+        out[path] = (loss.item(), {k: p.grad for k, p in
+                                   params.named_parameters()})
+    (lk, gk), (lp, gp) = out["kernel"], out["plain"]
+    worst = max(((float((gk[k] - gp[k]).abs().max())
+                  / max(float(gp[k].abs().max()), 1e-30), k) for k in gp))
+    print(f"{label} gradient gate (float32, {GRAD_LAYERS} layers, full "
+          f"width): loss kernel {lk!r} plain {lp!r} rel "
+          f"{abs(lk - lp) / abs(lp):.3e} (bound {GRAD_LOSS_REL}); worst "
+          f"gradient {worst[1]} max|dg| / max|g| {worst[0]:.3e} (bound "
+          f"{GRAD_REL}) over {len(gp)} parameters")
+    if not abs(lk - lp) <= GRAD_LOSS_REL * abs(lp):
+        fail(f"{label} gradient gate: loss {lk!r} vs plain {lp!r}")
+    if not worst[0] <= GRAD_REL:
+        fail(f"{label} gradient gate: gradient of {worst[1]} off the plain "
+             f"path's by {worst[0]:.3e} of its largest")
+    del params, out, gk, gp
+    freed(f"{label} gradient gate")
+
+
+def train_phase(dev):
+    """Train gemma2-2b at full width and depth in bf16 for three steps
+    through ``Trainer`` (checkpoint at step 2 and at the end), resume
+    step 3 from the checkpoint into a fresh state and hold it to the
+    uninterrupted run bit for bit; one ``make_train_step`` of
+    paligemma-3b and of hubert-xlarge at full size; the float32
+    gradient gate of each; both backward kernels held to their plain
+    versions at every shape the phase launched and timed. Returns the
+    kernels' JSON entries (the two backward kernels) and the forward
+    kernels' counts by run."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import PipelineConfig, TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_torch
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd_torch
+    from repro_torch.models import ShardCtx
+    from repro_torch.optim import OptConfig
+    from repro_torch.runtime.train_loop import (Trainer, init_train_state,
+                                                make_train_step)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ckpt_dir = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    opt = OptConfig()               # the defaults: 100 warmup steps
+    keys = spy_train_keys()
+    launches, steps = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+
+    def step_record(label, cfg, run, times, want, got):
+        b, s = run["batch"], run["seq"]
+        ms = float(np.median(times)) * 1e3
+        rec = dict(step_ms=ms, step_ms_all=[t * 1e3 for t in times],
+                   tokens_per_s=b * s / ms * 1e3, batch=b, seq=s,
+                   peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+        print(f"train {label}: " + json.dumps(rec) + f" launches {got}")
+        if got != want:
+            fail(f"train {label}: launches {got} != {want}")
+        steps[label] = rec
+
+    with contextlib.ExitStack() as stack:
+        spies = {k: stack.enter_context(Spy(ops, k, *keys[k]))
+                 for k in TRAIN_KERNELS}
+
+        # -- gemma2-2b: Trainer to step 2 (its checkpoint), then step 3 -----
+        # One checkpoint of the state is 26 GB (bf16 parameters, float32
+        # moments); to write one and not two, the Trainer runs to the
+        # checkpoint at step 2 (its end) and step 3 is one
+        # ``make_train_step`` call, uninterrupted and again from the
+        # restored state.
+        cfg = ARCHS[TRAIN_ARCH]
+        print(f"train: {cfg.name} {cfg.n_layers} layers d={cfg.d_model} "
+              f"{cfg.dtype} remat={cfg.remat} B={TRAIN_RUN['batch']} "
+              f"S={TRAIN_RUN['seq']}")
+        gen = torch.Generator(device=dev).manual_seed(0)
+        state = init_train_state(cfg, opt, gen, dev)
+        redraw(state["params"], gen, dev)
+        pcfg = PipelineConfig(batch=TRAIN_RUN["batch"],
+                              seq_len=TRAIN_RUN["seq"], seed=0)
+        pipe = TokenPipeline(cfg, pcfg, device=dev)
+        at = TRAIN_RUN["ckpt_at"]
+        trainer = Trainer(cfg, opt, ShardCtx(), str(ckpt_dir),
+                          ckpt_every=at)
+        step_fn = make_train_step(cfg, opt, ShardCtx())
+        for sp in spies.values():
+            sp.launches = 0
+        t0 = time.perf_counter()
+        state, history, _ = trainer.run(state, pipe, at, log_every=1)
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, pipe.make_batch(at))
+        losses = [h["loss"] for h in history] + [float(metrics["loss"])]
+        last = time.perf_counter() - t0
+        launches["train_gemma2"] = {k: sp.launches for k, sp in spies.items()}
+        # the Trainer's own step times (each ends in the loss's read-back)
+        # and step 3's; the first step also builds cuBLAS plans and grows
+        # the allocator
+        step_record("gemma2-2b", cfg, TRAIN_RUN,
+                    [h["sec_per_step"] for h in history[1:]] + [last],
+                    train_counts(cfg, TRAIN_RUN["steps"]),
+                    launches["train_gemma2"])
+        print(f"train gemma2-2b: Trainer wall_s={wall:.2f} ({at} steps and "
+              f"the checkpoint at step {at}, written on a thread, waited "
+              f"for); losses {losses}")
+        if len(losses) != 3 or not all(np.isfinite(losses)):
+            fail(f"train gemma2-2b: losses {losses}")
+        mgr = CheckpointManager(str(ckpt_dir))
+        if mgr.list_steps() != [at]:
+            fail(f"train gemma2-2b: committed checkpoints {mgr.list_steps()}")
+        final = {k: p.detach().to("cpu", copy=True) for k, p in
+                 state["params"].named_parameters()}
+        profile_step(lambda: step_fn(state, pipe.make_batch(at + 1)),
+                     steps["gemma2-2b"])
+        print("train gemma2-2b step profile " + json.dumps(
+            steps["gemma2-2b"]))
+        del state, trainer, step_fn
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- resume: a fresh state restored from step 2, then step 3 ------
+        t0 = time.perf_counter()
+        fresh = init_train_state(cfg, opt, torch.Generator(
+            device=dev).manual_seed(1), dev)
+        fresh = mgr.restore(fresh, at)
+        restore_s = time.perf_counter() - t0
+        fresh, metrics = make_train_step(cfg, opt, ShardCtx())(
+            fresh, pipe.make_batch(at))
+        same_loss = float(metrics["loss"]) == losses[2]
+        diff = [k for k, p in fresh["params"].named_parameters()
+                if not torch.equal(p.detach().cpu(), final[k])]
+        print(f"train gemma2-2b resume: restore_s={restore_s:.2f} step-3 "
+              f"loss {float(metrics['loss'])!r} vs {losses[2]!r}; "
+              f"{len(final) - len(diff)} of {len(final)} parameters equal "
+              f"bit for bit")
+        if not same_loss or diff:
+            fail(f"train gemma2-2b: resumed step 3 differs (loss equal "
+                 f"{same_loss}, parameters differing {diff[:5]})")
+        del fresh, final, metrics
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        freed("train gemma2-2b")
+
+        # -- paligemma-3b and hubert-xlarge: one step each -----------------
+        for label, name, run in (("paligemma-3b", "paligemma-3b", VLM_TRAIN),
+                                 ("hubert-xlarge", "hubert-xlarge",
+                                  ENC_TRAIN)):
+            cfg = ARCHS[name]
+            gen = torch.Generator(device=dev).manual_seed(0)
+            state = init_train_state(cfg, opt, gen, dev)
+            redraw(state["params"], gen, dev)
+            pipe = TokenPipeline(cfg, PipelineConfig(
+                batch=run["batch"], seq_len=run["seq"]), device=dev)
+            step_fn = make_train_step(cfg, opt, ShardCtx())
+            state, _ = step_fn(state, pipe.make_batch(0))   # warm-up
+            for sp in spies.values():
+                sp.launches = 0
+            times = []
+            for i in (1, 2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, metrics = step_fn(state, pipe.make_batch(i))
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            if not np.isfinite(float(metrics["loss"])):
+                fail(f"train {label}: loss {float(metrics['loss'])}")
+            key = f"train_{name.split('-')[0]}"
+            launches[key] = {k: sp.launches for k, sp in spies.items()}
+            step_record(label, cfg, run, times, train_counts(cfg, 2),
+                        launches[key])
+            del state, step_fn, metrics
+            freed(f"train {label}")
+
+        # -- the float32 gradient gate at full width, 2 layers -------------
+        def lm_batch(c, b=TRAIN_RUN["batch"], s=TRAIN_RUN["seq"]):
+            return TokenPipeline(c, PipelineConfig(batch=b, seq_len=s),
+                                 device=dev).make_batch(0)
+        grad_gate("gemma2-2b", ARCHS["gemma2-2b"], dev, lm_batch, ops)
+        grad_gate("paligemma-3b", ARCHS["paligemma-3b"], dev,
+                  lambda c: lm_batch(c, VLM_TRAIN["batch"], VLM_TRAIN["seq"]),
+                  ops)
+        grad_gate("hubert-xlarge", ARCHS["hubert-xlarge"], dev,
+                  lambda c: lm_batch(c, ENC_TRAIN["batch"],
+                                     ENC_TRAIN["seq"]), ops)
+
+    # -- the backward kernels against their plain versions, timed --------
+    gen = torch.Generator(device=dev).manual_seed(7)
+    b, s, h, d, dv = MLA_BWD_ROW
+    mla = [torch.randn(shape, generator=gen, device=dev).bfloat16()
+           for shape in ((b, s, h, d), (b, s, h, d), (b, s, h, dv))]
+    mla_out, mla_lse = ops.flash_attention(*mla, scale=d ** -0.5,
+                                           return_lse=True)
+    mla_dout = torch.randn((b, s, h, dv), generator=gen, device=dev) \
+        .bfloat16()
+    bwd_cases = [(f"path{k}", a, kw) for k, (a, kw) in
+                 spies["flash_attention_bwd"].calls.items()]
+    bwd_cases.append(("mla", [*mla, mla_out, mla_dout, mla_lse],
+                      dict(scale=d ** -0.5)))
+    errs = {"flash_attention_bwd": 0.0, "rmsnorm_bwd": 0.0}
+    rows = {"flash_attention_bwd": [], "rmsnorm_bwd": []}
+    for case, args, kw in bwd_cases:
+        got = ops.flash_attention_bwd(*args, **kw)
+        want = flash_attention_bwd_torch(*args, **kw)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            ok, err = close_to_plain(g, w)
+            if not ok:
+                fail(f"flash_attention_bwd {case}: kernel off the plain "
+                     f"version (max abs err {err:.3e})")
+            errs["flash_attention_bwd"] = max(
+                errs["flash_attention_bwd"], err)
+        if args[0].dtype == torch.bfloat16:
+            rows["flash_attention_bwd"].append(attention_bwd_row(args, kw))
+            print("flash_attention_bwd " + json.dumps(
+                rows["flash_attention_bwd"][-1]))
+    for case, (args, kw) in spies["rmsnorm_bwd"].calls.items():
+        got = ops.rmsnorm_bwd(*args, **kw)
+        want = rmsnorm_bwd_torch(*args, **kw)
+        torch.cuda.synchronize()
+        rows_n = args[0].numel() // args[0].shape[-1]
+        for g, w, what in zip(got, want, ("dx", "dw")):
+            if what == "dw" and w.dtype == torch.float32:
+                # dw sums every row: float32 sums in another order
+                err = float((g - w).abs().max())
+                ok = err <= 1e-5 * float(w.abs().max()) * max(
+                    1.0, rows_n ** 0.5 / 10)
+            else:
+                ok, err = close_to_plain(g, w)
+            if not ok:
+                fail(f"rmsnorm_bwd {case} {what}: kernel off the plain "
+                     f"version (max abs err {err:.3e})")
+            errs["rmsnorm_bwd"] = max(errs["rmsnorm_bwd"], err)
+        if args[0].dtype == torch.bfloat16 and args[0].dim() == 3:
+            rows["rmsnorm_bwd"].append(norm_bwd_row(*args, kw))
+            print("rmsnorm_bwd " + json.dumps(rows["rmsnorm_bwd"][-1]))
+    from repro_torch.kernels.flash_attention import flash_attention_torch
+    from repro_torch.kernels.rmsnorm import rmsnorm_torch
+    for name, plain in (("flash_attention", flash_attention_torch),
+                        ("rmsnorm", rmsnorm_torch)):
+        errs[name] = 0.0
+        for case, (args, kw) in spies[name].calls.items():
+            got = getattr(ops, name)(*args, **kw)
+            want = plain(*args, **kw)
+            torch.cuda.synchronize()
+            for g, w in zip(*((got, want) if isinstance(got, tuple)
+                              else ((got,), (want,)))):
+                ok, err = close_to_plain(g, w)
+                if not ok:
+                    fail(f"train {name} {case}: kernel off the plain version "
+                         f"(max abs err {err:.3e})")
+                errs[name] = max(errs[name], err)
+    print(f"training kernels within tolerance of their plain versions at "
+          f"{len(bwd_cases)} flash_attention_bwd and "
+          f"{len(spies['rmsnorm_bwd'].calls)} rmsnorm_bwd shapes: max abs "
+          f"err {errs}")
+    print("train steps " + json.dumps(steps))
+
+    sources = {"flash_attention_bwd": "flash_attention_bwd.cu",
+               "rmsnorm_bwd": "rmsnorm.cu"}
+    entries = []
+    for name in ("flash_attention_bwd", "rmsnorm_bwd"):
+        main = max(rows[name], key=lambda r: r["bytes"]) \
+            if name == "rmsnorm_bwd" else \
+            max(rows[name], key=lambda r: r["flops"])
+        entries.append(dict(
+            name=name, route="cuda",
+            source=f"src/repro_torch/kernels/csrc/{sources[name]}",
+            replaces="none: the reference differentiates "
+                     + ("_flash_bwd, src/repro/models/layers.py:352"
+                        if name == "flash_attention_bwd" else
+                        "rms_norm by autodiff, src/repro/models/layers.py:26"),
+            launches=sum(launches[r][name] for r in launches),
+            launches_by_path={r: launches[r][name] for r in launches},
+            max_abs_err=errs[name], ms=main["ms"], plain_ms=main["plain_ms"],
+            bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+            library_ms=main["library_ms"], shape=main["shape"],
+            rows=rows[name]))
+    fwd = {k: {r: launches[r][k] for r in launches}
+           for k in ("rmsnorm", "flash_attention")}
+    return entries, fwd, {k: errs[k] for k in fwd}
 
 
 def main() -> int:
@@ -2772,6 +3498,25 @@ def main() -> int:
         row["launches"] += sum(moe_launches[name].values())
         row["launches_by_path"].update(moe_launches[name])
         row["max_abs_err"] = max(row["max_abs_err"], moe_err[name])
+    gc.collect()
+    torch.cuda.empty_cache()
+    fe_launches, fe_err, fe_rows = frontend_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_entries, train_fwd, train_err = train_phase(dev)
+    for row in serve_rows:
+        name = row["name"]
+        row["launches"] += sum(fe_launches[name].values())
+        row["launches_by_path"].update(fe_launches[name])
+        row["max_abs_err"] = max(row["max_abs_err"], fe_err[name])
+        if name in train_fwd:
+            row["launches"] += sum(train_fwd[name].values())
+            row["launches_by_path"].update(train_fwd[name])
+            row["max_abs_err"] = max(row["max_abs_err"], train_err[name])
+        if name == "flash_attention":
+            row["prefix_row"], row["bidirectional_row"] = (
+                {k: v for k, v in fe_rows[r].items() if k != "args"}
+                for r in ("prefix", "bidirectional"))
 
     # the device GA's largest shape: where the path spends its launches
     main_row = max((r for r in kernel_rows
@@ -2810,7 +3555,7 @@ def main() -> int:
         eager_ms=main_score["eager_ms"],
         kernel_scores_host_ms=main_score["kernel_scores_host_ms"]),
         dense_entry] + serve_rows
-        + [ssd_entry]}))
+        + [ssd_entry] + train_entries}))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -261,6 +261,124 @@ void launch(const void* x, const void* w, void* out, long long rows, int d,
   }
 }
 
+// ---------------------------------------------------------------------------
+// backward
+// ---------------------------------------------------------------------------
+//
+//   x^ = x r,  r = 1 / sqrt(mean(x^2) + eps)
+//   dx = (w' dy - x^ mean(x^ w' dy)) r          (one pass per row)
+//   dw = sum over rows of dy x^                 (two launches)
+//
+// This is what the reference gets from autodiff of layers.rms_norm; there
+// is no Pallas backward kernel. Bytes bound it, as the forward: x and dy
+// read once, dx written once, dw's partials (P x d float32, P <= 256) once
+// each way.
+//  * rmsnorm_bwd_rows_kernel: block p of P takes rows p, p + P, p + 2P,
+//    ... in that order. Per row: the sum of squares and the sum of
+//    x w' dy (block reductions in a fixed order), then dx, and dy x^ added
+//    to the block's float32 column sums in shared memory (each column
+//    owned by one thread). At the end the block writes its d partials.
+//  * rmsnorm_bwd_cols_kernel: dw[c] = the sum of the P partials of column
+//    c in block order, cast to w's type.
+//  * No atomics: two launches give equal bits.
+
+constexpr int kBwdThreads = 256;
+constexpr int kBwdMaxBlocks = 256;
+
+__device__ __forceinline__ float2 block_sum2(float a, float b,
+                                             float2* scratch) {
+  a = warp_sum(a);
+  b = warp_sum(b);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (lane == 0) scratch[warp] = make_float2(a, b);
+  __syncthreads();
+  if (warp == 0) {
+    float2 t = lane < kBwdThreads / 32 ? scratch[lane] : make_float2(0, 0);
+    t.x = warp_sum(t.x);
+    t.y = warp_sum(t.y);
+    if (lane == 0) scratch[kBwdThreads / 32] = t;
+  }
+  __syncthreads();
+  const float2 out = scratch[kBwdThreads / 32];
+  __syncthreads();                   // scratch is reused by the next row
+  return out;
+}
+
+template <typename TX, typename TW>
+__global__ void __launch_bounds__(kBwdThreads)
+rmsnorm_bwd_rows_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
+                        const TX* __restrict__ dy, TX* __restrict__ dx,
+                        float* __restrict__ partials, long long rows, int d,
+                        float eps, int zero_centered) {
+  extern __shared__ float dw_acc[];            // d column sums
+  __shared__ float2 scratch[kBwdThreads / 32 + 1];
+  for (int c = threadIdx.x; c < d; c += kBwdThreads) dw_acc[c] = 0.0f;
+  for (long long row = blockIdx.x; row < rows; row += gridDim.x) {
+    const TX* xr = x + row * d;
+    const TX* gr = dy + row * d;
+    float ss = 0.0f, g = 0.0f;
+    for (int c = threadIdx.x; c < d; c += kBwdThreads) {
+      const float xv = to_f32(xr[c]);
+      float wv = to_f32(w[c]);
+      if (zero_centered) wv = 1.0f + wv;
+      ss = fmaf(xv, xv, ss);
+      g = fmaf(xv * wv, to_f32(gr[c]), g);
+    }
+    const float2 sums = block_sum2(ss, g, scratch);
+    const float r = 1.0f / sqrtf(sums.x / static_cast<float>(d) + eps);
+    const float mean = sums.y * r / static_cast<float>(d);   // of x^ w' dy
+    TX* dxr = dx + row * d;
+    for (int c = threadIdx.x; c < d; c += kBwdThreads) {
+      const float xh = to_f32(xr[c]) * r;
+      float wv = to_f32(w[c]);
+      if (zero_centered) wv = 1.0f + wv;
+      const float gv = to_f32(gr[c]);
+      dxr[c] = from_f32<TX>((wv * gv - xh * mean) * r);
+      dw_acc[c] = fmaf(gv, xh, dw_acc[c]);
+    }
+  }
+  float* out = partials + static_cast<long long>(blockIdx.x) * d;
+  for (int c = threadIdx.x; c < d; c += kBwdThreads) out[c] = dw_acc[c];
+}
+
+template <typename TW>
+__global__ void __launch_bounds__(kBwdThreads)
+rmsnorm_bwd_cols_kernel(const float* __restrict__ partials,
+                        TW* __restrict__ dw, int n_parts, int d) {
+  const int c = blockIdx.x * kBwdThreads + threadIdx.x;
+  if (c >= d) return;
+  float acc = 0.0f;
+  for (int p = 0; p < n_parts; ++p)
+    acc += partials[static_cast<long long>(p) * d + c];
+  dw[c] = from_f32<TW>(acc);
+}
+
+int bwd_blocks(long long rows) {
+  return static_cast<int>(rows < kBwdMaxBlocks ? rows : kBwdMaxBlocks);
+}
+
+template <typename TX, typename TW>
+int launch_bwd(const void* x, const void* w, const void* dy, void* dx,
+               void* dw, float* partials, long long rows, int d, float eps,
+               int zero_centered, cudaStream_t stream) {
+  const int parts = bwd_blocks(rows);
+  const size_t smem = sizeof(float) * static_cast<size_t>(d);
+  cudaError_t err = cudaFuncSetAttribute(
+      rmsnorm_bwd_rows_kernel<TX, TW>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  rmsnorm_bwd_rows_kernel<TX, TW><<<parts, kBwdThreads, smem, stream>>>(
+      static_cast<const TX*>(x), static_cast<const TW*>(w),
+      static_cast<const TX*>(dy), static_cast<TX*>(dx), partials, rows, d,
+      eps, zero_centered);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  rmsnorm_bwd_cols_kernel<TW>
+      <<<(d + kBwdThreads - 1) / kBwdThreads, kBwdThreads, 0, stream>>>(
+          partials, static_cast<TW*>(dw), parts, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16. Launch on `stream`; returns
@@ -292,4 +410,34 @@ extern "C" int rmsnorm_row_threads(int d, int x_dtype) {
 
 extern "C" const char* rmsnorm_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// Rows of dw partials the backward writes for `rows` rows (the wrapper
+// allocates partials of (rmsnorm_bwd_blocks(rows), d) float32).
+extern "C" int rmsnorm_bwd_blocks(long long rows) { return bwd_blocks(rows); }
+
+// The backward: dx (rows, d) in x's type and dw (d,) in w's type from x,
+// w and dy (dy in x's type), with `partials` as scratch. Two launches on
+// `stream`; returns the first CUDA error (0 = ok). The caller has checked
+// shapes, types and contiguity, and that rows and d are non-zero; d at
+// most 56,000 (its float32 column sums fill a block's shared memory).
+extern "C" int rmsnorm_bwd(const void* x, const void* w, const void* dy,
+                           void* dx, void* dw, float* partials,
+                           long long rows, int d, float eps,
+                           int zero_centered, int x_dtype, int w_dtype,
+                           void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (x_dtype == 0 && w_dtype == 0)
+    return launch_bwd<float, float>(x, w, dy, dx, dw, partials, rows, d, eps,
+                                    zero_centered, s);
+  if (x_dtype == 0 && w_dtype == 1)
+    return launch_bwd<float, __nv_bfloat16>(x, w, dy, dx, dw, partials, rows,
+                                            d, eps, zero_centered, s);
+  if (x_dtype == 1 && w_dtype == 0)
+    return launch_bwd<__nv_bfloat16, float>(x, w, dy, dx, dw, partials, rows,
+                                            d, eps, zero_centered, s);
+  if (x_dtype == 1 && w_dtype == 1)
+    return launch_bwd<__nv_bfloat16, __nv_bfloat16>(
+        x, w, dy, dx, dw, partials, rows, d, eps, zero_centered, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,23 +1,31 @@
-"""Forward attention with an online softmax: the CUDA kernel's launcher
-and its plain PyTorch version.
+"""Attention with an online softmax, forward and backward: the CUDA
+kernels' launchers and their plain PyTorch versions.
 
 ``q`` (B, S, Hq, D), ``k`` (B, S, Hkv, D), ``v`` (B, S, Hkv, Dv), all
 float32 or all bfloat16; the result is (B, S, Hq, Dv) in q's type. GQA:
 q head ``h`` attends kv head ``h // (Hq // Hkv)``. Key ``j`` is visible
-from query ``i`` iff ``j <= i`` when ``causal`` and ``i - j < window``
-when a window is set (the last ``window`` keys including the query
-itself, the HF convention of the reference). The softcap
-``cap * tanh(s / cap)`` is applied to the scaled scores before the mask.
-Scores and sums are float32; any S is accepted (the TPU kernel wanted a
-multiple of its 512-row blocks).
+from query ``i`` iff, when ``causal``, ``j <= i`` or ``j <
+prefix_len[b]`` (the prefix-LM mask of the reference's
+``attention_streamed``: a VLM's image prefix attends bidirectionally),
+and ``i - j < window`` when a window is set (the last ``window`` keys
+including the query itself, the HF convention of the reference). The
+softcap ``cap * tanh(s / cap)`` is applied to the scaled scores before
+the mask. Scores and sums are float32; any S is accepted (the TPU kernel
+wanted a multiple of its 512-row blocks). The forward can also return
+each row's log-sum-exp ``lse`` (B, Hq, S) float32, from which the
+backward recomputes the probabilities, as the reference's custom VJP
+``_flash_bwd`` does.
 
 ``csrc/flash_attention.cu`` holds two CUDA kernels, chosen by dtype:
 bfloat16 launches the tensor-core kernel (wgmma products, TMA loads,
 warp-specialised; its loads need head dims that are multiples of 8 and
 16-byte aligned tensors, see :func:`refusal`), float32 the SIMT kernel,
 whose float32 FMAs keep float32's tolerance.
-:func:`repro_torch.kernels.ops.flash_attention` is the guarded entry point
-that picks between the plain version and the CUDA kernels.
+``csrc/flash_attention_bwd.cu`` holds the backward (delta, then dK/dV,
+then dQ; float32 SIMT arithmetic for both types).
+:func:`repro_torch.kernels.ops.flash_attention` and
+:func:`repro_torch.kernels.ops.flash_attention_bwd` are the guarded entry
+points that pick between the plain versions and the CUDA kernels.
 """
 
 from __future__ import annotations
@@ -35,46 +43,107 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def visible(s: int, *, causal: bool, window: int | None,
+            prefix_len: torch.Tensor | None = None,
             device=None) -> torch.Tensor:
-    """(S, S) bool: key ``j`` (column) visible from query ``i`` (row)."""
+    """(S, S) bool: key ``j`` (column) visible from query ``i`` (row);
+    (B, S, S) with a ``prefix_len`` (B,) when causal."""
     i = torch.arange(s, device=device)[:, None]
     j = torch.arange(s, device=device)[None, :]
     mask = torch.ones((s, s), dtype=torch.bool, device=device)
-    if causal:
-        mask &= j <= i
     if window is not None:
         mask &= i - j < window
-    return mask
+    if not causal:
+        return mask
+    if prefix_len is None:
+        return mask & (j <= i)
+    pre = prefix_len.to(device=device, dtype=torch.long)[:, None, None]
+    return mask & ((j <= i) | (j < pre))
+
+
+def _grouped_scores(q, k, *, scale, softcap, mask):
+    """Scaled, softcapped float32 scores (B, Hkv, G, S, S), masked
+    entries ``NEG_INF``; ``mask`` (S, S) or (B, S, S)."""
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    qg = (q.float() * scale).view(b, s, hkv, hq // hkv, d)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, k.float())
+    if softcap is not None:
+        scores = softcap * torch.tanh(scores / softcap)
+    m5 = mask if mask.dim() == 2 else mask[:, None, None]
+    return scores.masked_fill(~m5, NEG_INF), m5
 
 
 def flash_attention_torch(q, k, v, *, causal: bool = True,
                           scale: float | None = None,
                           window: int | None = None,
-                          softcap: float | None = None) -> torch.Tensor:
+                          softcap: float | None = None,
+                          prefix_len: torch.Tensor | None = None,
+                          return_lse: bool = False):
     """Plain PyTorch version: the whole (S, S) score matrix in float32,
-    masked probabilities set to 0, on whatever device the inputs lie on."""
+    masked probabilities set to 0, on whatever device the inputs lie on.
+    With ``return_lse``, ``(out, lse)``: lse (B, Hq, S) float32 in
+    natural units."""
     b, s, hq, d = q.shape
     hkv, dv = k.shape[2], v.shape[-1]
+    scale = d ** -0.5 if scale is None else scale
+    mask = visible(s, causal=causal, window=window, prefix_len=prefix_len,
+                   device=q.device)
+    scores, m5 = _grouped_scores(q, k, scale=scale, softcap=softcap,
+                                 mask=mask)
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.where(m5, torch.exp(scores - m), 0.0)
+    lsum = p.sum(dim=-1)                              # (B, Hkv, G, S)
+    out = torch.einsum("bkgst,btkd->bskgd", p, v.float())
+    out = out / lsum.permute(0, 3, 1, 2).clamp_min(1e-30)[..., None]
+    out = out.reshape(b, s, hq, dv).to(q.dtype).contiguous()
+    if not return_lse:
+        return out
+    lse = m[..., 0] + torch.log(lsum.clamp_min(1e-30))
+    return out, lse.reshape(b, hq, s).contiguous()
+
+
+def flash_attention_bwd_torch(q, k, v, out, dout, lse, *,
+                              causal: bool = True,
+                              scale: float | None = None,
+                              window: int | None = None,
+                              softcap: float | None = None,
+                              prefix_len: torch.Tensor | None = None):
+    """Plain PyTorch version of the backward, the reference's
+    ``_flash_bwd`` on the whole (S, S) matrix: ``delta = rowsum(dout ·
+    out)``, P recomputed from ``lse`` (B, Hq, S), ``ds = P (dP - delta)``
+    times ``1 - (sc / cap)^2`` under a softcap, masked pairs 0, the G q
+    heads of a kv head summed into dk/dv. Float32 throughout; returns
+    (dq, dk, dv) in the inputs' types."""
+    b, s, hq, d = q.shape
+    hkv, dv_ = k.shape[2], v.shape[-1]
     g = hq // hkv
     scale = d ** -0.5 if scale is None else scale
-    qg = (q.float() * scale).view(b, s, hkv, g, d)
-    scores = torch.einsum("bskgd,btkd->bkgst", qg, k.float())
+    mask = visible(s, causal=causal, window=window, prefix_len=prefix_len,
+                   device=q.device)
+    sc, m5 = _grouped_scores(q, k, scale=scale, softcap=softcap, mask=mask)
+    do = dout.float()
+    delta = (do * out.float()).sum(-1)                # (B, S, Hq)
+    delta = delta.view(b, s, hkv, g).permute(0, 2, 3, 1)
+    do_g = do.view(b, s, hkv, g, dv_)
+    p = torch.exp(sc - lse.float().view(b, hkv, g, s)[..., None])
+    p = torch.where(m5, p, 0.0)
+    dv = torch.einsum("bkgst,bskgd->btkd", p, do_g)
+    dp = torch.einsum("bskgd,btkd->bkgst", do_g, v.float())
+    ds = p * (dp - delta[..., None])
     if softcap is not None:
-        scores = softcap * torch.tanh(scores / softcap)
-    mask = visible(s, causal=causal, window=window, device=q.device)
-    scores = scores.masked_fill(~mask, NEG_INF)
-    m = scores.amax(dim=-1, keepdim=True)
-    p = torch.where(mask, torch.exp(scores - m), 0.0)
-    l = p.sum(dim=-1).permute(0, 3, 1, 2)             # (B, S, Hkv, G)
-    out = torch.einsum("bkgst,btkd->bskgd", p, v.float())
-    out = out / l.clamp_min(1e-30)[..., None]
-    return out.reshape(b, s, hq, dv).to(q.dtype)
+        ds = ds * (1.0 - torch.square(sc / softcap))
+    ds = torch.where(m5, ds, 0.0)
+    dq = torch.einsum("bkgst,btkd->bskgd", ds, k.float()) * scale
+    dk = torch.einsum("bkgst,bskgd->btkd", ds,
+                      q.float().view(b, s, hkv, g, d)) * scale
+    return (dq.reshape(b, s, hq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 @functools.cache
 def _library():
     lib = build.load("flash_attention")
-    lib.flash_attention.argtypes = [ctypes.c_void_p] * 4 \
+    lib.flash_attention.argtypes = [ctypes.c_void_p] * 6 \
         + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                                 ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     lib.flash_attention.restype = ctypes.c_int
@@ -116,19 +185,27 @@ def refusal(q, k, v) -> str | None:
 def flash_attention_cuda(q, k, v, *, causal: bool = True,
                          scale: float | None = None,
                          window: int | None = None,
-                         softcap: float | None = None) -> torch.Tensor:
+                         softcap: float | None = None,
+                         prefix_len: torch.Tensor | None = None,
+                         return_lse: bool = False):
     """Launch the kernel of the inputs' dtype (bfloat16: tensor cores;
-    float32: SIMT) on the current stream of their device. Unguarded: the
-    caller has checked shapes (head dims at most ``MAX_HEAD_DIM``),
-    types, contiguity, :func:`refusal` and that nothing is empty."""
+    float32: SIMT) on the current stream of their device; with
+    ``return_lse``, ``(out, lse)``. Unguarded: the caller has checked
+    shapes (head dims at most ``MAX_HEAD_DIM``, ``prefix_len`` int32
+    (B,) on the same device), types, contiguity, :func:`refusal` and that
+    nothing is empty."""
     lib = _library()
     b, s, hq, d = q.shape
     hkv, dv = k.shape[2], v.shape[-1]
     scale = d ** -0.5 if scale is None else scale
     out = torch.empty((b, s, hq, dv), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     with torch.cuda.device(q.device):
         err = lib.flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
+            None if prefix_len is None else prefix_len.data_ptr(),
             b, s, hq, hkv, d, dv, scale, int(causal),
             0 if window is None else window,
             0.0 if softcap is None else softcap, DTYPE_CODES[q.dtype],
@@ -137,4 +214,50 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
         what = lib.flash_attention_error_string(err).decode()
         raise RuntimeError(f"flash_attention launch failed: CUDA error "
                            f"{err} ({what})")
-    return out
+    return (out, lse) if return_lse else out
+
+
+@functools.cache
+def _bwd_library():
+    lib = build.load("flash_attention_bwd")
+    lib.flash_attention_bwd.argtypes = [ctypes.c_void_p] * 11 \
+        + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                                ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    lib.flash_attention_bwd.restype = ctypes.c_int
+    lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
+    lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def flash_attention_bwd_cuda(q, k, v, out, dout, lse, *, causal: bool = True,
+                             scale: float | None = None,
+                             window: int | None = None,
+                             softcap: float | None = None,
+                             prefix_len: torch.Tensor | None = None):
+    """Launch the backward (three kernels: delta, dK/dV, dQ) on the
+    current stream of the inputs' device; returns (dq, dk, dv) in their
+    type. Unguarded: the caller has checked shapes (head dims at most
+    ``MAX_HEAD_DIM``), types (``lse`` float32 (B, Hq, S), ``prefix_len``
+    int32 (B,)), one device, contiguity and that nothing is empty."""
+    lib = _bwd_library()
+    b, s, hq, d = q.shape
+    hkv, dv = k.shape[2], v.shape[-1]
+    scale = d ** -0.5 if scale is None else scale
+    dq, dk, dvv = torch.empty_like(q), torch.empty_like(k), \
+        torch.empty_like(v)
+    delta = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(),
+            None if prefix_len is None else prefix_len.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dvv.data_ptr(),
+            b, s, hq, hkv, d, dv, scale, int(causal),
+            0 if window is None else window,
+            0.0 if softcap is None else softcap, DTYPE_CODES[q.dtype],
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        what = lib.flash_attention_bwd_error_string(err).decode()
+        raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error "
+                           f"{err} ({what})")
+    return dq, dk, dvv

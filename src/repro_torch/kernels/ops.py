@@ -275,40 +275,135 @@ def rmsnorm(x, w, *, eps: float = 1e-6,
 rmsnorm.launches = 0
 
 
+def rmsnorm_bwd(x, w, dy, *, eps: float = 1e-6, zero_centered: bool = True):
+    """The gradients of :func:`rmsnorm` (see :mod:`.rmsnorm`): ``x`` and
+    ``dy`` (..., d) of one type, ``w`` (d,), each float32 or bfloat16,
+    contiguous on one device; on the card d at most
+    :data:`.rmsnorm.MAX_BWD_WIDTH`. Returns (dx in x's type and shape,
+    dw in w's)."""
+    device = _check_tensors("rmsnorm_bwd", dict(x=x, w=w, dy=dy),
+                            dict(x=FLOAT_TYPES, w=FLOAT_TYPES,
+                                 dy=FLOAT_TYPES))
+    _check_one_type("rmsnorm_bwd", x=x, dy=dy)
+    if x.dim() == 0:
+        raise ValueError("rmsnorm_bwd.x: expected (..., d), got a scalar")
+    check_shape("rmsnorm_bwd.w", w, (x.shape[-1],))
+    check_shape("rmsnorm_bwd.dy", dy, tuple(x.shape))
+    if device.type == "cpu":
+        return _rn.rmsnorm_bwd_torch(x, w, dy, eps=eps,
+                                     zero_centered=zero_centered)
+    if x.shape[-1] > _rn.MAX_BWD_WIDTH:
+        raise ValueError(f"rmsnorm_bwd: width {x.shape[-1]} above the "
+                         f"kernel's {_rn.MAX_BWD_WIDTH}")
+    if x.numel() == 0:
+        return torch.empty_like(x), torch.zeros_like(w)
+    out = _rn.rmsnorm_bwd_cuda(x, w, dy, eps=eps, zero_centered=zero_centered)
+    rmsnorm_bwd.launches += 1
+    return out
+
+
+rmsnorm_bwd.launches = 0
+
+
+def _check_prefix(name: str, prefix_len, b: int, device) -> None:
+    if prefix_len is None:
+        return
+    _check_tensors(name, dict(prefix_len=prefix_len),
+                   dict(prefix_len=torch.int32))
+    check_shape(f"{name}.prefix_len", prefix_len, (b,))
+    if prefix_len.device != device:
+        raise ValueError(f"{name}: prefix_len on {prefix_len.device}, the "
+                         f"inputs on {device}")
+
+
+def _check_qkv(name: str, q, k, v) -> torch.device:
+    device = _check_tensors(name, dict(q=q, k=k, v=v),
+                            dict(q=FLOAT_TYPES, k=FLOAT_TYPES,
+                                 v=FLOAT_TYPES))
+    _check_one_type(name, q=q, k=k, v=v)
+    for arg, x in (("q", q), ("k", k), ("v", v)):
+        _check_rank(f"{name}.{arg}", x, 4, "(B, S, H, D)")
+    b, s, hq, d = q.shape
+    hkv, dv = k.shape[2], v.shape[-1]
+    check_shape(f"{name}.k", k, (b, s, hkv, d))
+    check_shape(f"{name}.v", v, (b, s, hkv, dv))
+    return device
+
+
 def flash_attention(q, k, v, *, causal: bool = True,
                     scale: float | None = None, window: int | None = None,
-                    softcap: float | None = None) -> torch.Tensor:
+                    softcap: float | None = None,
+                    prefix_len: torch.Tensor | None = None,
+                    return_lse: bool = False):
     """Prefill attention (see :mod:`.flash_attention`): ``q`` (B, S, Hq,
     D), ``k`` (B, S, Hkv, D), ``v`` (B, S, Hkv, Dv), one type (float32
     or bfloat16), contiguous on one device; Hq a multiple of Hkv,
-    ``window`` None or >= 1, ``softcap`` None or > 0; on the card, head
-    dims at most 256, and for bfloat16 multiples of 8 with 16-byte aligned
-    tensors (:func:`.flash_attention.refusal`). Returns (B, S, Hq, Dv) in
-    q's type."""
-    device = _check_tensors("flash_attention", dict(q=q, k=k, v=v),
-                            dict(q=FLOAT_TYPES, k=FLOAT_TYPES,
-                                 v=FLOAT_TYPES))
-    _check_one_type("flash_attention", q=q, k=k, v=v)
-    for arg, x in (("q", q), ("k", k), ("v", v)):
-        _check_rank(f"flash_attention.{arg}", x, 4, "(B, S, H, D)")
+    ``window`` None or >= 1, ``softcap`` None or > 0, ``prefix_len``
+    None or int32 (B,) on the same device (the prefix-LM mask, read when
+    ``causal``); on the card, head dims at most 256, and for bfloat16
+    multiples of 8 with 16-byte aligned tensors
+    (:func:`.flash_attention.refusal`). Returns (B, S, Hq, Dv) in q's
+    type; with ``return_lse``, ``(out, lse)``, lse (B, Hq, S) float32."""
+    device = _check_qkv("flash_attention", q, k, v)
     b, s, hq, d = q.shape
     hkv, dv = k.shape[2], v.shape[-1]
-    check_shape("flash_attention.k", k, (b, s, hkv, d))
-    check_shape("flash_attention.v", v, (b, s, hkv, dv))
     _check_attention_options("flash_attention", hq, hkv, d, dv, softcap,
                              device, window, tensors=(q, k, v))
+    _check_prefix("flash_attention", prefix_len, b, device)
+    kw = dict(causal=causal, scale=scale, window=window, softcap=softcap,
+              prefix_len=prefix_len, return_lse=return_lse)
     if device.type == "cpu":
-        return _fa.flash_attention_torch(q, k, v, causal=causal, scale=scale,
-                                         window=window, softcap=softcap)
+        return _fa.flash_attention_torch(q, k, v, **kw)
     if q.numel() == 0 or v.numel() == 0:
-        return torch.zeros((b, s, hq, dv), dtype=q.dtype, device=device)
-    out = _fa.flash_attention_cuda(q, k, v, causal=causal, scale=scale,
-                                   window=window, softcap=softcap)
+        out = torch.zeros((b, s, hq, dv), dtype=q.dtype, device=device)
+        return (out, torch.zeros((b, hq, s), dtype=torch.float32,
+                                 device=device)) if return_lse else out
+    out = _fa.flash_attention_cuda(q, k, v, **kw)
     flash_attention.launches += 1
     return out
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
+                        scale: float | None = None,
+                        window: int | None = None,
+                        softcap: float | None = None,
+                        prefix_len: torch.Tensor | None = None):
+    """The gradients of :func:`flash_attention` (see
+    :mod:`.flash_attention`): ``q``, ``k``, ``v`` as there, ``out`` and
+    ``dout`` (B, S, Hq, Dv) of their type, ``lse`` (B, Hq, S) float32
+    from the forward with ``return_lse``, the forward's options; all
+    contiguous on one device; on the card head dims at most 256. Returns
+    (dq, dk, dv) in the inputs' type. ``launches`` counts calls that ran
+    the kernels (three launches each: delta, dK/dV, dQ)."""
+    device = _check_qkv("flash_attention_bwd", q, k, v)
+    b, s, hq, d = q.shape
+    hkv, dv = k.shape[2], v.shape[-1]
+    _check_tensors("flash_attention_bwd", dict(out=out, dout=dout, lse=lse),
+                   dict(out=q.dtype, dout=q.dtype, lse=torch.float32))
+    check_shape("flash_attention_bwd.out", out, (b, s, hq, dv))
+    check_shape("flash_attention_bwd.dout", dout, (b, s, hq, dv))
+    check_shape("flash_attention_bwd.lse", lse, (b, hq, s))
+    if len({x.device for x in (q, out, dout, lse)}) != 1:
+        raise ValueError("flash_attention_bwd: inputs on several devices")
+    _check_attention_options("flash_attention_bwd", hq, hkv, d, dv, softcap,
+                             device, window)
+    _check_prefix("flash_attention_bwd", prefix_len, b, device)
+    kw = dict(causal=causal, scale=scale, window=window, softcap=softcap,
+              prefix_len=prefix_len)
+    if device.type == "cpu":
+        return _fa.flash_attention_bwd_torch(q, k, v, out, dout, lse, **kw)
+    if q.numel() == 0 or v.numel() == 0:
+        return (torch.zeros_like(q), torch.zeros_like(k),
+                torch.zeros_like(v))
+    grads = _fa.flash_attention_bwd_cuda(q, k, v, out, dout, lse, **kw)
+    flash_attention_bwd.launches += 1
+    return grads
+
+
+flash_attention_bwd.launches = 0
 
 
 def flash_decode(q, k_cache, v_cache, pos, *, scale: float | None = None,

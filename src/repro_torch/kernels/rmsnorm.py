@@ -9,9 +9,16 @@ final cast is float32, as in the TPU kernel: note that this differs from
 the reference model's ``layers.rms_norm``, which adds ``1 + w`` in the
 weight's type, so the port's model passes ``(1 + w).to(w.dtype)`` with
 ``zero_centered=False`` (see :func:`repro_torch.models.layers.rms_norm`).
-The CUDA kernel lives in ``csrc/rmsnorm.cu``;
-:func:`repro_torch.kernels.ops.rmsnorm` is the guarded entry point that
-picks between the two.
+The backward,
+
+    dx = (w' dy - x^ mean(x^ w' dy)) r,  dw = sum over rows of dy x^,
+
+with ``x^ = x r`` and ``r = rsqrt(mean(x^2) + eps)``, is what the
+reference gets from autodiff of ``layers.rms_norm``; float32 between the
+loads and the casts, dx in x's type and dw in w's. The CUDA kernels live
+in ``csrc/rmsnorm.cu``; :func:`repro_torch.kernels.ops.rmsnorm` and
+:func:`repro_torch.kernels.ops.rmsnorm_bwd` are the guarded entry points
+that pick between the plain versions and the kernels.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ import torch
 from . import build
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_BWD_WIDTH = 56_000          # the backward's column sums in shared memory
 
 
 def rmsnorm_torch(x, w, *, eps: float = 1e-6,
@@ -36,6 +44,21 @@ def rmsnorm_torch(x, w, *, eps: float = 1e-6,
     if zero_centered:
         wf = 1.0 + wf
     return ((xf * torch.rsqrt(var + eps)) * wf).to(x.dtype)
+
+
+def rmsnorm_bwd_torch(x, w, dy, *, eps: float = 1e-6,
+                      zero_centered: bool = True):
+    """Plain PyTorch version of the backward: (dx, dw)."""
+    xf = x.float()
+    r = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    wf = w.float()
+    if zero_centered:
+        wf = 1.0 + wf
+    xh = xf * r
+    gw = dy.float() * wf
+    dx = (gw - xh * (xh * gw).mean(dim=-1, keepdim=True)) * r
+    dw = (dy.float() * xh).reshape(-1, x.shape[-1]).sum(dim=0)
+    return dx.to(x.dtype), dw.to(w.dtype)
 
 
 def row_threads(d: int, dtype: torch.dtype) -> int:
@@ -59,7 +82,15 @@ def _launcher():
     threads = lib.rmsnorm_row_threads
     threads.argtypes = [ctypes.c_int, ctypes.c_int]
     threads.restype = ctypes.c_int
-    return fn, err_str, threads
+    bwd = lib.rmsnorm_bwd
+    bwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_int,
+                                            ctypes.c_float] \
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    bwd.restype = ctypes.c_int
+    blocks = lib.rmsnorm_bwd_blocks
+    blocks.argtypes = [ctypes.c_longlong]
+    blocks.restype = ctypes.c_int
+    return fn, err_str, threads, bwd, blocks
 
 
 def rmsnorm_cuda(x, w, *, eps: float = 1e-6,
@@ -67,7 +98,7 @@ def rmsnorm_cuda(x, w, *, eps: float = 1e-6,
     """Launch the kernel on the current stream of the inputs' device.
     Unguarded: the caller has checked shapes, types, contiguity and that
     the tensor is not empty; a launch the card refuses raises here."""
-    fn, err_str, _ = _launcher()
+    fn, err_str = _launcher()[:2]
     d = x.shape[-1]
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
@@ -79,3 +110,29 @@ def rmsnorm_cuda(x, w, *, eps: float = 1e-6,
         raise RuntimeError(f"rmsnorm launch failed: CUDA error {err} "
                            f"({err_str(err).decode()})")
     return out
+
+
+def rmsnorm_bwd_cuda(x, w, dy, *, eps: float = 1e-6,
+                     zero_centered: bool = True):
+    """Launch the backward (per-row dx with per-block dw partials, then
+    their column sums) on the current stream of the inputs' device;
+    returns (dx, dw). Unguarded: the caller has checked shapes, types
+    (dy in x's type), contiguity, the width (:data:`MAX_BWD_WIDTH`) and
+    that nothing is empty."""
+    _, err_str, _, bwd, blocks = _launcher()
+    d = x.shape[-1]
+    rows = x.numel() // d
+    dx = torch.empty_like(x)
+    dw = torch.empty_like(w)
+    partials = torch.empty((blocks(rows), d), dtype=torch.float32,
+                           device=x.device)
+    with torch.cuda.device(x.device):
+        err = bwd(x.data_ptr(), w.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+                  dw.data_ptr(), partials.data_ptr(), rows, d, eps,
+                  int(zero_centered), DTYPE_CODES[x.dtype],
+                  DTYPE_CODES[w.dtype],
+                  torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"rmsnorm_bwd launch failed: CUDA error {err} "
+                           f"({err_str(err).decode()})")
+    return dx, dw

@@ -7,11 +7,14 @@
 (``gemma2-2b``, ...), MoE (``deepseek-v2-lite-16b`` with MLA,
 ``qwen3-moe-235b-a22b`` with GQA; on one 80 GB card the latter fits
 only cut in depth, which this CLI does not do), SSM (``mamba2-780m``) or
-hybrid (``zamba2-7b``); ``--reduced`` gives any of them tiny, in
-float32, for the CPU (``--reduced --device cpu``). Weights are random
-(``init_params`` seeded with ``--seed``); the prompt is ``--batch`` rows
-of seeded token ids. Runs on the card unless ``--device cpu`` is
-given.
+hybrid (``zamba2-7b``), or the VLM (``paligemma-3b``, whose prompt
+also carries ``n_patches`` seeded N(0, 1) patch embeddings, as the
+reference CLI draws them); ``--reduced`` gives any of them tiny, in
+float32, for the CPU (``--reduced --device cpu``). The encoder
+(``hubert-xlarge``, frame frontend) has no decode step and is refused.
+Weights are random (``init_params`` seeded with ``--seed``); the prompt
+is ``--batch`` rows of seeded token ids. Runs on the card unless
+``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -21,22 +24,9 @@ import time
 
 import torch
 
-from ..configs import ARCHS, reduced as reduce_cfg
-from ..configs.demo import DEMO_20M, DEMO_100M
 from ..models.model import ShardCtx, init_params
 from ..runtime.serve_loop import generate
-
-DEMOS = {c.name: c for c in (DEMO_100M, DEMO_20M)}
-
-
-def resolve_config(name: str, reduced: bool):
-    """A demo or assigned config by name; ``reduced`` gives its tiny
-    same-family variant in float32 (as the reference's
-    ``launch/train.resolve_config``)."""
-    cfg = DEMOS.get(name) or ARCHS[name]
-    if reduced:
-        cfg = reduce_cfg(cfg).replace(dtype="float32")
-    return cfg
+from .train import resolve_config
 
 
 def main(argv=None):
@@ -51,12 +41,20 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = resolve_config(args.arch, args.reduced)
+    if cfg.frontend == "frame_stub":
+        raise SystemExit(f"{cfg.name} is an encoder (frame frontend): it has "
+                         f"no decode step to serve; train it with "
+                         f"repro_torch.launch.train")
     device = torch.device(args.device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = init_params(cfg, gen, device)
     prompt = {"tokens": torch.randint(0, cfg.vocab,
                                       (args.batch, args.prompt_len),
                                       generator=gen, device=device)}
+    if cfg.frontend == "patch_stub":
+        prompt["patches"] = torch.randn(
+            (args.batch, cfg.n_patches, cfg.d_model), generator=gen,
+            device=device)
 
     t0 = time.perf_counter()
     out = generate(cfg, ShardCtx(), params, prompt, n_tokens=args.gen)

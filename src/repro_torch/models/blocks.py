@@ -1,5 +1,5 @@
-"""Per-layer blocks of the dense, MoE, SSM and hybrid families: init +
-forward.
+"""Per-layer blocks of every family (dense, MoE, SSM, hybrid, the
+encoder and the VLM): init + forward.
 
 Kinds: ``dense_global`` / ``dense_local`` (attention + GLU MLP, optional
 qk-norm / softcap / post-block norms), ``moe_global`` (attention + the
@@ -9,8 +9,11 @@ reused across its slots, a LoRA of q/k/v per slot). Deepseek-style MLA
 replaces the attention projections when ``cfg.kv_lora_rank > 0``: the
 prefill materialises per-head K/V, decode runs the *absorbed* form
 (scores in the latent space, so the cache stays (T, kv_lora + rope) per
-token). The patch/frame frontends are ported in a later slice; asking
-for one raises ``NotImplementedError``.
+token). The encoder (hubert) and the VLM (paligemma) run the dense
+layers: the encoder's attention is bidirectional (``cfg.causal``
+False), the VLM's takes the prefix-LM mask over its image patches
+(``prefix_len``); their frontends live in
+:mod:`repro_torch.models.model`.
 
 Init functions return dicts of tensors in the reference's layouts
 (``wq`` (d, H, Dh), ``wo`` (H, Dh, d), ``wi`` (d, 2, F), ``wx`` (d,
@@ -42,25 +45,17 @@ from .layers import (NEG_INF, apply_rope, attention, attention_decode,
 from .moe import moe_ffn
 from .ssm import ssd_decode_step
 
-LATER_SLICES = {
-    "encoder": "frame frontends are ported with the frontends slice",
-    "vlm": "patch frontends are ported with the frontends slice",
-}
-SERVED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encoder", "vlm")
+FRONTENDS = ("token", "patch_stub", "frame_stub")
 
 
 def check_supported(cfg) -> None:
-    """Raise ``NotImplementedError`` for anything outside the families
-    the port serves: dense and MoE (GQA or MLA attention), SSM (Mamba-2)
-    and hybrid (Zamba-2), with the token frontend."""
-    if cfg.family not in SERVED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet: "
-            f"{LATER_SLICES.get(cfg.family, 'no slice planned')}")
-    if cfg.frontend != "token":
-        raise NotImplementedError(
-            f"{cfg.name}: frontend {cfg.frontend!r} is not ported yet "
-            f"(patch/frame frontends come with the frontends slice)")
+    """Raise ``ValueError`` for a family or frontend the model does not
+    know (every family of the configs is ported)."""
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
+    if cfg.frontend not in FRONTENDS:
+        raise ValueError(f"{cfg.name}: unknown frontend {cfg.frontend!r}")
 
 
 def _init(gen, shape, fan_in, dtype, device):
@@ -120,8 +115,10 @@ def _qkv(p, x, lora=None):
     return q, k, v
 
 
-def attn_forward(p, x, *, cfg, kind, mode, positions, cache=None):
-    """Returns (attn_out (B,S,d), new_cache)."""
+def attn_forward(p, x, *, cfg, kind, mode, positions, cache=None,
+                 prefix_len=None):
+    """Returns (attn_out (B,S,d), new_cache). ``prefix_len`` (B,): the
+    prefix-LM boundary of the prefill (a VLM's image patches)."""
     if cfg.kv_lora_rank:
         return _mla_forward(p, x, cfg=cfg, mode=mode, positions=positions,
                             cache=cache)
@@ -147,7 +144,8 @@ def attn_forward(p, x, *, cfg, kind, mode, positions, cache=None):
         new_cache = cache
     else:
         out = attention(q, k, v, causal=cfg.causal, window=window,
-                        scale=scale, attn_softcap=cfg.attn_softcap)
+                        scale=scale, attn_softcap=cfg.attn_softcap,
+                        prefix_len=prefix_len)
         new_cache = _prefill_cache(k, v, window) if mode == "prefill" \
             else None
     out = torch.einsum("bshk,hkd->bsd", out, p.wo)
@@ -301,18 +299,20 @@ def init_layer(kind, cfg, gen, dtype, device) -> dict:
     return p
 
 
-def layer_forward(kind, p, x, *, cfg, mode, positions, cache=None):
+def layer_forward(kind, p, x, *, cfg, mode, positions, cache=None,
+                  prefix_len=None):
     """One layer ``p`` (a :class:`repro_torch.models.model.Layer`, or a
     :class:`~repro_torch.models.model.MambaLayer` for ``ssm``). Returns
     (x, aux, new_cache): ``aux`` is the router's load-balancing loss of
-    a MoE layer, 0.0 for the others."""
+    a MoE layer, 0.0 for the others. ``prefix_len`` as
+    :func:`attn_forward`'s."""
     if kind == "ssm":
         y, new_cache = mamba_forward(p, x, cfg=cfg, mode=mode, cache=cache)
         return x + y, 0.0, new_cache
     h = rms_norm(x, p.ln1)
     attn_out, new_cache = attn_forward(p.attn, h, cfg=cfg, kind=kind,
                                        mode=mode, positions=positions,
-                                       cache=cache)
+                                       cache=cache, prefix_len=prefix_len)
     if cfg.post_block_norms:
         attn_out = rms_norm(attn_out, p.post_ln1)
     x = x + attn_out

@@ -12,8 +12,10 @@ experts, ``shared_mlp`` subtrees in place of ``mlp``; an MLA layer's
 ``attn`` holds ``wq``, ``wkv_a``, ``kv_norm``, ``wkv_b``, ``wo``.
 Zamba-2's ``shared`` block is one tree; its ``shared_lora`` is stacked
 over the ``n_rep`` repeat slots and unstacked here, one
-:class:`~repro_torch.models.model.LoRA` per slot. Every leaf is copied
-as it is: the layouts are the same.
+:class:`~repro_torch.models.model.LoRA` per slot. The frontends'
+``frontend`` (encoder) and ``patch_proj`` (VLM) are top-level leaves,
+beside ``embed``. Every leaf is copied as it is: the layouts are the
+same.
 
 The tree's leaves are NumPy arrays (``np.asarray`` of each JAX array);
 bfloat16 arrives as ml_dtypes' ``bfloat16`` and is reinterpreted bit for
@@ -26,7 +28,7 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
-from .model import Model
+from .model import TOP_LEVEL, Model
 
 
 def to_tensor(a, device=None) -> torch.Tensor:
@@ -69,7 +71,7 @@ def params_from_reference(tree: dict, cfg: ModelConfig,
     layers += [_layer(t, device) for t in tree.get("tail", [])]
     tensors = {"layers": layers,
                **{k: to_tensor(tree[k], device)
-                  for k in ("embed", "final_norm", "head") if k in tree}}
+                  for k in TOP_LEVEL if k in tree}}
     if "shared" in tree:
         sh = tree["shared"]
         tensors["shared"] = {

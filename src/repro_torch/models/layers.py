@@ -1,11 +1,17 @@
-"""Shared neural-net primitives of the serving path (PyTorch).
+"""Shared neural-net primitives of the serving and training paths
+(PyTorch).
 
 Norms and attention go through the guarded kernel entry points of
 :mod:`repro_torch.kernels.ops`, looked up on the module at each call:
 on a CUDA tensor they launch the hand-written kernels, on a CPU tensor
-they run the kernels' plain PyTorch versions. Everything else is plain
-PyTorch. Layouts are the JAX package's: activations (B, S, d), heads as
-explicit axes (B, S, H, Dh).
+they run the kernels' plain PyTorch versions. They run inside a
+``torch.autograd.Function`` whose backward is the entry point of the
+backward kernel (``ops.rmsnorm_bwd``, ``ops.flash_attention_bwd``):
+autograd cannot pass through a kernel launch. Attention takes the
+Function only when a gradient is wanted, since its forward then also
+writes the log-sum-exp the backward reads. Everything else is plain PyTorch, differentiated by autograd.
+Layouts are the JAX package's: activations (B, S, d), heads as explicit
+axes (B, S, H, Dh).
 """
 
 from __future__ import annotations
@@ -24,15 +30,34 @@ NEG_INF = -2.0e38          # a masked score: exp() of it underflows to 0
 # norms / activations / embeddings
 # ---------------------------------------------------------------------------
 
+class RMSNormFn(torch.autograd.Function):
+    """``ops.rmsnorm`` forward, ``ops.rmsnorm_bwd`` backward (the weight
+    as given, ``zero_centered=False``)."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        return ops.rmsnorm(x, w, eps=eps, zero_centered=False)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx, dw = ops.rmsnorm_bwd(x, w, dy.contiguous(), eps=ctx.eps,
+                                 zero_centered=False)
+        return dx, dw, None
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
              zero_centered: bool = True) -> torch.Tensor:
     """RMSNorm; ``zero_centered`` follows gemma ((1+w)·x̂). As in the
     reference model, ``1 + scale`` is formed in the weight's type (so
     rounded to bfloat16 for bfloat16 weights) before the float32 product;
     the kernel itself would add in float32, so the sum is passed with
-    ``zero_centered=False``."""
+    ``zero_centered=False`` (and autograd carries its gradient to
+    ``scale``)."""
     w = (1.0 + scale).to(scale.dtype) if zero_centered else scale
-    return ops.rmsnorm(x.contiguous(), w, eps=eps, zero_centered=False)
+    return RMSNormFn.apply(x.contiguous(), w, eps)
 
 
 def softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:
@@ -53,7 +78,9 @@ def glu_mlp(x: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
         h = act * up
     else:
         h = torch.einsum("...d,df->...f", x, wi[:, 0])
-        h = F.gelu(h) if activation == "gelu" else torch.square(F.relu(h))
+        # jax.nn.gelu's default is the tanh approximation
+        h = F.gelu(h, approximate="tanh") if activation == "gelu" \
+            else torch.square(F.relu(h))
     return torch.einsum("...f,fd->...d", h, wo)
 
 
@@ -94,16 +121,50 @@ def apply_rope(x: torch.Tensor, positions, theta: float) -> torch.Tensor:
 # attention — prefill and decode
 # ---------------------------------------------------------------------------
 
+class FlashAttentionFn(torch.autograd.Function):
+    """``ops.flash_attention(return_lse=True)`` forward, keeping (q, k,
+    v, out, lse); ``ops.flash_attention_bwd`` backward: the reference's
+    custom VJP ``_flash_fwd``/``_flash_bwd``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, prefix_len, causal, scale, window, softcap):
+        kw = dict(causal=causal, scale=scale, window=window, softcap=softcap,
+                  prefix_len=prefix_len)
+        out, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
+        ctx.save_for_backward(q, k, v, out, lse, prefix_len)
+        ctx.kw = kw
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse, prefix_len = ctx.saved_tensors
+        kw = dict(ctx.kw, prefix_len=prefix_len)
+        dq, dk, dv = ops.flash_attention_bwd(q, k, v, out, dout.contiguous(),
+                                             lse, **kw)
+        return dq, dk, dv, None, None, None, None, None
+
+
 def attention(q, k, v, *, causal=True, window=None, scale=None,
-              attn_softcap=None):
+              attn_softcap=None, prefix_len=None):
     """Prefill attention, q (B, S, Hq, D) against k/v (B, S, Hkv, D[v]),
-    through the ``flash_attention`` kernel. ``window`` selects the local
-    (sliding-window) mask. The reference's prefix-LM and
-    sequence-parallel options belong to families and meshes this port
-    does not serve yet."""
-    return ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                               causal=causal, scale=scale, window=window,
-                               softcap=attn_softcap)
+    through the ``flash_attention`` kernel (and, when a gradient is
+    wanted, its backward kernel). ``window`` selects the local
+    (sliding-window) mask; ``prefix_len`` (B,) the prefix-LM mask of a
+    VLM, under which keys before the prefix length are visible from
+    every query (the reference's ``attention_streamed`` prefix branch).
+    The reference's sequence-parallel options belong to meshes this port
+    does not run yet."""
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if prefix_len is not None:
+        prefix_len = prefix_len.to(device=q.device,
+                                   dtype=torch.int32).contiguous()
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, prefix_len, causal, scale,
+                                      window, attn_softcap)
+    return ops.flash_attention(q, k, v, causal=causal, scale=scale,
+                               window=window, softcap=attn_softcap,
+                               prefix_len=prefix_len)
 
 
 def attention_decode(q, k_cache, v_cache, *, pos, scale=None,
@@ -121,3 +182,22 @@ def attention_decode(q, k_cache, v_cache, *, pos, scale=None,
     out = ops.flash_decode(q[:, 0].contiguous(), k_cache, v_cache, pos_b,
                            scale=scale, softcap=attn_softcap, ring=ring)
     return out[:, None]
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  logit_softcap: float | None = None,
+                  z_loss: float = 0.0) -> torch.Tensor:
+    """Mean token cross-entropy in float32 with an optional z-loss, as
+    the reference's ``cross_entropy``."""
+    logits = softcap(logits.float(), logit_softcap)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.take_along_dim(logits, labels.long()[..., None],
+                              dim=-1)[..., 0]
+    loss = (lse - ll).mean()
+    if z_loss:
+        loss = loss + z_loss * torch.square(lse).mean()
+    return loss

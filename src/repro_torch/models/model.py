@@ -1,6 +1,13 @@
-"""Model assembly of the dense, MoE, SSM and hybrid families: embedding
--> layers (and, for Zamba-2, the shared block at the head of each repeat
-group) -> head.
+"""Model assembly of every family: embedding or frontend -> layers (and,
+for Zamba-2, the shared block at the head of each repeat group) -> head.
+
+Frontends, as the reference's ``_embed``: ``token`` embeds
+``batch["tokens"]``; ``patch_stub`` (the VLM) projects
+``batch["patches"]`` (B, n_patches, d) by ``patch_proj`` and puts them
+before the embedded tokens, with the prefix-LM mask over them
+(``prefix_len = n_patches``; a decode step carries tokens only);
+``frame_stub`` (the encoder) projects ``batch["frames"]`` (B, S, d) by
+``frontend`` and has no token embedding.
 
 The modules (:class:`Model`, :class:`Layer`, :class:`MambaLayer`,
 :class:`SharedBlock`, :class:`LoRA`, :class:`Attention`, :class:`MLP`,
@@ -19,13 +26,22 @@ per use of the shared block, before the layers of its group. Attention
 layers hold ``{"k", "v"}`` (``dense_local`` layers as ring buffers of
 length ``window``), MLA layers ``{"latent", "k_rope"}``, Mamba layers
 ``{"conv_x", "conv_B", "conv_C", "state"}``. Decode updates the cache
-tensors in place and hands the same list back. Parameters are created
-with ``requires_grad=False``: the port serves, and training (with the
-flash backward) comes later.
+tensors in place and hands the same list back.
+
+Parameters are created with ``requires_grad=False``, so a forward that
+serves builds no autograd graph whatever the grad mode; the training
+path (:mod:`repro_torch.runtime.train_loop`) turns them on. The forward
+itself is differentiable: its kernels run inside autograd Functions
+whose backward is a kernel too (:mod:`repro_torch.models.layers`), and
+with ``cfg.remat`` ``"full"`` a training forward recomputes each layer
+in the backward (``torch.utils.checkpoint``, as the reference
+rematerialises its repeat groups); ``"dots"`` keeps the matrix products'
+outputs and recomputes the rest.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import torch
@@ -37,6 +53,7 @@ from .blocks import (_init, check_supported, init_layer, init_shared_block,
 from .layers import embed_tokens, rms_norm, softcap
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+TOP_LEVEL = ("embed", "frontend", "patch_proj", "final_norm", "head")
 
 
 @dataclass(frozen=True)
@@ -108,9 +125,11 @@ class Layer(nn.Module):
         else:
             self.mlp = MLP(tensors["mlp"])
 
-    def forward(self, x, *, cfg, mode, positions, cache=None):
+    def forward(self, x, *, cfg, mode, positions, cache=None,
+                prefix_len=None):
         return layer_forward(self.kind, self, x, cfg=cfg, mode=mode,
-                             positions=positions, cache=cache)
+                             positions=positions, cache=cache,
+                             prefix_len=prefix_len)
 
 
 class MambaLayer(nn.Module):
@@ -126,7 +145,8 @@ class MambaLayer(nn.Module):
         super().__init__()
         _params(self, tensors)
 
-    def forward(self, x, *, cfg, mode, positions, cache=None):
+    def forward(self, x, *, cfg, mode, positions, cache=None,
+                prefix_len=None):
         return layer_forward(self.kind, self, x, cfg=cfg, mode=mode,
                              positions=positions, cache=cache)
 
@@ -172,9 +192,11 @@ def block_plan(cfg: ModelConfig) -> list[tuple[str, int]]:
 
 
 class Model(nn.Module):
-    """``embed`` (V, d), ``layers``, ``shared`` (a :class:`SharedBlock`,
-    hybrid family only), ``final_norm`` (d,), and ``head`` (d, V) when
-    the embeddings are not tied."""
+    """``embed`` (V, d) (absent under the frame frontend), ``frontend``
+    (d, d) for ``frame_stub``, ``patch_proj`` (d, d) for ``patch_stub``,
+    ``layers``, ``shared`` (a :class:`SharedBlock`, hybrid family only),
+    ``final_norm`` (d,), and ``head`` (d, V) when the embeddings are not
+    tied."""
 
     def __init__(self, cfg: ModelConfig, tensors: dict):
         super().__init__()
@@ -195,8 +217,7 @@ class Model(nn.Module):
             self.shared = SharedBlock(tensors["shared"],
                                       tensors["shared_lora"])
         self.plan = block_plan(cfg)
-        _params(self, {k: tensors[k] for k in ("embed", "final_norm", "head")
-                       if k in tensors})
+        _params(self, {k: tensors[k] for k in TOP_LEVEL if k in tensors})
 
     def forward(self, batch: dict, ctx: "ShardCtx"):
         return forward(self, batch, self.cfg, ctx)
@@ -210,7 +231,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device=None) -> Model:
     """Random weights at the reference's scales: every matrix N(0, 1) /
     sqrt(fan_in) (the embedding too: 1/sqrt(d) keeps tied-head logits
-    O(1); a MoE router drawn in float32 and kept so), every norm scale
+    O(1); the frontend projections likewise; a MoE router drawn in
+    float32 and kept so), every norm scale
     zero; Mamba layers with A = -1 (``A_log`` 0), ``dt_bias`` 0 and
     ``D`` 1, and the shared block's LoRA ``b_*`` zero, as in the
     reference. Draws from ``generator``, whose device
@@ -220,10 +242,15 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     device = torch.device(device) if device is not None \
         else generator.device
     d = cfg.d_model
-    tensors = {"embed": _init(generator, (cfg.vocab, d), d, dt, device),
-               "layers": [init_layer(kind, cfg, generator, dt, device)
-                          for kind in cfg.layer_kinds()],
-               "final_norm": torch.zeros((d,), dtype=dt, device=device)}
+    if cfg.frontend == "frame_stub":
+        tensors = {"frontend": _init(generator, (d, d), d, dt, device)}
+    else:
+        tensors = {"embed": _init(generator, (cfg.vocab, d), d, dt, device)}
+        if cfg.frontend == "patch_stub":
+            tensors["patch_proj"] = _init(generator, (d, d), d, dt, device)
+    tensors.update(layers=[init_layer(kind, cfg, generator, dt, device)
+                           for kind in cfg.layer_kinds()],
+                   final_norm=torch.zeros((d,), dtype=dt, device=device))
     if cfg.shared_attn_every:
         n_rep = cfg.repeat_structure()[1]
         tensors["shared"] = init_shared_block(cfg, generator, dt, device)
@@ -246,34 +273,86 @@ def _head(params: Model, x, cfg):
     return torch.einsum("bsd,dv->bsv", x, params.head)
 
 
-@torch.no_grad()
+def _embed(params: Model, batch: dict, cfg: ModelConfig):
+    """(x (B, S, d), positions (S,), prefix_len (B,) int32 or None), as
+    the reference's ``_embed``."""
+    dt = DTYPES[cfg.dtype]
+    if cfg.frontend == "frame_stub":
+        x = torch.einsum("bsd,de->bse", batch["frames"].to(dt),
+                         params.frontend)
+        return x, torch.arange(x.shape[1], device=x.device), None
+    x = embed_tokens(batch["tokens"], params.embed, cfg.embed_scale_by_dim)
+    prefix_len = None
+    if cfg.frontend == "patch_stub" and "patches" in batch:
+        px = torch.einsum("bpd,de->bpe", batch["patches"].to(dt),
+                          params.patch_proj)
+        x = torch.cat([px, x], dim=1)
+        prefix_len = torch.full((x.shape[0],), cfg.n_patches,
+                                dtype=torch.int32, device=x.device)
+    return x, torch.arange(x.shape[1], device=x.device), prefix_len
+
+
+_DOT_OPS = frozenset(getattr(torch.ops.aten, name).default
+                     for name in ("mm", "bmm", "addmm", "baddbmm"))
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    return CheckpointPolicy.MUST_SAVE if op in _DOT_OPS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg: ModelConfig, mode: str):
+    """How a block is called in this forward: directly, or (training with
+    ``cfg.remat`` set and gradients on) through ``torch.utils.checkpoint``,
+    which recomputes it in the backward; ``"dots"`` keeps the outputs of
+    the matrix products (the reference's ``checkpoint_dots`` policy)."""
+    if mode != "train" or cfg.remat == "none" or not torch.is_grad_enabled():
+        return lambda fn: fn()
+    from torch.utils import checkpoint as ckpt
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _dots_policy)
+    elif cfg.remat != "full":
+        raise ValueError(f"{cfg.name}: remat {cfg.remat!r} is not one of "
+                         f"full, dots, none")
+    return lambda fn: ckpt.checkpoint(fn, use_reentrant=False, **kw)
+
+
 def forward(params: Model, batch: dict, cfg: ModelConfig, ctx: ShardCtx):
     """train -> (logits, aux); prefill -> (last_logits, aux, cache);
     decode -> (logits (B,V), aux, cache). ``aux`` is the float32 sum of
     the MoE layers' load-balancing losses (0 without MoE layers), on the
-    device of the tokens. ``batch["tokens"]`` (B, S) int64; decode adds
-    ``batch["pos"]`` (an int: the absolute position of the token) and
-    ``batch["cache"]`` (from :func:`init_cache` or a prefill, updated in
-    place)."""
+    device of the activations. ``batch["tokens"]`` (B, S) int64, with
+    ``batch["patches"]`` (B, n_patches, d) for a VLM's prefill or
+    training step, or ``batch["frames"]`` (B, S, d) for the encoder;
+    decode adds ``batch["pos"]`` (an int: the absolute position of the
+    token) and ``batch["cache"]`` (from :func:`init_cache` or a prefill,
+    updated in place). Differentiable where the parameters require
+    grad; the serving entry points run it under
+    ``torch.inference_mode()``."""
     mode = ctx.mode
     decode = mode == "decode"
     caches = batch["cache"] if decode else None
-    x = embed_tokens(batch["tokens"], params.embed, cfg.embed_scale_by_dim)
-    positions = int(batch["pos"]) if decode else \
-        torch.arange(x.shape[1], device=x.device)
+    x, positions, prefix_len = _embed(params, batch, cfg)
+    if decode:
+        positions = int(batch["pos"])
     emb0 = x if cfg.shared_attn_every else None
+    call = _remat(cfg, mode)
 
     aux = 0.0
     new_cache = []
     for j, (what, i) in enumerate(params.plan):
         c = caches[j] if decode else None
         if what == "shared":
-            x, nc = shared_block_forward(
-                params.shared, params.shared.lora[i], x, emb0, cfg=cfg,
-                mode=mode, positions=positions, cache=c)
+            x, nc = call(functools.partial(
+                shared_block_forward, params.shared, params.shared.lora[i],
+                x, emb0, cfg=cfg, mode=mode, positions=positions, cache=c))
         else:
-            x, a, nc = params.layers[i](x, cfg=cfg, mode=mode,
-                                        positions=positions, cache=c)
+            x, a, nc = call(functools.partial(
+                params.layers[i], x, cfg=cfg, mode=mode,
+                positions=positions, cache=c, prefix_len=prefix_len))
             aux = aux + a
         new_cache.append(nc)
     aux = torch.as_tensor(aux, dtype=torch.float32, device=x.device)

@@ -86,6 +86,7 @@ class ContinuousBatcher:
         s.active, s.rid, s.remaining = False, -1, 0
 
     # ---- one scheduler tick -------------------------------------------------
+    @torch.inference_mode()
     def step(self):
         # fill free slots
         for i, s in enumerate(self.slots):

@@ -1,9 +1,11 @@
 """Serving: prefill + batched greedy decode with a persistent KV cache.
 
 ``make_prefill`` / ``make_serve_step`` build the two entry points (one
-new token against the cache per step); ``generate`` drives them. The
-model runs eagerly on the device its parameters lie on; decode updates
-the cache in place.
+new token against the cache per step); ``generate`` drives them under
+``torch.inference_mode()``. The model runs eagerly on the device its
+parameters lie on; decode updates the cache in place. A VLM's prompt
+carries ``patches`` beside its ``tokens``: the prefill puts the image
+prefix first, so decode starts at position ``S + n_patches``.
 """
 
 from __future__ import annotations
@@ -56,14 +58,18 @@ def pad_cache_to(cfg, cache, batch: int, max_seq: int):
             for src, dst in zip(cache, target)]
 
 
+@torch.inference_mode()
 def generate(cfg, ctx, params, prompt_batch, n_tokens: int,
              max_seq: int | None = None) -> torch.Tensor:
-    """Greedy generation: prefill the prompt then step the decoder.
-    Returns (B, n_tokens) token ids on the prompt's device."""
+    """Greedy generation: prefill the prompt (``tokens``, and
+    ``patches`` for a VLM) then step the decoder. Returns (B, n_tokens)
+    token ids on the prompt's device."""
     prefill = make_prefill(cfg, ctx)
     step = make_serve_step(cfg, ctx)
     prompt = prompt_batch["tokens"]
     b, s = prompt.shape
+    if cfg.frontend == "patch_stub" and "patches" in prompt_batch:
+        s += cfg.n_patches                  # the image prefix comes first
     max_seq = max_seq or s + n_tokens
     logits, cache = prefill(params, prompt_batch)
     cache = pad_cache_to(cfg, cache, b, max_seq)

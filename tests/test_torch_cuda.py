@@ -1019,3 +1019,214 @@ def test_simulate_suite_verify_on_the_card(cuda):
     scheds = [T.engine_schedule(g, m) for g in graphs]
     T.simulate_suite(graphs, m, scheds, jitter=0.01, verify=True,
                      device=cuda)
+
+
+# ---------------------------------------------------------------------------
+# the training path: flash_attention's prefix mask, lse and backward;
+# rmsnorm's backward
+# ---------------------------------------------------------------------------
+
+def assert_lse_close(got, want):
+    """float32 lse of both kernels against the plain version's: the
+    scores are float32 in both, so within 1e-5 of max(1, |lse|)."""
+    err = (got.double() - want.double()).abs()
+    bound = 1e-5 * torch.clamp(want.double().abs(), min=1.0)
+    assert bool((err <= bound).all()), f"lse max abs err {float(err.max())}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,hq,hkv,d,prefix,softcap", [
+    (1, 768, 8, 1, 256, (256,), None),          # paligemma-3b's prefill
+    (2, 300, 4, 1, 64, (0, 100), 30.0),         # a prefix inside a tile
+    (2, 200, 4, 2, 128, (64, 300), None),       # a tile edge; past S
+    (3, 77, 4, 2, 80, (1, 13, 77), 50.0),       # ragged, D 80
+])
+def test_flash_attention_prefix_and_lse_close_to_plain(
+        cuda, dtype, b, s, hq, hkv, d, prefix, softcap):
+    q = rand(cuda, (b, s, hq, d), dtype, 31)
+    k = rand(cuda, (b, s, hkv, d), dtype, 32)
+    v = rand(cuda, (b, s, hkv, d), dtype, 33)
+    pre = torch.tensor(prefix, dtype=torch.int32, device=cuda)
+    before = ops.flash_attention.launches
+    got, lse = ops.flash_attention(q, k, v, softcap=softcap, prefix_len=pre,
+                                   return_lse=True)
+    plain = ops.flash_attention(q, k, v, softcap=softcap, prefix_len=pre)
+    assert ops.flash_attention.launches == before + 2
+    assert torch.equal(got, plain)              # lse costs nothing in out
+    want, want_lse = flash_attention.flash_attention_torch(
+        q, k, v, softcap=softcap, prefix_len=pre, return_lse=True)
+    torch.cuda.synchronize()
+    assert_close_to_plain(got, want)
+    assert_lse_close(lse, want_lse)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bidirectional_at_hubert_shape(cuda, dtype):
+    q, k, v = (rand(cuda, (2, 1000, 16, 80), dtype, 40 + i)
+               for i in range(3))
+    got, lse = ops.flash_attention(q, k, v, causal=False, return_lse=True)
+    want, want_lse = flash_attention.flash_attention_torch(
+        q, k, v, causal=False, return_lse=True)
+    torch.cuda.synchronize()
+    assert_close_to_plain(got, want)
+    assert_lse_close(lse, want_lse)
+
+
+BWD_CASES = [   # b, s, hq, hkv, d, dv, causal, window, softcap, prefix
+    (2, 256, 8, 4, 256, 256, True, None, 50.0, None),    # gemma2 global
+    (2, 256, 8, 4, 256, 256, True, 100, 50.0, None),     # gemma2 local
+    (1, 300, 8, 1, 256, 256, True, None, None, (100,)),  # paligemma
+    (2, 120, 16, 16, 80, 80, False, None, None, None),   # hubert
+    (1, 200, 16, 16, 192, 128, True, None, None, None),  # MLA
+    (3, 37, 4, 2, 16, 16, True, 8, 5.0, (0, 5, 50)),     # everything, ragged
+]
+
+
+def bwd_inputs(cuda, dtype, b, s, hq, hkv, d, dv, prefix, seed=50):
+    q = rand(cuda, (b, s, hq, d), dtype, seed)
+    k = rand(cuda, (b, s, hkv, d), dtype, seed + 1)
+    v = rand(cuda, (b, s, hkv, dv), dtype, seed + 2)
+    dout = rand(cuda, (b, s, hq, dv), dtype, seed + 3)
+    pre = None if prefix is None else \
+        torch.tensor(prefix, dtype=torch.int32, device=cuda)
+    return q, k, v, dout, pre
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,hq,hkv,d,dv,causal,window,softcap,prefix",
+                         BWD_CASES)
+def test_flash_attention_bwd_kernel_close_to_plain_version(
+        cuda, dtype, b, s, hq, hkv, d, dv, causal, window, softcap, prefix):
+    """dq, dk, dv of the backward kernels against the plain backward on
+    the same (out, lse) from the kernel forward, within
+    ``assert_close_to_plain`` (both compute in float32 and round once);
+    one launch counted; two launches equal bit for bit."""
+    q, k, v, dout, pre = bwd_inputs(cuda, dtype, b, s, hq, hkv, d, dv,
+                                    prefix)
+    kw = dict(causal=causal, window=window, softcap=softcap, prefix_len=pre,
+              scale=d ** -0.5)
+    out, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
+    before = ops.flash_attention_bwd.launches
+    got = ops.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+    assert ops.flash_attention_bwd.launches == before + 1
+    want = flash_attention.flash_attention_bwd_torch(q, k, v, out, dout, lse,
+                                                     **kw)
+    again = ops.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+    torch.cuda.synchronize()
+    for g, w, a in zip(got, want, again):
+        assert_close_to_plain(g, w)
+        assert torch.equal(g, a)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_of_one_token(cuda, dtype):
+    """S = 1: the one key has P = 1, so out = v and dS = dP - delta = 0
+    exactly; dq and dk are float32 cancellation noise in both versions
+    (about 1e-8 against terms of |dout| |v| ~ 10), so they are held to
+    that scale, and dv = dout to the plain version."""
+    q, k, v, dout, _ = bwd_inputs(cuda, dtype, 1, 1, 2, 1, 32, 32, None)
+    out, lse = ops.flash_attention(q, k, v, return_lse=True)
+    dq, dk, dv = ops.flash_attention_bwd(q, k, v, out, dout, lse)
+    want = flash_attention.flash_attention_bwd_torch(q, k, v, out, dout, lse)
+    torch.cuda.synchronize()
+    terms = float(dout.float().abs().max() * v.float().abs().max()) * 32
+    for g in (dq, dk):
+        assert float(g.float().abs().max()) <= 1e-5 * terms
+    assert_close_to_plain(dv, want[2])
+
+
+def test_attention_autograd_runs_the_backward_kernel(cuda):
+    """``layers.attention`` on tensors that need a gradient: the forward
+    kernel once (with lse), the backward kernel once, and the gradients
+    of the plain path within float32's tolerance."""
+    from repro_torch.models.layers import attention
+    q, k, v, dout, pre = bwd_inputs(cuda, torch.float32, 2, 150, 4, 2, 64,
+                                    64, (40, 0))
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    before = (ops.flash_attention.launches, ops.flash_attention_bwd.launches)
+    out = attention(*leaves, attn_softcap=30.0, prefix_len=pre)
+    (out * dout).sum().backward()
+    assert (ops.flash_attention.launches - before[0],
+            ops.flash_attention_bwd.launches - before[1]) == (1, 1)
+    plain = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    ref_out, ref_lse = flash_attention.flash_attention_torch(
+        *plain, softcap=30.0, prefix_len=pre, return_lse=True)
+    want = flash_attention.flash_attention_bwd_torch(
+        q, k, v, ref_out.detach(), dout, ref_lse, softcap=30.0,
+        prefix_len=pre)
+    torch.cuda.synchronize()
+    for x, w in zip(leaves, want):
+        assert_close_to_plain(x.grad, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,wdtype,zero_centered", [
+    ((2, 1024, 2304), None, False),              # gemma2-2b's d
+    ((2, 1000, 16, 80), torch.float32, True),   # qk-norm-like rows
+    ((3, 1001), None, True), ((1, 16), torch.bfloat16, False),
+    ((300, 7168), None, False)])
+def test_rmsnorm_bwd_kernel_close_to_plain_version(cuda, dtype, shape, wdtype,
+                                                   zero_centered):
+    """dx within ``assert_close_to_plain``; dw, a sum over every row, in
+    float32 within 1e-5 of its largest entry x max(1, sqrt(rows) / 10)
+    (the plain version sums the rows in another order; chip_smoke.py's
+    bound) and in bfloat16 within 2 ulps; two launches equal bit for
+    bit."""
+    x = rand(cuda, shape, dtype, 61)
+    w = rand(cuda, shape[-1:], wdtype or dtype, 62, 0.1)
+    dy = rand(cuda, shape, dtype, 63)
+    before = ops.rmsnorm_bwd.launches
+    dx, dw = ops.rmsnorm_bwd(x, w, dy, zero_centered=zero_centered)
+    assert ops.rmsnorm_bwd.launches == before + 1
+    want_dx, want_dw = rmsnorm.rmsnorm_bwd_torch(x, w, dy,
+                                                 zero_centered=zero_centered)
+    dx2, dw2 = ops.rmsnorm_bwd(x, w, dy, zero_centered=zero_centered)
+    torch.cuda.synchronize()
+    assert_close_to_plain(dx, want_dx)
+    assert dw.dtype == w.dtype and dw.shape == w.shape
+    if dw.dtype == torch.float32:
+        rows = x.numel() // x.shape[-1]
+        err = float((dw - want_dw).abs().max())
+        assert err <= 1e-5 * float(want_dw.abs().max()) * max(
+            1.0, rows ** 0.5 / 10)
+    else:
+        assert_close_to_plain(dw, want_dw)
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+
+
+def test_reduced_train_step_on_the_card_matches_the_cpu(cuda):
+    """One float32 ``make_train_step`` of reduced gemma2-2b (softcaps,
+    windowed layers) and paligemma-3b (the prefix) on the card against
+    the CPU's: the loss and every new parameter within 1e-4 of the
+    largest; both backward kernels launched, once per attention layer
+    and once per norm of the forward."""
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.data import PipelineConfig, TokenPipeline
+    from repro_torch.models import ShardCtx
+    from repro_torch.optim import OptConfig
+    from repro_torch.runtime.train_loop import (init_train_state,
+                                                make_train_step)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for name in ("gemma2-2b", "paligemma-3b"):
+        cfg = reduced(ARCHS[name]).replace(dtype="float32", remat="none")
+        opt = OptConfig(lr=1e-2, warmup_steps=1, total_steps=4, eps=1e-3)
+        cpu = init_train_state(cfg, opt, torch.Generator().manual_seed(0))
+        card = {"params": copy.deepcopy(cpu["params"]).to(cuda),
+                "opt": {k: ({n: t.to(cuda) for n, t in v.items()}
+                            if isinstance(v, dict) else v.to(cuda))
+                        for k, v in cpu["opt"].items()}}
+        pipe = TokenPipeline(cfg, PipelineConfig(batch=2, seq_len=40))
+        step = make_train_step(cfg, opt, ShardCtx())
+        before = (ops.flash_attention_bwd.launches, ops.rmsnorm_bwd.launches)
+        card, got = step(card, {k: v.to(cuda)
+                                for k, v in pipe.make_batch(0).items()})
+        norms = cfg.n_layers * (4 if cfg.post_block_norms else 2) + 1
+        assert (ops.flash_attention_bwd.launches - before[0],
+                ops.rmsnorm_bwd.launches - before[1]) == (cfg.n_layers, norms)
+        cpu, want = step(cpu, pipe.make_batch(0))
+        np.testing.assert_allclose(float(got["loss"]), float(want["loss"]),
+                                   rtol=1e-5)
+        for (k, a), (_, b) in zip(card["params"].named_parameters(),
+                                  cpu["params"].named_parameters()):
+            err = float((a.detach().cpu() - b.detach()).abs().max())
+            assert err <= 1e-4 * float(b.abs().max()), (name, k, err)

@@ -50,6 +50,8 @@ def test_import_leaves_jax_and_reference_unloaded():
         "import repro_torch.analysis.lint, repro_torch.analysis.tracecheck\n"
         "import repro_torch.analysis.entrypoints\n"
         "import repro_torch.core.executor, repro_torch.models.moe\n"
+        "import repro_torch.optim, repro_torch.data, repro_torch.checkpoint\n"
+        "import repro_torch.runtime.train_loop, repro_torch.launch.train\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "assert not bad, bad\n"

@@ -7,7 +7,8 @@ kernels in interpret mode and its pure-jnp oracles; the dense model
 ``demo-20m``) and the MoE family (reduced ``deepseek-v2-lite-16b``, MoE
 with MLA, and ``qwen3-moe-235b-a22b``, MoE with GQA and qk-norm) against
 the reference ``forward`` and ``generate`` on the same weights; the
-guards of the entry points; the frontends the port does not serve yet.
+guards of the entry points; the families whose training waits for a
+later slice.
 
 Weights are drawn with NumPy from a seed and fed to both packages. The
 reference's own init (zero norms, a 1/sqrt(d) embedding tied to the
@@ -477,14 +478,17 @@ def test_init_params_follows_the_reference_scales():
                zip(params.parameters(), again.parameters()))
 
 
-@pytest.mark.parametrize("name", ["hubert-xlarge", "paligemma-3b"])
+@pytest.mark.parametrize("name", ["mamba2-780m", "zamba2-7b"])
 def test_families_of_later_slices_raise(name):
-    """The patch/frame frontends belong to a later slice of the port
-    (Mamba-2 and Zamba-2 are served: ``test_torch_ssm.py``; MoE and MLA
-    above and in ``test_torch_moe.py``)."""
+    """Training the SSM and hybrid families needs the ``ssd_scan``
+    backward, a later slice of the port (they are served:
+    ``test_torch_ssm.py``; the frontends and the training of the other
+    families: ``test_torch_frontends.py``, ``test_torch_train.py``)."""
+    from repro_torch.optim import OptConfig
+    from repro_torch.runtime.train_loop import make_train_step
     cfg = reduced(ARCHS[name]).replace(dtype="float32")
     with pytest.raises(NotImplementedError, match="slice"):
-        init_params(cfg, torch.Generator().manual_seed(0))
+        make_train_step(cfg, OptConfig(), ShardCtx())
 
 
 def test_mesh_is_refused():
