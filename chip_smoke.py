@@ -234,10 +234,12 @@ Run from the repository root (it puts ``src`` on ``sys.path`` itself):
    128 at (1, 1024, 16)), the forward kernels too (dw of a float32
    ``rmsnorm_bwd``, a sum over every row, within 1e-5 of its largest x
    max(1, sqrt(rows) / 10)). Numbers: step ms, tokens/s and peak memory
-   per model, gemma2's step profile (device busy ms and idle share);
-   each backward kernel's graph-timed ms, plain ms, bound and library
-   ms (autograd backward of ``scaled_dot_product_attention`` without a
-   softcap, of ``F.rms_norm``).
+   per model, each model's step profile (device busy ms, kernels per
+   step, idle share, the kernels with the most device time); each
+   backward kernel's graph-timed ms, plain ms, bound and library ms
+   (autograd backward of ``scaled_dot_product_attention`` without a
+   softcap, of ``F.rms_norm``), and for the bf16 ``flash_attention_bwd``
+   its launch plan (``bwd_plan``: the dK/dV split and its partials).
 
 Exits non-zero, printing no result, on any failure, when no CUDA device
 is present, or when run outside a checkout. The last line of standard
@@ -2726,9 +2728,11 @@ def attention_bwd_row(args, kw, library=True):
     version's device ms from a CUDA graph over input copies past 3x the
     L2, the library's (autograd backward of
     ``scaled_dot_product_attention``, back to back on a graph kept for
-    it, without a softcap only), the bound and what bounds it."""
+    it, without a softcap only), the bound and what bounds it; in bf16
+    the launch plan (``bwd_plan``) where the timed tree has one."""
     import torch
 
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.flash_attention import (
         flash_attention_bwd_cuda, flash_attention_bwd_torch, visible)
     q, k, v, out, dout, lse = args
@@ -2756,6 +2760,7 @@ def attention_bwd_row(args, kw, library=True):
         lib_ms = cuda_ms(lambda: torch.autograd.grad(
             lout, leaves, dout, retain_graph=True), 10)
     pre = akw.get("prefix_len")
+    plan = getattr(fa, "bwd_plan", None)
     return dict(shape=f"q {tuple(q.shape)} k {tuple(k.shape)} v "
                       f"{tuple(v.shape)} {str(q.dtype)[6:]} causal="
                       f"{akw.get('causal', True)} window={akw.get('window')} "
@@ -2763,7 +2768,10 @@ def attention_bwd_row(args, kw, library=True):
                       + ("" if pre is None else f" prefix={pre.tolist()}"),
                 ms=ms, tflops=flops / ms / 1e9, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                bytes=n_bytes, flops=flops)
+                bytes=n_bytes, flops=flops,
+                plan=None if plan is None or q.dtype != torch.bfloat16
+                else plan(*q.shape[:3], k.shape[2], q.shape[-1],
+                          v.shape[-1])._asdict())
 
 
 def norm_bwd_row(x, w, dy, kw):
@@ -3018,6 +3026,9 @@ def train_phase(dev):
             launches[key] = {k: sp.launches for k, sp in spies.items()}
             step_record(label, cfg, run, times, train_counts(cfg, 2),
                         launches[key])
+            profile_step(lambda: step_fn(state, pipe.make_batch(3)),
+                         steps[label])
+            print(f"train {label} step profile " + json.dumps(steps[label]))
             del state, step_fn, metrics
             freed(f"train {label}")
 

@@ -21,8 +21,10 @@ bfloat16 launches the tensor-core kernel (wgmma products, TMA loads,
 warp-specialised; its loads need head dims that are multiples of 8 and
 16-byte aligned tensors, see :func:`refusal`), float32 the SIMT kernel,
 whose float32 FMAs keep float32's tolerance.
-``csrc/flash_attention_bwd.cu`` holds the backward (delta, then dK/dV,
-then dQ; float32 SIMT arithmetic for both types).
+``csrc/flash_attention_bwd.cu`` holds the backward: delta, then dK/dV,
+then dQ; bfloat16 on the tensor cores (``mma.sync``, P and dS split into
+bf16 hi + lo, the dK/dV blocks split by :func:`bwd_plan` and their
+float32 partials summed in a fixed order), float32 on SIMT.
 :func:`repro_torch.kernels.ops.flash_attention` and
 :func:`repro_torch.kernels.ops.flash_attention_bwd` are the guarded entry
 points that pick between the plain versions and the CUDA kernels.
@@ -32,6 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -40,6 +43,10 @@ from . import build
 NEG_INF = -2.0e38
 MAX_HEAD_DIM = 256                  # the kernels' accumulator size
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+SMS = 132                           # H100 SXM streaming multiprocessors
+BWD_BLOCKS_PER_SM = 2               # bf16 backward blocks an SM holds
+BWD_STREAM = 32                     # rows of the tiles a bf16 backward
+                                    # block streams
 
 
 def visible(s: int, *, causal: bool, window: int | None,
@@ -217,13 +224,77 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
     return (out, lse) if return_lse else out
 
 
+class BwdPlan(NamedTuple):
+    """How the bfloat16 backward launches for one shape: the dK/dV
+    blocks split each kv head's G q heads into ``n_g`` groups and each
+    key tile's query range into ``n_q`` parts; ``kv_blocks`` and
+    ``q_blocks`` blocks of the dK/dV and dQ launches; ``partial_bytes``
+    of the float32 dK/dV partials (0 when nothing is split)."""
+    n_g: int
+    n_q: int
+    kv_blocks: int
+    q_blocks: int
+    partial_bytes: int
+
+
+def bwd_fixed_rows(d: int, dv: int) -> int:
+    """Rows of a bfloat16 backward block's own tile (keys for dK/dV,
+    query rows for dQ): 64, or 32 where a head dim is above 96, so that
+    two blocks fit an SM."""
+    return 32 if max(d, dv) > 96 else 64
+
+
+def bwd_shared_bytes(d: int, dv: int, kv: bool) -> int:
+    """Dynamic shared memory of one bfloat16 backward block, as the
+    library computes it (``flash_attention_bwd_shared_bytes``; the
+    layout of ``csrc/flash_attention_bwd.cu``: bf16 rows padded to 16
+    columns plus 8): the fixed tiles, the 2-stage ring, the P / dS hi
+    and lo staging (4 tiles for dK/dV, 2 for dQ) and the float32 lse
+    and delta rows. The tests hold two blocks an SM to it."""
+    def ld(x):
+        return -(-x // 16) * 16 + 8
+    f = bwd_fixed_rows(d, dv)
+    tiles = (f + 2 * BWD_STREAM) * (ld(d) + ld(dv)) \
+        + (4 if kv else 2) * f * (BWD_STREAM + 8)
+    return 2 * tiles + 4 * (4 * BWD_STREAM if kv else 2 * f)
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_plan(b: int, s: int, hq: int, hkv: int, d: int,
+             dv: int) -> BwdPlan:
+    """The launch rule of the bfloat16 backward, by shape alone. Unsplit,
+    dK/dV has one block per (key tile, kv head, batch) and dQ one per
+    (query tile, q head, batch), tiles of :func:`bwd_fixed_rows` rows.
+    The target is the blocks the card holds at once, two an SM on the
+    132 SMs. While the dK/dV blocks are fewer, the G q heads of a kv
+    head are split: ``n_g`` is the smallest divisor of G that reaches
+    the target, else G; then, if still short, the query range: ``n_q``
+    = ceil(target / blocks), at most its 32-row tiles. Each split block
+    writes a float32 partial of its tile's dK and dV."""
+    g = hq // hkv
+    tiles = -(-s // bwd_fixed_rows(d, dv))
+    base = tiles * hkv * b
+    target = BWD_BLOCKS_PER_SM * SMS
+    n_g = next((x for x in range(1, g + 1) if g % x == 0
+                and base * x >= target), g)
+    n_q = 1
+    if base * n_g < target:
+        n_q = min(-(-target // (base * n_g)), -(-s // BWD_STREAM))
+    splits = n_g * n_q
+    partial = 4 * splits * b * s * hkv * (d + dv) if splits > 1 else 0
+    return BwdPlan(n_g, n_q, base * splits, tiles * hq * b, partial)
+
+
 @functools.cache
 def _bwd_library():
     lib = build.load("flash_attention_bwd")
-    lib.flash_attention_bwd.argtypes = [ctypes.c_void_p] * 11 \
+    lib.flash_attention_bwd.argtypes = [ctypes.c_void_p] * 12 \
         + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                                ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+                                ctypes.c_float] + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p]
     lib.flash_attention_bwd.restype = ctypes.c_int
+    lib.flash_attention_bwd_shared_bytes.argtypes = [ctypes.c_int] * 3
+    lib.flash_attention_bwd_shared_bytes.restype = ctypes.c_longlong
     lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
     return lib
@@ -234,11 +305,15 @@ def flash_attention_bwd_cuda(q, k, v, out, dout, lse, *, causal: bool = True,
                              window: int | None = None,
                              softcap: float | None = None,
                              prefix_len: torch.Tensor | None = None):
-    """Launch the backward (three kernels: delta, dK/dV, dQ) on the
-    current stream of the inputs' device; returns (dq, dk, dv) in their
-    type. Unguarded: the caller has checked shapes (head dims at most
-    ``MAX_HEAD_DIM``), types (``lse`` float32 (B, Hq, S), ``prefix_len``
-    int32 (B,)), one device, contiguity and that nothing is empty."""
+    """Launch the backward on the current stream of the inputs' device;
+    returns (dq, dk, dv) in their type. float32: delta, dK/dV, dQ on
+    SIMT. bfloat16: delta, dK/dV split by :func:`bwd_plan` (with a
+    float32 workspace for its partials and their sum when it splits),
+    dQ, on the tensor cores. Unguarded: the caller has checked shapes
+    (head dims at most ``MAX_HEAD_DIM``), types (``lse`` float32 (B, Hq,
+    S), ``prefix_len`` int32 (B,)), one device, contiguity,
+    :func:`refusal` of q, k, v and dout's alignment for bfloat16, and that
+    nothing is empty."""
     lib = _bwd_library()
     b, s, hq, d = q.shape
     hkv, dv = k.shape[2], v.shape[-1]
@@ -246,16 +321,25 @@ def flash_attention_bwd_cuda(q, k, v, out, dout, lse, *, causal: bool = True,
     dq, dk, dvv = torch.empty_like(q), torch.empty_like(k), \
         torch.empty_like(v)
     delta = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
+    n_g = n_q = 1
+    ws = None
+    if q.dtype == torch.bfloat16:
+        plan = bwd_plan(b, s, hq, hkv, d, dv)
+        n_g, n_q = plan.n_g, plan.n_q
+        if plan.partial_bytes:
+            ws = torch.empty(plan.partial_bytes // 4, dtype=torch.float32,
+                             device=q.device)
     with torch.cuda.device(q.device):
         err = lib.flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             dout.data_ptr(), lse.data_ptr(),
             None if prefix_len is None else prefix_len.data_ptr(),
             delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dvv.data_ptr(),
+            None if ws is None else ws.data_ptr(),
             b, s, hq, hkv, d, dv, scale, int(causal),
             0 if window is None else window,
-            0.0 if softcap is None else softcap, DTYPE_CODES[q.dtype],
-            torch.cuda.current_stream().cuda_stream)
+            0.0 if softcap is None else softcap, n_g, n_q,
+            DTYPE_CODES[q.dtype], torch.cuda.current_stream().cuda_stream)
     if err != 0:
         what = lib.flash_attention_bwd_error_string(err).decode()
         raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error "

@@ -375,9 +375,13 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
     :mod:`.flash_attention`): ``q``, ``k``, ``v`` as there, ``out`` and
     ``dout`` (B, S, Hq, Dv) of their type, ``lse`` (B, Hq, S) float32
     from the forward with ``return_lse``, the forward's options; all
-    contiguous on one device; on the card head dims at most 256. Returns
-    (dq, dk, dv) in the inputs' type. ``launches`` counts calls that ran
-    the kernels (three launches each: delta, dK/dV, dQ)."""
+    contiguous on one device; on the card head dims at most 256, and for
+    bfloat16 what :func:`.flash_attention.refusal` takes (head dims
+    multiples of 8, q, k, v 16-byte aligned) with dout 16-byte aligned.
+    Returns (dq, dk, dv) in the inputs' type. ``launches`` counts calls
+    that ran the kernels: float32 three launches each (delta, dK/dV,
+    dQ), bfloat16 three, or four where :func:`.flash_attention.bwd_plan`
+    splits the dK/dV blocks (delta, dK/dV, the partials' sum, dQ)."""
     device = _check_qkv("flash_attention_bwd", q, k, v)
     b, s, hq, d = q.shape
     hkv, dv = k.shape[2], v.shape[-1]
@@ -389,7 +393,11 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
     if len({x.device for x in (q, out, dout, lse)}) != 1:
         raise ValueError("flash_attention_bwd: inputs on several devices")
     _check_attention_options("flash_attention_bwd", hq, hkv, d, dv, softcap,
-                             device, window)
+                             device, window, tensors=(q, k, v))
+    if device.type == "cuda" and q.dtype == torch.bfloat16 \
+            and dout.data_ptr() % 16:
+        raise ValueError("flash_attention_bwd: dout not 16-byte aligned, "
+                         "which the bfloat16 kernel's loads need")
     _check_prefix("flash_attention_bwd", prefix_len, b, device)
     kw = dict(causal=causal, scale=scale, window=window, softcap=softcap,
               prefix_len=prefix_len)

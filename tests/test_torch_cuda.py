@@ -1079,6 +1079,9 @@ BWD_CASES = [   # b, s, hq, hkv, d, dv, causal, window, softcap, prefix
     (2, 120, 16, 16, 80, 80, False, None, None, None),   # hubert
     (1, 200, 16, 16, 192, 128, True, None, None, None),  # MLA
     (3, 37, 4, 2, 16, 16, True, 8, 5.0, (0, 5, 50)),     # everything, ragged
+    (1, 1024, 8, 1, 256, 256, True, None, None, (256,)),  # G = 8 split
+    (2, 333, 4, 2, 72, 72, True, 50, 30.0, None),        # ragged, D % 16 = 8
+    (2, 1000, 16, 16, 80, 80, False, None, None, None),  # hubert, full
 ]
 
 
@@ -1116,6 +1119,56 @@ def test_flash_attention_bwd_kernel_close_to_plain_version(
     for g, w, a in zip(got, want, again):
         assert_close_to_plain(g, w)
         assert torch.equal(g, a)
+
+
+def test_flash_attention_bwd_plan_on_the_card(cuda):
+    """The bf16 launch plan splits the dK/dV blocks at the paligemma
+    case of ``BWD_CASES`` (so the fixed-order sum of the partials ran
+    there) and not at hubert's; its shared-memory sizes are the
+    library's own, within what a block may use."""
+    lib = flash_attention._bwd_library()
+    assert flash_attention.bwd_plan(1, 1024, 8, 1, 256, 256)[:2] == (8, 2)
+    assert flash_attention.bwd_plan(2, 1000, 16, 16, 80, 80)[:2] == (1, 1)
+    for d, dv in ((256, 256), (80, 80), (192, 128), (72, 72), (16, 16),
+                  (8, 8)):
+        for kv in (True, False):
+            want = lib.flash_attention_bwd_shared_bytes(d, dv, int(kv))
+            assert flash_attention.bwd_shared_bytes(d, dv, kv) == want
+            assert want <= 232448
+
+
+def test_flash_attention_bwd_refuses_what_the_forward_refuses(cuda):
+    """bfloat16 head dims that are not multiples of 8 or q, k, v not
+    16-byte aligned: the forward's refusal (a ValueError naming the TMA
+    loads), and a dout not 16-byte aligned: a ValueError of its own, each
+    before anything launches; float32 takes the odd head dim."""
+    def args(d, dtype, offset=0):
+        flat = rand(cuda, (5 * 2 * 40 * 4 * d + offset,), dtype, 21)
+        q, k, v, out, dout = (flat[offset + i * 320 * d:
+                                   offset + (i + 1) * 320 * d]
+                              .view(2, 40, 4, d) for i in range(5))
+        lse = torch.zeros((2, 4, 40), dtype=torch.float32, device=cuda)
+        return q, k, v, out, dout, lse
+    counts = ops.flash_attention_bwd.launches
+    for a in (args(20, torch.bfloat16), args(64, torch.bfloat16, 1)):
+        with pytest.raises(ValueError, match="TMA"):
+            ops.flash_attention_bwd(*a)
+    assert ops.flash_attention_bwd.launches == counts
+    q, k, v, _, _, _ = args(64, torch.bfloat16)
+    flat = rand(cuda, (320 * 64 + 1,), torch.bfloat16, 22)
+    dout = flat[1:].view(2, 40, 4, 64)
+    out, lse = ops.flash_attention(q, k, v, return_lse=True)
+    with pytest.raises(ValueError, match="dout not 16-byte aligned"):
+        ops.flash_attention_bwd(q, k, v, out, dout, lse)
+    assert ops.flash_attention_bwd.launches == counts
+    q, k, v, _, dout, _ = args(20, torch.float32)
+    out, lse = ops.flash_attention(q, k, v, return_lse=True)
+    got = ops.flash_attention_bwd(q, k, v, out, dout, lse)
+    want = flash_attention.flash_attention_bwd_torch(q, k, v, out, dout, lse)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert_close_to_plain(g, w)
+    assert ops.flash_attention_bwd.launches == counts + 1
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -1,14 +1,15 @@
-"""Time ``flash_decode``, the dense ``sim_relax`` and ``sched_score``
-with the kernels of one checkout of this repository, so that a parent and
-a change can be compared on one card in one call (run the probe once per
-tree, in turns: parent, change, change, parent).
+"""Time ``flash_decode``, the dense ``sim_relax``, ``sched_score`` and
+the bf16 ``flash_attention_bwd`` with the kernels of one checkout of this
+repository, so that a parent and a change can be compared on one card in
+one call (run the probe once per tree, in turns: parent, change, change,
+parent).
 
     python3 tools/kernel_probe.py [--tree DIR] [--label NAME]
                                   [--kernels NAME ...]
 
 ``--tree`` is the checkout whose ``src`` is timed (default: this one);
 the timing code is this checkout's ``chip_smoke.py``, the same for every
-tree. ``--kernels`` picks what to time (default: all three). Measured,
+tree. ``--kernels`` picks what to time (default: all four). Measured,
 on one CUDA device:
 
 - ``flash_decode``, bf16, random q and cache from seed 0, ``pos`` at the
@@ -39,6 +40,19 @@ on one CUDA device:
   ``ClusterState.frontiers()`` on the admitted state (what the live path
   adds to each batch, the same code in both trees), the placements'
   count.
+- ``flash_attention_bwd``, bf16, random q, k, v, dout from seed 0 and
+  ``out``, ``lse`` from the tree's forward kernel, at ``BWD_SHAPES``:
+  gemma2-2b's training layer (2, 1024, 8/4, 256), softcap 50, causal,
+  also with its local layers' window 4,096; paligemma-3b's (1, 1024,
+  8/1, 256) with a 256-token prefix; hubert-xlarge's (2, 1000, 16, 80)
+  bidirectional; an MLA shape (1, 1024, 16, 192/128), causal.
+  ``chip_smoke.attention_bwd_row``: the kernels' device ms from a CUDA
+  graph over input copies past 3x the L2, the plain version's, SDPA's
+  autograd backward where there is no softcap, the bound; beside them
+  the share of the bound, the largest error over the bf16 gate's bound
+  (``chip_smoke.gate_ratio``; above 1 fails the probe), the tree's
+  launch plan (``bwd_plan``, where it has one) and the device ms of
+  each kernel of one call (``torch.profiler`` over 5 calls).
 
 Prints the card's name and power limit, then the results as one JSON
 line (the last).
@@ -53,7 +67,15 @@ import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
-KERNELS = ("flash_decode", "sim_relax", "sched_score")
+KERNELS = ("flash_decode", "sim_relax", "sched_score", "flash_attention_bwd")
+BWD_SHAPES = (      # name, b, s, hq, hkv, d, dv, options (bf16)
+    ("gemma2", 2, 1024, 8, 4, 256, 256, dict(softcap=50.0)),
+    ("gemma2_window", 2, 1024, 8, 4, 256, 256,
+     dict(softcap=50.0, window=4096)),
+    ("paligemma", 1, 1024, 8, 1, 256, 256, dict(prefix=256)),
+    ("hubert", 2, 1000, 16, 16, 80, 80, dict(causal=False)),
+    ("mla", 1, 1024, 16, 16, 192, 128, {}),
+)
 
 
 def main() -> int:
@@ -87,7 +109,9 @@ def main() -> int:
     print(smi)
     sources = {"flash_decode": ["flash_decode"],
                "sim_relax": ["sim_step", "sim_relax_pop"],
-               "sched_score": ["sched_score"]}
+               "sched_score": ["sched_score"],
+               "flash_attention_bwd": ["flash_attention",
+                                       "flash_attention_bwd"]}
     build.build([src for k in args.kernels for src in sources[k]])
     torch.backends.cuda.matmul.allow_tf32 = False
     out = dict(label=args.label, tree=str(tree), device=smi)
@@ -97,9 +121,13 @@ def main() -> int:
         out["sim_relax"] = probe_relax(cs, dev)
     if "sched_score" in args.kernels:
         out["sched_score"] = probe_score(cs, dev)
+    if "flash_attention_bwd" in args.kernels:
+        out["flash_attention_bwd"] = probe_attention_bwd(cs, dev)
     print(json.dumps(out))
-    return 0 if all(r["equal"] for r in out.get("sim_relax", {}).values()) \
-        else 1
+    ok = all(r["equal"] for r in out.get("sim_relax", {}).values()) \
+        and all(r["gate_ratio"] <= 1.0
+                for r in out.get("flash_attention_bwd", {}).values())
+    return 0 if ok else 1
 
 
 def probe_decode(cs, dev):
@@ -223,10 +251,58 @@ def probe_score(cs, dev):
     return dict(shapes=rows, kernel_scores_host_ms=host,
                 frontiers_ms=statistics.median(frontiers),
                 placements=len(state.schedule.placements))
-    out = dict(label=args.label, tree=str(tree), device=smi,
-               flash_decode=decode, sim_relax=relax)
-    print(json.dumps(out))
-    return 0 if all(r["equal"] for r in relax.values()) else 1
+
+
+def launch_split(fn, n=5):
+    """Device ms per call of each kernel ``fn`` launches, from
+    ``torch.profiler`` over ``n`` calls (names cut to 60 characters)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        if us and "CUDA" in str(getattr(e, "device_type", "")):
+            split[e.key[:60]] = us / 1e3 / n
+    return split
+
+
+def probe_attention_bwd(cs, dev):
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows = {}
+    for name, b, s, hq, hkv, d, dv, opts in BWD_SHAPES:
+        q, k, v, dout = (torch.randn(shape, generator=gen,
+                                     device=dev).bfloat16()
+                         for shape in ((b, s, hq, d), (b, s, hkv, d),
+                                       (b, s, hkv, dv), (b, s, hq, dv)))
+        kw = dict(causal=opts.get("causal", True), scale=d ** -0.5,
+                  window=opts.get("window"), softcap=opts.get("softcap"))
+        if "prefix" in opts:
+            kw["prefix_len"] = torch.full((b,), opts["prefix"],
+                                          dtype=torch.int32, device=dev)
+        out, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
+        args = (q, k, v, out, dout, lse)
+        got = fa.flash_attention_bwd_cuda(*args, **kw)
+        want = fa.flash_attention_bwd_torch(*args, **kw)
+        row = cs.attention_bwd_row(args, kw)
+        row["gate_ratio"] = max(cs.gate_ratio(g, w)
+                                for g, w in zip(got, want))
+        row["kernels_ms"] = launch_split(
+            lambda: fa.flash_attention_bwd_cuda(*args, **kw))
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        rows[name] = row
+        del q, k, v, dout, out, lse, args, got, want
+        torch.cuda.empty_cache()
+    return rows
 
 
 if __name__ == "__main__":
