@@ -222,14 +222,21 @@ Run from the repository root (it puts ``src`` on ``sys.path`` itself):
    and stepped once must give step 3's loss and every parameter bit for
    bit (one checkpoint is 26 GB: the run writes one, not two). One
    ``make_train_step`` (after a warm-up step, two timed) of paligemma-3b
-   (B=1, 256 patches + 768 tokens) and hubert-xlarge (B=2 x 1,000
-   frames) at full size. The
-   float32 gradient gate of each model at full width cut to 2 layers:
-   loss within 1e-5 and every parameter's gradient within 1e-4 of its
+   (B=1, 256 patches + 768 tokens), hubert-xlarge (B=2 x 1,000 frames)
+   and mamba2-780m (B=2 x 1,024: four chunks of 256) at full size, and
+   of zamba2-7b at full width cut in depth to the most layers of the
+   form 6 k + 3 whose training state (16 bytes a parameter) and 8 GB of
+   activations stay under 70 GB (``zamba_cut``, which prints the
+   reckoning; 39 of 81 layers), B=2 x 1,024, no checkpoint. The float32
+   gradient gate of each model at full width cut to 2 layers (zamba2 to
+   7: one group of 6 with its shared block and a tail layer): loss
+   within 1e-5 and every parameter's gradient within 1e-4 of its
    largest against the same step with every kernel, forward and
    backward, swapped for its plain version. Checks: exact counts (under
-   remat each layer's norms and attention run forward twice and
-   backward once); ``flash_attention_bwd`` and ``rmsnorm_bwd`` within
+   remat each block's norms, attention and scan run forward twice and
+   backward once: a Mamba layer two norms and one scan, zamba2's shared
+   block two norms and one attention at head dim 224);
+   ``flash_attention_bwd``, ``rmsnorm_bwd`` and ``ssd_scan_bwd`` within
    ``close_to_plain`` at every shape the phase launched (and MLA's 192 /
    128 at (1, 1024, 16)), the forward kernels too (dw of a float32
    ``rmsnorm_bwd``, a sum over every row, within 1e-5 of its largest x
@@ -238,8 +245,12 @@ Run from the repository root (it puts ``src`` on ``sys.path`` itself):
    step, idle share, the kernels with the most device time); each
    backward kernel's graph-timed ms, plain ms, bound and library ms
    (autograd backward of ``scaled_dot_product_attention`` without a
-   softcap, of ``F.rms_norm``), and for the bf16 ``flash_attention_bwd``
-   its launch plan (``bwd_plan``: the dK/dV split and its partials).
+   softcap, of ``F.rms_norm``; none computes an SSD scan's backward),
+   for the bf16 ``flash_attention_bwd`` its launch plan (``bwd_plan``:
+   the dK/dV split and its partials), for ``rmsnorm_bwd`` its plan and
+   share of the bound at each width, for ``ssd_scan_bwd`` each
+   gradient's error over the gate's bound (``tools/kernel_probe.py``
+   splits its time by pass).
 
 Exits non-zero, printing no result, on any failure, when no CUDA device
 is present, or when run outside a checkout. The last line of standard
@@ -721,12 +732,14 @@ def plain_serving_kernels(ops):
         flash_attention_bwd_torch, flash_attention_torch)
     from repro_torch.kernels.flash_decode import flash_decode_torch
     from repro_torch.kernels.rmsnorm import rmsnorm_bwd_torch, rmsnorm_torch
-    from repro_torch.kernels.ssd_scan import ssd_scan_torch
+    from repro_torch.kernels.ssd_scan import (ssd_scan_bwd_torch,
+                                              ssd_scan_torch)
     return swapped(ops, rmsnorm=rmsnorm_torch,
                    flash_attention=flash_attention_torch,
                    flash_decode=flash_decode_torch, ssd_scan=ssd_scan_torch,
                    rmsnorm_bwd=rmsnorm_bwd_torch,
-                   flash_attention_bwd=flash_attention_bwd_torch)
+                   flash_attention_bwd=flash_attention_bwd_torch,
+                   ssd_scan_bwd=ssd_scan_bwd_torch)
 
 
 def scan_without_carry(x, dt, A, B, C, chunk):
@@ -2464,12 +2477,18 @@ TRAIN_ARCH = "gemma2-2b"
 TRAIN_RUN = dict(batch=2, seq=1024, steps=3, ckpt_at=2)
 VLM_TRAIN = dict(batch=1, seq=1024)             # 256 patches + 768 tokens
 ENC_TRAIN = dict(batch=2, seq=1000)
+SSM_TRAIN = dict(batch=2, seq=1024)             # 4 chunks of 256
 GRAD_LAYERS = 2                                 # the float32 gradient gate
+GRAD_LAYERS_BY_ARCH = {"zamba2-7b": 7}          # a group of 6 + a tail layer
 GRAD_LOSS_REL = 1e-5                            # |dloss| / |loss|
 GRAD_REL = 1e-4                                 # per parameter, of max|g|
 MLA_BWD_ROW = (1, 1024, 16, 192, 128)           # b, s, h, d, dv
+TRAIN_BYTES_PER_PARAM = 16      # bf16 parameter and gradient, AdamW's
+                                # float32 copy of the gradients, m and v
+TRAIN_PEAK_GB = 70.0            # what the cut zamba2-7b is sized to
+TRAIN_ACT_GB = 8.0              # kept for activations and workspaces
 TRAIN_KERNELS = ("rmsnorm", "flash_attention", "rmsnorm_bwd",
-                 "flash_attention_bwd")
+                 "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd")
 
 
 def freed(label):
@@ -2802,7 +2821,70 @@ def norm_bwd_row(x, w, dy, kw):
     return dict(shape=f"{tuple(x.shape)} {str(x.dtype)[6:]} w "
                       f"{str(w.dtype)[6:]}", ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                bytes=n_bytes)
+                bytes=n_bytes, bound_share=b_ms / ms,
+                plan=norm_bwd_plan(x, w))
+
+
+def norm_bwd_plan(x, w):
+    """The tree's launch plan of ``rmsnorm_bwd`` (threads per row, row
+    blocks), where its library gives one."""
+    from repro_torch.kernels import rmsnorm
+    plan = getattr(rmsnorm, "bwd_plan", None)
+    if plan is None:
+        return None
+    rows, d = x.numel() // x.shape[-1], x.shape[-1]
+    threads, blocks = plan(rows, d, x.dtype, w.dtype)
+    return dict(threads_per_row=threads, blocks=blocks)
+
+
+def ssd_bwd_cost(x, dt, A, B, C, dy, dfinal, chunk):
+    """Bytes (x, dt, A, B, C, dy and dfinal read once; dx, ddt, dA, dB,
+    dC written once) and the operations the backward needs: per chunk of
+    L real positions, per batch row and head, over the L (L + 1) / 2
+    causal (query, key) pairs C B^T and dB's product (N each), dy x^T and
+    M^T dy (P each) and dC's product (N): 2 pairs (3 N + 2 P); and the
+    states' five products of L N P (the recomputed state, the state
+    gradient, and its parts of dx, dB and dC): 10 L N P."""
+    b, s, h, p = x.shape
+    n = B.shape[3]
+    ins = (x, dt, A, B, C, dy) + (() if dfinal is None else (dfinal,))
+    n_bytes = sum(t.numel() * t.element_size() for t in ins) \
+        + sum(t.numel() * t.element_size() for t in ins[:5])
+    per_head = sum(ln * (ln + 1) * (3 * n + 2 * p) + 10 * ln * n * p
+                   for ln in (min(chunk, s - c0) for c0 in range(0, s, chunk)))
+    return n_bytes, per_head * b * h
+
+
+def ssd_bwd_row(args):
+    """``ssd_scan_bwd`` at one shape: the kernels' and the plain
+    version's device ms from a CUDA graph over input copies past 3x the
+    L2, the bound and what bounds it, the largest error over the gate's
+    bound (``gate_ratio``) of each gradient; no library call computes
+    the function (library_ms null)."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan import (ssd_scan_bwd_cuda,
+                                              ssd_scan_bwd_torch)
+    x, dt, A, B, C, dy, dfinal, chunk = args
+    n_bytes, flops = ssd_bwd_cost(*args)
+    rate = BF16_OPS_PER_S if x.dtype == torch.bfloat16 else FP32_OPS_PER_S
+    b_ms, b_by = bound(n_bytes, flops, rate)
+    got = ssd_scan_bwd_cuda(*args)
+    want = ssd_scan_bwd_torch(*args)
+    ratios = {k: gate_ratio(g, w) for k, g, w in
+              zip(("dx", "ddt", "dA", "dB", "dC"), got, want)}
+    nxt = turns(x, dt, B, C, dy)
+
+    def kernel():
+        x_, dt_, B_, C_, dy_ = nxt()
+        return ssd_scan_bwd_cuda(x_, dt_, A, B_, C_, dy_, dfinal, chunk)
+    ms = graph_ms(kernel, 5)
+    plain_ms = graph_ms(lambda: ssd_scan_bwd_torch(*args), 1)
+    return dict(shape=f"x {tuple(x.shape)} B {tuple(B.shape)} chunk {chunk} "
+                      f"{str(x.dtype)[6:]} dfinal={dfinal is not None}",
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, bytes=n_bytes, flops=flops,
+                gate_ratios=ratios)
 
 
 def spy_train_keys():
@@ -2811,25 +2893,83 @@ def spy_train_keys():
 
     def key_attn(args):
         return shapes(args[:3]) + (str(args[0].dtype),)
+    def key_scan(args):
+        return shapes(args[:5]) + (str(args[0].dtype), args[6] is None,
+                                   args[-1])
     attn_kw = ("causal", "window", "softcap", "return_lse")
     return {"rmsnorm": (key_norm, ("zero_centered",)),
             "rmsnorm_bwd": (key_norm, ("zero_centered",)),
             "flash_attention": (key_attn, attn_kw),
-            "flash_attention_bwd": (key_attn, attn_kw[:3])}
+            "flash_attention_bwd": (key_attn, attn_kw[:3]),
+            "ssd_scan": (lambda a: shapes(a[:5]) + (str(a[0].dtype), a[5]),
+                         ()),
+            "ssd_scan_bwd": (key_scan, ())}
 
 
 def train_counts(cfg, steps, remat=True):
-    """The launches ``steps`` training steps of ``cfg`` make: each norm
-    and attention of a layer runs forward twice under remat (the forward
-    and its recomputation in the backward) and backward once; the final
-    norm runs outside the recomputed layers."""
-    norms = 2 + 2 * cfg.post_block_norms + 2 * cfg.qk_norm
-    n = cfg.n_layers
+    """The launches ``steps`` training steps of ``cfg`` make: each block
+    (a layer, or zamba2's shared block at the head of a repeat group)
+    runs its norms, attention and scan forward twice under remat (the
+    forward and its recomputation in the backward) and backward once; a
+    Mamba layer has two norms and one scan, the shared block two norms
+    and one attention; the final norm runs outside the recomputed
+    blocks."""
+    from repro_torch.models import block_plan
+    kinds = cfg.layer_kinds()
+    norms = attn = scans = 0
+    for what, i in block_plan(cfg):
+        if what == "shared":
+            norms, attn = norms + 2, attn + 1
+        elif kinds[i] == "ssm":
+            norms, scans = norms + 2, scans + 1
+        else:
+            norms += 2 + 2 * cfg.post_block_norms + 2 * cfg.qk_norm
+            attn += 1
     fwd = 2 if remat else 1
-    return {"rmsnorm": steps * (fwd * norms * n + 1),
-            "rmsnorm_bwd": steps * (norms * n + 1),
-            "flash_attention": steps * fwd * n,
-            "flash_attention_bwd": steps * n}
+    return {"rmsnorm": steps * (fwd * norms + 1),
+            "rmsnorm_bwd": steps * (norms + 1),
+            "flash_attention": steps * fwd * attn,
+            "flash_attention_bwd": steps * attn,
+            "ssd_scan": steps * fwd * scans,
+            "ssd_scan_bwd": steps * scans}
+
+
+def zamba_cut(dev):
+    """zamba2-7b at full width cut in depth for training on one card: the
+    most layers of the form 6 k + 3 (whole repeat groups, the tail kept)
+    whose state, ``TRAIN_BYTES_PER_PARAM`` a parameter, and
+    ``TRAIN_ACT_GB`` of activations stay under ``TRAIN_PEAK_GB``. The
+    parameter count is read off a 9-layer instance on the card (one
+    group and the tail): its total, one Mamba layer's and one LoRA
+    slot's."""
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import init_params
+    full = ARCHS["zamba2-7b"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    probe = init_params(full.replace(n_layers=9), gen, dev)
+    total9 = sum(p.numel() for p in probe.parameters())
+    layer = sum(p.numel() for p in probe.layers[0].parameters())
+    lora = sum(p.numel() for p in probe.shared.lora[0].parameters())
+    del probe
+    torch.cuda.empty_cache()
+
+    def params(n):                  # n = 6 k + 3: k groups, k LoRA slots
+        return total9 + (n - 9) * layer + ((n - 3) // 6 - 1) * lora
+    fits = [n for n in range(9, full.n_layers + 1, 6)
+            if params(n) * TRAIN_BYTES_PER_PARAM / 1e9 + TRAIN_ACT_GB
+            <= TRAIN_PEAK_GB]
+    n = fits[-1]
+    print(f"train zamba2-7b cut: {n} of {full.n_layers} layers "
+          f"({(n - 3) // 6} groups of 6 + 3), {params(n)} parameters of "
+          f"{params(full.n_layers)} (one Mamba layer {layer}, one LoRA slot "
+          f"{lora}); {TRAIN_BYTES_PER_PARAM} bytes a parameter + "
+          f"{TRAIN_ACT_GB} GB of activations: "
+          f"{params(n) * TRAIN_BYTES_PER_PARAM / 1e9 + TRAIN_ACT_GB:.1f} GB "
+          f"of {TRAIN_PEAK_GB} (whole: "
+          f"{params(full.n_layers) * TRAIN_BYTES_PER_PARAM / 1e9:.1f} GB)")
+    return full.replace(n_layers=n)
 
 
 def grad_gate(label, cfg, dev, batch_of, ops):
@@ -2840,7 +2980,8 @@ def grad_gate(label, cfg, dev, batch_of, ops):
 
     from repro_torch.models import ShardCtx
     from repro_torch.runtime.train_loop import make_loss_fn
-    cfg = cfg.replace(n_layers=GRAD_LAYERS, dtype="float32")
+    layers = GRAD_LAYERS_BY_ARCH.get(cfg.name, GRAD_LAYERS)
+    cfg = cfg.replace(n_layers=layers, dtype="float32")
     _, params = load_model(f"{label} gradient gate", cfg, dev, seed=3)
     params.requires_grad_(True)
     batch = batch_of(cfg)
@@ -2857,7 +2998,7 @@ def grad_gate(label, cfg, dev, batch_of, ops):
     (lk, gk), (lp, gp) = out["kernel"], out["plain"]
     worst = max(((float((gk[k] - gp[k]).abs().max())
                   / max(float(gp[k].abs().max()), 1e-30), k) for k in gp))
-    print(f"{label} gradient gate (float32, {GRAD_LAYERS} layers, full "
+    print(f"{label} gradient gate (float32, {layers} layers, full "
           f"width): loss kernel {lk!r} plain {lp!r} rel "
           f"{abs(lk - lp) / abs(lp):.3e} (bound {GRAD_LOSS_REL}); worst "
           f"gradient {worst[1]} max|dg| / max|g| {worst[0]:.3e} (bound "
@@ -2892,6 +3033,8 @@ def train_phase(dev):
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import flash_attention_bwd_torch
     from repro_torch.kernels.rmsnorm import rmsnorm_bwd_torch
+    from repro_torch.kernels.ssd_scan import (ssd_scan_bwd_torch,
+                                              ssd_scan_torch)
     from repro_torch.models import ShardCtx
     from repro_torch.optim import OptConfig
     from repro_torch.runtime.train_loop import (Trainer, init_train_state,
@@ -2999,11 +3142,17 @@ def train_phase(dev):
         shutil.rmtree(ckpt_dir, ignore_errors=True)
         freed("train gemma2-2b")
 
-        # -- paligemma-3b and hubert-xlarge: one step each -----------------
+        # -- paligemma-3b, hubert-xlarge, mamba2-780m whole and zamba2-7b
+        #    at full width cut in depth: a warm-up step and two timed ------
         for label, name, run in (("paligemma-3b", "paligemma-3b", VLM_TRAIN),
                                  ("hubert-xlarge", "hubert-xlarge",
-                                  ENC_TRAIN)):
-            cfg = ARCHS[name]
+                                  ENC_TRAIN),
+                                 ("mamba2-780m", "mamba2-780m", SSM_TRAIN),
+                                 ("zamba2-7b", "zamba2-7b", SSM_TRAIN)):
+            cfg = zamba_cut(dev) if name == "zamba2-7b" else ARCHS[name]
+            print(f"train: {cfg.name} {cfg.n_layers} layers "
+                  f"d={cfg.d_model} {cfg.dtype} remat={cfg.remat} "
+                  f"B={run['batch']} S={run['seq']}")
             gen = torch.Generator(device=dev).manual_seed(0)
             state = init_train_state(cfg, opt, gen, dev)
             redraw(state["params"], gen, dev)
@@ -3043,6 +3192,9 @@ def train_phase(dev):
         grad_gate("hubert-xlarge", ARCHS["hubert-xlarge"], dev,
                   lambda c: lm_batch(c, ENC_TRAIN["batch"],
                                      ENC_TRAIN["seq"]), ops)
+        for name in ("mamba2-780m", "zamba2-7b"):
+            grad_gate(name, ARCHS[name], dev, lambda c: lm_batch(
+                c, SSM_TRAIN["batch"], SSM_TRAIN["seq"]), ops)
 
     # -- the backward kernels against their plain versions, timed --------
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -3074,6 +3226,23 @@ def train_phase(dev):
             rows["flash_attention_bwd"].append(attention_bwd_row(args, kw))
             print("flash_attention_bwd " + json.dumps(
                 rows["flash_attention_bwd"][-1]))
+    errs["ssd_scan_bwd"] = 0.0
+    rows["ssd_scan_bwd"] = []
+    for case, (args, kw) in spies["ssd_scan_bwd"].calls.items():
+        got = ops.ssd_scan_bwd(*args, **kw)
+        want = ssd_scan_bwd_torch(*args, **kw)
+        torch.cuda.synchronize()
+        for g, w, what in zip(got, want, ("dx", "ddt", "dA", "dB", "dC")):
+            ok, err = close_to_plain(g, w)
+            if not ok:
+                fail(f"ssd_scan_bwd {case} {what}: kernel off the plain "
+                     f"version (max abs err {err:.3e}, "
+                     f"{gate_ratio(g, w):.2f} of the gate)")
+            errs["ssd_scan_bwd"] = max(errs["ssd_scan_bwd"], err)
+        rows["ssd_scan_bwd"].append(ssd_bwd_row(args))
+        print("ssd_scan_bwd " + json.dumps(rows["ssd_scan_bwd"][-1]))
+        gc.collect()
+        torch.cuda.empty_cache()
     for case, (args, kw) in spies["rmsnorm_bwd"].calls.items():
         got = ops.rmsnorm_bwd(*args, **kw)
         want = rmsnorm_bwd_torch(*args, **kw)
@@ -3097,7 +3266,8 @@ def train_phase(dev):
     from repro_torch.kernels.flash_attention import flash_attention_torch
     from repro_torch.kernels.rmsnorm import rmsnorm_torch
     for name, plain in (("flash_attention", flash_attention_torch),
-                        ("rmsnorm", rmsnorm_torch)):
+                        ("rmsnorm", rmsnorm_torch),
+                        ("ssd_scan", ssd_scan_torch)):
         errs[name] = 0.0
         for case, (args, kw) in spies[name].calls.items():
             got = getattr(ops, name)(*args, **kw)
@@ -3111,25 +3281,31 @@ def train_phase(dev):
                          f"(max abs err {err:.3e})")
                 errs[name] = max(errs[name], err)
     print(f"training kernels within tolerance of their plain versions at "
-          f"{len(bwd_cases)} flash_attention_bwd and "
-          f"{len(spies['rmsnorm_bwd'].calls)} rmsnorm_bwd shapes: max abs "
+          f"{len(bwd_cases)} flash_attention_bwd, "
+          f"{len(spies['rmsnorm_bwd'].calls)} rmsnorm_bwd and "
+          f"{len(spies['ssd_scan_bwd'].calls)} ssd_scan_bwd shapes: max abs "
           f"err {errs}")
     print("train steps " + json.dumps(steps))
 
     sources = {"flash_attention_bwd": "flash_attention_bwd.cu",
-               "rmsnorm_bwd": "rmsnorm.cu"}
+               "rmsnorm_bwd": "rmsnorm.cu", "ssd_scan_bwd": "ssd_scan.cu"}
+    replaces = {
+        "flash_attention_bwd": "_flash_bwd, src/repro/models/layers.py:352",
+        "rmsnorm_bwd": "rms_norm by autodiff, src/repro/models/layers.py:26",
+        "ssd_scan_bwd": "ssd_chunked by autodiff, src/repro/models/ssm.py:29"
+                        " (the Pallas ssd_scan, src/repro/kernels/"
+                        "ssd_scan.py:74, has no VJP)"}
     entries = []
-    for name in ("flash_attention_bwd", "rmsnorm_bwd"):
-        main = max(rows[name], key=lambda r: r["bytes"]) \
+    for name in ("flash_attention_bwd", "rmsnorm_bwd", "ssd_scan_bwd"):
+        bf16_rows = [r for r in rows[name] if "bfloat16" in r["shape"]] \
+            or rows[name]
+        main = max(bf16_rows, key=lambda r: r["bytes"]) \
             if name == "rmsnorm_bwd" else \
-            max(rows[name], key=lambda r: r["flops"])
+            max(bf16_rows, key=lambda r: r["flops"])
         entries.append(dict(
             name=name, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{sources[name]}",
-            replaces="none: the reference differentiates "
-                     + ("_flash_bwd, src/repro/models/layers.py:352"
-                        if name == "flash_attention_bwd" else
-                        "rms_norm by autodiff, src/repro/models/layers.py:26"),
+            replaces="none: the reference differentiates " + replaces[name],
             launches=sum(launches[r][name] for r in launches),
             launches_by_path={r: launches[r][name] for r in launches},
             max_abs_err=errs[name], ms=main["ms"], plain_ms=main["plain_ms"],
@@ -3137,7 +3313,7 @@ def train_phase(dev):
             library_ms=main["library_ms"], shape=main["shape"],
             rows=rows[name]))
     fwd = {k: {r: launches[r][k] for r in launches}
-           for k in ("rmsnorm", "flash_attention")}
+           for k in ("rmsnorm", "flash_attention", "ssd_scan")}
     return entries, fwd, {k: errs[k] for k in fwd}
 
 
@@ -3515,6 +3691,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     train_entries, train_fwd, train_err = train_phase(dev)
+    ssd_entry["launches"] += sum(train_fwd["ssd_scan"].values())
+    ssd_entry["launches_by_path"].update(train_fwd["ssd_scan"])
+    ssd_entry["max_abs_err"] = max(ssd_entry["max_abs_err"],
+                                   train_err["ssd_scan"])
     for row in serve_rows:
         name = row["name"]
         row["launches"] += sum(fe_launches[name].values())

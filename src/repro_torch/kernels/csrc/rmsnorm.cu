@@ -54,6 +54,7 @@ namespace {
 constexpr int kThreads = 128;      // threads per block (both paths)
 constexpr int kMaxVecs = 4;        // 16-byte vectors a thread holds
 constexpr int kMaxRowThreads = 1024;
+constexpr int kMaxBwdWidth = 56000;  // the backward's scalar path: d float32
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -271,19 +272,56 @@ void launch(const void* x, const void* w, void* out, long long rows, int d,
 //
 // This is what the reference gets from autodiff of layers.rms_norm; there
 // is no Pallas backward kernel. Bytes bound it, as the forward: x and dy
-// read once, dx written once, dw's partials (P x d float32, P <= 256) once
-// each way.
-//  * rmsnorm_bwd_rows_kernel: block p of P takes rows p, p + P, p + 2P,
-//    ... in that order. Per row: the sum of squares and the sum of
-//    x w' dy (block reductions in a fixed order), then dx, and dy x^ added
-//    to the block's float32 column sums in shared memory (each column
-//    owned by one thread). At the end the block writes its d partials.
-//  * rmsnorm_bwd_cols_kernel: dw[c] = the sum of the P partials of column
-//    c in block order, cast to w's type.
-//  * No atomics: two launches give equal bits.
+// read once, dx written once (at gemma2-2b's training shape, 2 x 1024 rows
+// of 2304 bf16, 28.3 MB: 0.0085 ms at 3.35 TB/s), w read and dw written
+// once; the partials of dw (one row of d float32 per block, 264 rows at
+// the path's widths) stay in the 50 MB L2.
+//
+// Vector path (rmsnorm_bwd_vec_kernel, the forward's layout):
+//  * Threads per row by width, as the forward's row_threads: the fewest of
+//    32, ..., 512 that hold the row in 4 vectors of 16 bytes each, so x
+//    and dy are read once, with 16-byte loads, and kept in registers from
+//    the row sums to dx (bf16: 64 threads at 1280-2048, 128 at 2304-4096,
+//    256 at 7168; float32 twice as many).
+//  * w' (1 + w when zero-centred) loaded once per block: a thread keeps
+//    the same columns for every row of its block, so its dw sums stay in
+//    registers too.
+//  * 256-thread blocks (one or more rows each), as many as fill the card
+//    (the occupancy calculator's blocks per SM x SMs: two an SM at the
+//    path's widths, or fewer when the rows run out); each takes rows
+//    blockIdx, blockIdx + grid, ... of its row group. One __syncthreads
+//    per row (the two row sums through a double-buffered shared array),
+//    none when a warp holds the row.
+//  * At the end the block folds its row groups' dw sums in order and
+//    writes one partial row, 16 bytes a store.
+//  * rmsnorm_bwd_cols_kernel: 32 columns x 16 slices of the partials a
+//    block, each slice summed in a fixed order (four running sums), then
+//    the 16 in order, cast to w's type: parallel over columns and over
+//    the partials. (One cooperative launch with a grid-wide sync before
+//    the column sums measured 0.0202-0.0203 ms at gemma2's shape against
+//    the two launches' 0.0193: not kept.)
+// Scalar path (what the vector path cannot take: d not a multiple of the
+// vector, a pointer not 16-byte aligned, rows wider than 512 threads x 4
+// vectors): one 256-thread block per partial, 256 at most, rows p, p + P,
+// ... each, the row read twice (sums, then dx) and dw summed in shared
+// memory (d float32), then the same column kernel.
+//  * No atomics on either path: two launches give equal bits.
+//  * The shared-memory attribute of the scalar path is set once per
+//    instantiation and device; the occupancy of the vector path is asked
+//    once likewise.
 
-constexpr int kBwdThreads = 256;
-constexpr int kBwdMaxBlocks = 256;
+constexpr int kBwdThreads = 256;             // scalar path
+constexpr int kBwdMaxBlocks = 256;            // scalar path
+constexpr int kBwdVecThreads = 256;           // vector path, a block
+constexpr int kBwdMaxRowThreads = 512;        // vector path, a row
+constexpr int kColSlices = 16;
+
+// threads of a vector-path block at kTpr threads per row: 256, or one
+// row when that is wider
+template <int kTpr> __host__ __device__ constexpr int bwd_block() {
+  return kTpr > kBwdVecThreads ? kTpr : kBwdVecThreads;
+}
+constexpr int kMaxDevices = 64;
 
 __device__ __forceinline__ float2 block_sum2(float a, float b,
                                              float2* scratch) {
@@ -302,6 +340,38 @@ __device__ __forceinline__ float2 block_sum2(float a, float b,
   const float2 out = scratch[kBwdThreads / 32];
   __syncthreads();                   // scratch is reused by the next row
   return out;
+}
+
+// dw[c] for the 32 columns c0 = 32 blockIdx .. c0 + 31: the sum of the
+// n_parts partials of each column in a fixed order, by 32 x kColSlices
+// threads: slice y sums partials y, y + S, ... (four running sums, so
+// four loads are in flight, added in order), then the S slices are summed
+// in order.
+template <typename TW>
+__global__ void __launch_bounds__(32 * kColSlices)
+rmsnorm_bwd_cols_kernel(const float* __restrict__ partials,
+                        TW* __restrict__ dw, int n_parts, int d) {
+  constexpr int S = kColSlices;
+  __shared__ float part[S * 33];
+  const int lane = threadIdx.x & 31, slice = threadIdx.x >> 5;
+  const int c = blockIdx.x * 32 + lane;
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  if (c < d) {
+    int p = slice;
+    for (; p + 3 * S < n_parts; p += 4 * S)
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        acc[u] += partials[static_cast<long long>(p + u * S) * d + c];
+    for (; p < n_parts; p += S)
+      acc[0] += partials[static_cast<long long>(p) * d + c];
+  }
+  part[slice * 33 + lane] = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+  __syncthreads();
+  if (slice == 0 && c < d) {
+    float t = 0.0f;
+    for (int i = 0; i < S; ++i) t += part[i * 33 + lane];
+    dw[c] = from_f32<TW>(t);
+  }
 }
 
 template <typename TX, typename TW>
@@ -341,41 +411,270 @@ rmsnorm_bwd_rows_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
   for (int c = threadIdx.x; c < d; c += kBwdThreads) out[c] = dw_acc[c];
 }
 
-template <typename TW>
-__global__ void __launch_bounds__(kBwdThreads)
-rmsnorm_bwd_cols_kernel(const float* __restrict__ partials,
-                        TW* __restrict__ dw, int n_parts, int d) {
-  const int c = blockIdx.x * kBwdThreads + threadIdx.x;
-  if (c >= d) return;
-  float acc = 0.0f;
-  for (int p = 0; p < n_parts; ++p)
-    acc += partials[static_cast<long long>(p) * d + c];
-  dw[c] = from_f32<TW>(acc);
+// the V = 16 / sizeof(T) elements of one 16-byte vector as float32
+template <typename T, int n>
+__device__ __forceinline__ void unpack(const uint4& raw, float (&f)[n]) {
+  T tmp[n];
+  memcpy(tmp, &raw, 16);
+#pragma unroll
+  for (int i = 0; i < n; ++i) f[i] = to_f32(tmp[i]);
 }
 
-int bwd_blocks(long long rows) {
-  return static_cast<int>(rows < kBwdMaxBlocks ? rows : kBwdMaxBlocks);
+// kTpr threads per row, bwd_block / kTpr row groups a block; V elements of
+// x per 16-byte vector, thread `lane` of a row holding vectors lane,
+// lane + kTpr, ... (at most kMaxVecs).
+template <typename TX, typename TW, int kTpr>
+__global__ void __launch_bounds__(bwd_block<kTpr>())
+rmsnorm_bwd_vec_kernel(const TX* __restrict__ x, const TW* __restrict__ w,
+                       const TX* __restrict__ dy, TX* __restrict__ dx,
+                       float* __restrict__ partials, long long rows, int d,
+                       float eps, int zero_centered) {
+  constexpr int V = 16 / static_cast<int>(sizeof(TX));
+  constexpr int kRows = bwd_block<kTpr>() / kTpr;
+  constexpr int kWarps = kTpr / 32;
+  __shared__ float2 sums[2][kRows][kWarps];
+  __shared__ __align__(16) float stage[kRows > 1 ? kTpr * kMaxVecs * V : 4];
+  const int group = threadIdx.x / kTpr;
+  const int lane = threadIdx.x % kTpr;
+  const int nv = d / V;
+
+  float wv[kMaxVecs][V], acc[kMaxVecs][V];
+#pragma unroll
+  for (int i = 0; i < kMaxVecs; ++i) {
+    const int vi = lane + i * kTpr;
+#pragma unroll
+    for (int e = 0; e < V; ++e) acc[i][e] = 0.0f;
+    if (vi < nv) {
+      load_f32<TW, V>(w + vi * V, wv[i]);
+#pragma unroll
+      for (int e = 0; e < V; ++e)
+        if (zero_centered) wv[i][e] += 1.0f;
+    }
+  }
+
+  int parity = 0;
+  for (long long base = static_cast<long long>(blockIdx.x) * kRows;
+       base < rows; base += static_cast<long long>(gridDim.x) * kRows) {
+    const long long row = base + group;
+    const bool live = row < rows;
+    const TX* xr = x + row * d;
+    const TX* gr = dy + row * d;
+    uint4 xraw[kMaxVecs], graw[kMaxVecs];    // the row's slice, as loaded
+    float ss = 0.0f, g = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kMaxVecs; ++i) {
+      const int vi = lane + i * kTpr;
+      if (live && vi < nv) {
+        xraw[i] = *reinterpret_cast<const uint4*>(xr + vi * V);
+        graw[i] = *reinterpret_cast<const uint4*>(gr + vi * V);
+        float xv[V], gv[V];
+        unpack<TX>(xraw[i], xv);
+        unpack<TX>(graw[i], gv);
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          ss = fmaf(xv[e], xv[e], ss);
+          g = fmaf(xv[e] * wv[i][e], gv[e], g);
+        }
+      }
+    }
+    ss = warp_sum(ss);
+    g = warp_sum(g);
+    if constexpr (kWarps > 1) {
+      if (threadIdx.x % 32 == 0)
+        sums[parity][group][lane / 32] = make_float2(ss, g);
+      __syncthreads();
+      ss = 0.0f;
+      g = 0.0f;
+#pragma unroll
+      for (int i = 0; i < kWarps; ++i) {
+        ss += sums[parity][group][i].x;
+        g += sums[parity][group][i].y;
+      }
+      parity ^= 1;
+    }
+    if (!live) continue;
+    const float r = 1.0f / sqrtf(ss / static_cast<float>(d) + eps);
+    const float mean = g * r / static_cast<float>(d);        // of x^ w' dy
+    TX* dxr = dx + row * d;
+#pragma unroll
+    for (int i = 0; i < kMaxVecs; ++i) {
+      const int vi = lane + i * kTpr;
+      if (vi < nv) {
+        float xv[V], gv[V];
+        unpack<TX>(xraw[i], xv);
+        unpack<TX>(graw[i], gv);
+        TX o[V];
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          const float xh = xv[e] * r;
+          o[e] = from_f32<TX>((wv[i][e] * gv[e] - xh * mean) * r);
+          acc[i][e] = fmaf(gv[e], xh, acc[i][e]);
+        }
+        uint4 raw;
+        memcpy(&raw, o, 16);
+        *reinterpret_cast<uint4*>(dxr + vi * V) = raw;
+      }
+    }
+  }
+
+  // fold the row groups' sums into group 0's, in group order
+  for (int src = 1; src < kRows; ++src) {
+    __syncthreads();
+    if (group == src) {
+#pragma unroll
+      for (int i = 0; i < kMaxVecs; ++i) {
+        const int vi = lane + i * kTpr;
+        if (vi < nv)
+#pragma unroll
+          for (int e = 0; e < V; ++e) stage[vi * V + e] = acc[i][e];
+      }
+    }
+    __syncthreads();
+    if (group == 0) {
+#pragma unroll
+      for (int i = 0; i < kMaxVecs; ++i) {
+        const int vi = lane + i * kTpr;
+        if (vi < nv)
+#pragma unroll
+          for (int e = 0; e < V; ++e) acc[i][e] += stage[vi * V + e];
+      }
+    }
+  }
+  if (group != 0) return;
+  float* out = partials + static_cast<long long>(blockIdx.x) * d;
+#pragma unroll
+  for (int i = 0; i < kMaxVecs; ++i) {
+    const int vi = lane + i * kTpr;
+    if (vi < nv)
+#pragma unroll
+      for (int e = 0; e < V; e += 4)
+        *reinterpret_cast<float4*>(out + vi * V + e) =
+            make_float4(acc[i][e], acc[i][e + 1], acc[i][e + 2],
+                        acc[i][e + 3]);
+  }
+}
+
+int current_device() {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  return dev < kMaxDevices ? dev : kMaxDevices - 1;
+}
+
+int sm_count() {
+  static int sms[kMaxDevices] = {};
+  const int dev = current_device();
+  if (sms[dev] == 0)
+    cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+  return sms[dev] > 0 ? sms[dev] : 1;
+}
+
+// Threads per row of the backward's vector path (0: the scalar path)
+template <typename TX> int bwd_row_threads(int d) {
+  const int tpr = row_threads<TX>(d);
+  return tpr <= kBwdMaxRowThreads ? tpr : 0;
+}
+
+// Blocks of the vector path at kTpr: what fills the card, or one per row
+// group when the rows run out.
+template <typename TX, typename TW, int kTpr>
+int vec_blocks(long long rows) {
+  constexpr int kRows = bwd_block<kTpr>() / kTpr;
+  static int per_sm[kMaxDevices] = {};
+  const int dev = current_device();
+  if (per_sm[dev] == 0) {
+    int n = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, rmsnorm_bwd_vec_kernel<TX, TW, kTpr>, bwd_block<kTpr>(), 0);
+    per_sm[dev] = n > 0 ? n : 1;
+  }
+  const long long full = static_cast<long long>(per_sm[dev]) * sm_count();
+  const long long groups = (rows + kRows - 1) / kRows;
+  return static_cast<int>(groups < full ? groups : full);
+}
+
+template <typename TX, typename TW>
+int bwd_parts(long long rows, int d, bool aligned) {
+  switch (aligned ? bwd_row_threads<TX>(d) : 0) {
+    case 32: return vec_blocks<TX, TW, 32>(rows);
+    case 64: return vec_blocks<TX, TW, 64>(rows);
+    case 128: return vec_blocks<TX, TW, 128>(rows);
+    case 256: return vec_blocks<TX, TW, 256>(rows);
+    case 512: return vec_blocks<TX, TW, 512>(rows);
+    default:
+      return static_cast<int>(rows < kBwdMaxBlocks ? rows : kBwdMaxBlocks);
+  }
+}
+
+template <typename TX, typename TW, int kTpr>
+void launch_bwd_vec(const void* x, const void* w, const void* dy, void* dx,
+                    float* partials, int parts, long long rows, int d,
+                    float eps, int zero_centered, cudaStream_t stream) {
+  rmsnorm_bwd_vec_kernel<TX, TW, kTpr>
+      <<<parts, bwd_block<kTpr>(), 0, stream>>>(
+          static_cast<const TX*>(x), static_cast<const TW*>(w),
+          static_cast<const TX*>(dy), static_cast<TX*>(dx), partials, rows,
+          d, eps, zero_centered);
+}
+
+// the scalar path's shared memory, allowed once per instantiation and
+// device up to the widest row it takes
+template <typename TX, typename TW>
+cudaError_t allow_bwd_rows_shared() {
+  static bool done[kMaxDevices] = {};
+  const int dev = current_device();
+  if (done[dev]) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      rmsnorm_bwd_rows_kernel<TX, TW>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(sizeof(float) * kMaxBwdWidth));
+  done[dev] = err == cudaSuccess;
+  return err;
 }
 
 template <typename TX, typename TW>
 int launch_bwd(const void* x, const void* w, const void* dy, void* dx,
-               void* dw, float* partials, long long rows, int d, float eps,
-               int zero_centered, cudaStream_t stream) {
-  const int parts = bwd_blocks(rows);
-  const size_t smem = sizeof(float) * static_cast<size_t>(d);
-  cudaError_t err = cudaFuncSetAttribute(
-      rmsnorm_bwd_rows_kernel<TX, TW>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+               void* dw, float* partials, int parts, long long rows, int d,
+               float eps, int zero_centered, cudaStream_t stream) {
+  const bool aligned = aligned16(x) && aligned16(w) && aligned16(dy) &&
+                       aligned16(dx) && aligned16(partials);
+  if (parts != bwd_parts<TX, TW>(rows, d, aligned))
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (aligned ? bwd_row_threads<TX>(d) : 0) {
+    case 32:
+      launch_bwd_vec<TX, TW, 32>(x, w, dy, dx, partials, parts, rows, d, eps,
+                                 zero_centered, stream);
+      break;
+    case 64:
+      launch_bwd_vec<TX, TW, 64>(x, w, dy, dx, partials, parts, rows, d, eps,
+                                 zero_centered, stream);
+      break;
+    case 128:
+      launch_bwd_vec<TX, TW, 128>(x, w, dy, dx, partials, parts, rows, d,
+                                  eps, zero_centered, stream);
+      break;
+    case 256:
+      launch_bwd_vec<TX, TW, 256>(x, w, dy, dx, partials, parts, rows, d,
+                                  eps, zero_centered, stream);
+      break;
+    case 512:
+      launch_bwd_vec<TX, TW, 512>(x, w, dy, dx, partials, parts, rows, d,
+                                  eps, zero_centered, stream);
+      break;
+    default: {
+      const cudaError_t err = allow_bwd_rows_shared<TX, TW>();
+      if (err != cudaSuccess) return static_cast<int>(err);
+      rmsnorm_bwd_rows_kernel<TX, TW>
+          <<<parts, kBwdThreads, sizeof(float) * static_cast<size_t>(d),
+             stream>>>(static_cast<const TX*>(x), static_cast<const TW*>(w),
+                       static_cast<const TX*>(dy), static_cast<TX*>(dx),
+                       partials, rows, d, eps, zero_centered);
+    }
+  }
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  rmsnorm_bwd_rows_kernel<TX, TW><<<parts, kBwdThreads, smem, stream>>>(
-      static_cast<const TX*>(x), static_cast<const TW*>(w),
-      static_cast<const TX*>(dy), static_cast<TX*>(dx), partials, rows, d,
-      eps, zero_centered);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  rmsnorm_bwd_cols_kernel<TW>
-      <<<(d + kBwdThreads - 1) / kBwdThreads, kBwdThreads, 0, stream>>>(
-          partials, static_cast<TW*>(dw), parts, d);
+  rmsnorm_bwd_cols_kernel<TW><<<(d + 31) / 32, 32 * kColSlices, 0,
+                                stream>>>(partials, static_cast<TW*>(dw),
+                                          parts, d);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -412,32 +711,54 @@ extern "C" const char* rmsnorm_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Rows of dw partials the backward writes for `rows` rows (the wrapper
-// allocates partials of (rmsnorm_bwd_blocks(rows), d) float32).
-extern "C" int rmsnorm_bwd_blocks(long long rows) { return bwd_blocks(rows); }
+// Rows of dw partials the backward writes for `rows` rows of d elements
+// (dtype codes as rmsnorm; aligned: x, w, dy, dx and the partials all
+// 16-byte aligned). The wrapper allocates partials of that many rows of
+// d float32.
+extern "C" int rmsnorm_bwd_blocks(long long rows, int d, int x_dtype,
+                                  int w_dtype, int aligned) {
+  const bool a = aligned != 0;
+  if (x_dtype == 0)
+    return w_dtype == 0 ? bwd_parts<float, float>(rows, d, a)
+                        : bwd_parts<float, __nv_bfloat16>(rows, d, a);
+  return w_dtype == 0 ? bwd_parts<__nv_bfloat16, float>(rows, d, a)
+                      : bwd_parts<__nv_bfloat16, __nv_bfloat16>(rows, d, a);
+}
+
+// Threads per row of the backward's vector path for a row of d elements
+// of dtype code x_dtype with aligned pointers (0: the scalar path).
+extern "C" int rmsnorm_bwd_row_threads(int d, int x_dtype) {
+  return x_dtype == 0 ? bwd_row_threads<float>(d)
+                      : bwd_row_threads<__nv_bfloat16>(d);
+}
 
 // The backward: dx (rows, d) in x's type and dw (d,) in w's type from x,
-// w and dy (dy in x's type), with `partials` as scratch. Two launches on
-// `stream`; returns the first CUDA error (0 = ok). The caller has checked
-// shapes, types and contiguity, and that rows and d are non-zero; d at
-// most 56,000 (its float32 column sums fill a block's shared memory).
+// w and dy (dy in x's type), with `partials` (rmsnorm_bwd_blocks rows of
+// d float32, `parts`) as scratch. Two launches on `stream`; returns the
+// first CUDA error (0 = ok; cudaErrorInvalidValue when `parts` is not what
+// rmsnorm_bwd_blocks gives these pointers). The caller has checked shapes,
+// types and contiguity, and that rows and d are non-zero; d at most
+// 56,000 (the scalar path's float32 column sums fill a block's shared
+// memory).
 extern "C" int rmsnorm_bwd(const void* x, const void* w, const void* dy,
-                           void* dx, void* dw, float* partials,
+                           void* dx, void* dw, float* partials, int parts,
                            long long rows, int d, float eps,
                            int zero_centered, int x_dtype, int w_dtype,
                            void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_dtype == 0 && w_dtype == 0)
-    return launch_bwd<float, float>(x, w, dy, dx, dw, partials, rows, d, eps,
-                                    zero_centered, s);
+    return launch_bwd<float, float>(x, w, dy, dx, dw, partials, parts, rows,
+                                    d, eps, zero_centered, s);
   if (x_dtype == 0 && w_dtype == 1)
-    return launch_bwd<float, __nv_bfloat16>(x, w, dy, dx, dw, partials, rows,
-                                            d, eps, zero_centered, s);
+    return launch_bwd<float, __nv_bfloat16>(x, w, dy, dx, dw, partials,
+                                            parts, rows, d, eps,
+                                            zero_centered, s);
   if (x_dtype == 1 && w_dtype == 0)
-    return launch_bwd<__nv_bfloat16, float>(x, w, dy, dx, dw, partials, rows,
-                                            d, eps, zero_centered, s);
+    return launch_bwd<__nv_bfloat16, float>(x, w, dy, dx, dw, partials,
+                                            parts, rows, d, eps,
+                                            zero_centered, s);
   if (x_dtype == 1 && w_dtype == 1)
     return launch_bwd<__nv_bfloat16, __nv_bfloat16>(
-        x, w, dy, dx, dw, partials, rows, d, eps, zero_centered, s);
+        x, w, dy, dx, dw, partials, parts, rows, d, eps, zero_centered, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -464,6 +464,27 @@ def flash_decode(q, k_cache, v_cache, pos, *, scale: float | None = None,
 flash_decode.launches = 0
 
 
+def _check_scan(name, x, dt, A, B, C, chunk) -> torch.device:
+    device = _check_tensors(
+        name, dict(x=x, dt=dt, A=A, B=B, C=C),
+        dict(x=FLOAT_TYPES, dt=torch.float32, A=torch.float32,
+             B=FLOAT_TYPES, C=FLOAT_TYPES))
+    _check_one_type(name, x=x, B=B, C=C)
+    _check_rank(f"{name}.x", x, 4, "(B, S, H, P)")
+    _check_rank(f"{name}.B", B, 4, "(B, S, G, N)")
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    check_shape(f"{name}.dt", dt, (b, s, h))
+    check_shape(f"{name}.A", A, (h,))
+    check_shape(f"{name}.B", B, (b, s, g, n))
+    check_shape(f"{name}.C", C, (b, s, g, n))
+    if g == 0 or h % g:
+        raise ValueError(f"{name}: {g} groups do not divide {h} heads")
+    if not isinstance(chunk, int) or chunk < 1:
+        raise ValueError(f"{name}: chunk {chunk!r} must be an int >= 1")
+    return device
+
+
 def ssd_scan(x, dt, A, B, C, chunk: int = 256):
     """The Mamba-2 SSD chunked scan (see :mod:`.ssd_scan`): ``x`` (B, S,
     H, P), float32 ``dt`` (B, S, H), float32 ``A`` (H,), ``B``/``C`` (B, S,
@@ -471,23 +492,9 @@ def ssd_scan(x, dt, A, B, C, chunk: int = 256):
     bfloat16), all contiguous on one device; ``chunk`` >= 1 and any S
     (the ragged tail acts as ``dt = 0`` padding). Returns (y (B, S, H,
     P), final state (B, H, P, N)), both in x's type."""
-    device = _check_tensors(
-        "ssd_scan", dict(x=x, dt=dt, A=A, B=B, C=C),
-        dict(x=FLOAT_TYPES, dt=torch.float32, A=torch.float32,
-             B=FLOAT_TYPES, C=FLOAT_TYPES))
-    _check_one_type("ssd_scan", x=x, B=B, C=C)
-    _check_rank("ssd_scan.x", x, 4, "(B, S, H, P)")
-    _check_rank("ssd_scan.B", B, 4, "(B, S, G, N)")
+    device = _check_scan("ssd_scan", x, dt, A, B, C, chunk)
     b, s, h, p = x.shape
-    g, n = B.shape[2], B.shape[3]
-    check_shape("ssd_scan.dt", dt, (b, s, h))
-    check_shape("ssd_scan.A", A, (h,))
-    check_shape("ssd_scan.B", B, (b, s, g, n))
-    check_shape("ssd_scan.C", C, (b, s, g, n))
-    if g == 0 or h % g:
-        raise ValueError(f"ssd_scan: {g} groups do not divide {h} heads")
-    if not isinstance(chunk, int) or chunk < 1:
-        raise ValueError(f"ssd_scan: chunk {chunk!r} must be an int >= 1")
+    n = B.shape[3]
     if device.type == "cpu":
         return _ssd.ssd_scan_torch(x, dt, A, B, C, chunk)
     why = _ssd.refusal(p, n, chunk)
@@ -502,3 +509,41 @@ def ssd_scan(x, dt, A, B, C, chunk: int = 256):
 
 
 ssd_scan.launches = 0
+
+
+def ssd_scan_bwd(x, dt, A, B, C, dy, dfinal=None, chunk: int = 256):
+    """The gradients of :func:`ssd_scan` (see :mod:`.ssd_scan`): its
+    inputs as there, ``dy`` (B, S, H, P) in x's type and ``dfinal`` (B,
+    H, P, N) in x's type or None (no gradient reaches the final state),
+    contiguous on the inputs' device. Returns (dx, ddt, dA, dB, dC): dx,
+    dB and dC in x's type, ddt (B, S, H) and dA (H,) float32.
+    ``launches`` counts calls that ran the kernels (eight launches each:
+    the recomputed chunk states and their carry, the chunk state
+    gradients and their carry back, the key and query sides of each
+    chunk, the reverse cumsum, the sums over heads and chunks)."""
+    name = "ssd_scan_bwd"
+    device = _check_scan(name, x, dt, A, B, C, chunk)
+    b, s, h, p = x.shape
+    n = B.shape[3]
+    grads = dict(dy=dy) if dfinal is None else dict(dy=dy, dfinal=dfinal)
+    _check_tensors(name, grads, dict(dy=x.dtype, dfinal=x.dtype))
+    check_shape(f"{name}.dy", dy, (b, s, h, p))
+    if dfinal is not None:
+        check_shape(f"{name}.dfinal", dfinal, (b, h, p, n))
+    if len({t.device for t in (x, *grads.values())}) != 1:
+        raise ValueError(f"{name}: inputs on several devices")
+    if device.type == "cpu":
+        return _ssd.ssd_scan_bwd_torch(x, dt, A, B, C, dy, dfinal, chunk)
+    why = _ssd.bwd_refusal(p, n, chunk)
+    if why is not None:
+        raise ValueError(f"{name}: {why}")
+    if x.numel() == 0 or n == 0:
+        return (torch.zeros_like(x), torch.zeros_like(dt),
+                torch.zeros_like(A), torch.zeros_like(B),
+                torch.zeros_like(C))
+    grads = _ssd.ssd_scan_bwd_cuda(x, dt, A, B, C, dy, dfinal, chunk)
+    ssd_scan_bwd.launches += 1
+    return grads
+
+
+ssd_scan_bwd.launches = 0

@@ -16,7 +16,9 @@ The backward,
 with ``x^ = x r`` and ``r = rsqrt(mean(x^2) + eps)``, is what the
 reference gets from autodiff of ``layers.rms_norm``; float32 between the
 loads and the casts, dx in x's type and dw in w's. The CUDA kernels live
-in ``csrc/rmsnorm.cu``; :func:`repro_torch.kernels.ops.rmsnorm` and
+in ``csrc/rmsnorm.cu`` (the backward's row pass lays rows out as the
+forward does, threads per row by width; :func:`bwd_plan` gives its
+plan); :func:`repro_torch.kernels.ops.rmsnorm` and
 :func:`repro_torch.kernels.ops.rmsnorm_bwd` are the guarded entry points
 that pick between the plain versions and the kernels.
 """
@@ -68,6 +70,18 @@ def row_threads(d: int, dtype: torch.dtype) -> int:
     return _launcher()[2](d, DTYPE_CODES[dtype])
 
 
+def bwd_plan(rows: int, d: int, x_dtype: torch.dtype, w_dtype: torch.dtype,
+             aligned: bool = True) -> tuple[int, int]:
+    """(threads per row, blocks) of the backward's row pass for ``rows``
+    rows of ``d`` (from the library, on the current device): threads
+    per row 0 is the scalar path; the blocks are the partial rows of dw
+    that the column pass sums."""
+    lib = _launcher()
+    threads = lib[5](d, DTYPE_CODES[x_dtype]) if aligned else 0
+    return threads, lib[4](rows, d, DTYPE_CODES[x_dtype],
+                           DTYPE_CODES[w_dtype], int(aligned))
+
+
 @functools.cache
 def _launcher():
     lib = build.load("rmsnorm")
@@ -83,14 +97,17 @@ def _launcher():
     threads.argtypes = [ctypes.c_int, ctypes.c_int]
     threads.restype = ctypes.c_int
     bwd = lib.rmsnorm_bwd
-    bwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_int,
-                                            ctypes.c_float] \
+    bwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_longlong,
+                                            ctypes.c_int, ctypes.c_float] \
         + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     bwd.restype = ctypes.c_int
     blocks = lib.rmsnorm_bwd_blocks
-    blocks.argtypes = [ctypes.c_longlong]
+    blocks.argtypes = [ctypes.c_longlong] + [ctypes.c_int] * 4
     blocks.restype = ctypes.c_int
-    return fn, err_str, threads, bwd, blocks
+    bwd_threads = lib.rmsnorm_bwd_row_threads
+    bwd_threads.argtypes = [ctypes.c_int, ctypes.c_int]
+    bwd_threads.restype = ctypes.c_int
+    return fn, err_str, threads, bwd, blocks, bwd_threads
 
 
 def rmsnorm_cuda(x, w, *, eps: float = 1e-6,
@@ -119,16 +136,18 @@ def rmsnorm_bwd_cuda(x, w, dy, *, eps: float = 1e-6,
     returns (dx, dw). Unguarded: the caller has checked shapes, types
     (dy in x's type), contiguity, the width (:data:`MAX_BWD_WIDTH`) and
     that nothing is empty."""
-    _, err_str, _, bwd, blocks = _launcher()
+    err_str, bwd = _launcher()[1], _launcher()[3]
     d = x.shape[-1]
     rows = x.numel() // d
     dx = torch.empty_like(x)
     dw = torch.empty_like(w)
-    partials = torch.empty((blocks(rows), d), dtype=torch.float32,
-                           device=x.device)
     with torch.cuda.device(x.device):
+        aligned = all(t.data_ptr() % 16 == 0 for t in (x, w, dy))
+        parts = bwd_plan(rows, d, x.dtype, w.dtype, aligned)[1]
+        partials = torch.empty((parts, d), dtype=torch.float32,
+                               device=x.device)
         err = bwd(x.data_ptr(), w.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-                  dw.data_ptr(), partials.data_ptr(), rows, d, eps,
+                  dw.data_ptr(), partials.data_ptr(), parts, rows, d, eps,
                   int(zero_centered), DTYPE_CODES[x.dtype],
                   DTYPE_CODES[w.dtype],
                   torch.cuda.current_stream().cuda_stream)

@@ -20,12 +20,20 @@ sum (a parallel scan on the card, a sequential one here). Any S >= 1 is
 taken: the ragged last chunk behaves as ``dt = 0`` padding (exact: decay
 1, no update), and ``y`` covers the real positions only.
 
-The CUDA kernel lives in ``csrc/ssd_scan.cu``: three passes (the
-chunks' local states, the carry between chunks, the chunks' outputs),
-bf16 products on the tensor cores with float32 operands split into bf16
-hi + lo, float32 on SIMT FMAs;
-:func:`repro_torch.kernels.ops.ssd_scan` is the guarded entry point that
-picks between the two.
+The backward (:func:`ssd_scan_bwd_torch`) takes ``dy`` and the final
+state's gradient and gives x, dt, A, B and C theirs, with explicit
+chunked formulas in the same float32 (its reverse cumsum, like the
+forward's cumsum, summed in float64 and rounded once).
+
+The CUDA kernels live in ``csrc/ssd_scan.cu``: the forward in three
+passes (the chunks' local states, the carry between chunks, the chunks'
+outputs), the backward in eight (the forward's first two again, the
+state gradients and their carry back, the key and query sides of each
+chunk, the reverse cumsum, the sums over heads); bf16 products on the
+tensor cores with float32 operands split into bf16 hi + lo, float32 on
+SIMT FMAs. :func:`repro_torch.kernels.ops.ssd_scan` and
+:func:`repro_torch.kernels.ops.ssd_scan_bwd` are the guarded entry
+points that pick between the plain versions and the kernels.
 """
 
 from __future__ import annotations
@@ -43,9 +51,25 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 def chunk_cumsum(da: torch.Tensor) -> torch.Tensor:
     """Inclusive cumsum over the last axis, summed in float64 and
-    rounded once to float32 (what the kernel computes)."""
+    rounded once to da's type (what the kernel computes)."""
     # the kernel sums in float64 too
-    return torch.cumsum(da.double(), dim=-1).float()  # lint: dtype-ok
+    return torch.cumsum(da.double(), dim=-1).to(da.dtype)  # lint: dtype-ok
+
+
+def chunk_revsum(d: torch.Tensor) -> torch.Tensor:
+    """Reverse inclusive cumsum over the last axis (out[j] = sum of
+    d[j:]), summed in float64 and rounded once to d's type: the
+    backward of :func:`chunk_cumsum`."""
+    # the kernel sums in float64 too
+    rev = torch.cumsum(d.double().flip(-1), dim=-1)  # lint: dtype-ok
+    return rev.flip(-1).to(d.dtype)
+
+
+def work_type(x: torch.Tensor) -> torch.dtype:
+    """The type the plain versions compute in: float32, or float64 for
+    float64 inputs (which only the plain versions take)."""
+    f64 = x.dtype == torch.float64  # lint: dtype-ok
+    return x.dtype if f64 else torch.float32
 
 
 def ssd_scan_torch(x, dt, A, B, C, chunk: int = 256):
@@ -56,11 +80,12 @@ def ssd_scan_torch(x, dt, A, B, C, chunk: int = 256):
     g, n = B.shape[2], B.shape[3]
     rep = h // g
     pad = (-s) % chunk
-    xf, dtf, Bf, Cf = x.float(), dt.float(), B.float(), C.float()
+    ft = work_type(x)
+    xf, dtf, Bf, Cf = (t.to(ft) for t in (x, dt, B, C))
     if pad:                         # dt = 0 padding: exact
         xf, Bf, Cf = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (xf, Bf, Cf))
         dtf = F.pad(dtf, (0, 0, 0, pad))
-    state = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+    state = torch.zeros((b, h, p, n), dtype=ft, device=x.device)
     causal = torch.ones((chunk, chunk), dtype=torch.bool,
                         device=x.device).tril()
     ys = []
@@ -70,7 +95,7 @@ def ssd_scan_torch(x, dt, A, B, C, chunk: int = 256):
         dtc = dtf[:, sl].transpose(1, 2)                     # (b, h, Q)
         Bc = Bf[:, sl].repeat_interleave(rep, dim=2).transpose(1, 2)
         Cc = Cf[:, sl].repeat_interleave(rep, dim=2).transpose(1, 2)
-        cs = chunk_cumsum(dtc * A.float()[None, :, None])
+        cs = chunk_cumsum(dtc * A.to(ft)[None, :, None])
         seg = cs[..., :, None] - cs[..., None, :]
         L = torch.where(causal, torch.exp(seg), 0.0)
         M = (Cc @ Bc.transpose(-1, -2)) * L * dtc[..., None, :]
@@ -85,6 +110,116 @@ def ssd_scan_torch(x, dt, A, B, C, chunk: int = 256):
     else:
         y = torch.zeros((b, 0, h, p), device=x.device)
     return y.to(x.dtype).contiguous(), state.to(x.dtype)
+
+
+def _by_head(t, rep, nc, chunk):
+    """(B, S', G or H, K) padded to nc chunks -> (B, H, nc, chunk, K),
+    each group repeated over its ``rep`` heads."""
+    b, k = t.shape[0], t.shape[-1]
+    t = t.repeat_interleave(rep, dim=2) if rep > 1 else t
+    return t.reshape(b, nc, chunk, -1, k).permute(0, 3, 1, 2, 4)
+
+
+def ssd_scan_bwd_torch(x, dt, A, B, C, dy, dfinal=None, chunk: int = 256,
+                       mm=torch.matmul):
+    """Plain PyTorch version of the backward of :func:`ssd_scan_torch`:
+    the explicit chunked formulas the kernel computes, on whatever
+    device the inputs lie on, batched over (b, h, chunk). ``dy`` (B, S,
+    H, P) in x's type, ``dfinal`` (B, H, P, N) or None (zeros). Returns
+    (dx, ddt, dA, dB, dC): dx, dB and dC in x's type, ddt and dA
+    float32 (float64 for float64 inputs).
+
+    With cs the chunk's cumsum of dt * A, L[q, k] = exp(cs_q - cs_k)
+    (k <= q), M = (C B^T) * L * dt_k and w_k = exp(cs_end - cs_k) dt_k:
+
+    1. the states entering each chunk, recomputed (the forward's carry);
+    2. the state gradient carried backward over the chunks: dS_out of the
+       last chunk is ``dfinal``, and dS_in[c] = exp(cs_end) dS_out[c] +
+       sum_q exp(cs_q) dy_q (x) C_q is dS_out[c - 1];
+    3. per chunk, the dual form's and the state terms' gradients:
+       dx = M^T dy + w (B dS_out^T), dM = dy x^T (causal),
+       dC = (dM L dt_k) B + exp(cs) (dy S_in), dB = (dM L dt_k)^T C +
+       w (x dS_out), and the direct part of ddt;
+    4. d(cs) through the reverse cumsum (float64, rounded once, as the
+       forward's cumsum) to d(dt * A): ddt += A d(dt A), dA = sum dt
+       d(dt A) over (b, s).
+
+    The ragged tail's ``dt = 0`` padding gives nothing back (padded
+    positions are cut off); dB and dC sum the heads of each group.
+    ``mm`` computes every matrix product (the tests pass the bf16
+    kernel's split products to emulate its rounding)."""
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    rep = h // g
+    pad = (-s) % chunk
+    nc = (s + pad) // chunk
+    ft = work_type(x)
+    dev = x.device
+    xf, dtf, Bf, Cf, dyf = (t.to(ft) for t in (x, dt, B, C, dy))
+    if pad:                         # dt = 0 padding: exact
+        xf, Bf, Cf, dyf = (F.pad(t, (0, 0, 0, 0, 0, pad))
+                           for t in (xf, Bf, Cf, dyf))
+        dtf = F.pad(dtf, (0, 0, 0, pad))
+    xc, dyc = (_by_head(t, 1, nc, chunk) for t in (xf, dyf))  # (b,h,nc,Q,p)
+    Bc, Cc = (_by_head(t, rep, nc, chunk) for t in (Bf, Cf))  # (b,h,nc,Q,n)
+    dtc = dtf.reshape(b, nc, chunk, h).permute(0, 3, 1, 2)    # (b,h,nc,Q)
+    cs = chunk_cumsum(dtc * A.to(ft)[None, :, None, None])
+    ecs = torch.exp(cs)
+    decay = ecs[..., -1]                                      # (b,h,nc)
+    w = torch.exp(cs[..., -1:] - cs) * dtc                    # (b,h,nc,Q)
+
+    # 1. the states entering each chunk
+    local = mm(xc.transpose(-1, -2), w[..., None] * Bc)        # (b,h,nc,p,n)
+    s_in = torch.zeros_like(local)
+    run = torch.zeros((b, h, p, n), dtype=ft, device=dev)
+    for c in range(nc):
+        s_in[:, :, c] = run
+        run = run * decay[:, :, c, None, None] + local[:, :, c]
+
+    # 2. the state gradient, carried backward
+    u = mm((ecs[..., None] * dyc).transpose(-1, -2), Cc)        # (b,h,nc,p,n)
+    ds_out = torch.empty_like(u)
+    run = torch.zeros((b, h, p, n), dtype=ft, device=dev) if dfinal is None \
+        else dfinal.to(ft)
+    for c in reversed(range(nc)):
+        ds_out[:, :, c] = run
+        run = run * decay[:, :, c, None, None] + u[:, :, c]
+
+    # 3. per chunk
+    causal = torch.ones((chunk, chunk), dtype=torch.bool, device=dev).tril()
+    L = torch.where(causal, torch.exp(cs[..., :, None] - cs[..., None, :]),
+                    0.0)                                      # (.., q, k)
+    CB = mm(Cc, Bc.transpose(-1, -2))
+    M = CB * L * dtc[..., None, :]
+    dM = torch.where(causal, mm(dyc, xc.transpose(-1, -2)), 0.0)
+    dCB = dM * L * dtc[..., None, :]
+    xG = mm(xc, ds_out)                                         # (.., Q, n)
+    dyS = mm(dyc, s_in)                                         # (.., Q, n)
+    dx = mm(M.transpose(-1, -2), dyc) \
+        + w[..., None] * mm(Bc, ds_out.transpose(-1, -2))
+    dC = mm(dCB, Bc) + ecs[..., None] * dyS
+    dB = mm(dCB.transpose(-1, -2), Cc) + w[..., None] * xG
+    dw = (xG * Bc).sum(-1)                                    # (b,h,nc,Q)
+    ddt = (dM * CB * L).sum(-2) + torch.exp(cs[..., -1:] - cs) * dw
+
+    # 4. d(cs) -> d(dt * A)
+    T = torch.where(causal.tril(-1), dM * M, 0.0)   # the diagonal cancels
+    wdw = w * dw
+    dcs = T.sum(-1) - T.sum(-2) + ecs * (dyS * Cc).sum(-1) - wdw
+    dcs[..., -1] += wdw.sum(-1) + decay * (ds_out * s_in).sum((-1, -2))
+    da = chunk_revsum(dcs)
+    ddt = ddt + A.to(ft)[None, :, None, None] * da
+    dA = (dtc * da).sum((0, 2, 3))
+
+    def back(t, k):                 # (b,h,nc,Q,k) -> (b, s, h, k)
+        return t.permute(0, 2, 3, 1, 4).reshape(b, nc * chunk, h, k)[:, :s]
+
+    def grouped(t):                 # sum each group's heads
+        return back(t, n).reshape(b, s, g, rep, n).sum(3)
+    ddt = ddt.permute(0, 2, 3, 1).reshape(b, nc * chunk, h)[:, :s]
+    return (back(dx, p).to(x.dtype).contiguous(), ddt.contiguous(),
+            dA, grouped(dB).to(B.dtype).contiguous(),
+            grouped(dC).to(C.dtype).contiguous())
 
 
 @functools.cache
@@ -102,6 +237,15 @@ def _library():
     for limit in (lib.ssd_scan_max_head_dim, lib.ssd_scan_max_state,
                   lib.ssd_scan_max_shared_bytes):
         limit.argtypes, limit.restype = [], ctypes.c_int
+    lib.ssd_scan_bwd.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 \
+        + [ctypes.c_void_p]
+    lib.ssd_scan_bwd.restype = ctypes.c_int
+    lib.ssd_scan_bwd_fits.argtypes = [ctypes.c_int] * 3
+    lib.ssd_scan_bwd_fits.restype = ctypes.c_int
+    lib.ssd_scan_bwd_shared_bytes.argtypes = [ctypes.c_int] * 3
+    lib.ssd_scan_bwd_shared_bytes.restype = ctypes.c_longlong
+    lib.ssd_scan_bwd_workspace.argtypes = [ctypes.c_int] * 6
+    lib.ssd_scan_bwd_workspace.restype = ctypes.c_longlong
     return lib
 
 
@@ -121,6 +265,19 @@ def refusal(p: int, n: int, chunk: int) -> str | None:
                 f" bytes of shared memory per block, more than the "
                 f"{lib.ssd_scan_max_shared_bytes()} a block may use")
     return None
+
+
+def bwd_refusal(p: int, n: int, chunk: int) -> str | None:
+    """Why the backward kernel cannot take head dim ``p``, state ``n``
+    and ``chunk`` (the forward's limits, and its own shared memory), or
+    None if it can."""
+    lib = _library()
+    why = lib.ssd_scan_bwd_fits(p, n, chunk)
+    if why == 3:
+        need = lib.ssd_scan_bwd_shared_bytes(p, n, chunk)
+        return (f"chunk {chunk} needs {need} bytes of shared memory per block, more than the "
+                f"{lib.ssd_scan_max_shared_bytes()} a block may use")
+    return refusal(p, n, chunk) if why else None
 
 
 def shared_bytes(p: int, n: int, chunk: int) -> int:
@@ -157,3 +314,34 @@ def ssd_scan_cuda(x, dt, A, B, C, chunk: int = 256):
         raise RuntimeError(f"ssd_scan launch failed: CUDA error {err} "
                            f"({lib.ssd_scan_error_string(err).decode()})")
     return y, state
+
+
+def ssd_scan_bwd_cuda(x, dt, A, B, C, dy, dfinal=None, chunk: int = 256):
+    """Launch the backward's eight passes on the current stream of the
+    inputs' device, with one float32 workspace for their scratch (the
+    recomputed cumsums and states, the state gradients, per-position
+    partials and the per-head dB and dC). Returns (dx, ddt, dA, dB, dC).
+    Unguarded: the caller has checked shapes (:func:`bwd_refusal`),
+    types, contiguity and that nothing is empty."""
+    lib = _library()
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    dx = torch.empty_like(x)
+    ddt = torch.empty_like(dt)
+    dA = torch.empty_like(A)
+    dB = torch.empty_like(B)
+    dC = torch.empty_like(C)
+    work = torch.empty(lib.ssd_scan_bwd_workspace(b, s, h, p, n, chunk),
+                       dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.ssd_scan_bwd(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+            C.data_ptr(), dy.data_ptr(),
+            None if dfinal is None else dfinal.data_ptr(), dx.data_ptr(),
+            ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+            work.data_ptr(), b, s, h, p, g, n, chunk, DTYPE_CODES[x.dtype],
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_scan_bwd launch failed: CUDA error {err} "
+                           f"({lib.ssd_scan_error_string(err).decode()})")
+    return dx, ddt, dA, dB, dC

@@ -8,9 +8,9 @@ Runs the fault-tolerant ``Trainer`` (checkpoints, retry, straggler
 monitor) on seeded synthetic data (``TokenPipeline`` behind a
 ``Prefetcher``), resuming from the latest committed checkpoint in
 ``--ckpt-dir`` when there is one. ``--arch`` names a demo or an assigned
-config of a trained family: dense, MoE, the encoder (``hubert-xlarge``)
-or the VLM (``paligemma-3b``); the SSM and hybrid families wait for the
-``ssd_scan`` backward. ``--reduced`` gives the config's tiny same-family
+config of any family: dense, MoE, SSM (``mamba2-780m``), hybrid
+(``zamba2-7b``), the encoder (``hubert-xlarge``) or the VLM
+(``paligemma-3b``). ``--reduced`` gives the config's tiny same-family
 variant in float32. Runs on the card unless ``--device cpu`` is given.
 A mesh (``--mesh``) is refused until the sharding slice of the port.
 """

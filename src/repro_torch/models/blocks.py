@@ -39,9 +39,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ..kernels import ops
 from .layers import (NEG_INF, apply_rope, attention, attention_decode,
-                     glu_mlp, rms_norm)
+                     glu_mlp, rms_norm, ssd_scan)
 from .moe import moe_ffn
 from .ssm import ssd_decode_step
 
@@ -382,9 +381,10 @@ def _causal_conv(x, w, cache=None):
 
 def mamba_forward(p, x, *, cfg, mode, cache=None):
     """Mamba-2 block ``p`` (a
-    :class:`~repro_torch.models.model.MambaLayer`). The prefill runs the
-    ``ssd_scan`` kernel through its guarded entry point (whatever
-    ``cfg.attn_backend`` says), decode the one-token recurrence. Returns
+    :class:`~repro_torch.models.model.MambaLayer`). Prefill and training
+    run the ``ssd_scan`` kernel through its guarded entry point (whatever
+    ``cfg.attn_backend`` says; its backward is the ``ssd_scan_bwd``
+    kernel), decode the one-token recurrence. Returns
     (y (B,S,d), new_cache)."""
     b, s, _ = x.shape
     g, n, h, pd = cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_heads, \
@@ -418,10 +418,10 @@ def mamba_forward(p, x, *, cfg, mode, cache=None):
         Cs, _ = _causal_conv(Cs, p.conv_C)
         xs, Bs, Cs = F.silu(xs), F.silu(Bs), F.silu(Cs)
         xs_r = xs.reshape(b, s, h, pd)
-        y, state = ops.ssd_scan(xs_r.contiguous(), dt.contiguous(), A,
-                                Bs.reshape(b, s, g, n).contiguous(),
-                                Cs.reshape(b, s, g, n).contiguous(),
-                                cfg.ssm_chunk)
+        y, state = ssd_scan(xs_r.contiguous(), dt.contiguous(), A,
+                            Bs.reshape(b, s, g, n).contiguous(),
+                            Cs.reshape(b, s, g, n).contiguous(),
+                            cfg.ssm_chunk)
         if mode == "prefill":
             k = cfg.ssm_conv
             # the conv tails need the *pre-activation* streams

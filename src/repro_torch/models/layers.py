@@ -6,8 +6,10 @@ Norms and attention go through the guarded kernel entry points of
 on a CUDA tensor they launch the hand-written kernels, on a CPU tensor
 they run the kernels' plain PyTorch versions. They run inside a
 ``torch.autograd.Function`` whose backward is the entry point of the
-backward kernel (``ops.rmsnorm_bwd``, ``ops.flash_attention_bwd``):
-autograd cannot pass through a kernel launch. Attention takes the
+backward kernel (``ops.rmsnorm_bwd``, ``ops.flash_attention_bwd``,
+``ops.ssd_scan_bwd`` for the Mamba-2 scan of
+:func:`repro_torch.models.blocks.mamba_forward`): autograd cannot pass
+through a kernel launch. Attention takes the
 Function only when a gradient is wanted, since its forward then also
 writes the log-sum-exp the backward reads. Everything else is plain PyTorch, differentiated by autograd.
 Layouts are the JAX package's: activations (B, S, d), heads as explicit
@@ -58,6 +60,33 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
     ``scale``)."""
     w = (1.0 + scale).to(scale.dtype) if zero_centered else scale
     return RMSNormFn.apply(x.contiguous(), w, eps)
+
+
+class SSDScanFn(torch.autograd.Function):
+    """``ops.ssd_scan`` forward, keeping its inputs; ``ops.ssd_scan_bwd``
+    backward, which takes the gradient of the final state too (None when
+    nothing used it) and gives x, dt, A, B and C theirs."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, chunk):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, A, B, C)
+        ctx.chunk = chunk
+        return ops.ssd_scan(x, dt, A, B, C, chunk)
+
+    @staticmethod
+    def backward(ctx, dy, dfinal):
+        x, dt, A, B, C = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        dfinal = None if dfinal is None else dfinal.contiguous()
+        return (*ops.ssd_scan_bwd(x, dt, A, B, C, dy, dfinal, ctx.chunk),
+                None)
+
+
+def ssd_scan(x, dt, A, B, C, chunk: int):
+    """The Mamba-2 SSD scan through the ``ssd_scan`` kernel (and, when a
+    gradient is wanted, its backward kernel): (y, final state)."""
+    return SSDScanFn.apply(x, dt, A, B, C, chunk)
 
 
 def softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:

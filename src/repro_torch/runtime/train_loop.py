@@ -1,14 +1,13 @@
 """Training step + fault-tolerant loop on one device.
 
 A copy of the reference's ``runtime/train_loop.py``. ``make_train_step``
-builds the step for the dense, MoE, encoder and VLM families:
-microbatched gradient accumulation into a float32 accumulator,
+builds the step for every family (dense, MoE, SSM, hybrid, encoder,
+VLM): microbatched gradient accumulation into a float32 accumulator,
 family-aware loss, the MoE aux loss mixed in, AdamW with optional int8
 gradient compression, and metrics. The gradients come from autograd
 through the model's kernels, whose backward is a kernel too
-(``ops.flash_attention_bwd``, ``ops.rmsnorm_bwd``). The SSM and hybrid
-families need the ``ssd_scan`` backward kernel and raise
-``NotImplementedError`` until its slice.
+(``ops.flash_attention_bwd``, ``ops.rmsnorm_bwd``,
+``ops.ssd_scan_bwd``).
 
 ``Trainer`` is the loop: checkpoint every ``ckpt_every`` steps and at
 the end (the writer drained before it returns), step retry on a
@@ -31,17 +30,6 @@ from ..checkpoint.ckpt import CheckpointManager
 from ..models.layers import cross_entropy
 from ..models.model import ShardCtx, forward, init_params
 from ..optim.adamw import OptConfig, apply_updates, init_opt_state
-
-UNTRAINED_FAMILIES = ("ssm", "hybrid")
-
-
-def check_trainable(cfg) -> None:
-    if cfg.family in UNTRAINED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: training the {cfg.family} family needs the "
-            f"ssd_scan backward kernel, which comes with the next slice of "
-            f"the port (SSM and hybrid training)")
-
 
 def family_loss(cfg, logits, batch):
     """Next-token CE for LMs; masked-unit CE for the encoder; text-only
@@ -79,7 +67,6 @@ def make_train_step(cfg, opt_cfg: OptConfig, ctx: ShardCtx,
     ``grad_accum`` > 1 they are cut into that many microbatches whose
     gradients are summed in float32 and averaged. ``metrics``: ``loss``,
     ``aux_loss``, ``grad_norm``, ``lr`` as float32 tensors."""
-    check_trainable(cfg)
     loss_fn = make_loss_fn(cfg, ctx)
 
     def grads_of(params, micro):
@@ -120,7 +107,6 @@ def init_train_state(cfg, opt_cfg: OptConfig, generator: torch.Generator,
                      device=None) -> dict:
     """Random parameters (``init_params`` from ``generator``), made
     trainable, and a fresh optimizer state on their device."""
-    check_trainable(cfg)
     params = init_params(cfg, generator, device)
     params.requires_grad_(True)
     return {"params": params, "opt": init_opt_state(params, opt_cfg)}

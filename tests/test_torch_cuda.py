@@ -1247,6 +1247,152 @@ def test_rmsnorm_bwd_kernel_close_to_plain_version(cuda, dtype, shape, wdtype,
     assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [1280, 1536, 2048, 2304, 3072, 3584, 7168])
+def test_rmsnorm_bwd_at_the_training_widths(cuda, dtype, d):
+    """The seven widths the training paths launch (hubert, mamba2 and
+    its d_inner, paligemma, gemma2, zamba2 and its shared block's 2d)
+    at (2, 1024, d): the vector path (threads per row by width, blocks
+    that fill the card), within the gates of
+    ``test_rmsnorm_bwd_kernel_close_to_plain_version``, two launches
+    equal bit for bit."""
+    x = rand(cuda, (2, 1024, d), dtype, 71)
+    w = rand(cuda, (d,), dtype, 72, 0.1)
+    dy = rand(cuda, (2, 1024, d), dtype, 73)
+    threads, blocks = rmsnorm.bwd_plan(2048, d, dtype, dtype)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert threads == rmsnorm.row_threads(d, dtype) and 32 <= threads <= 512
+    assert sms <= blocks <= 8 * sms
+    dx, dw = ops.rmsnorm_bwd(x, w, dy, zero_centered=False)
+    want_dx, want_dw = rmsnorm.rmsnorm_bwd_torch(x, w, dy,
+                                                 zero_centered=False)
+    dx2, dw2 = ops.rmsnorm_bwd(x, w, dy, zero_centered=False)
+    torch.cuda.synchronize()
+    assert_close_to_plain(dx, want_dx)
+    if dtype == torch.float32:
+        err = float((dw - want_dw).abs().max())
+        assert err <= 1e-5 * float(want_dw.abs().max()) * max(
+            1.0, 2048 ** 0.5 / 10)
+    else:
+        assert_close_to_plain(dw, want_dw)
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+
+
+def test_rmsnorm_bwd_scalar_path_for_unaligned_rows(cuda):
+    """A tensor that starts off the 16-byte grid takes the scalar path
+    (threads per row 0, at most 256 blocks) and gives what the plain
+    version gives."""
+    base = rand(cuda, (2 * 333 * 2304 + 1,), torch.bfloat16, 74)
+    x = base[1:].view(2, 333, 2304)
+    w = rand(cuda, (2304,), torch.bfloat16, 75, 0.1)
+    dy = rand(cuda, (2, 333, 2304), torch.bfloat16, 76)
+    assert rmsnorm.bwd_plan(666, 2304, torch.bfloat16, torch.bfloat16,
+                            aligned=False) == (0, 256)
+    dx, dw = ops.rmsnorm_bwd(x, w, dy, zero_centered=True)
+    want_dx, want_dw = rmsnorm.rmsnorm_bwd_torch(x, w, dy)
+    torch.cuda.synchronize()
+    assert_close_to_plain(dx, want_dx)
+    assert_close_to_plain(dw, want_dw)
+
+
+def ssd_grads(device, b, s, h, p, n, dtype, seed, with_final):
+    rng = np.random.default_rng(seed)
+    dy = torch.from_numpy(rng.standard_normal((b, s, h, p))).to(device,
+                                                                dtype)
+    dfinal = torch.from_numpy(rng.standard_normal((b, h, p, n))).to(
+        device, dtype) if with_final else None
+    return dy, dfinal
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk,with_final", [
+    (2, 1024, 48, 64, 1, 128, 256, False),   # mamba2-780m training
+    (2, 1024, 112, 64, 1, 64, 256, False),   # zamba2-7b training
+    (1, 700, 48, 64, 1, 128, 256, True),     # ragged, the final state's grad
+    (2, 100, 8, 16, 2, 16, 8, True),         # reduced widths, two groups
+    (3, 300, 6, 40, 3, 100, 96, True),       # P, N, chunk off the tile grid
+    (1, 1, 4, 64, 1, 128, 256, True),        # one position
+    (1, 50, 4, 64, 2, 64, 1, False),         # chunk 1
+])
+def test_ssd_scan_bwd_kernel_close_to_plain_version(cuda, dtype, b, s, h, p,
+                                                    g, n, chunk, with_final):
+    """Every gradient within ``assert_close_to_plain`` of
+    ``ssd_scan_bwd_torch`` on the same tensors (bf16 outputs within 2
+    ulps, float32 ones within 1e-5 relative plus 1e-5 of the largest),
+    one count per call, two launches equal bit for bit."""
+    args = ssd_inputs(cuda, b, s, h, p, g, n, dtype, s + h + 1)
+    dy, dfinal = ssd_grads(cuda, b, s, h, p, n, dtype, s + h + 2,
+                           with_final)
+    before = ops.ssd_scan_bwd.launches
+    got = ops.ssd_scan_bwd(*args, dy, dfinal, chunk)
+    assert ops.ssd_scan_bwd.launches == before + 1
+    again = ops.ssd_scan_bwd(*args, dy, dfinal, chunk)
+    want = ssd_scan.ssd_scan_bwd_torch(*args, dy, dfinal, chunk)
+    torch.cuda.synchronize()
+    for gt, g2, wt in zip(got, again, want):
+        assert gt.dtype == wt.dtype and gt.shape == wt.shape
+        assert_close_to_plain(gt, wt)
+        assert torch.equal(gt, g2)
+
+
+def test_ssd_scan_bwd_refuses_bad_input_without_falling_back(cuda):
+    x, dt, A, B, C = ssd_inputs(cuda, 1, 10, 4, 16, 2, 16, torch.float32, 0)
+    dy = torch.zeros_like(x)
+    wide = ssd_inputs(cuda, 1, 10, 4, 72, 1, 16, torch.float32, 1)
+    before = ops.ssd_scan_bwd.launches
+    for exc, call in [
+            (ValueError, lambda: ops.ssd_scan_bwd(x, dt, A, B, C, dy.cpu())),
+            (TypeError, lambda: ops.ssd_scan_bwd(x, dt, A, B, C,
+                                                 dy.bfloat16())),
+            (ValueError, lambda: ops.ssd_scan_bwd(
+                *wide, torch.zeros_like(wide[0]))),
+            (ValueError, lambda: ops.ssd_scan_bwd(x, dt, A, B, C, dy, None,
+                                                  100_000)),
+    ]:
+        with pytest.raises(exc):
+            call()
+    assert ops.ssd_scan_bwd.launches == before
+    assert ssd_scan.bwd_refusal(64, 128, 256) is None
+    assert "shared memory" in ssd_scan.bwd_refusal(64, 128, 20_000)
+
+
+@pytest.mark.parametrize("name", ["mamba2-780m", "zamba2-7b"])
+def test_reduced_ssm_train_step_on_the_card_matches_the_cpu(cuda, name):
+    """One float32 ``make_train_step`` of reduced mamba2-780m and
+    zamba2-7b (remat full) on the card against the CPU's: the loss and
+    every new parameter within 1e-4 of the largest; the scan's forward
+    twice and its backward once per Mamba layer."""
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.data import PipelineConfig, TokenPipeline
+    from repro_torch.models import ShardCtx
+    from repro_torch.optim import OptConfig
+    from repro_torch.runtime.train_loop import (init_train_state,
+                                                make_train_step)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced(ARCHS[name]).replace(dtype="float32", remat="full")
+    opt = OptConfig(lr=1e-2, warmup_steps=1, total_steps=4, eps=1e-3)
+    cpu = init_train_state(cfg, opt, torch.Generator().manual_seed(0))
+    card = {"params": copy.deepcopy(cpu["params"]).to(cuda),
+            "opt": {k: ({n: t.to(cuda) for n, t in v.items()}
+                        if isinstance(v, dict) else v.to(cuda))
+                    for k, v in cpu["opt"].items()}}
+    pipe = TokenPipeline(cfg, PipelineConfig(batch=2, seq_len=40))
+    step = make_train_step(cfg, opt, ShardCtx())
+    n_mamba = sum(k == "ssm" for k in cfg.layer_kinds())
+    before = (ops.ssd_scan.launches, ops.ssd_scan_bwd.launches)
+    card, got = step(card, {k: v.to(cuda)
+                            for k, v in pipe.make_batch(0).items()})
+    assert (ops.ssd_scan.launches - before[0],
+            ops.ssd_scan_bwd.launches - before[1]) == (2 * n_mamba, n_mamba)
+    cpu, want = step(cpu, pipe.make_batch(0))
+    np.testing.assert_allclose(float(got["loss"]), float(want["loss"]),
+                               rtol=1e-5)
+    for (k, a), (_, b) in zip(card["params"].named_parameters(),
+                              cpu["params"].named_parameters()):
+        err = float((a.detach().cpu() - b.detach()).abs().max())
+        assert err <= 1e-4 * float(b.abs().max()), (name, k, err)
+
+
 def test_reduced_train_step_on_the_card_matches_the_cpu(cuda):
     """One float32 ``make_train_step`` of reduced gemma2-2b (softcaps,
     windowed layers) and paligemma-3b (the prefix) on the card against

@@ -7,10 +7,13 @@ of the reference's ``attention`` (its custom VJP ``_flash_bwd``, and
 autodiff of its windowed and prefix-LM forms) and ``rmsnorm`` against
 ``jax.grad`` of ``rms_norm``; ``cross_entropy``; AdamW over three steps;
 the data pipeline array for array; ``make_train_step``'s loss,
-gradients and new parameters for the dense, VLM, encoder and MoE/MLA
-families (reduced gemma2-2b, paligemma-3b, hubert-xlarge,
-deepseek-v2-lite-16b), with gradient accumulation; the checkpoint
-manager and the ``Trainer``'s resume; the training CLI. Everything in
+gradients and new parameters for the dense, VLM, encoder, MoE/MLA, SSM
+and hybrid families (reduced gemma2-2b, paligemma-3b, hubert-xlarge,
+deepseek-v2-lite-16b, mamba2-780m, zamba2-7b), with gradient
+accumulation; remat policies; the ``Trainer`` on the SSM and hybrid
+families; the checkpoint manager and the ``Trainer``'s resume; the
+training CLI. The ``ssd_scan`` backward itself is held to the reference
+in ``test_torch_ssm_train.py``. Everything in
 float32 on NumPy-made inputs; the CUDA kernels run only on the card
 (``test_torch_cuda.py``).
 """
@@ -43,7 +46,9 @@ from repro_torch.optim import OptConfig, apply_updates, init_opt_state
 from repro_torch.runtime.train_loop import (Trainer, init_train_state,
                                             make_loss_fn, make_train_step)
 
-from test_torch_models import assert_rel, both_models
+from test_torch_models import assert_rel
+from test_torch_models import both_models as dense_models
+from test_torch_ssm import both_models as ssm_models
 
 ROOT = Path(__file__).resolve().parents[1]
 ATTN_RTOL, ATTN_ATOL = 1e-4, 1e-5
@@ -269,8 +274,18 @@ def test_token_pipeline_batches_equal_the_reference(name):
 # ---------------------------------------------------------------------------
 
 TRAIN_MODELS = ["gemma2-2b", "paligemma-3b", "hubert-xlarge",
-                "deepseek-v2-lite-16b"]
-SEQ = 24            # above the reduced window of 16
+                "deepseek-v2-lite-16b", "mamba2-780m", "zamba2-7b"]
+SSM_MODELS = ("mamba2-780m", "zamba2-7b")
+SEQ = 24            # above the reduced window of 16; 3 chunks of 8
+
+
+def both_models(name, seed):
+    """Reference and port models on the same weights. The SSM and hybrid
+    families take ``test_torch_ssm``'s draw (Mamba-2's A and dt init,
+    non-zero LoRA ``b_*``, so the state carried between chunks and the
+    per-slot LoRA both carry gradient)."""
+    return ssm_models(name, seed) if name in SSM_MODELS \
+        else dense_models(name, seed=seed)
 
 
 def opt_configs():
@@ -339,12 +354,9 @@ def test_train_step_matches_reference(name, grad_accum):
         assert_rel(p.detach(), want[k], F32_REL, f"new {k}")
 
 
-def test_remat_policies_give_the_same_gradients():
-    """``remat`` full, dots and none: the same loss and gradients (the
-    recomputation repeats the forward's arithmetic)."""
-    _, _, cfg, params = both_models("gemma2-2b", seed=13)
-    jax_cfg = cfg
-    _, batch = batch_of(jax_cfg)
+def remat_gradients_agree(name, seed=13):
+    _, _, cfg, params = both_models(name, seed=seed)
+    _, batch = batch_of(cfg)
     params.requires_grad_(True)
     grads = {}
     for remat in ("full", "dots", "none"):
@@ -360,11 +372,80 @@ def test_remat_policies_give_the_same_gradients():
                                        atol=1e-7)
 
 
-def test_training_ssm_and_hybrid_waits_for_the_ssd_scan_backward():
-    for name in ("mamba2-780m", "zamba2-7b"):
-        cfg = reduced(ARCHS[name]).replace(dtype="float32")
-        with pytest.raises(NotImplementedError, match="ssd_scan backward"):
-            init_train_state(cfg, OptConfig(), torch.Generator())
+def test_remat_policies_give_the_same_gradients():
+    """``remat`` full, dots and none: the same loss and gradients (the
+    recomputation repeats the forward's arithmetic)."""
+    remat_gradients_agree("gemma2-2b")
+
+
+@pytest.mark.parametrize("name", SSM_MODELS)
+def test_remat_policies_give_the_same_gradients_ssm_and_hybrid(name):
+    """The same for the SSM (each ``MambaLayer`` recomputed, its scan's
+    backward from the recomputed inputs) and the hybrid (the shared
+    block and its LoRA slots recomputed too)."""
+    remat_gradients_agree(name)
+
+
+@pytest.mark.parametrize("name", SSM_MODELS)
+def test_remat_recomputes_the_scan_forward_once_per_layer(name, monkeypatch):
+    """Under ``remat="full"`` each Mamba layer's scan runs forward twice
+    (the forward and its recomputation) and backward once; under
+    ``"none"`` once each."""
+    _, _, cfg, params = both_models(name, seed=14)
+    _, batch = batch_of(cfg)
+    params.requires_grad_(True)
+    n_mamba = sum(k == "ssm" for k in cfg.layer_kinds())
+    counts = {"fwd": 0, "bwd": 0}
+    fwd, bwd = ops.ssd_scan, ops.ssd_scan_bwd
+
+    def counted(key, fn):
+        def call(*args, **kwargs):
+            counts[key] += 1
+            return fn(*args, **kwargs)
+        return call
+    monkeypatch.setattr(ops, "ssd_scan", counted("fwd", fwd))
+    monkeypatch.setattr(ops, "ssd_scan_bwd", counted("bwd", bwd))
+    for remat, want in (("full", 2), ("none", 1)):
+        counts.update(fwd=0, bwd=0)
+        total, _ = make_loss_fn(cfg.replace(remat=remat), ShardCtx())(
+            params, batch)
+        total.backward()
+        assert counts == {"fwd": want * n_mamba, "bwd": n_mamba}, remat
+        params.zero_grad(set_to_none=True)
+
+
+@pytest.mark.parametrize("name", SSM_MODELS)
+def test_trainer_trains_the_ssm_and_hybrid_families(name, tmp_path):
+    """The SSM and hybrid families train: ``init_train_state`` from a
+    generator and two ``Trainer`` steps on one repeated batch, finite
+    losses, the second below the first, every parameter moved and a
+    checkpoint committed at the end."""
+    cfg = reduced(ARCHS[name]).replace(dtype="float32")
+    opt = OptConfig(lr=1e-2, warmup_steps=1, total_steps=4)
+    state = init_train_state(cfg, opt, torch.Generator().manual_seed(0))
+    before = {k: p.detach().clone()
+              for k, p in state["params"].named_parameters()}
+
+    class Repeat:                   # the same batch at every step
+        def __init__(self):
+            self.batch = TokenPipeline(cfg, PipelineConfig(
+                batch=2, seq_len=SEQ, seed=5)).make_batch(0)
+
+        def __iter__(self):
+            return self
+
+        def __next__(self):
+            return self.batch
+    state, hist, _ = Trainer(cfg, opt, ShardCtx(), str(tmp_path),
+                             ckpt_every=10).run(state, Repeat(), 2,
+                                                log_every=1)
+    losses = [h["loss"] for h in hist]
+    assert len(losses) == 2 and np.isfinite(losses).all()
+    assert losses[1] < losses[0], losses
+    moved = [k for k, p in state["params"].named_parameters()
+             if not torch.equal(p.detach(), before[k])]
+    assert len(moved) == len(before)
+    assert CheckpointManager(str(tmp_path)).list_steps() == [2]
 
 
 # ---------------------------------------------------------------------------

@@ -1,16 +1,16 @@
-"""Time ``flash_decode``, the dense ``sim_relax``, ``sched_score`` and
-the bf16 ``flash_attention_bwd`` with the kernels of one checkout of this
-repository, so that a parent and a change can be compared on one card in
-one call (run the probe once per tree, in turns: parent, change, change,
-parent).
+"""Time ``flash_decode``, the dense ``sim_relax``, ``sched_score``, the
+bf16 ``flash_attention_bwd``, ``rmsnorm_bwd`` and ``ssd_scan_bwd`` with
+the kernels of one checkout of this repository, so that a parent and a
+change can be compared on one card in one call (run the probe once per
+tree, in turns: parent, change, change, parent).
 
     python3 tools/kernel_probe.py [--tree DIR] [--label NAME]
                                   [--kernels NAME ...]
 
 ``--tree`` is the checkout whose ``src`` is timed (default: this one);
 the timing code is this checkout's ``chip_smoke.py``, the same for every
-tree. ``--kernels`` picks what to time (default: all four). Measured,
-on one CUDA device:
+tree. ``--kernels`` picks what to time (default: all). Measured, on one
+CUDA device:
 
 - ``flash_decode``, bf16, random q and cache from seed 0, ``pos`` at the
   last slot (a wrapped ring for the local layers), at the serving paths'
@@ -53,6 +53,20 @@ on one CUDA device:
   (``chip_smoke.gate_ratio``; above 1 fails the probe), the tree's
   launch plan (``bwd_plan``, where it has one) and the device ms of
   each kernel of one call (``torch.profiler`` over 5 calls).
+- ``rmsnorm_bwd``, bf16 x, w and dy from seed 0 (w' given, as the model
+  passes it), at ``NORM_BWD_SHAPES``: the seven widths the training
+  paths launch at their (B, S). ``chip_smoke.norm_bwd_row``: the
+  kernels' device ms from a CUDA graph over input copies past 3x the
+  L2, the plain version's, ``F.rms_norm``'s autograd backward, the
+  bound; the share of the bound, the largest error over the gate's bound
+  of dx and dw, the tree's launch plan (``bwd_plan``, where it has one)
+  and the device ms of the row pass and of the column pass of one call.
+- ``ssd_scan_bwd`` (a tree that has it), bf16 and float32, Mamba-2-like
+  inputs from seed 0 (A in -[1, 16], dt log-uniform in [1e-3, 1e-1]) at
+  mamba2-780m's and zamba2-7b's training shapes (2, 1024, 48 or 112
+  heads of 64, state 128 or 64, chunk 256): ``chip_smoke.ssd_bwd_row``
+  (graph ms, plain ms, bound, each gradient's error over the gate's
+  bound) and the device ms of each pass of one call.
 
 Prints the card's name and power limit, then the results as one JSON
 line (the last).
@@ -67,7 +81,8 @@ import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
-KERNELS = ("flash_decode", "sim_relax", "sched_score", "flash_attention_bwd")
+KERNELS = ("flash_decode", "sim_relax", "sched_score", "flash_attention_bwd",
+           "rmsnorm_bwd", "ssd_scan_bwd")
 BWD_SHAPES = (      # name, b, s, hq, hkv, d, dv, options (bf16)
     ("gemma2", 2, 1024, 8, 4, 256, 256, dict(softcap=50.0)),
     ("gemma2_window", 2, 1024, 8, 4, 256, 256,
@@ -75,6 +90,16 @@ BWD_SHAPES = (      # name, b, s, hq, hkv, d, dv, options (bf16)
     ("paligemma", 1, 1024, 8, 1, 256, 256, dict(prefix=256)),
     ("hubert", 2, 1000, 16, 16, 80, 80, dict(causal=False)),
     ("mla", 1, 1024, 16, 16, 192, 128, {}),
+)
+NORM_BWD_SHAPES = (  # name, (B, S, d): every width the training paths launch
+    ("gemma2", (2, 1024, 2304)), ("paligemma", (1, 1024, 2048)),
+    ("hubert", (2, 1000, 1280)), ("mamba2", (2, 1024, 1536)),
+    ("mamba2_inner", (2, 1024, 3072)), ("zamba2", (2, 1024, 3584)),
+    ("zamba2_inner", (2, 1024, 7168)),
+)
+SCAN_BWD_SHAPES = (  # name, b, s, h, p, g, n, chunk
+    ("mamba2", 2, 1024, 48, 64, 1, 128, 256),
+    ("zamba2", 2, 1024, 112, 64, 1, 64, 256),
 )
 
 
@@ -111,7 +136,8 @@ def main() -> int:
                "sim_relax": ["sim_step", "sim_relax_pop"],
                "sched_score": ["sched_score"],
                "flash_attention_bwd": ["flash_attention",
-                                       "flash_attention_bwd"]}
+                                       "flash_attention_bwd"],
+               "rmsnorm_bwd": ["rmsnorm"], "ssd_scan_bwd": ["ssd_scan"]}
     build.build([src for k in args.kernels for src in sources[k]])
     torch.backends.cuda.matmul.allow_tf32 = False
     out = dict(label=args.label, tree=str(tree), device=smi)
@@ -123,10 +149,17 @@ def main() -> int:
         out["sched_score"] = probe_score(cs, dev)
     if "flash_attention_bwd" in args.kernels:
         out["flash_attention_bwd"] = probe_attention_bwd(cs, dev)
+    if "rmsnorm_bwd" in args.kernels:
+        out["rmsnorm_bwd"] = probe_rmsnorm_bwd(cs, dev)
+    if "ssd_scan_bwd" in args.kernels:
+        out["ssd_scan_bwd"] = probe_ssd_scan_bwd(cs, dev)
     print(json.dumps(out))
     ok = all(r["equal"] for r in out.get("sim_relax", {}).values()) \
         and all(r["gate_ratio"] <= 1.0
-                for r in out.get("flash_attention_bwd", {}).values())
+                for k in ("flash_attention_bwd", "rmsnorm_bwd")
+                for r in out.get(k, {}).values()) \
+        and all(max(r["gate_ratios"].values()) <= 1.0
+                for r in out.get("ssd_scan_bwd", {}).values())
     return 0 if ok else 1
 
 
@@ -302,6 +335,60 @@ def probe_attention_bwd(cs, dev):
         rows[name] = row
         del q, k, v, dout, out, lse, args, got, want
         torch.cuda.empty_cache()
+    return rows
+
+
+def probe_rmsnorm_bwd(cs, dev):
+    import torch
+    from repro_torch.kernels import rmsnorm
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows = {}
+    kw = dict(zero_centered=False)
+    for name, shape in NORM_BWD_SHAPES:
+        x, dy = (torch.randn(shape, generator=gen, device=dev).bfloat16()
+                 for _ in range(2))
+        w = (1.0 + 0.1 * torch.randn(shape[-1:], generator=gen,
+                                     device=dev)).bfloat16()
+        got = rmsnorm.rmsnorm_bwd_cuda(x, w, dy, **kw)
+        want = rmsnorm.rmsnorm_bwd_torch(x, w, dy, **kw)
+        row = cs.norm_bwd_row(x, w, dy, kw)
+        row["gate_ratio"] = max(cs.gate_ratio(g, w_)
+                                for g, w_ in zip(got, want))
+        row["kernels_ms"] = launch_split(
+            lambda: rmsnorm.rmsnorm_bwd_cuda(x, w, dy, **kw))
+        rows[name] = row
+        del x, dy, got, want
+        torch.cuda.empty_cache()
+    return rows
+
+
+def probe_ssd_scan_bwd(cs, dev):
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ssd_scan
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, b, s, h, p, g, n, chunk in SCAN_BWD_SHAPES:
+            rng = np.random.default_rng(0)
+            arrays = (rng.standard_normal((b, s, h, p)),
+                      np.exp(rng.uniform(np.log(1e-3), np.log(1e-1),
+                                         (b, s, h))),
+                      -rng.uniform(1.0, 16.0, h),
+                      rng.standard_normal((b, s, g, n)) * 0.5,
+                      rng.standard_normal((b, s, g, n)) * 0.5,
+                      rng.standard_normal((b, s, h, p)))
+            x, dt, A, B, C, dy = (
+                torch.from_numpy(a).to(dev, torch.float32 if i in (1, 2)
+                                       else dtype)
+                for i, a in enumerate(arrays))
+            args = (x, dt, A, B, C, dy, None, chunk)
+            row = cs.ssd_bwd_row(args)
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            row["kernels_ms"] = launch_split(
+                lambda: ssd_scan.ssd_scan_bwd_cuda(*args))
+            rows[f"{name}_{str(dtype)[6:]}"] = row
+            del x, dt, A, B, C, dy, args
+            torch.cuda.empty_cache()
     return rows
 
 
