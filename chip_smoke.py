@@ -2840,19 +2840,22 @@ def norm_bwd_plan(x, w):
 def ssd_bwd_cost(x, dt, A, B, C, dy, dfinal, chunk):
     """Bytes (x, dt, A, B, C, dy and dfinal read once; dx, ddt, dA, dB,
     dC written once) and the operations the backward needs: per chunk of
-    L real positions, per batch row and head, over the L (L + 1) / 2
-    causal (query, key) pairs C B^T and dB's product (N each), dy x^T and
-    M^T dy (P each) and dC's product (N): 2 pairs (3 N + 2 P); and the
-    states' five products of L N P (the recomputed state, the state
-    gradient, and its parts of dx, dB and dC): 10 L N P."""
+    L real positions and batch row, over the L (L + 1) / 2 causal (query,
+    key) pairs, once per group C B^T and dB's and dC's products (N each,
+    as the reference builds C B^T once per group and its dB and dC take
+    the heads' summed dCB: 2 pairs 3 N) and per head dy x^T and M^T dy (P
+    each: 2 pairs 2 P); and per head the states' five products of L N P
+    (the recomputed state, the state gradient, and their parts of dx, dB
+    and dC): 10 L N P."""
     b, s, h, p = x.shape
-    n = B.shape[3]
+    g, n = B.shape[2], B.shape[3]
     ins = (x, dt, A, B, C, dy) + (() if dfinal is None else (dfinal,))
     n_bytes = sum(t.numel() * t.element_size() for t in ins) \
         + sum(t.numel() * t.element_size() for t in ins[:5])
-    per_head = sum(ln * (ln + 1) * (3 * n + 2 * p) + 10 * ln * n * p
-                   for ln in (min(chunk, s - c0) for c0 in range(0, s, chunk)))
-    return n_bytes, per_head * b * h
+    lens = [min(chunk, s - c0) for c0 in range(0, s, chunk)]
+    per_group = sum(ln * (ln + 1) * 3 * n for ln in lens)
+    per_head = sum(ln * (ln + 1) * 2 * p + 10 * ln * n * p for ln in lens)
+    return n_bytes, b * (g * per_group + h * per_head)
 
 
 def ssd_bwd_row(args):

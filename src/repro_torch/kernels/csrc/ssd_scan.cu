@@ -71,9 +71,12 @@
 //  * bfloat16 is converted with the intrinsics; no --use_fast_math (expf
 //    is the accurate one).
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -177,6 +180,24 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                :: "r"(d), "l"(src), "r"(src_bytes) : "memory");
 }
 
+// close the calling thread's cp.async copies issued so far into a group
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// all of the calling thread's cp.async groups but the newest have landed
+__device__ __forceinline__ void cp_async_wait_prev() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// 4 bytes from src, or zeros where !live
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool live) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(d), "l"(src), "r"(live ? 4 : 0) : "memory");
+}
+
 // the calling thread's cp.async copies have landed (a __syncthreads()
 // must follow before other threads read them)
 __device__ __forceinline__ void cp_async_wait() {
@@ -191,9 +212,10 @@ __device__ __forceinline__ void cp_async_wait() {
 // element by element through registers.
 __device__ void load_rows(uint16_t* dst, int ld, const uint16_t* src,
                           long long stride, int rows, int cols, int colsp,
-                          bool vec) {
+                          bool vec, int tid = threadIdx.x,
+                          int nthr = blockDim.x) {
   const int groups = colsp / 8;
-  for (int i = threadIdx.x; i < kTile * groups; i += blockDim.x) {
+  for (int i = tid; i < kTile * groups; i += nthr) {
     const int r = i / groups, c = (i - r * groups) * 8;
     if (vec) {
       const bool live = r < rows && c < cols;
@@ -242,16 +264,29 @@ template <> __device__ __forceinline__ uint16_t from_f32<uint16_t>(float x) {
   return f32_to_bf16(x);
 }
 
+// a barrier of the block (bar 0) or of the nthr threads of named barrier
+// `bar`
+__device__ __forceinline__ void group_sync(int bar, int nthr) {
+  // immediate ids, so that the block holds three barriers and not all 16
+  if (bar == 0)
+    __syncthreads();
+  else if (bar == 1)
+    asm volatile("bar.sync 1, %0;\n" :: "r"(nthr) : "memory");
+  else
+    asm volatile("bar.sync 2, %0;\n" :: "r"(nthr) : "memory");
+}
+
 // dt of positions [0, len) of a chunk into dt_s, and the inclusive cumsum
 // of dt * a, summed in float64 and rounded once, into cs_s and cs_out:
 // each lane of warp 0 sums a run of positions, a shuffle scan offsets
 // the runs.
 __device__ void chunk_cumsum(const float* dtc, int H, int len, float a,
-                             float* dt_s, float* cs_s, float* cs_out) {
-  const int tid = threadIdx.x;
-  for (int i = tid; i < len; i += blockDim.x)
+                             float* dt_s, float* cs_s, float* cs_out,
+                             int tid = threadIdx.x, int nthr = blockDim.x,
+                             int bar = 0) {
+  for (int i = tid; i < len; i += nthr)
     dt_s[i] = dtc[static_cast<long long>(i) * H];
-  __syncthreads();
+  group_sync(bar, nthr);
   if (tid < 32) {
     const int per = (len + 31) / 32;
     const int lo = min(tid * per, len), hi = min(lo + per, len);
@@ -268,10 +303,10 @@ __device__ void chunk_cumsum(const float* dtc, int H, int len, float a,
     for (int i = lo; i < hi; ++i) {
       acc += static_cast<double>(__fmul_rn(dt_s[i], a));
       cs_s[i] = static_cast<float>(acc);
-      cs_out[i] = cs_s[i];
+      if (cs_out != nullptr) cs_out[i] = cs_s[i];
     }
   }
-  __syncthreads();
+  group_sync(bar, nthr);
 }
 
 // Offsets of one (b, h, chunk) shared by the passes.
@@ -302,9 +337,6 @@ __device__ __forceinline__ Chunk chunk_of(int b, int h, int c, int S, int H,
 // pass 1: the chunk's cumsum and local state
 // ---------------------------------------------------------------------------
 
-// kGrad: the backward's state gradient of the chunk, sum_q dy_q^T
-// (exp(cs_q) C_q), from x = dy and Bm = C (same shapes, same passes).
-template <bool kGrad>
 __global__ void __launch_bounds__(kThreads)
 chunk_state_f32(const float* __restrict__ x, const float* __restrict__ dt,
                 const float* __restrict__ A, const float* __restrict__ Bm,
@@ -340,8 +372,7 @@ chunk_state_f32(const float* __restrict__ x, const float* __restrict__ dt,
       float v = 0.0f;
       if (r < kn) {
         const int q = k0 + r;
-        const float w = kGrad ? expf(cs_s[q])
-                              : expf(cs_end - cs_s[q]) * dt_s[q];
+        const float w = expf(cs_end - cs_s[q]) * dt_s[q];
         v = w * Bc[q * bc_stride + n];
       }
       b_s[r * ldn + n] = v;
@@ -380,7 +411,6 @@ chunk_state_f32(const float* __restrict__ x, const float* __restrict__ dt,
   }
 }
 
-template <bool kGrad>
 __global__ void __launch_bounds__(kStateThreads)
 chunk_state_bf16(const uint16_t* __restrict__ x, const float* __restrict__ dt,
                  const float* __restrict__ A, const uint16_t* __restrict__ Bm,
@@ -412,9 +442,7 @@ chunk_state_bf16(const uint16_t* __restrict__ x, const float* __restrict__ dt,
   for (int k0 = 0; k0 < k.len; k0 += kTile) {
     const int kn = min(kTile, k.len - k0);
     for (int i = tid; i < kTile; i += kStateThreads)
-      wk_s[i] = i >= kn ? 0.0f
-                : kGrad ? expf(cs_s[k0 + i])
-                        : expf(cs_end - cs_s[k0 + i]) * dt_s[k0 + i];
+      wk_s[i] = i >= kn ? 0.0f : expf(cs_end - cs_s[k0 + i]) * dt_s[k0 + i];
     load_rows(x_s, kLdK, xc + k0 * x_stride, x_stride, kn, P, pm, vec_x);
     __syncthreads();                         // wk_s
     // (w_k B_k) transposed into [n][key], split into hi + lo
@@ -818,10 +846,10 @@ int launch_f32(const float* x, const float* dt, const float* A,
                int G, int N, int chunk, int nc, cudaStream_t stream) {
   const long long b1 = state_f32_bytes(P, N, chunk);
   const long long b3 = scan_f32_bytes(P, N, chunk);
-  cudaError_t err = allow_shared(chunk_state_f32<false>, b1);
+  cudaError_t err = allow_shared(chunk_state_f32, b1);
   if (err == cudaSuccess) err = allow_shared(chunk_scan_f32, b3);
   if (err != cudaSuccess) return static_cast<int>(err);
-  chunk_state_f32<false><<<dim3(nc, H, batch), kThreads, b1, stream>>>(
+  chunk_state_f32<<<dim3(nc, H, batch), kThreads, b1, stream>>>(
       x, dt, A, B, cs_g, local, S, H, P, G, N, chunk, nc);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   const long long n = static_cast<long long>(batch) * H * P * N;
@@ -843,14 +871,14 @@ int launch_bf16(const uint16_t* x, const float* dt, const float* A,
                 cudaStream_t stream) {
   const long long b1 = state_bf16_bytes(chunk);
   const long long b3 = scan_bf16_bytes(chunk);
-  cudaError_t err = allow_shared(chunk_state_bf16<false>, b1);
+  cudaError_t err = allow_shared(chunk_state_bf16, b1);
   if (err == cudaSuccess) err = allow_shared(chunk_scan_bf16, b3);
   if (err != cudaSuccess) return static_cast<int>(err);
   // 16-byte row loads where every row of x (of B, C) starts aligned
   const int vec_x = P % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   const int vec_bc = N % 8 == 0 && reinterpret_cast<uintptr_t>(B) % 16 == 0 &&
                      reinterpret_cast<uintptr_t>(C) % 16 == 0;
-  chunk_state_bf16<false><<<dim3(nc, H, batch), kStateThreads, b1, stream>>>(
+  chunk_state_bf16<<<dim3(nc, H, batch), kStateThreads, b1, stream>>>(
       x, dt, A, B, cs_g, local, S, H, P, G, N, chunk, nc, vec_x, vec_bc);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   const long long n = static_cast<long long>(batch) * H * P * N;
@@ -870,498 +898,263 @@ int launch_bf16(const uint16_t* x, const float* dt, const float* A,
 //
 // The gradients of (y, final state) with respect to x, dt, A, B and C,
 // given dy and dfinal (the final state's, or none). With L[q, k] =
-// exp(cs_q - cs_k) (k <= q), M = (C B^T) L dt_k, w_k = exp(cs_end - cs_k)
-// dt_k, S_in the state entering a chunk and G = dS_out its gradient
-// leaving it:
+// exp(cs_q - cs_k) (k <= q), CB = C B^T (one per group), M = CB L dt_k,
+// w_k = exp(cs_end - cs_k) dt_k, S_in the state entering a chunk and G =
+// dS_out its gradient leaving it, per head:
 //
-//   dx = M^T dy + w (B G^T)              dM = dy x^T (causal)
-//   dC = (dM L dt_k) B + exp(cs) (dy S_in)
-//   dB = (dM L dt_k)^T C + w (x G)
-//   ddt = sum_q dM C.B L + exp(cs_end - cs) (x G . B) + A d(dt A)
+//   dM = dy x^T (causal)              dCB_h = dM L dt_k
+//   dx = M^T dy + w (B G^T)           dw_k = x_k . (B G^T)_k
+//   dB = sum_h dCB_h^T C + sum_h w (x G)
+//   dC = sum_h dCB_h B + sum_h exp(cs) (dy S_in)
+//   ddt = sum_q dM CB L + exp(cs_end - cs) dw + A d(dt A)
 //   dA = sum over (b, s) of dt d(dt A)
 //   d(dt A)_j = sum_{q >= j} dcs_q (the reverse cumsum of dcs)
-//   dcs_q = sum_k (dM M)[q, k] - sum_k (dM M)[k, q] + exp(cs_q) dy_q.S_in C_q
-//           - w_q (x G . B)_q  (+ at the chunk's end: sum_k w_k (x G . B)_k
+//   dcs_q = sum_k (dM M)[q, k] - sum_k (dM M)[k, q] + exp(cs_q) C_q .
+//           (dy S_in)_q - w_q dw_q  (+ at the chunk's end: sum_k w_k dw_k
 //           + exp(cs_end) <G, S_in>); the diagonal of dM M cancels (L = 1
 //           there) and is left out of both sums
 //   G[c - 1] = exp(cs_end[c]) G[c] + sum_q exp(cs_q) dy_q (x) C_q
 //
 // This is what the reference gets from autodiff of models/ssm.py's
-// ssd_chunked; the Pallas kernel has no VJP.
+// ssd_chunked (which builds C B^T once per group and repeats it over the
+// group's heads, so its dB and dC take one product of the heads' summed
+// dCB); the Pallas kernel has no VJP.
 //
-// What bounds it on this card: operations. At mamba2-780m's training call
-// (2, 1024, 48, 64), N 128, bf16, the function needs 21.0 GFLOP (per
-// causal pair C B^T, dy x^T, M^T dy and dB's and dC's products; the
-// states' five L N P products) and moves 40.6 MB: 0.0212 ms at 989
-// TFLOP/s against 0.0121 ms at 3.35 TB/s. This first design is right and
-// simple rather than fast: 0.84 ms there (zamba2-7b's (2, 1024, 112, 64),
-// N 64, 1.03 ms) on an H100 at 700 W, two thirds of it in passes 3 and 4.
-// Passes, on one stream:
-//  1. the forward's chunk_state and carry again: the cumsums, and S_in of
-//     every chunk as float32;
-//  2. chunk_state<kGrad> and carry_back: each chunk's sum_q exp(cs_q) dy_q
-//     (x) C_q, then G carried from the last chunk (dfinal, or zero) to the
-//     first, written in place;
-//  3. chunk_keys, grid (chunk, 64-key tile, b * h): dx, the head's dB, the
-//     direct part of ddt and the key side of dcs, walking the query tiles
-//     at and after the key tile (the causal ones);
-//  4. chunk_queries, grid (chunk, 64-query tile, b * h): the head's dC and
-//     the query side of dcs, walking the key tiles at and before it;
-//  5. finish, grid (chunk, h, b): the chunk-end terms, the reverse cumsum
-//     summed in float64 and rounded once (as the forward's cumsum), ddt
-//     and the chunk's part of dA;
-//  6. reduce: dB and dC summed over each group's heads and dA over (b,
-//     chunk), in a fixed order, cast to the outputs' types.
-// No atomics: two launches give equal bits.
+// What bounds it on this card. At mamba2-780m's training call (2, 1024,
+// 48, 64), N 128, bf16, one group, the function needs 11.5 GFLOP (per
+// causal pair and head dy x^T and M^T dy; per pair and group C B^T and
+// dB's and dC's products; the states' five L N P products per head) and
+// moves 40.6 MB: 0.0117 ms at 989 TFLOP/s against 0.0121 ms at 3.35 TB/s,
+// so bytes; zamba2-7b's (2, 1024, 112, 64), N 64, 17.0 GFLOP and 91 MB,
+// 0.0272 ms of bytes.
 //
-// Passes 3 and 4, bfloat16 (chunk_keys_tc, chunk_queries_tc): the
-// forward's building blocks. Tiles of x, dy, B and C stay bf16 in shared
-// memory (copied by cp.async), and every product runs on the tensor cores
-// with mma.sync m16n8k16, a warp owning 16 rows of the 64-row tile. The
-// bf16 inputs enter products exactly (C B^T, dy x^T); every float32
-// operand is split into bf16 hi + lo, as in the forward: G and S_in once
-// per block into two shared tiles, M and dM L dt in registers, straight
-// from the accumulators of C B^T and dy x^T into A fragments (they never
-// touch shared memory). Operands stored with the reduction along rows are
-// read by ldmatrix.trans. A warp's row sums are warp shuffles in a fixed
-// order.
-// float32 (chunk_keys, chunk_queries): float32 tiles in shared memory and
-// SIMT FMAs on an 8 x 16 thread grid (Tile::mul_add); M and dM L dt go
-// through shared memory, row sums through shared memory in a fixed order.
+// Passes, on one stream (four launches):
+//  1. bwd_states, 256 threads: a block per (b, h, 64 state columns) carries
+//     the state over the chunks in two warp groups at once, warps 0-3
+//     forward (each chunk's local state (v x)^T B on the tensor cores, S_in
+//     of each chunk written as bf16 planes) and warps 4-7 backward from
+//     dfinal (G as planes); then the block's share of <G, S_in> of each
+//     chunk from the planes. The carries never leave the registers, and
+//     S_in and G are split into planes once, here. Blocks past those
+//     compute C B^T of one (b, chunk, group, key tile) against its causal
+//     query tiles into float32 scratch, in the register order pass 2 reads.
+//  2. bwd_dual, 128 threads (4 warps x 16 keys), a cluster of hs CTAs per
+//     (b, chunk, group, pair of key tiles kt and its mirror T - 1 - kt, so
+//     that every cluster walks T + 1 query tiles), each CTA hps of the
+//     group's heads: per head B G^T (dx's state term and dw), G in
+//     32-column slices two in flight, then the causal query tiles, the
+//     next tile's dy and C B^T in flight: dy x^T once, and from the same
+//     registers M^T (dx += M^T dy), the direct ddt, the key side of dcs,
+//     the query side of dcs (column sums, then the four warps in order)
+//     and dCB_h, summed over the CTA's heads in shared memory. The cluster
+//     then sums its CTAs' dCB in rank order through distributed shared
+//     memory and writes the group's dCB^T as bf16 planes, once. Pairs of
+//     the diagonal or past the chunk's end take masks; L = exp(cs_q -
+//     cs_k) of the others factors at the key tile's last cs.
+//  3. bwd_group, 256 threads (4 row warps x 2 halves of N), clusters as
+//     pass 2 over 64-row tiles: one product per causal pair and group for
+//     dB (dCB^T C) and dC (dCB B), the pairs dealt over the cluster; then
+//     each CTA's heads' state terms, w (x G) into dB and exp(cs) (dy S_in)
+//     into dC (one float32 accumulator over the heads, x and dy exact),
+//     and dcs's state term, two stages of tiles in flight; the cluster
+//     sums dB and dC in rank order and writes them in the inputs' type.
+//  4. bwd_finish, a block per head, a warp per chunk: dcs from the passes'
+//     parts, the reverse cumsum as a warp scan in float64 (rounded once),
+//     ddt, and dA summed in a fixed order.
+// hs is the largest cluster (at most 16 CTAs, the last ones non-portable)
+// with which every cluster of the launch is resident at once, asked of
+// the device once per shape (pick_cluster). Every sum over heads, warps or
+// CTAs runs in a fixed order and no atomics are used: two launches give
+// equal bits.
+//
+// Products. Each runs on the tensor cores with mma.sync m16n8k16 from
+// bf16 planes in shared memory (cp.async, ldmatrix.trans for the operands
+// stored with the reduction along rows) or, for M, dCB_h and v x,
+// straight from registers. An operand is one plane where it is exact in
+// bf16 (the bf16 inputs), two (hi + lo) where it is a float32 value of the
+// bf16 path (M, dCB, G, S_in, v x), three where the inputs are float32
+// (every operand; three bf16 planes hold a float32 exactly), and of the
+// plane pairs (i, j) those with i + j below the larger count are
+// multiplied: 1, 2 or 3 products in bf16, 6 in float32. One bf16 plane for
+// a float32 operand fails the 2-ulp gate 19-220x
+// (tests/test_torch_ssm_train.py). Why mma.sync and not wgmma: the M, dCB
+// and v x operands are born in registers in mma.sync's fragment layouts,
+// the tiles are 16-row warp slices of 64-row tiles, and the card is filled
+// by the clusters, not by large tiles.
+// Block shapes at mamba2's training shape (bf16, P 64, N 128, chunk 256:
+// 4 tiles, 10 causal pairs, 8 (b, chunk) units; ptxas for sm_90a):
+//  * pass 1: 192 state blocks + 32 C B^T blocks, 126 registers, 78,848
+//    bytes of shared memory (two 128-key slabs of x and B per warp group),
+//    two an SM;
+//  * pass 2: 2 folds x 12 CTAs (hps 4, as pick_cluster finds on an H100:
+//    16 clusters of 16 do not fit at once) x 8 units = 192 CTAs, 252
+//    registers, 114,720 bytes (dCB sums 64 KB, B, x, two buffers of dy or
+//    of G's slices), two an SM;
+//  * pass 3: 192 CTAs, 128 registers, 107,040 bytes (C, two stages), two
+//    an SM;
+//  * scratch 30.94 MB: S_in and G as planes 25.2 MB, C B^T and the
+//    group's dCB 1.3 MB each, the cumsums and per-position parts 3.1 MB.
+// What holds it back: every pass runs one or two warps an SM
+// sub-partition (pass 2's 64 KB of dCB sums cap it at two CTAs an SM), so
+// each warp's chain of loads, products and elementwise work shows its
+// latency; at mamba2's shape 0.36 ms, 3.3 % of the bound, pass 2 41 % of
+// it (tools/kernel_probe.py, H100 at 700 W).
+// float32 takes the same passes with three planes an operand.
+//  * Positions past S (and past a chunk's end) load as zeros, take no part
+//    in a product and are never stored.
 
-constexpr int kBwdThreads = 128;
-constexpr int kLdP = kMaxP + 4;              // float32 row strides
-constexpr int kLdQ = kTile + 4;
-
-__host__ __device__ constexpr int ld_n(int kn) { return kn + 4; }
+constexpr int kBwdThreads = 128;             // pass 2; a pass-1 warp group
+constexpr int kWideThreads = 256;            // passes 1, 3 and 4
+constexpr int kMaxCluster = 16;              // CTAs over a group's heads
+constexpr int kPart = 64;                    // state columns a pass-1 block
+constexpr int kGSlice = 32;                  // G's columns a pass-2 stage
 
 __device__ __forceinline__ float ld_f32(const float* p) { return *p; }
 __device__ __forceinline__ float ld_f32(const uint16_t* p) {
   return bf16_to_f32(*p);
 }
 
-// A 64 x kCols float32 product of a 128-thread block, held in registers:
-// an 8 x 16 thread grid, element kJ ii + jj of a thread is row ty + 8 ii,
-// column tx + 16 jj.
-template <int kCols>
-struct Tile {
-  static constexpr int kN = kCols / 2;       // elements a thread holds
-  static constexpr int kJ = kCols / 16;      // columns a thread holds
-  static constexpr int kRowsPer = 8;
-  static constexpr int kSlots = 16;          // threads sharing a row
-  float v[kN];
-
-  __device__ void zero() {
-#pragma unroll
-    for (int i = 0; i < kN; ++i) v[i] = 0.0f;
-  }
-  __device__ static int row(int i) {
-    return (threadIdx.x >> 4) + 8 * (i / kJ);
-  }
-  __device__ static int col(int i) {
-    return (threadIdx.x & 15) + 16 * (i % kJ);
-  }
-  // which of the thread's rows element i is in, and the thread's slot
-  // among those sharing its rows
-  __device__ static int local_row(int i) { return i / kJ; }
-  __device__ static int slot() { return threadIdx.x & 15; }
-  __device__ static int row_of(int r) { return (threadIdx.x >> 4) + 8 * r; }
-
-  // v[r][c] += sum_k A[r ars + k acs] B[k brs + c bcs] over k < K and
-  // every column; A has 64 rows, the operands are zero where they are
-  // padding.
-  __device__ void mul_add(const float* A, int ars, int acs, const float* B,
-                          int brs, int bcs, int K) {
-    const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-    for (int k = 0; k < K; ++k) {
-      float a[8], b[kJ];
-#pragma unroll
-      for (int ii = 0; ii < 8; ++ii) a[ii] = A[(ty + 8 * ii) * ars + k * acs];
-#pragma unroll
-      for (int jj = 0; jj < kJ; ++jj) b[jj] = B[k * brs + (tx + 16 * jj) * bcs];
-#pragma unroll
-      for (int ii = 0; ii < 8; ++ii)
-#pragma unroll
-        for (int jj = 0; jj < kJ; ++jj)
-          v[ii * kJ + jj] = fmaf(a[ii], b[jj], v[ii * kJ + jj]);
-    }
-  }
-
-  // v written to dst[r][c] (row stride ld)
-  __device__ void store(float* dst, int ld) const {
-#pragma unroll
-    for (int i = 0; i < kN; ++i) dst[row(i) * ld + col(i)] = v[i];
-  }
-};
-
-// Row sums of two per-element terms of a tile, in a fixed order: each
-// thread's partials over its columns go to red[row][slot], then (after
-// the caller's __syncthreads()) row_total adds the slots in order.
-template <class TileT, class F>
-__device__ __forceinline__ void row_partials(F term, float2* red) {
-  float2 part[TileT::kRowsPer];
-#pragma unroll
-  for (int r = 0; r < TileT::kRowsPer; ++r) part[r] = make_float2(0, 0);
-#pragma unroll
-  for (int i = 0; i < TileT::kN; ++i) {
-    const float2 t2 = term(i);
-    part[TileT::local_row(i)].x += t2.x;
-    part[TileT::local_row(i)].y += t2.y;
-  }
-#pragma unroll
-  for (int r = 0; r < TileT::kRowsPer; ++r)
-    red[TileT::row_of(r) * TileT::kSlots + TileT::slot()] = part[r];
+__device__ __forceinline__ void cluster_barrier() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-template <class TileT>
-__device__ __forceinline__ float2 row_total(const float2* red, int r) {
-  float2 s = make_float2(0, 0);
+// the sum of *p over the cluster's first hs CTAs, in rank order (the
+// remote loads issued together)
+__device__ __forceinline__ float cluster_sum(const cg::cluster_group& cl,
+                                             float* p, int hs) {
+  float v[kMaxCluster];
 #pragma unroll
-  for (int i = 0; i < TileT::kSlots; ++i) {
-    s.x += red[r * TileT::kSlots + i].x;
-    s.y += red[r * TileT::kSlots + i].y;
-  }
+  for (int r = 0; r < kMaxCluster; ++r)
+    v[r] = r < hs ? *cl.map_shared_rank(p, r) : 0.0f;
+  float s = v[0];
+#pragma unroll
+  for (int r = 1; r < kMaxCluster; ++r)
+    if (r < hs) s += v[r];
   return s;
 }
 
-// rows [0, rows) x cols [0, cols) of src (row stride `stride`) into the
-// float32 tile dst (row stride ld), zeros up to 64 rows and colsp columns
-template <typename T>
-__device__ void load_f32_tile(float* dst, int ld, const T* src,
-                              long long stride, int rows, int cols,
-                              int colsp) {
-  for (int i = threadIdx.x; i < kTile * colsp; i += blockDim.x) {
-    const int r = i / colsp, c = i - r * colsp;
-    dst[r * ld + c] = r < rows && c < cols ? ld_f32(src + r * stride + c)
-                                           : 0.0f;
+// v as NP bf16 planes, v = p[0] + ... + p[NP - 1]: one plane rounds, two
+// keep v within 2^-17 |v|, three hold a float32 exactly (save values the
+// exponent range cuts); each difference is exact in float32
+template <int NP>
+__device__ __forceinline__ void split_planes(float v, uint16_t (&p)[NP]) {
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+    p[i] = f32_to_bf16(v);
+    v -= bf16_to_f32(p[i]);
   }
 }
 
-// The backward's scratch, float32, carved from one workspace:
-struct BwdWork {
-  float *cs, *s_in, *g;                      // (b, h, nc, chunk), 2 x (.., P, N)
-  float *ddt_k, *dcs_k, *wdw, *dcs_q;        // (b, h, nc, chunk) each
-  float *db_h, *dc_h;                        // (b, S, H, N) each
-  float *da;                                 // (b, h, nc)
-};
-
-// Floats of the workspace; with `base`, its slices into *w.
-long long bwd_work_floats(int batch, int S, int H, int P, int N, int chunk,
-                          BwdWork* w = nullptr, float* base = nullptr) {
-  BwdWork unused;
-  if (w == nullptr) w = &unused;
-  const int nc = (S + chunk - 1) / chunk;
-  const long long bhc = static_cast<long long>(batch) * H * nc;
-  const long long bshn = static_cast<long long>(batch) * S * H * N;
-  const struct {
-    float** at;
-    long long n;
-  } slices[] = {{&w->cs, bhc * chunk},   {&w->s_in, bhc * P * N},
-                {&w->g, bhc * P * N},    {&w->ddt_k, bhc * chunk},
-                {&w->dcs_k, bhc * chunk}, {&w->wdw, bhc * chunk},
-                {&w->dcs_q, bhc * chunk}, {&w->db_h, bshn},
-                {&w->dc_h, bshn},        {&w->da, bhc}};
-  long long off = 0;
-  for (const auto& sl : slices) {
-    *sl.at = base == nullptr ? nullptr : base + off;
-    off += (sl.n + 3) & ~3LL;                // 16-byte aligned slices
-  }
-  return off;
+// d += A B over the operands' planes: the pairs (i, j) with i + j below the
+// larger plane count (the rest are below float32's rounding)
+template <int NA, int NB>
+__device__ __forceinline__ void mma_planes(float (&d)[4],
+                                           const uint32_t (&a)[NA][4],
+                                           const uint32_t (&b)[NB][2]) {
+  constexpr int kMax = NA > NB ? NA : NB;
+#pragma unroll
+  for (int i = 0; i < NA; ++i)
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+      if (i + j < kMax) mma_bf16(d, a[i], b[j][0], b[j][1]);
 }
 
-// shared memory of chunk_keys and chunk_queries (float32 tiles: two of
-// 64 x ld_n(kN), three of 64 x kLdP or kLdQ, the chunk's cs and dt, the
-// row sums' slots and three per-row arrays)
-long long bwd_tile_bytes(int kn, int chunk) {
-  return 4LL * (2 * kTile * ld_n(kn) + 2 * kTile * kLdP + kTile * kLdQ +
-                2LL * chunk + 2 * kTile * 16 + 3 * kTile);
+// Fragments of NP planes `ps` elements apart: the A fragment of a row-major
+// tile, of a tile stored [k][m] (read transposed), the B fragment of a tile
+// stored as rows n (k contiguous) or [k][n] (read transposed)
+template <int NP>
+__device__ __forceinline__ void frag_a_pl(uint32_t (&a)[NP][4],
+                                          const uint16_t* s, int ps, int ld,
+                                          int r0, int k0) {
+#pragma unroll
+  for (int i = 0; i < NP; ++i) frag_a(a[i], s + i * ps, ld, r0, k0);
 }
 
-// the chunk's dt and cumsum (from pass 1's scratch) into shared memory
-__device__ void load_chunk_cs(const Chunk& k, const float* dt, const float* cs_g,
-                              int H, int chunk, float* dt_s, float* cs_s) {
-  const float* dtc = dt + k.dt_off;
-  const float* csc = cs_g + k.scratch * chunk;
-  for (int i = threadIdx.x; i < k.len; i += blockDim.x) {
-    dt_s[i] = dtc[static_cast<long long>(i) * H];
-    cs_s[i] = csc[i];
+template <int NP>
+__device__ __forceinline__ void frag_at_pl(uint32_t (&a)[NP][4],
+                                           const uint16_t* s, int ps, int ld,
+                                           int m0, int k0) {
+#pragma unroll
+  for (int i = 0; i < NP; ++i) ldsm_trans_a(a[i], s + i * ps, ld, m0, k0);
+}
+
+template <int NP>
+__device__ __forceinline__ void frag_b_pl(uint32_t (&b)[NP][2],
+                                          const uint16_t* s, int ps, int ld,
+                                          int n0, int k0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+    const uint16_t* p = s + i * ps + (n0 + g) * ld + k0 + 2 * t;
+    b[i][0] = ld32(p);
+    b[i][1] = ld32(p + 8);
   }
 }
 
-template <int kN>
-__global__ void __launch_bounds__(kBwdThreads)
-chunk_keys(const float* __restrict__ x, const float* __restrict__ dt,
-           const float* __restrict__ Bm, const float* __restrict__ Cm,
-           const float* __restrict__ dy, BwdWork w, float* __restrict__ dx,
-           int S, int H, int P, int G, int N, int chunk, int nc) {
-  using TileP = Tile<kMaxP>;                 // 64 x 64 (also keys x queries)
-  using TileN = Tile<kN>;
-  constexpr int kLdN = ld_n(kN);
-  extern __shared__ __align__(16) float smem_f[];
-  float* bk_s = smem_f;                      // keys' B, [k][n]
-  float* xk_s = bk_s + kTile * kLdN;         // keys' x, [k][p]
-  float* cq_s = xk_s + kTile * kLdP;         // queries' C [q][n]; first G [p][n]
-  float* dq_s = cq_s + kTile * kLdN;         // queries' dy, [q][p]
-  float* m_s = dq_s + kTile * kLdP;          // M^T, then (dM L dt)^T, [k][q]
-  float* dt_s = m_s + kTile * kLdQ;
-  float* cs_s = dt_s + chunk;
-  float2* red = reinterpret_cast<float2*>(cs_s + chunk);
-  float* dw_s = reinterpret_cast<float*>(red + kTile * 16);
-  float* acc_ddt = dw_s + kTile;
-  float* acc_dcs = acc_ddt + kTile;
+template <int NP>
+__device__ __forceinline__ void frag_bt_pl(uint32_t (&b)[NP][2],
+                                           const uint16_t* s, int ps, int ld,
+                                           int n0, int k0) {
+#pragma unroll
+  for (int i = 0; i < NP; ++i)
+    ldsm_trans_b(b[i][0], b[i][1], s + i * ps, ld, n0, k0);
+}
 
-  const int bh = blockIdx.z;
-  const Chunk k = chunk_of(bh / H, bh % H, blockIdx.x, S, H, P, G, N, chunk,
-                           nc);
-  const int k0 = blockIdx.y * kTile;
-  if (k0 >= k.len) return;
-  const int kn = min(kTile, k.len - k0);
-  const int tid = threadIdx.x;
-  const long long x_stride = static_cast<long long>(H) * P;
-  const long long bc_stride = static_cast<long long>(G) * N;
-  load_chunk_cs(k, dt, w.cs, H, chunk, dt_s, cs_s);
-  load_f32_tile(bk_s, kLdN, Bm + k.bc_off + k0 * bc_stride, bc_stride, kn, N,
-                kN);
-  load_f32_tile(xk_s, kLdP, x + k.x_off + k0 * x_stride, x_stride, kn, P,
-                kMaxP);
-  load_f32_tile(cq_s, kLdN, w.g + k.scratch * P * N, N, P, N, kN);
-  __syncthreads();
-  const float cs_end = cs_s[k.len - 1];
+// The A fragment planes of key block kb of a 16 x 64 accumulator (its
+// tiles 2 kb and 2 kb + 1), for the product that reduces over its columns
+template <int NP>
+__device__ __forceinline__ void acc_frag(uint32_t (&a)[NP][4],
+                                         const float (&v)[8][4], int kb) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    uint16_t p[4][NP];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split_planes(v[2 * kb + half][e], p[e]);
+#pragma unroll
+    for (int i = 0; i < NP; ++i) {
+      a[i][2 * half] = pack2(p[0][i], p[1][i]);
+      a[i][2 * half + 1] = pack2(p[2][i], p[3][i]);
+    }
+  }
+}
 
-  // the state terms: x G and B G^T, then dw_k = (x G)_k . B_k
-  TileN db;                                  // x G, then dB
-  db.zero();
-  db.mul_add(xk_s, kLdP, 1, cq_s, kLdN, 1, kMaxP);
-  TileP dxt;                                 // B G^T, then dx
-  dxt.zero();
-  dxt.mul_add(bk_s, kLdN, 1, cq_s, 1, kLdN, kN);
-  row_partials<TileN>([&](int i) {
-    return make_float2(db.v[i] * bk_s[TileN::row(i) * kLdN + TileN::col(i)],
-                       0.0f);
-  }, red);
-  __syncthreads();
-  if (tid < kTile) {
-    dw_s[tid] = row_total<TileN>(red, tid).x;
-    acc_ddt[tid] = 0.0f;
-    acc_dcs[tid] = 0.0f;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < TileN::kN; ++i) {
-    const int r = TileN::row(i);
-    db.v[i] *= r < kn ? expf(cs_end - cs_s[k0 + r]) * dt_s[k0 + r] : 0.0f;
-  }
-#pragma unroll
-  for (int i = 0; i < TileP::kN; ++i) {
-    const int r = TileP::row(i);
-    dxt.v[i] *= r < kn ? expf(cs_end - cs_s[k0 + r]) * dt_s[k0 + r] : 0.0f;
-  }
+// A 64-row tile of the inputs as NP planes (`ps` elements apart, row
+// stride ld), rows [0, rows) x cols [0, cols) of src (row stride
+// `stride`), zeros up to colsp columns: bf16 by load_rows (cp.async where
+// `vec`; the caller waits), float32 split through registers.
+template <int NP>
+__device__ void load_tile(uint16_t* dst, int ps, int ld, const uint16_t* src,
+                          long long stride, int rows, int cols, int colsp,
+                          bool vec, int tid = threadIdx.x,
+                          int nthr = blockDim.x) {
+  static_assert(NP == 1, "bf16 inputs are one plane");
+  load_rows(dst, ld, src, stride, rows, cols, colsp, vec, tid, nthr);
+}
 
-  // the dual form, query tiles at and after the key tile
-  for (int q0 = k0; q0 < k.len; q0 += kTile) {
-    const int qn = min(kTile, k.len - q0);
-    __syncthreads();                         // cq_s, dq_s, m_s free again
-    load_f32_tile(cq_s, kLdN, Cm + k.bc_off + q0 * bc_stride, bc_stride, qn,
-                  N, kN);
-    load_f32_tile(dq_s, kLdP, dy + k.x_off + q0 * x_stride, x_stride, qn, P,
-                  kMaxP);
-    __syncthreads();
-    TileP cb, dm;                            // (C B^T)^T, (dy x^T)^T: [k][q]
-    cb.zero();
-    dm.zero();
-    cb.mul_add(bk_s, kLdN, 1, cq_s, 1, kLdN, kN);
-    dm.mul_add(xk_s, kLdP, 1, dq_s, 1, kLdP, kMaxP);
-    // M^T into cb, (dM L dt)^T into dm; per key: sum_q dM C.B L and
-    // sum_q dM M
-    float2 part[TileP::kRowsPer];
+// (float32: eight loads in flight a thread before their splits)
+template <int NP>
+__device__ void load_tile(uint16_t* dst, int ps, int ld, const float* src,
+                          long long stride, int rows, int cols, int colsp,
+                          bool, int tid = threadIdx.x,
+                          int nthr = blockDim.x) {
+  const int n = kTile * colsp;
+  for (int i0 = tid; i0 < n; i0 += 8 * nthr) {
+    float v[8];
 #pragma unroll
-    for (int r = 0; r < TileP::kRowsPer; ++r) part[r] = make_float2(0, 0);
-#pragma unroll
-    for (int i = 0; i < TileP::kN; ++i) {
-      const int kk = k0 + TileP::row(i), q = q0 + TileP::col(i);
-      float m = 0.0f, d = 0.0f;
-      if (kk <= q && q < k.len) {
-        const float L = expf(cs_s[q] - cs_s[kk]);
-        const float cbl = cb.v[i] * L;
-        m = cbl * dt_s[kk];
-        d = (dm.v[i] * L) * dt_s[kk];
-        part[TileP::local_row(i)].x += dm.v[i] * cbl;
-        if (kk < q) part[TileP::local_row(i)].y += dm.v[i] * m;
-      }
-      cb.v[i] = m;
-      dm.v[i] = d;
+    for (int u = 0; u < 8; ++u) {
+      const int i = i0 + u * nthr, r = i / colsp, c = i - r * colsp;
+      v[u] = i < n && r < rows && c < cols ? src[r * stride + c] : 0.0f;
     }
 #pragma unroll
-    for (int r = 0; r < TileP::kRowsPer; ++r)
-      red[TileP::row_of(r) * TileP::kSlots + TileP::slot()] = part[r];
-    cb.store(m_s, kLdQ);
-    __syncthreads();
-    if (tid < kTile) {
-      const float2 t2 = row_total<TileP>(red, tid);
-      acc_ddt[tid] += t2.x;
-      acc_dcs[tid] -= t2.y;
+    for (int u = 0; u < 8; ++u) {
+      const int i = i0 + u * nthr, r = i / colsp, c = i - r * colsp;
+      if (i >= n) break;
+      uint16_t p[NP];
+      split_planes(v[u], p);
+#pragma unroll
+      for (int k = 0; k < NP; ++k) dst[k * ps + r * ld + c] = p[k];
     }
-    dxt.mul_add(m_s, kLdQ, 1, dq_s, kLdP, 1, kTile);
-    __syncthreads();
-    dm.store(m_s, kLdQ);
-    __syncthreads();
-    db.mul_add(m_s, kLdQ, 1, cq_s, kLdN, 1, kTile);
-  }
-
-  // dx (x's type), the head's dB (float32), the per-key scalars
-  float* dxc = dx + k.x_off + k0 * x_stride;
-#pragma unroll
-  for (int i = 0; i < TileP::kN; ++i) {
-    const int r = TileP::row(i), c = TileP::col(i);
-    if (r < kn && c < P) dxc[r * x_stride + c] = dxt.v[i];
-  }
-  const long long hn_stride = static_cast<long long>(H) * N;
-  float* dbc = w.db_h + (static_cast<long long>(k.b) * S + k.c0 + k0) *
-                            hn_stride + static_cast<long long>(k.h) * N;
-#pragma unroll
-  for (int i = 0; i < TileN::kN; ++i) {
-    const int r = TileN::row(i), c = TileN::col(i);
-    if (r < kn && c < N) dbc[r * hn_stride + c] = db.v[i];
-  }
-  if (tid < kn) {
-    const long long o = k.scratch * chunk + k0 + tid;
-    const float e = expf(cs_end - cs_s[k0 + tid]);
-    const float wdw = e * dt_s[k0 + tid] * dw_s[tid];
-    w.ddt_k[o] = acc_ddt[tid] + e * dw_s[tid];
-    w.dcs_k[o] = acc_dcs[tid];
-    w.wdw[o] = wdw;
-  }
-}
-
-template <int kN>
-__global__ void __launch_bounds__(kBwdThreads)
-chunk_queries(const float* __restrict__ x, const float* __restrict__ dt,
-              const float* __restrict__ Bm, const float* __restrict__ Cm,
-              const float* __restrict__ dy, BwdWork w, int S, int H, int P,
-              int G, int N, int chunk, int nc) {
-  using TileP = Tile<kMaxP>;
-  using TileN = Tile<kN>;
-  constexpr int kLdN = ld_n(kN);
-  extern __shared__ __align__(16) float smem_f[];
-  float* cq_s = smem_f;                      // queries' C, [q][n]
-  float* dq_s = cq_s + kTile * kLdN;         // queries' dy, [q][p]
-  float* bk_s = dq_s + kTile * kLdP;         // keys' B [k][n]; first S_in [p][n]
-  float* xk_s = bk_s + kTile * kLdN;         // keys' x, [k][p]
-  float* m_s = xk_s + kTile * kLdP;          // dM L dt, [q][k]
-  float* dt_s = m_s + kTile * kLdQ;
-  float* cs_s = dt_s + chunk;
-  float2* red = reinterpret_cast<float2*>(cs_s + chunk);
-  float* acc_dcs = reinterpret_cast<float*>(red + kTile * 16);
-
-  const int bh = blockIdx.z;
-  const Chunk k = chunk_of(bh / H, bh % H, blockIdx.x, S, H, P, G, N, chunk,
-                           nc);
-  const int q0 = blockIdx.y * kTile;
-  if (q0 >= k.len) return;
-  const int qn = min(kTile, k.len - q0);
-  const int tid = threadIdx.x;
-  const long long x_stride = static_cast<long long>(H) * P;
-  const long long bc_stride = static_cast<long long>(G) * N;
-  load_chunk_cs(k, dt, w.cs, H, chunk, dt_s, cs_s);
-  load_f32_tile(cq_s, kLdN, Cm + k.bc_off + q0 * bc_stride, bc_stride, qn, N,
-                kN);
-  load_f32_tile(dq_s, kLdP, dy + k.x_off + q0 * x_stride, x_stride, qn, P,
-                kMaxP);
-  load_f32_tile(bk_s, kLdN, w.s_in + k.scratch * P * N, N, P, N, kN);
-  __syncthreads();
-
-  // the carried state's part: dy S_in, then off_q = C_q . (dy S_in)_q
-  TileN dc;
-  dc.zero();
-  dc.mul_add(dq_s, kLdP, 1, bk_s, kLdN, 1, kMaxP);
-  row_partials<TileN>([&](int i) {
-    return make_float2(dc.v[i] * cq_s[TileN::row(i) * kLdN + TileN::col(i)],
-                       0.0f);
-  }, red);
-  __syncthreads();
-  if (tid < kTile)
-    acc_dcs[tid] = tid < qn ? expf(cs_s[q0 + tid]) *
-                                  row_total<TileN>(red, tid).x
-                            : 0.0f;
-#pragma unroll
-  for (int i = 0; i < TileN::kN; ++i) {
-    const int r = TileN::row(i);
-    dc.v[i] *= r < qn ? expf(cs_s[q0 + r]) : 0.0f;
-  }
-
-  // the dual form, key tiles at and before the query tile
-  for (int k0 = 0; k0 <= q0; k0 += kTile) {
-    const int kn = min(kTile, k.len - k0);
-    __syncthreads();                         // bk_s, xk_s, m_s, red free again
-    load_f32_tile(bk_s, kLdN, Bm + k.bc_off + k0 * bc_stride, bc_stride, kn,
-                  N, kN);
-    load_f32_tile(xk_s, kLdP, x + k.x_off + k0 * x_stride, x_stride, kn, P,
-                  kMaxP);
-    __syncthreads();
-    TileP cb, dm;                            // C B^T, dy x^T: [q][k]
-    cb.zero();
-    dm.zero();
-    cb.mul_add(cq_s, kLdN, 1, bk_s, 1, kLdN, kN);
-    dm.mul_add(dq_s, kLdP, 1, xk_s, 1, kLdP, kMaxP);
-    float2 part[TileP::kRowsPer];
-#pragma unroll
-    for (int r = 0; r < TileP::kRowsPer; ++r) part[r] = make_float2(0, 0);
-#pragma unroll
-    for (int i = 0; i < TileP::kN; ++i) {
-      const int q = q0 + TileP::row(i), kk = k0 + TileP::col(i);
-      float d = 0.0f;
-      if (kk <= q && q < k.len) {
-        const float L = expf(cs_s[q] - cs_s[kk]);
-        const float m = (cb.v[i] * L) * dt_s[kk];
-        d = (dm.v[i] * L) * dt_s[kk];
-        if (kk < q) part[TileP::local_row(i)].x += dm.v[i] * m;
-      }
-      dm.v[i] = d;
-    }
-#pragma unroll
-    for (int r = 0; r < TileP::kRowsPer; ++r)
-      red[TileP::row_of(r) * TileP::kSlots + TileP::slot()] = part[r];
-    dm.store(m_s, kLdQ);
-    __syncthreads();
-    if (tid < kTile) acc_dcs[tid] += row_total<TileP>(red, tid).x;
-    dc.mul_add(m_s, kLdQ, 1, bk_s, kLdN, 1, kTile);
-  }
-
-  const long long hn_stride = static_cast<long long>(H) * N;
-  float* dcc = w.dc_h + (static_cast<long long>(k.b) * S + k.c0 + q0) *
-                            hn_stride + static_cast<long long>(k.h) * N;
-#pragma unroll
-  for (int i = 0; i < TileN::kN; ++i) {
-    const int r = TileN::row(i), c = TileN::col(i);
-    if (r < qn && c < N) dcc[r * hn_stride + c] = dc.v[i];
-  }
-  __syncthreads();
-  if (tid < qn) w.dcs_q[k.scratch * chunk + q0 + tid] = acc_dcs[tid];
-}
-
-// ---- bfloat16: the tensor-core passes -----------------------------------
-
-__host__ __device__ constexpr int ld_tc(int kn) { return kn + 8; }
-
-// shared memory of chunk_keys_tc and chunk_queries_tc: bf16 tiles of 64
-// rows, four of ld_tc(kN) (B or C, the other, G or S_in hi and lo) and
-// two of kLdK (x, dy), then the chunk's dt and cs
-long long tc_tile_bytes(int kn, int chunk) {
-  return 2LL * kTile * (4 * ld_tc(kn) + 2 * kLdK) + 8LL * chunk;
-}
-
-// rows [0, rows) x cols [0, cols) of the float32 src (row stride cols)
-// split into bf16 hi and lo tiles (row stride ld), zeros up to 64 rows
-// and colsp columns
-__device__ void load_split(uint16_t* hi, uint16_t* lo, int ld,
-                           const float* src, int rows, int cols,
-                           int colsp) {
-  for (int i = threadIdx.x; i < kTile * colsp; i += blockDim.x) {
-    const int r = i / colsp, c = i - r * colsp;
-    uint16_t h = 0, l = 0;
-    if (r < rows && c < cols) split_bf16(src[r * cols + c], h, l);
-    hi[r * ld + c] = h;
-    lo[r * ld + c] = l;
   }
 }
 
@@ -1370,366 +1163,6 @@ __device__ void load_split(uint16_t* hi, uint16_t* lo, int ld,
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// accumulator tile j's four values as the bf16 hi and lo halves of the A
-// fragment they belong to: tile j holds columns 8 j .. 8 j + 7, which are
-// k block j / 2, its first or second half
-__device__ __forceinline__ void to_frag(const float (&v)[4], int j,
-                                        uint32_t (&hi)[4][4],
-                                        uint32_t (&lo)[4][4]) {
-  uint16_t h[4], l[4];
-#pragma unroll
-  for (int e = 0; e < 4; ++e) split_bf16(v[e], h[e], l[e]);
-  const int kb = j >> 1, half = (j & 1) * 2;
-  hi[kb][half] = pack2(h[0], h[1]);
-  hi[kb][half + 1] = pack2(h[2], h[3]);
-  lo[kb][half] = pack2(l[0], l[1]);
-  lo[kb][half + 1] = pack2(l[2], l[3]);
-}
-
-template <int kN>
-__global__ void __launch_bounds__(kBwdThreads)
-chunk_keys_tc(const uint16_t* __restrict__ x, const float* __restrict__ dt,
-              const uint16_t* __restrict__ Bm,
-              const uint16_t* __restrict__ Cm,
-              const uint16_t* __restrict__ dy, BwdWork w,
-              uint16_t* __restrict__ dx, int S, int H, int P, int G, int N,
-              int chunk, int nc, int vec_x, int vec_bc) {
-  constexpr int ldn = ld_tc(kN);
-  constexpr int kJn = kN / 8;                // n tiles of a warp's 16 rows
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint16_t* bk_s = reinterpret_cast<uint16_t*>(smem_raw);  // keys' B [k][n]
-  uint16_t* xk_s = bk_s + kTile * ldn;       // keys' x [k][p]
-  uint16_t* cq_s = xk_s + kTile * kLdK;      // queries' C [q][n]
-  uint16_t* dq_s = cq_s + kTile * ldn;       // queries' dy [q][p]
-  uint16_t* gh_s = dq_s + kTile * kLdK;      // G [p][n], hi
-  uint16_t* gl_s = gh_s + kTile * ldn;       // and lo
-  float* dt_s = reinterpret_cast<float*>(gl_s + kTile * ldn);
-  float* cs_s = dt_s + chunk;
-
-  const int bh = blockIdx.z;
-  const Chunk k = chunk_of(bh / H, bh % H, blockIdx.x, S, H, P, G, N, chunk,
-                           nc);
-  const int k0 = blockIdx.y * kTile;
-  if (k0 >= k.len) return;
-  const int kn = min(kTile, k.len - k0);
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int r0 = 16 * (threadIdx.x >> 5);    // the warp's 16 keys
-  const long long x_stride = static_cast<long long>(H) * P;
-  const long long bc_stride = static_cast<long long>(G) * N;
-  load_chunk_cs(k, dt, w.cs, H, chunk, dt_s, cs_s);
-  load_rows(bk_s, ldn, Bm + k.bc_off + k0 * bc_stride, bc_stride, kn, N, kN,
-            vec_bc);
-  load_rows(xk_s, kLdK, x + k.x_off + k0 * x_stride, x_stride, kn, P, kMaxP,
-            vec_x);
-  load_split(gh_s, gl_s, ldn, w.g + k.scratch * P * N, P, N, kN);
-  cp_async_wait();
-  __syncthreads();
-  const float cs_end = cs_s[k.len - 1];
-  float wk[2];                               // w_k of the thread's two rows
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = r0 + g + 8 * h;
-    wk[h] = r < kn ? expf(cs_end - cs_s[k0 + r]) * dt_s[k0 + r] : 0.0f;
-  }
-
-  // the state terms: x G (then dB) and B G^T (then dx), G as hi + lo
-  float db[kJn][4] = {}, dxa[8][4] = {};
-  for (int kk = 0; kk < kMaxP; kk += 16) {
-    uint32_t a[4];
-    frag_a(a, xk_s, kLdK, r0, kk);
-#pragma unroll
-    for (int j = 0; j < kJn; ++j) {
-      uint32_t b0, b1;
-      ldsm_trans_b(b0, b1, gh_s, ldn, 8 * j, kk);
-      mma_bf16(db[j], a, b0, b1);
-      ldsm_trans_b(b0, b1, gl_s, ldn, 8 * j, kk);
-      mma_bf16(db[j], a, b0, b1);
-    }
-  }
-  for (int kk = 0; kk < kN; kk += 16) {
-    uint32_t a[4];
-    frag_a(a, bk_s, ldn, r0, kk);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      mma_rows(dxa[j], a, gh_s, ldn, 8 * j, kk);
-      mma_rows(dxa[j], a, gl_s, ldn, 8 * j, kk);
-    }
-  }
-  // dw_k = (x G)_k . B_k
-  float dw[2] = {0.0f, 0.0f};
-#pragma unroll
-  for (int j = 0; j < kJn; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = r0 + g + 8 * (e >> 1), c = 8 * j + 2 * t + (e & 1);
-      dw[e >> 1] += bf16_to_f32(bk_s[r * ldn + c]) * db[j][e];
-    }
-  dw[0] = quad_sum(dw[0]);
-  dw[1] = quad_sum(dw[1]);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-#pragma unroll
-    for (int j = 0; j < kJn; ++j) db[j][e] *= wk[e >> 1];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) dxa[j][e] *= wk[e >> 1];
-  }
-
-  // the dual form, query tiles at and after the key tile
-  float pddt[2] = {0.0f, 0.0f}, pT[2] = {0.0f, 0.0f};
-  for (int q0 = k0; q0 < k.len; q0 += kTile) {
-    const int qn = min(kTile, k.len - q0);
-    __syncthreads();                         // cq_s, dq_s free again
-    load_rows(cq_s, ldn, Cm + k.bc_off + q0 * bc_stride, bc_stride, qn, N,
-              kN, vec_bc);
-    load_rows(dq_s, kLdK, dy + k.x_off + q0 * x_stride, x_stride, qn, P,
-              kMaxP, vec_x);
-    cp_async_wait();
-    __syncthreads();
-    float cb[8][4] = {}, dm[8][4] = {};      // (C B^T)^T, (dy x^T)^T: [k][q]
-    for (int kk = 0; kk < kN; kk += 16) {
-      uint32_t a[4];
-      frag_a(a, bk_s, ldn, r0, kk);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) mma_rows(cb[j], a, cq_s, ldn, 8 * j, kk);
-    }
-    for (int kk = 0; kk < kMaxP; kk += 16) {
-      uint32_t a[4];
-      frag_a(a, xk_s, kLdK, r0, kk);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) mma_rows(dm[j], a, dq_s, kLdK, 8 * j, kk);
-    }
-    // M^T into cb, (dM L dt)^T into dm; per key the sums of dM C.B L and
-    // (off the diagonal) dM M
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kk = k0 + r0 + g + 8 * (e >> 1);
-        const int q = q0 + 8 * j + 2 * t + (e & 1);
-        float m = 0.0f, d = 0.0f;
-        if (kk <= q && q < k.len) {
-          const float L = expf(cs_s[q] - cs_s[kk]);
-          const float cbl = cb[j][e] * L;
-          m = cbl * dt_s[kk];
-          d = (dm[j][e] * L) * dt_s[kk];
-          pddt[e >> 1] += dm[j][e] * cbl;
-          if (kk < q) pT[e >> 1] += dm[j][e] * m;
-        }
-        cb[j][e] = m;
-        dm[j][e] = d;
-      }
-    // dx += M^T dy, then dB += (dM L dt)^T C, each as hi + lo A fragments
-    // from the registers; dy and C read transposed
-    {
-      uint32_t fh[4][4], fl[4][4];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) to_frag(cb[j], j, fh, fl);
-#pragma unroll
-      for (int kb = 0; kb < 4; ++kb)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          uint32_t b0, b1;
-          ldsm_trans_b(b0, b1, dq_s, kLdK, 8 * j, 16 * kb);
-          mma_bf16(dxa[j], fh[kb], b0, b1);
-          mma_bf16(dxa[j], fl[kb], b0, b1);
-        }
-    }
-    {
-      uint32_t fh[4][4], fl[4][4];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) to_frag(dm[j], j, fh, fl);
-#pragma unroll
-      for (int kb = 0; kb < 4; ++kb)
-#pragma unroll
-        for (int j = 0; j < kJn; ++j) {
-          uint32_t b0, b1;
-          ldsm_trans_b(b0, b1, cq_s, ldn, 8 * j, 16 * kb);
-          mma_bf16(db[j], fh[kb], b0, b1);
-          mma_bf16(db[j], fl[kb], b0, b1);
-        }
-    }
-  }
-
-  // dx (bf16), the head's dB (float32), the per-key scalars
-  uint16_t* dxc = dx + k.x_off + k0 * x_stride;
-  const long long hn_stride = static_cast<long long>(H) * N;
-  float* dbc = w.db_h + (static_cast<long long>(k.b) * S + k.c0 + k0) *
-                            hn_stride + static_cast<long long>(k.h) * N;
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const int r = r0 + g + 8 * (e >> 1);
-    if (r >= kn) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = 8 * j + 2 * t + (e & 1);
-      if (c < P) dxc[r * x_stride + c] = f32_to_bf16(dxa[j][e]);
-    }
-#pragma unroll
-    for (int j = 0; j < kJn; ++j) {
-      const int c = 8 * j + 2 * t + (e & 1);
-      if (c < N) dbc[r * hn_stride + c] = db[j][e];
-    }
-  }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const float ddt = quad_sum(pddt[h]), T = quad_sum(pT[h]);
-    const int r = r0 + g + 8 * h;
-    if (t == 0 && r < kn) {
-      const long long o = k.scratch * chunk + k0 + r;
-      w.ddt_k[o] = ddt + expf(cs_end - cs_s[k0 + r]) * dw[h];
-      w.dcs_k[o] = -T;
-      w.wdw[o] = wk[h] * dw[h];
-    }
-  }
-}
-
-template <int kN>
-__global__ void __launch_bounds__(kBwdThreads)
-chunk_queries_tc(const uint16_t* __restrict__ x, const float* __restrict__ dt,
-                 const uint16_t* __restrict__ Bm,
-                 const uint16_t* __restrict__ Cm,
-                 const uint16_t* __restrict__ dy, BwdWork w, int S, int H,
-                 int P, int G, int N, int chunk, int nc, int vec_x,
-                 int vec_bc) {
-  constexpr int ldn = ld_tc(kN);
-  constexpr int kJn = kN / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint16_t* cq_s = reinterpret_cast<uint16_t*>(smem_raw);  // queries' C
-  uint16_t* dq_s = cq_s + kTile * ldn;       // queries' dy [q][p]
-  uint16_t* bk_s = dq_s + kTile * kLdK;      // keys' B [k][n]
-  uint16_t* xk_s = bk_s + kTile * ldn;       // keys' x [k][p]
-  uint16_t* sh_s = xk_s + kTile * kLdK;      // S_in [p][n], hi
-  uint16_t* sl_s = sh_s + kTile * ldn;       // and lo
-  float* dt_s = reinterpret_cast<float*>(sl_s + kTile * ldn);
-  float* cs_s = dt_s + chunk;
-
-  const int bh = blockIdx.z;
-  const Chunk k = chunk_of(bh / H, bh % H, blockIdx.x, S, H, P, G, N, chunk,
-                           nc);
-  const int q0 = blockIdx.y * kTile;
-  if (q0 >= k.len) return;
-  const int qn = min(kTile, k.len - q0);
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int r0 = 16 * (threadIdx.x >> 5);    // the warp's 16 queries
-  const long long x_stride = static_cast<long long>(H) * P;
-  const long long bc_stride = static_cast<long long>(G) * N;
-  load_chunk_cs(k, dt, w.cs, H, chunk, dt_s, cs_s);
-  load_rows(cq_s, ldn, Cm + k.bc_off + q0 * bc_stride, bc_stride, qn, N, kN,
-            vec_bc);
-  load_rows(dq_s, kLdK, dy + k.x_off + q0 * x_stride, x_stride, qn, P,
-            kMaxP, vec_x);
-  load_split(sh_s, sl_s, ldn, w.s_in + k.scratch * P * N, P, N, kN);
-  cp_async_wait();
-  __syncthreads();
-
-  // the carried state's part: dy S_in, off_q = C_q . (dy S_in)_q
-  float dc[kJn][4] = {};
-  for (int kk = 0; kk < kMaxP; kk += 16) {
-    uint32_t a[4];
-    frag_a(a, dq_s, kLdK, r0, kk);
-#pragma unroll
-    for (int j = 0; j < kJn; ++j) {
-      uint32_t b0, b1;
-      ldsm_trans_b(b0, b1, sh_s, ldn, 8 * j, kk);
-      mma_bf16(dc[j], a, b0, b1);
-      ldsm_trans_b(b0, b1, sl_s, ldn, 8 * j, kk);
-      mma_bf16(dc[j], a, b0, b1);
-    }
-  }
-  float off[2] = {0.0f, 0.0f}, eq[2];
-#pragma unroll
-  for (int j = 0; j < kJn; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = r0 + g + 8 * (e >> 1), c = 8 * j + 2 * t + (e & 1);
-      off[e >> 1] += bf16_to_f32(cq_s[r * ldn + c]) * dc[j][e];
-    }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = r0 + g + 8 * h;
-    eq[h] = r < qn ? expf(cs_s[q0 + r]) : 0.0f;
-    off[h] = eq[h] * quad_sum(off[h]);
-  }
-#pragma unroll
-  for (int j = 0; j < kJn; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dc[j][e] *= eq[e >> 1];
-
-  // the dual form, key tiles at and before the query tile
-  float pT[2] = {0.0f, 0.0f};
-  for (int k0 = 0; k0 <= q0; k0 += kTile) {
-    const int kn = min(kTile, k.len - k0);
-    __syncthreads();                         // bk_s, xk_s free again
-    load_rows(bk_s, ldn, Bm + k.bc_off + k0 * bc_stride, bc_stride, kn, N,
-              kN, vec_bc);
-    load_rows(xk_s, kLdK, x + k.x_off + k0 * x_stride, x_stride, kn, P,
-              kMaxP, vec_x);
-    cp_async_wait();
-    __syncthreads();
-    float cb[8][4] = {}, dm[8][4] = {};      // C B^T, dy x^T: [q][k]
-    for (int kk = 0; kk < kN; kk += 16) {
-      uint32_t a[4];
-      frag_a(a, cq_s, ldn, r0, kk);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) mma_rows(cb[j], a, bk_s, ldn, 8 * j, kk);
-    }
-    for (int kk = 0; kk < kMaxP; kk += 16) {
-      uint32_t a[4];
-      frag_a(a, dq_s, kLdK, r0, kk);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) mma_rows(dm[j], a, xk_s, kLdK, 8 * j, kk);
-    }
-    uint32_t dh[4][4], dl[4][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int q = q0 + r0 + g + 8 * (e >> 1);
-        const int kk = k0 + 8 * j + 2 * t + (e & 1);
-        float d = 0.0f;
-        if (kk <= q && q < k.len) {
-          const float L = expf(cs_s[q] - cs_s[kk]);
-          const float m = (cb[j][e] * L) * dt_s[kk];
-          d = (dm[j][e] * L) * dt_s[kk];
-          if (kk < q) pT[e >> 1] += dm[j][e] * m;
-        }
-        dm[j][e] = d;
-      }
-      to_frag(dm[j], j, dh, dl);
-    }
-    // dC += (dM L dt) B, B read transposed
-#pragma unroll
-    for (int kb = 0; kb < 4; ++kb)
-#pragma unroll
-      for (int j = 0; j < kJn; ++j) {
-        uint32_t b0, b1;
-        ldsm_trans_b(b0, b1, bk_s, ldn, 8 * j, 16 * kb);
-        mma_bf16(dc[j], dh[kb], b0, b1);
-        mma_bf16(dc[j], dl[kb], b0, b1);
-      }
-  }
-
-  const long long hn_stride = static_cast<long long>(H) * N;
-  float* dcc = w.dc_h + (static_cast<long long>(k.b) * S + k.c0 + q0) *
-                            hn_stride + static_cast<long long>(k.h) * N;
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const int r = r0 + g + 8 * (e >> 1);
-    if (r >= qn) continue;
-#pragma unroll
-    for (int j = 0; j < kJn; ++j) {
-      const int c = 8 * j + 2 * t + (e & 1);
-      if (c < N) dcc[r * hn_stride + c] = dc[j][e];
-    }
-  }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const float T = quad_sum(pT[h]);
-    const int r = r0 + g + 8 * h;
-    if (t == 0 && r < qn) w.dcs_q[k.scratch * chunk + q0 + r] = off[h] + T;
-  }
 }
 
 // A block's sum of v over its threads, in a fixed order (warp shuffles,
@@ -1745,218 +1178,1195 @@ __device__ float block_sum(float v, float* scratch) {
   return s;
 }
 
-// Pass 5, one block per (chunk, h, b): dcs, its reverse cumsum (float64,
-// rounded once), ddt and the chunk's part of dA.
-__global__ void __launch_bounds__(kThreads)
-chunk_finish(const float* __restrict__ dt, const float* __restrict__ A,
-             BwdWork w, float* __restrict__ ddt, int S, int H, int P, int N,
-             int chunk, int nc) {
-  __shared__ float scratch[kThreads / 32];
-  extern __shared__ float dcs_s[];           // chunk
-  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const long long sc = (static_cast<long long>(b) * H + h) * nc + c;
-  const int c0 = c * chunk, len = min(chunk, S - c0);
-  const float* cs = w.cs + sc * chunk;
-  const float* gp = w.g + sc * P * N;
-  const float* sp = w.s_in + sc * P * N;
-  float dot = 0.0f, wsum = 0.0f;
-  for (int i = threadIdx.x; i < P * N; i += blockDim.x)
-    dot = fmaf(gp[i], sp[i], dot);
-  for (int i = threadIdx.x; i < len; i += blockDim.x) {
-    wsum += w.wdw[sc * chunk + i];
-    dcs_s[i] = (w.dcs_q[sc * chunk + i] + w.dcs_k[sc * chunk + i]) -
-               w.wdw[sc * chunk + i];
+// two neighbouring outputs in one store (dst aligned to the pair)
+__device__ __forceinline__ void store2(uint16_t* dst, float a, float b) {
+  *reinterpret_cast<uint32_t*>(dst) = pack2(f32_to_bf16(a), f32_to_bf16(b));
+}
+__device__ __forceinline__ void store2(float* dst, float a, float b) {
+  *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+}
+
+__host__ __device__ __forceinline__ int pair_of(int qt, int kt) {
+  return qt * (qt + 1) / 2 + kt;
+}
+
+// The backward's scratch, carved from one workspace (NPF planes of bf16
+// for a float32 value: 2 in bf16, 3 in float32):
+struct BwdWork {
+  float* cs;       // (b, H, nc, chunk) the chunks' cumsums
+  uint16_t* sp;    // (b, H, nc, NPF, P, N) S_in as planes
+  uint16_t* gp;    // (b, H, nc, NPF, P, N) G as planes
+  float* gs;       // (b, H, nc, parts) <G, S_in> by pass 1's parts
+  float* cb;       // (b, nc, G, pairs, 64 x 64) C B^T, pass 2's order
+  uint16_t* dcb;   // (b, nc, G, pairs, NPF, 64, 64) the group's dCB^T
+  float* ddt_k;    // (b, H, nc, chunk) ddt's direct part
+  float* dself;    // (b, H, nc, chunk) dcs's key side and -w dw
+  float* off;      // (b, H, nc, chunk) dcs's state term
+  float* rowt;     // (b, H, nc, tiles, chunk) dcs's query side by key tile
+  float* wsum;     // (b, H, nc, tiles) sum of w dw by key tile
+};
+
+// Bytes of the workspace; with `base`, its slices into *w.
+long long bwd_work_bytes(int batch, int S, int H, int P, int G, int N,
+                         int chunk, int npf, BwdWork* w = nullptr,
+                         unsigned char* base = nullptr) {
+  BwdWork unused;
+  if (w == nullptr) w = &unused;
+  const long long nc = (S + chunk - 1) / chunk, tiles = (chunk + 63) / 64;
+  const long long bhc = static_cast<long long>(batch) * H * nc;
+  const long long units = static_cast<long long>(batch) * nc * G;
+  const long long pairs = tiles * (tiles + 1) / 2;
+  const long long planes = bhc * npf * P * N;
+  const struct {
+    void* at;
+    long long bytes;
+  } slices[] = {{&w->cs, 4 * bhc * chunk},
+                {&w->sp, 2 * planes},
+                {&w->gp, 2 * planes},
+                {&w->gs, 4 * bhc * ((N + kPart - 1) / kPart)},
+                {&w->cb, 4 * units * pairs * 4096},
+                {&w->dcb, 2 * units * pairs * npf * 4096},
+                {&w->ddt_k, 4 * bhc * chunk},
+                {&w->dself, 4 * bhc * chunk},
+                {&w->off, 4 * bhc * chunk},
+                {&w->rowt, 4 * bhc * tiles * chunk},
+                {&w->wsum, 4 * bhc * tiles}};
+  long long off = 0;
+  for (const auto& sl : slices) {
+    *static_cast<unsigned char**>(sl.at) =
+        base == nullptr ? nullptr : base + off;
+    off += (sl.bytes + 15) & ~15LL;          // 16-byte aligned slices
   }
-  dot = block_sum(dot, scratch);
-  wsum = block_sum(wsum, scratch);
-  if (threadIdx.x == 0) {
-    const float a = A[h];
-    dcs_s[len - 1] += wsum + expf(cs[len - 1]) * dot;
-    const float* dtc = dt + (static_cast<long long>(b) * S + c0) * H + h;
-    float* ddtc = ddt + (static_cast<long long>(b) * S + c0) * H + h;
-    double run = 0.0;
-    float da_sum = 0.0f;
-    for (int j = len - 1; j >= 0; --j) {
-      run += static_cast<double>(dcs_s[j]);
-      const float da = static_cast<float>(run);
-      const long long o = static_cast<long long>(j) * H;
-      ddtc[o] = w.ddt_k[sc * chunk + j] + a * da;
-      da_sum = fmaf(dtc[o], da, da_sum);
+  return off;
+}
+
+// pass 1's keys a slab: its shared memory is a slab of x (or dy) and of
+// (v B) as planes
+__host__ __device__ constexpr int state_slab(int npi) {
+  return npi == 1 ? 128 : 64;
+}
+
+// one pass-1 warp group's shared memory: slabs of x (or dy) and of B (or
+// C), v, and the chunk's dt and cs
+__host__ __device__ constexpr long long state_group_bytes(int npi,
+                                                          int chunk) {
+  return (2LL * npi * state_slab(npi) * (kLdK + kPart + 8) +
+          4LL * (state_slab(npi) + 2 * chunk) + 15) & ~15LL;
+}
+
+__host__ __device__ constexpr long long plane_bytes(int ld) {
+  return 2LL * kTile * ld;
+}
+
+// shared memory of each pass's block, by planes of the inputs (NPI) and
+// of float32 values (NPF)
+long long states_bytes(int npi, int npf, int chunk) {
+  const long long state = 2 * state_group_bytes(npi, chunk);
+  const long long cbr = 3 * npi * plane_bytes(kLdN);
+  return state > cbr ? state : cbr;
+}
+long long dual_bytes(int npi, int npf, int chunk) {
+  const int tiles = (chunk + kTile - 1) / kTile;
+  const long long g = npf * plane_bytes(kGSlice + 8);
+  const long long y = npi * plane_bytes(kLdK);
+  return 16384LL * tiles + npi * (plane_bytes(kLdN) + plane_bytes(kLdK)) +
+         2 * (g > y ? g : y) + 4LL * (8 * kTile + 8);
+}
+// pass 3's stage buffer: a 64-row tile of x or dy, G or S_in as planes,
+// and the tile's cs, dt and cs_end (132 floats)
+__host__ __device__ constexpr long long group_buf(int npi, int npf) {
+  return npi * plane_bytes(kLdK) + npf * plane_bytes(kLdN) + 4 * 132;
+}
+// two stage buffers, or the 2 x 8192 floats staged for the cluster's sum
+__host__ __device__ constexpr long long group_region(int npi, int npf) {
+  return 2 * group_buf(npi, npf) > 4LL * 2 * 8 * 4 * kWideThreads
+             ? 2 * group_buf(npi, npf)
+             : 4LL * 2 * 8 * 4 * kWideThreads;
+}
+long long group_bytes(int npi, int npf) {
+  return npi * plane_bytes(kLdN) + group_region(npi, npf) + 4LL * 2 * kTile;
+}
+
+// ---- pass 1 ---------------------------------------------------------------
+
+// acc = sum over the chunk's keys k of (v_k a_k)^T b_k for the kPart
+// state columns from n_lo: a (len, P) rows of x or dy (row stride
+// a_stride), b (len, N) rows of B or C, v_k = exp(cs_end - cs_k) dt_k (the
+// local state) or exp(cs_k) (`grad`: the state gradient), by a group of 4
+// warps (group thread gt, named barrier bar), warp wm owning P rows 16 wm;
+// the keys in slabs of kSlab, both operands copied by cp.async, one
+// barrier pair a slab. b stays exact; v a is formed and split into planes
+// from a's fragments.
+template <typename In, int NPI, int NPF, int kSlab>
+__device__ void state_product(float (&acc)[kPart / 8][4], const In* a,
+                              const In* b, long long a_stride,
+                              long long b_stride, int len, const float* cs_s,
+                              const float* dt_s, bool grad, int P, int N,
+                              int n_lo, bool vec_a, bool vec_b,
+                              uint16_t* x_s, uint16_t* b_s, float* wk_s,
+                              int gt, int bar) {
+  const int wm = gt >> 5, t = gt & 3;
+  const int pm = (P + 15) & ~15, nw = min(kPart, N - n_lo);
+  constexpr int kLdB = kPart + 8;
+  constexpr int kPsX = kSlab * kLdK, kPsB = kSlab * kLdB;
+  const float cs_end = cs_s[len - 1];
+#pragma unroll
+  for (int j = 0; j < kPart / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+  for (int k0 = 0; k0 < len; k0 += kSlab) {
+    const int kn = min(kSlab, len - k0);
+    for (int i = gt; i < kSlab; i += kBwdThreads)
+      wk_s[i] = i >= kn ? 0.0f
+                : grad  ? expf(cs_s[k0 + i])
+                        : expf(cs_end - cs_s[k0 + i]) * dt_s[k0 + i];
+    for (int r = 0; r < kSlab; r += kTile) {
+      const int rows = max(0, min(kTile, kn - r));
+      load_tile<NPI>(x_s + r * kLdK, kPsX, kLdK, a + (k0 + r) * a_stride,
+                     a_stride, rows, P, pm, vec_a, gt, kBwdThreads);
+      load_tile<NPI>(b_s + r * kLdB, kPsB, kLdB,
+                     b + (k0 + r) * b_stride + n_lo, b_stride, rows, nw,
+                     kPart, vec_b, gt, kBwdThreads);
     }
-    w.da[sc] = da_sum;
+    cp_async_wait();
+    group_sync(bar, kBwdThreads);
+    if (wm * 16 < P) {
+      const int kbs = (kn + 15) / 16;
+      for (int kb = 0; kb < kbs; ++kb) {
+        uint32_t xa[NPI][4], fa[NPF][4];
+        frag_at_pl(xa, x_s, kPsX, kLdK, wm * 16, kb * 16);   // a^T
+        // fragment register r holds keys 2t, 2t + 1 (r < 2) or 2t + 8,
+        // 2t + 9 (r >= 2) of a row: scale by v_k, split into planes
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int key = kb * 16 + 2 * t + (r >> 1) * 8;
+          float lo = 0.0f, hi = 0.0f;
+#pragma unroll
+          for (int q = 0; q < NPI; ++q) {
+            lo += bf16_to_f32(static_cast<uint16_t>(xa[q][r] & 0xffffu));
+            hi += bf16_to_f32(static_cast<uint16_t>(xa[q][r] >> 16));
+          }
+          uint16_t pl[NPF], ph[NPF];
+          split_planes(lo * wk_s[key], pl);
+          split_planes(hi * wk_s[key + 1], ph);
+#pragma unroll
+          for (int q = 0; q < NPF; ++q) fa[q][r] = pack2(pl[q], ph[q]);
+        }
+#pragma unroll
+        for (int j = 0; j < kPart / 8; ++j)
+          if (n_lo + 8 * j < N) {
+            uint32_t fb[NPI][2];
+            frag_bt_pl(fb, b_s, kPsB, kLdB, 8 * j, kb * 16);
+            mma_planes(acc[j], fa, fb);
+          }
+      }
+    }
+    group_sync(bar, kBwdThreads);            // x_s, b_s, wk_s refill next
   }
 }
 
-// Pass 6: dB and dC summed over each group's heads (in head order), dA
-// over (b, chunk) (in order), cast to the outputs' types.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-bwd_reduce(BwdWork w, T* __restrict__ dB, T* __restrict__ dC,
-           float* __restrict__ dA, long long n_bc, int batch, int H, int G,
-           int N, int nc) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (i < H) {
+// element e of accumulator tile j of state_product's layout for group
+// thread gt: its (p, n)
+__device__ __forceinline__ void state_pos(int gt, int j, int e, int n_lo,
+                                          int& p, int& n) {
+  const int lane = gt & 31;
+  p = (gt >> 5) * 16 + (lane >> 2) + 8 * (e >> 1);
+  n = n_lo + 8 * j + 2 * (lane & 3) + (e & 1);
+}
+
+// a state in state_product's layout as NPF planes at dst (plane stride P
+// N): elements e and e + 1 are neighbouring columns, stored as one word
+// where N is even
+template <int NPF>
+__device__ void store_state(const float (&v)[kPart / 8][4], uint16_t* dst,
+                            int gt, int n_lo, int P, int N) {
+  const long long pn = static_cast<long long>(P) * N;
+#pragma unroll
+  for (int j = 0; j < kPart / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; e += 2) {
+      int p, n;
+      state_pos(gt, j, e, n_lo, p, n);
+      if (p >= P || n >= N) continue;
+      uint16_t q0[NPF], q1[NPF];
+      split_planes(v[j][e], q0);
+      split_planes(v[j][e + 1], q1);
+      uint16_t* d = dst + p * N + n;
+#pragma unroll
+      for (int i = 0; i < NPF; ++i) {
+        if (N % 2 == 0) {
+          *reinterpret_cast<uint32_t*>(d + i * pn) = pack2(q0[i], q1[i]);
+        } else {
+          d[i * pn] = q0[i];
+          if (n + 1 < N) d[i * pn + 1] = q1[i];
+        }
+      }
+    }
+}
+
+// C B^T of one (b, chunk, group, key tile) against its causal query tiles,
+// as [key][query] tiles in pass 2's register order: element (j, e) of
+// thread `tid` of its 4 warps at ((j * 4 + e) * 128 + tid). Warps 0-3
+// take every other query tile, warps 4-7 the ones between.
+template <typename In, int NPI>
+__device__ void cb_block(int i, const In* Bm, const In* Cm, const BwdWork& w,
+                         int S, int G, int N, int chunk, int nc, int tiles_s,
+                         int vec_bc, unsigned char* smem) {
+  const int kt = i % tiles_s, grp = (i / tiles_s) % G;
+  const int c = (i / tiles_s / G) % nc, b = i / tiles_s / G / nc;
+  const int c0 = c * chunk, len = min(chunk, S - c0), k0 = kt * kTile;
+  if (k0 >= len) return;
+  constexpr int kPs = kTile * kLdN;
+  uint16_t* b_s = reinterpret_cast<uint16_t*>(smem);
+  uint16_t* c_s = b_s + NPI * kPs;           // two query tiles
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wr = warp & 3, half = warp >> 2;
+  const int nk = (N + 15) & ~15;
+  const long long bc_stride = static_cast<long long>(G) * N;
+  const long long base = (static_cast<long long>(b) * S + c0) * bc_stride +
+                         static_cast<long long>(grp) * N;
+  const int tiles = (chunk + kTile - 1) / kTile;
+  const int pairs = tiles * (tiles + 1) / 2;
+  float* out = w.cb + ((static_cast<long long>(b) * nc + c) * G + grp) *
+                          pairs * 4096;
+  load_tile<NPI>(b_s, kPs, kLdN, Bm + base + k0 * bc_stride, bc_stride,
+                 min(kTile, len - k0), N, nk, vec_bc);
+  for (int qt0 = kt; qt0 * kTile < len; qt0 += 2) {
+    __syncthreads();                         // c_s free again
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int q0 = (qt0 + h) * kTile;
+      if (q0 < len)
+        load_tile<NPI>(c_s + h * NPI * kPs, kPs, kLdN,
+                       Cm + base + q0 * bc_stride, bc_stride,
+                       min(kTile, len - q0), N, nk, vec_bc);
+    }
+    cp_async_wait();
+    __syncthreads();
+    const int qt = qt0 + half;
+    if (qt * kTile >= len) continue;
+    const uint16_t* cq = c_s + half * NPI * kPs;
+    float acc[8][4] = {};
+    for (int kk = 0; kk < nk; kk += 16) {
+      uint32_t fa[NPI][4];
+      frag_a_pl(fa, b_s, kPs, kLdN, wr * 16, kk);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        uint32_t fb[NPI][2];
+        frag_b_pl(fb, cq, kPs, kLdN, 8 * j, kk);
+        mma_planes(acc[j], fa, fb);
+      }
+    }
+    float* dst = out + pair_of(qt, kt) * 4096 + wr * 32 + lane;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dst[(j * 4 + e) * 128] = acc[j][e];
+  }
+}
+
+// Pass 1: blocks below batch * H * parts carry one (b, h)'s states over
+// its chunks for kPart state columns, two warp groups at once: warps 0-3
+// forward (S_in of each chunk), warps 4-7 backward from dfinal (G), each
+// written as NPF planes; then the part's share of <G, S_in> of each
+// chunk. The rest compute C B^T of one (b, chunk, group, key tile).
+template <typename In, int NPI, int NPF>
+__global__ void __launch_bounds__(kWideThreads)
+bwd_states(const In* __restrict__ x, const float* __restrict__ dt,
+           const float* __restrict__ A, const In* __restrict__ Bm,
+           const In* __restrict__ Cm, const In* __restrict__ dy,
+           const In* __restrict__ dfinal, BwdWork w, int batch, int S, int H,
+           int P, int G, int N, int chunk, int nc, int parts, int tiles_s,
+           int vec_x, int vec_bc) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  if (static_cast<int>(blockIdx.x) >= batch * H * parts) {
+    cb_block<In, NPI>(blockIdx.x - batch * H * parts, Bm, Cm, w, S, G, N,
+                      chunk, nc, tiles_s, vec_bc, smem_raw);
+    return;
+  }
+  constexpr int kSlab = state_slab(NPI);
+  const int back = threadIdx.x >> 7, gt = threadIdx.x & 127, bar = 1 + back;
+  // the group's space: a slab of x or dy, of B or C, v, dt and cs
+  unsigned char* gs_raw = smem_raw + back * state_group_bytes(NPI, chunk);
+  uint16_t* x_s = reinterpret_cast<uint16_t*>(gs_raw);
+  uint16_t* b_s = x_s + NPI * kSlab * kLdK;
+  float* wk_s = reinterpret_cast<float*>(b_s + NPI * kSlab * (kPart + 8));
+  float* dt_s = wk_s + kSlab;                // chunk
+  float* cs_s = dt_s + chunk;                // chunk
+  __shared__ float red[kWideThreads / 32];
+  const int part = blockIdx.x % parts, bh = blockIdx.x / parts;
+  const int b = bh / H, h = bh % H, n_lo = part * kPart;
+  const long long x_stride = static_cast<long long>(H) * P;
+  const long long bc_stride = static_cast<long long>(G) * N;
+  const long long pn = static_cast<long long>(P) * N;
+  constexpr int kJ = kPart / 8;
+
+  // forward: S_in of each chunk, then the chunk's local state carried on;
+  // backward: G of each chunk (dfinal, or zero, leaving the last), then
+  // the chunk's state gradient carried on
+  float run[kJ][4];
+#pragma unroll
+  for (int j = 0; j < kJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      int p, n;
+      state_pos(gt, j, e, n_lo, p, n);
+      run[j][e] = back && dfinal != nullptr && p < P && n < N
+                      ? ld_f32(dfinal + static_cast<long long>(bh) * pn +
+                               p * N + n)
+                      : 0.0f;
+    }
+  for (int step = 0; step < nc; ++step) {
+    const int c = back ? nc - 1 - step : step;
+    const Chunk k = chunk_of(b, h, c, S, H, P, G, N, chunk, nc);
+    chunk_cumsum(dt + k.dt_off, H, k.len, A[h], dt_s, cs_s,
+                 part == 0 && !back ? w.cs + k.scratch * chunk : nullptr, gt,
+                 kBwdThreads, bar);
+    store_state<NPF>(run, (back ? w.gp : w.sp) + k.scratch * NPF * pn, gt,
+                     n_lo, P, N);
+    float loc[kJ][4];
+    state_product<In, NPI, NPF, kSlab>(
+        loc, (back ? dy : x) + k.x_off, (back ? Cm : Bm) + k.bc_off, x_stride,
+        bc_stride, k.len, cs_s, dt_s, back, P, N, n_lo, vec_x, vec_bc, x_s,
+        b_s, wk_s, gt, bar);
+    const float decay = expf(cs_s[k.len - 1]);
+#pragma unroll
+    for (int j = 0; j < kJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) run[j][e] = run[j][e] * decay + loc[j][e];
+  }
+
+  // <G, S_in> of each chunk over the part's columns, from the planes
+  __syncthreads();
+  const int ncols = min(kPart, N - n_lo);
+  for (int c = 0; c < nc; ++c) {
+    const long long sc = (static_cast<long long>(b) * H + h) * nc + c;
+    const uint16_t* gp = w.gp + sc * NPF * pn;
+    const uint16_t* sp = w.sp + sc * NPF * pn;
+    float dot = 0.0f;
+    if (N % 2 == 0) {                        // two columns a word
+      const int half = ncols / 2 + ncols % 2;
+      for (int i = threadIdx.x; i < P * half; i += kWideThreads) {
+        const int p = i / half, n = n_lo + 2 * (i % half);
+        float g0 = 0.0f, g1 = 0.0f, s0 = 0.0f, s1 = 0.0f;
+#pragma unroll
+        for (int q = 0; q < NPF; ++q) {
+          const uint32_t gw =
+              *reinterpret_cast<const uint32_t*>(gp + q * pn + p * N + n);
+          const uint32_t sw =
+              *reinterpret_cast<const uint32_t*>(sp + q * pn + p * N + n);
+          g0 += bf16_to_f32(static_cast<uint16_t>(gw & 0xffffu));
+          g1 += bf16_to_f32(static_cast<uint16_t>(gw >> 16));
+          s0 += bf16_to_f32(static_cast<uint16_t>(sw & 0xffffu));
+          s1 += bf16_to_f32(static_cast<uint16_t>(sw >> 16));
+        }
+        dot = fmaf(g0, s0, dot);
+        dot = fmaf(g1, s1, dot);
+      }
+    } else {
+      for (int i = threadIdx.x; i < P * ncols; i += kWideThreads) {
+        const int p = i / ncols, n = n_lo + i % ncols;
+        float gv = 0.0f, sv = 0.0f;
+#pragma unroll
+        for (int q = 0; q < NPF; ++q) {
+          gv += bf16_to_f32(gp[q * pn + p * N + n]);
+          sv += bf16_to_f32(sp[q * pn + p * N + n]);
+        }
+        dot = fmaf(gv, sv, dot);
+      }
+    }
+    dot = block_sum(dot, red);
+    if (threadIdx.x == 0) w.gs[sc * parts + part] = dot;
+  }
+}
+
+// ---- pass 2 ---------------------------------------------------------------
+
+template <typename In, int NPI, int NPF>
+__global__ void __launch_bounds__(kBwdThreads, 2)
+bwd_dual(const In* __restrict__ x, const float* __restrict__ dt,
+         const In* __restrict__ Bm, const In* __restrict__ dy, BwdWork w,
+         In* __restrict__ dx, int S, int H, int P, int G, int N, int chunk,
+         int nc, int tiles_s, int hs, int hps, int vec_x, int vec_bc) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int fold = blockIdx.x / hs, unit = blockIdx.y;
+  const int grp = unit % G, c = (unit / G) % nc, b = unit / G / nc;
+  const int c0 = c * chunk, len = min(chunk, S - c0);
+  // this CTA's tiles: `fold` and its mirror, so that every cluster walks
+  // about as many causal tile pairs as any other
+  for (int side = 0; side < 2; ++side) {
+    const int kt = side == 0 ? fold : tiles_s - 1 - fold, k0 = kt * kTile;
+    if ((side == 1 && kt == fold) || k0 >= len) continue;   // whole cluster
+    const int kn = min(kTile, len - k0);
+    const int ntq = (len - k0 + kTile - 1) / kTile;
+    const int tiles = (chunk + kTile - 1) / kTile;
+    const int pairs = tiles * (tiles + 1) / 2;
+    constexpr int kPsN = kTile * kLdN, kPsK = kTile * kLdK;
+    constexpr int kGs = kGSlice, kLdG = kGs + 8, kPsG = kTile * kLdG;
+    constexpr int kGY = NPF * kPsG > NPI * kPsK ? NPF * kPsG : NPI * kPsK;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    float* acc_s = reinterpret_cast<float*>(smem_raw);   // tiles x 4096
+    uint16_t* bk_s = reinterpret_cast<uint16_t*>(acc_s + tiles * 4096);
+    uint16_t* xk_s = bk_s + NPI * kPsN;        // the head's x, [key][p]
+    // two buffers, each a 32-column slice of G [p][n] or a tile of dy [q][p]
+    uint16_t* buf[2] = {xk_s + NPI * kPsK, xk_s + NPI * kPsK + kGY};
+    float* ck_s = reinterpret_cast<float*>(buf[1] + kGY);  // keys' cs
+    float* dk_s = ck_s + kTile;                // keys' dt
+    float* cqb = dk_s + kTile;                 // queries' cs, 2 buffers
+    float* red = cqb + 2 * kTile;              // 4 warps x 64 queries
+    float* red2 = red + 4 * kTile;             // 8
+
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3, r0 = warp * 16;
+    const long long x_stride = static_cast<long long>(H) * P;
+    const long long bc_stride = static_cast<long long>(G) * N;
+    const long long pn = static_cast<long long>(P) * N;
+    const int nk = (N + 15) & ~15, pm = (P + 15) & ~15;
+    const bool vec_g = N % 8 == 0;
+    const float* cb_unit = w.cb + static_cast<long long>(unit) * pairs * 4096;
+    for (int qi = 0; qi < ntq; ++qi)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc_s[qi * 4096 + i * 128 + tid] = 0.0f;
+    load_tile<NPI>(bk_s, kPsN, kLdN,
+                   Bm + (static_cast<long long>(b) * S + c0 + k0) * bc_stride +
+                       static_cast<long long>(grp) * N,
+                   bc_stride, kn, N, nk, vec_bc);
+
+    // G's slices alternate between the buffers, slice s in buf[s & 1]; query
+    // tile qi's dy goes to buf[(d0 + qi) & 1], d0 the buffer the state phase
+    // frees first, with its cs (cp.async); its C B^T into registers
+    const int ns = (N + kGs - 1) / kGs, d0 = ns == 1 ? 1 : ns & 1;
+    const auto issue_g = [&](const Chunk& k, int sl) {
+      for (int i = 0; i < NPF; ++i)
+        load_rows(buf[sl & 1] + i * kPsG, kLdG,
+                  w.gp + (k.scratch * NPF + i) * pn + sl * kGs, N, P,
+                  N - sl * kGs, kGs, vec_g);
+    };
+    const auto issue_q = [&](const Chunk& k, int qi) {
+      const int q0 = (kt + qi) * kTile, qn = min(kTile, len - q0);
+      load_tile<NPI>(buf[(d0 + qi) & 1], kPsK, kLdK,
+                     dy + k.x_off + q0 * x_stride, x_stride, qn, P, kTile,
+                     vec_x);
+      if (tid < kTile)
+        cp_async4(cqb + (qi & 1) * kTile + tid,
+                  w.cs + k.scratch * chunk + q0 + min(tid, qn - 1), tid < qn);
+    };
+    const auto load_cb = [&](float (&cb)[8][4], int qi) {
+      const float* cbp = cb_unit + pair_of(kt + qi, kt) * 4096 + tid;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) cb[j][e] = cbp[(j * 4 + e) * 128];
+    };
+
+    const int rep = H / G, h0 = grp * rep + rank * hps;
+    const int h1 = min(grp * rep + rep, h0 + hps);
+    for (int h = h0; h < h1; ++h) {
+      const Chunk k = chunk_of(b, h, c, S, H, P, G, N, chunk, nc);
+      const float* csc = w.cs + k.scratch * chunk;
+      __syncthreads();                         // the last head's buffers
+      load_tile<NPI>(xk_s, kPsK, kLdK, x + k.x_off + k0 * x_stride, x_stride,
+                     kn, P, kTile, vec_x);
+      if (tid < kTile)
+        cp_async4(ck_s + tid, csc + k0 + min(tid, kn - 1), tid < kn);
+      else
+        cp_async4(dk_s + tid - kTile,
+                  dt + k.dt_off +
+                      static_cast<long long>(k0 + min(tid - kTile, kn - 1)) * H,
+                  tid - kTile < kn);
+      issue_g(k, 0);
+      cp_async_commit();
+      if (ns > 1)
+        issue_g(k, 1);
+      else
+        issue_q(k, 0);
+      cp_async_commit();
+      float cb[8][4];
+      load_cb(cb, 0);
+      const float cs_end = csc[len - 1];
+
+      // the state term: B G^T (K = N), 32 columns of G a stage, two stages
+      // in flight; the first dy tile takes the buffer freed first
+      float dxa[8][4] = {};
+      for (int sl = 0; sl < ns; ++sl) {
+        cp_async_wait_prev();
+        __syncthreads();                       // slice sl landed
+        const uint16_t* g_s = buf[sl & 1];
+        const int n0 = sl * kGs, nw = min(kGs, nk - n0);
+        for (int kk = 0; kk < nw; kk += 16) {
+          uint32_t fa[NPI][4];
+          frag_a_pl(fa, bk_s, kPsN, kLdN, r0, n0 + kk);
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            if (j * 8 < P) {
+              uint32_t fb[NPF][2];
+              frag_b_pl(fb, g_s, kPsG, kLdG, 8 * j, kk);
+              mma_planes(dxa[j], fa, fb);
+            }
+        }
+        __syncthreads();                       // buf[sl & 1] free
+        if (sl + 2 < ns)
+          issue_g(k, sl + 2);
+        else if (sl + 2 == ns)
+          issue_q(k, 0);
+        cp_async_commit();
+      }
+      // dw_k = x_k . (B G^T)_k, then dx's state term w_k (B G^T)_k
+      float dw[2] = {0.0f, 0.0f}, wk[2];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = r0 + g + 8 * (e >> 1), col = 8 * j + 2 * t + (e & 1);
+          float xv = 0.0f;
+#pragma unroll
+          for (int i = 0; i < NPI; ++i)
+            xv += bf16_to_f32(xk_s[i * kPsK + r * kLdK + col]);
+          dw[e >> 1] = fmaf(xv, dxa[j][e], dw[e >> 1]);
+        }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = r0 + g + 8 * hh;
+        dw[hh] = quad_sum(dw[hh]);
+        wk[hh] = r < kn ? expf(cs_end - ck_s[r]) * dk_s[r] : 0.0f;
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dxa[j][e] *= wk[e >> 1];
+
+      // the dual form, query tiles at and after the key tile; the next
+      // tile's copies in flight under each tile's products
+      float pddt[2] = {0.0f, 0.0f}, pT[2] = {0.0f, 0.0f};
+      for (int qi = 0; qi < ntq; ++qi) {
+        const int qt = kt + qi, q0 = qt * kTile, qn = min(kTile, len - q0);
+        cp_async_wait();
+        __syncthreads();                       // tile qi landed, the other
+                                               // buffer and red free
+        if (qi + 1 < ntq) issue_q(k, qi + 1);
+        const uint16_t* dq_s = buf[(d0 + qi) & 1];
+        const float* cq_s = cqb + (qi & 1) * kTile;
+        // (dy x^T)^T: [key][query], once per pair and head
+        float dm[8][4] = {};
+        for (int kk = 0; kk < pm; kk += 16) {
+          uint32_t fa[NPI][4];
+          frag_a_pl(fa, xk_s, kPsK, kLdK, r0, kk);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            uint32_t fb[NPI][2];
+            frag_b_pl(fb, dq_s, kPsK, kLdK, 8 * j, kk);
+            mma_planes(dm[j], fa, fb);
+          }
+        }
+        // M^T into cb, dCB_h^T into dm; per key the sums of dM CB L and (off
+        // the diagonal) dM M, per query those of dM M. A pair below the
+        // diagonal and inside the chunk needs no mask, and its L factors as
+        // exp(cs_q - cs_ref) exp(cs_ref - cs_k) with cs_ref the key tile's
+        // last (both factors at most 1 where cs falls, as dt >= 0, A < 0)
+        float cT[8][2] = {};
+        if (qt > kt && q0 + kTile <= len) {
+          const float ref = ck_s[kTile - 1];
+          float ek[2], dk[2];
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            ek[hh] = expf(ref - ck_s[r0 + g + 8 * hh]);
+            dk[hh] = dk_s[r0 + g + 8 * hh];
+          }
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int h2 = 0; h2 < 2; ++h2) {
+              const float eq = expf(cq_s[8 * j + 2 * t + h2] - ref);
+#pragma unroll
+              for (int hh = 0; hh < 2; ++hh) {
+                const int e = 2 * hh + h2;
+                const float L = eq * ek[hh];
+                const float cbl = cb[j][e] * L;
+                const float m = cbl * dk[hh];
+                const float T = dm[j][e] * m;
+                pddt[hh] += dm[j][e] * cbl;
+                pT[hh] += T;
+                cT[j][h2] += T;
+                cb[j][e] = m;
+                dm[j][e] = (dm[j][e] * L) * dk[hh];
+              }
+            }
+        } else {
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int kr = r0 + g + 8 * (e >> 1);
+              const int qc = 8 * j + 2 * t + (e & 1);
+              const int gk = k0 + kr, gq = q0 + qc;
+              float m = 0.0f, d = 0.0f;
+              if (gk <= gq && gq < len) {
+                const float L = expf(cq_s[qc] - ck_s[kr]);
+                const float cbl = cb[j][e] * L;
+                m = cbl * dk_s[kr];
+                d = (dm[j][e] * L) * dk_s[kr];
+                pddt[e >> 1] += dm[j][e] * cbl;
+                if (gk < gq) {
+                  const float T = dm[j][e] * m;
+                  pT[e >> 1] += T;
+                  cT[j][e & 1] += T;
+                }
+              }
+              cb[j][e] = m;
+              dm[j][e] = d;
+            }
+        }
+        // dx += M^T dy, M^T as A fragment planes from the registers, dy read
+        // transposed
+#pragma unroll
+        for (int kb = 0; kb < 4; ++kb) {
+          uint32_t fa[NPF][4];
+          acc_frag(fa, cb, kb);
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            if (j * 8 < P) {
+              uint32_t fb[NPI][2];
+              frag_bt_pl(fb, dq_s, kPsK, kLdK, 8 * j, 16 * kb);
+              mma_planes(dxa[j], fa, fb);
+            }
+        }
+        if (qi + 1 < ntq) load_cb(cb, qi + 1);  // M^T is spent
+        // dCB summed over the slice's heads (each thread its own elements)
+        float* accp = acc_s + qi * 4096 + tid;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) accp[(j * 4 + e) * 128] += dm[j][e];
+        // the query side: column sums over the warp's keys, then the warps
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2) {
+            float v = cT[j][h2];
+            v += __shfl_xor_sync(0xffffffffu, v, 4);
+            v += __shfl_xor_sync(0xffffffffu, v, 8);
+            v += __shfl_xor_sync(0xffffffffu, v, 16);
+            if (g == 0) red[warp * kTile + 8 * j + 2 * t + h2] = v;
+          }
+        __syncthreads();
+        if (tid < qn)
+          w.rowt[(k.scratch * tiles + kt) * chunk + q0 + tid] =
+              ((red[tid] + red[kTile + tid]) + red[2 * kTile + tid]) +
+              red[3 * kTile + tid];
+      }
+
+      // the head's dx, the per-key scalars and the tile's sum of w dw
+      In* dxc = dx + k.x_off + k0 * x_stride;
+#pragma unroll
+      for (int e = 0; e < 4; e += 2) {
+        const int r = r0 + g + 8 * (e >> 1);
+        if (r >= kn) continue;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = 8 * j + 2 * t;
+          if (col + 1 < P && vec_x)            // the pair as one store
+            store2(dxc + r * x_stride + col, dxa[j][e], dxa[j][e + 1]);
+          else if (col < P) {
+            dxc[r * x_stride + col] = from_f32<In>(dxa[j][e]);
+            if (col + 1 < P)
+              dxc[r * x_stride + col + 1] = from_f32<In>(dxa[j][e + 1]);
+          }
+        }
+      }
+      float wpart = 0.0f;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const float ddt = quad_sum(pddt[hh]), T = quad_sum(pT[hh]);
+        const int r = r0 + g + 8 * hh;
+        const float wdw = wk[hh] * dw[hh];
+        if (t == 0 && r < kn) {
+          const long long o = k.scratch * chunk + k0 + r;
+          w.ddt_k[o] = ddt + expf(cs_end - ck_s[r]) * dw[hh];
+          w.dself[o] = -T - wdw;
+          wpart += wdw;
+        }
+      }
+      wpart = block_sum(wpart, red2);
+      if (tid == 0) w.wsum[k.scratch * tiles + kt] = wpart;
+    }
+
+    // the group's dCB: the cluster's CTAs summed in rank order, written once
+    // as planes of dCB^T [key][query]
+    cluster_barrier();
+    const int n_el = ntq * 4096, share = (n_el + hs - 1) / hs;
+    const int e0 = rank * share, e1 = min(n_el, e0 + share);
+    for (int i = e0 + tid; i < e1; i += kBwdThreads) {
+      const float s = cluster_sum(cluster, acc_s + i, hs);
+      const int qi = i >> 12, je = (i >> 7) & 31, ts = i & 127;
+      const int j = je >> 2, e = je & 3, ln = ts & 31;
+      const int kr = (ts >> 5) * 16 + (ln >> 2) + 8 * (e >> 1);
+      const int qc = 8 * j + 2 * (ln & 3) + (e & 1);
+      uint16_t p[NPF];
+      split_planes(s, p);
+      uint16_t* dst = w.dcb + (static_cast<long long>(unit) * pairs +
+                               pair_of(kt + qi, kt)) * NPF * 4096;
+#pragma unroll
+      for (int q = 0; q < NPF; ++q) dst[q * 4096 + kr * kTile + qc] = p[q];
+    }
+    cluster_barrier();                         // no CTA leaves while read
+  }
+}
+
+// ---- pass 3 ---------------------------------------------------------------
+
+template <typename In, int NPI, int NPF>
+__global__ void __launch_bounds__(kWideThreads, NPI == 1 ? 2 : 1)
+bwd_group(const In* __restrict__ x, const float* __restrict__ dt,
+          const In* __restrict__ Bm, const In* __restrict__ Cm,
+          const In* __restrict__ dy, BwdWork w, In* __restrict__ dB,
+          In* __restrict__ dC, int S, int H, int P, int G, int N, int chunk,
+          int nc, int tiles_s, int hs, int hps, int vec_x, int vec_bc) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int fold = blockIdx.x / hs, unit = blockIdx.y;
+  const int grp = unit % G, c = (unit / G) % nc, b = unit / G / nc;
+  const int c0 = c * chunk, len = min(chunk, S - c0);
+  // this CTA's tiles: `fold` and its mirror, so that every cluster walks
+  // about as many causal tile pairs as any other
+  for (int side = 0; side < 2; ++side) {
+    const int tt = side == 0 ? fold : tiles_s - 1 - fold, t0 = tt * kTile;
+    if ((side == 1 && tt == fold) || t0 >= len) continue;   // whole cluster
+    const int rn = min(kTile, len - t0);
+    const int ntq = (len - t0 + kTile - 1) / kTile;
+    const int tiles = (chunk + kTile - 1) / kTile;
+    const int pairs = tiles * (tiles + 1) / 2;
+    constexpr int kPsN = kTile * kLdN, kPsK = kTile * kLdK;
+    constexpr long long kBuf = group_buf(NPI, NPF);
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    uint16_t* ct_s = reinterpret_cast<uint16_t*>(smem_raw);  // C, tile rows
+    unsigned char* region = smem_raw + NPI * plane_bytes(kLdN);
+    float* stage = reinterpret_cast<float*>(region);          // 2 x 8192
+    float* offr = reinterpret_cast<float*>(region + group_region(NPI, NPF));
+
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3, wr = warp & 3, wn = warp >> 2;
+    const int r0 = wr * 16;
+    const long long x_stride = static_cast<long long>(H) * P;
+    const long long bc_stride = static_cast<long long>(G) * N;
+    const long long pn = static_cast<long long>(P) * N;
+    const long long bc_base = (static_cast<long long>(b) * S + c0) * bc_stride +
+                              static_cast<long long>(grp) * N;
+    const int nk = (N + 15) & ~15, pm = (P + 15) & ~15;
+    const bool vec_g = N % 8 == 0;
+    const int rep = H / G, h0 = grp * rep + rank * hps;
+    const int nh = max(0, min(grp * rep + rep, h0 + hps) - h0);
+
+    // Stage i (of 2 nh) of the heads' state terms, into buffer i & 1: head
+    // h0 + i / 2's rows of x and G (even i) or of dy and S_in (odd i)
+    const auto issue = [&](int i) {
+      if (i >= 2 * nh) return;
+      const int h = h0 + (i >> 1);
+      const bool odd = i & 1;
+      const Chunk k = chunk_of(b, h, c, S, H, P, G, N, chunk, nc);
+      unsigned char* buf = region + (i & 1) * kBuf;
+      uint16_t* tile = reinterpret_cast<uint16_t*>(buf);
+      uint16_t* st = tile + NPI * kPsK;
+      float* sc = reinterpret_cast<float*>(st + NPF * kPsN);
+      load_tile<NPI>(tile, kPsK, kLdK, (odd ? dy : x) + k.x_off + t0 * x_stride,
+                     x_stride, rn, P, kTile, vec_x);
+      for (int q = 0; q < NPF; ++q)
+        load_rows(st + q * kPsN, kLdN,
+                  (odd ? w.sp : w.gp) + (k.scratch * NPF + q) * pn, N, P, N, nk,
+                  vec_g);
+      const float* csc = w.cs + k.scratch * chunk;
+      if (tid < kTile)
+        cp_async4(sc + tid, csc + t0 + min(tid, rn - 1), tid < rn);
+      else if (tid < 2 * kTile)
+        cp_async4(sc + tid,
+                  dt + k.dt_off + static_cast<long long>(t0 + min(tid - kTile,
+                                                                  rn - 1)) * H,
+                  tid - kTile < rn);
+      else if (tid == 2 * kTile)
+        cp_async4(sc + tid, csc + len - 1, true);
+    };
+
+    load_tile<NPI>(ct_s, kPsN, kLdN, Cm + bc_base + t0 * bc_stride, bc_stride,
+                   rn, N, nk, vec_bc);
+    issue(0);
+    cp_async_commit();
+
+    // dB += dCB^T C over the query tiles at and after this tile, dC += dCB B
+    // over the key tiles at and before it: one product per pair and group,
+    // the pairs dealt over the cluster (their operands in buffer 1)
+    float db[8][4] = {}, dc[8][4] = {};
+    uint16_t* d_s = reinterpret_cast<uint16_t*>(region + kBuf);  // dCB^T [k][q]
+    uint16_t* o_s = d_s + NPF * kPsK;          // C or B, [row][n]
+    const int n_items = ntq + tt + 1;
+    for (int item = rank; item < n_items; item += hs) {
+      const bool side_b = item < ntq;
+      const int other = side_b ? tt + item : item - ntq;
+      const int pr = side_b ? pair_of(other, tt) : pair_of(tt, other);
+      __syncthreads();                         // buffer 1 free
+      const uint16_t* src =
+          w.dcb + (static_cast<long long>(unit) * pairs + pr) * NPF * 4096;
+      for (int i = 0; i < NPF; ++i)
+        load_rows(d_s + i * kPsK, kLdK, src + i * 4096, kTile, kTile, kTile,
+                  kTile, true);
+      load_tile<NPI>(o_s, kPsN, kLdN,
+                     (side_b ? Cm : Bm) + bc_base + other * kTile * bc_stride,
+                     bc_stride, min(kTile, len - other * kTile), N, nk, vec_bc);
+      cp_async_wait();
+      __syncthreads();
+#pragma unroll
+      for (int kb = 0; kb < 4; ++kb) {
+        uint32_t fa[NPF][4];
+        if (side_b)
+          frag_a_pl(fa, d_s, kPsK, kLdK, r0, 16 * kb);      // rows: keys
+        else
+          frag_at_pl(fa, d_s, kPsK, kLdK, r0, 16 * kb);     // rows: queries
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int n0 = wn * kTile + 8 * j;
+          if (n0 < N) {
+            uint32_t fb[NPI][2];
+            frag_bt_pl(fb, o_s, kPsN, kLdN, n0, 16 * kb);
+            if (side_b)
+              mma_planes(db[j], fa, fb);
+            else
+              mma_planes(dc[j], fa, fb);
+          }
+        }
+      }
+    }
+    __syncthreads();                           // buffer 1 free
+    issue(1);
+    cp_async_commit();
+
+    // the state terms of the heads of this CTA's slice, two stages in flight
+    for (int i = 0; i < 2 * nh; ++i) {
+      cp_async_wait_prev();
+      __syncthreads();                         // stage i landed for all
+      const bool odd = i & 1;
+      const unsigned char* buf = region + (i & 1) * kBuf;
+      const uint16_t* tile = reinterpret_cast<const uint16_t*>(buf);
+      const uint16_t* st = tile + NPI * kPsK;
+      const float* sc = reinterpret_cast<const float*>(st + NPF * kPsN);
+      float tmp[8][4] = {};
+      for (int kb = 0; kb < pm; kb += 16) {
+        uint32_t fa[NPI][4];
+        frag_a_pl(fa, tile, kPsK, kLdK, r0, kb);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int n0 = wn * kTile + 8 * j;
+          if (n0 < N) {
+            uint32_t fb[NPF][2];
+            frag_bt_pl(fb, st, kPsN, kLdN, n0, kb);
+            mma_planes(tmp[j], fa, fb);
+          }
+        }
+      }
+      float f[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = r0 + g + 8 * hh;
+        f[hh] = r >= rn ? 0.0f
+                : odd   ? expf(sc[r])                         // exp(cs)
+                        : expf(sc[2 * kTile] - sc[r]) * sc[kTile + r];  // w
+      }
+      float eoff = 0.0f;
+      if (!odd) {                              // w (x G) into dB
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) db[j][e] += f[e >> 1] * tmp[j][e];
+      } else {                                 // exp(cs) (dy S_in) into dC,
+        float od[2] = {0.0f, 0.0f};            // and dcs's C . (dy S_in)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = r0 + g + 8 * (e >> 1);
+            const int col = wn * kTile + 8 * j + 2 * t + (e & 1);
+            dc[j][e] += f[e >> 1] * tmp[j][e];
+            if (col >= N) continue;            // C's tile ends at nk
+            float cv = 0.0f;
+#pragma unroll
+            for (int q = 0; q < NPI; ++q)
+              cv += bf16_to_f32(ct_s[q * kPsN + r * kLdN + col]);
+            od[e >> 1] = fmaf(cv, tmp[j][e], od[e >> 1]);
+          }
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const float v = quad_sum(od[hh]);
+          if (t == 0) offr[wn * kTile + r0 + g + 8 * hh] = v;
+        }
+        if (tid < rn) eoff = expf(sc[tid]);
+      }
+      __syncthreads();                         // buffer i & 1 read, offr full
+      if (odd && tid < rn) {
+        const Chunk k = chunk_of(b, h0 + (i >> 1), c, S, H, P, G, N, chunk, nc);
+        w.off[k.scratch * chunk + t0 + tid] =
+            eoff * (offr[tid] + offr[kTile + tid]);
+      }
+      issue(i + 2);
+      cp_async_commit();
+    }
+
+    // dB and dC: the cluster's CTAs summed in rank order
+    cp_async_wait();
+    __syncthreads();                           // region free
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        stage[(j * 4 + e) * kWideThreads + tid] = db[j][e];
+        stage[8192 + (j * 4 + e) * kWideThreads + tid] = dc[j][e];
+      }
+    cluster_barrier();
+    const int share = (16384 + hs - 1) / hs;
+    const int e0 = rank * share, e1 = min(16384, e0 + share);
+    for (int i = e0 + tid; i < e1; i += kWideThreads) {
+      const float s = cluster_sum(cluster, stage + i, hs);
+      const int which = i >> 13, je = (i >> 8) & 31, ts = i & 255;
+      const int j = je >> 2, e = je & 3, ln = ts & 31, ws = ts >> 5;
+      const int row = (ws & 3) * 16 + (ln >> 2) + 8 * (e >> 1);
+      const int col = (ws >> 2) * kTile + 8 * j + 2 * (ln & 3) + (e & 1);
+      if (row < rn && col < N)
+        (which ? dC : dB)[bc_base + (t0 + row) * bc_stride + col] =
+            from_f32<In>(s);
+    }
+    cluster_barrier();                         // no CTA leaves while read
+  }
+}
+
+// ---- pass 4 ---------------------------------------------------------------
+
+// out[j] = sum of d[j .. len), summed in float64 and rounded once, by one
+// warp: each lane sums a run of positions from the end, a shuffle scan
+// offsets the runs
+__device__ void warp_revsum(const float* d, int len, float* out) {
+  const int lane = threadIdx.x & 31;
+  const int per = (len + 31) / 32;
+  const int hi = max(len - lane * per, 0), lo = max(hi - per, 0);
+  double run = 0.0;
+  for (int i = lo; i < hi; ++i) run += static_cast<double>(d[i]);
+  double incl = run;
+  for (int o = 1; o < 32; o <<= 1) {
+    const double v = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += v;
+  }
+  double acc = __shfl_up_sync(0xffffffffu, incl, 1);
+  if (lane == 0) acc = 0.0;
+  for (int i = hi - 1; i >= lo; --i) {
+    acc += static_cast<double>(d[i]);
+    out[i] = static_cast<float>(acc);
+  }
+  __syncwarp();
+}
+
+// Pass 4, a block per head, each warp a (b, chunk) in turn: dcs from the
+// passes' parts, its reverse cumsum, ddt, and the chunk's part of dA; dA
+// adds each warp's chunks in order, then the warps in order.
+__global__ void __launch_bounds__(kWideThreads)
+bwd_finish(const float* __restrict__ dt, const float* __restrict__ A,
+           BwdWork w, float* __restrict__ ddt, float* __restrict__ dA,
+           int batch, int S, int H, int N, int chunk, int nc) {
+  __shared__ float red[kWideThreads / 32];
+  extern __shared__ float fin_s[];           // 8 warps x 2 x chunk
+  const int h = blockIdx.x, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tiles = (chunk + kTile - 1) / kTile;
+  const int parts = (N + kPart - 1) / kPart;
+  float* dcs_s = fin_s + warp * 2 * chunk;
+  float* da_s = dcs_s + chunk;
+  const float a = A[h];
+  float total = 0.0f;
+  for (int i = warp; i < batch * nc; i += kWideThreads / 32) {
+    const int b = i / nc, c = i % nc;
+    const long long sc = (static_cast<long long>(b) * H + h) * nc + c;
+    const int c0 = c * chunk, len = min(chunk, S - c0);
+    for (int j = lane; j < len; j += 32) {
+      float v = w.dself[sc * chunk + j] + w.off[sc * chunk + j];
+      for (int kt = 0; kt <= j / kTile; ++kt)
+        v += w.rowt[(sc * tiles + kt) * chunk + j];
+      dcs_s[j] = v;
+    }
+    __syncwarp();
+    if (lane == 0) {
+      float ws = 0.0f, gs = 0.0f;
+      for (int kt = 0; kt * kTile < len; ++kt) ws += w.wsum[sc * tiles + kt];
+      for (int q = 0; q < parts; ++q) gs += w.gs[sc * parts + q];
+      dcs_s[len - 1] += ws + expf(w.cs[sc * chunk + len - 1]) * gs;
+    }
+    __syncwarp();
+    warp_revsum(dcs_s, len, da_s);
+    float part = 0.0f;
+    for (int j = lane; j < len; j += 32) {
+      const long long o = (static_cast<long long>(b) * S + c0 + j) * H + h;
+      ddt[o] = w.ddt_k[sc * chunk + j] + a * da_s[j];
+      part = fmaf(dt[o], da_s[j], part);
+    }
+    for (int o = 16; o > 0; o >>= 1)
+      part += __shfl_xor_sync(0xffffffffu, part, o);
+    total += part;
+    __syncwarp();                            // dcs_s, da_s refill next
+  }
+  if (lane == 0) red[warp] = total;
+  __syncthreads();
+  if (threadIdx.x == 0) {
     float s = 0.0f;
-    for (int b = 0; b < batch; ++b)
-      for (int c = 0; c < nc; ++c)
-        s += w.da[(static_cast<long long>(b) * H + i) * nc + c];
-    dA[i] = s;
+    for (int i = 0; i < kWideThreads / 32; ++i) s += red[i];
+    dA[h] = s;
   }
-  if (i >= n_bc) return;
+}
+
+// ---- launch ---------------------------------------------------------------
+
+void cluster_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
+                    dim3 grid, int threads, long long smem, int hs,
+                    cudaStream_t stream) {
+  *cfg = {};
+  cfg->gridDim = grid;
+  cfg->blockDim = dim3(threads);
+  cfg->dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg->stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = hs;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+}
+
+// The cluster passes 2 and 3 launch with: the largest number hs of CTAs
+// over a group's heads (hps heads each, at most kMaxCluster CTAs) with which
+// every one of `clusters` clusters is resident at once, or else the one that
+// holds the most CTAs at once; asked of the device once per shape.
+template <typename K>
+cudaError_t pick_cluster(K* kernel, int threads, long long smem, int rep,
+                         int clusters, int* hs, int* hps) {
+  struct Entry {
+    const void* kernel;
+    long long smem;
+    int threads, rep, clusters, hs, hps;
+  };
+  static Entry cache[64];
+  static int n_cache = 0;
+  for (int i = 0; i < n_cache; ++i) {
+    const Entry& e = cache[i];
+    if (e.kernel == reinterpret_cast<const void*>(kernel) &&
+        e.smem == smem && e.threads == threads && e.rep == rep &&
+        e.clusters == clusters) {
+      *hs = e.hs;
+      *hps = e.hps;
+      return cudaSuccess;
+    }
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  long long best = -1;
+  int prev = 0;
+  for (int cmax = kMaxCluster; cmax >= 1; --cmax) {
+    const int p = (rep + cmax - 1) / cmax, n = (rep + p - 1) / p;
+    if (n == prev) continue;
+    prev = n;
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    cluster_config(&cfg, &attr, dim3(n), threads, smem, n, nullptr);
+    int active = 0;
+    if ((err = cudaOccupancyMaxActiveClusters(&active, kernel, &cfg)) !=
+        cudaSuccess)
+      return err;
+    const long long live = static_cast<long long>(min(active, clusters)) * n;
+    if (active >= clusters) {                // one wave: the largest fitting
+      *hs = n;
+      *hps = p;
+      break;
+    }
+    if (live > best) {
+      best = live;
+      *hs = n;
+      *hps = p;
+    }
+  }
+  if (n_cache < 64)
+    cache[n_cache++] = {reinterpret_cast<const void*>(kernel), smem, threads,
+                        rep, clusters, *hs, *hps};
+  return cudaSuccess;
+}
+
+template <typename In, int NPI, int NPF>
+int launch_bwd(const In* x, const float* dt, const float* A, const In* B,
+               const In* C, const In* dy, const In* dfinal, In* dx,
+               float* ddt, float* dA, In* dB, In* dC, void* work, int batch,
+               int S, int H, int P, int G, int N, int chunk,
+               cudaStream_t stream) {
+  const int nc = (S + chunk - 1) / chunk;
+  const int tiles_s = (min(chunk, S) + kTile - 1) / kTile;
+  BwdWork w;
+  bwd_work_bytes(batch, S, H, P, G, N, chunk, NPF, &w,
+                 static_cast<unsigned char*>(work));
   const int rep = H / G;
-  const long long bs = i / (static_cast<long long>(G) * N);
-  const int gn = static_cast<int>(i - bs * G * N), grp = gn / N, n = gn % N;
-  const long long base = bs * H * N + static_cast<long long>(grp) * rep * N +
-                         n;
-  float sb = 0.0f, sc = 0.0f;
-  for (int r = 0; r < rep; ++r) {
-    sb += w.db_h[base + static_cast<long long>(r) * N];
-    sc += w.dc_h[base + static_cast<long long>(r) * N];
-  }
-  dB[i] = from_f32<T>(sb);
-  dC[i] = from_f32<T>(sc);
-}
-
-template <int kN>
-int launch_bwd_tiles(const float* x, const float* dt, const float* B,
-                     const float* C, const float* dy, const BwdWork& w,
-                     float* dx, int batch, int S, int H, int P, int G, int N,
-                     int chunk, int nc, cudaStream_t stream) {
-  const long long bytes = bwd_tile_bytes(kN, chunk);
-  cudaError_t err = allow_shared(chunk_keys<kN>, bytes);
-  if (err == cudaSuccess) err = allow_shared(chunk_queries<kN>, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(nc, (min(chunk, S) + kTile - 1) / kTile, batch * H);
-  chunk_keys<kN><<<grid, kBwdThreads, bytes, stream>>>(
-      x, dt, B, C, dy, w, dx, S, H, P, G, N, chunk, nc);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  chunk_queries<kN><<<grid, kBwdThreads, bytes, stream>>>(
-      x, dt, B, C, dy, w, S, H, P, G, N, chunk, nc);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int kN>
-int launch_bwd_tiles(const uint16_t* x, const float* dt, const uint16_t* B,
-                     const uint16_t* C, const uint16_t* dy, const BwdWork& w,
-                     uint16_t* dx, int batch, int S, int H, int P, int G,
-                     int N, int chunk, int nc, cudaStream_t stream) {
-  const long long bytes = tc_tile_bytes(kN, chunk);
-  cudaError_t err = allow_shared(chunk_keys_tc<kN>, bytes);
-  if (err == cudaSuccess) err = allow_shared(chunk_queries_tc<kN>, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // 16-byte row copies where every row of x and dy (of B and C) starts
-  // aligned
   const auto al = [](const void* p) {
     return reinterpret_cast<uintptr_t>(p) % 16 == 0;
   };
   const int vec_x = P % 8 == 0 && al(x) && al(dy);
   const int vec_bc = N % 8 == 0 && al(B) && al(C);
-  const dim3 grid(nc, (min(chunk, S) + kTile - 1) / kTile, batch * H);
-  chunk_keys_tc<kN><<<grid, kBwdThreads, bytes, stream>>>(
-      x, dt, B, C, dy, w, dx, S, H, P, G, N, chunk, nc, vec_x, vec_bc);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  chunk_queries_tc<kN><<<grid, kBwdThreads, bytes, stream>>>(
-      x, dt, B, C, dy, w, S, H, P, G, N, chunk, nc, vec_x, vec_bc);
-  return static_cast<int>(cudaGetLastError());
-}
 
-// Passes 1 and 2 (the forward's kernels), per type
-int bwd_states(const float* x, const float* dt, const float* A,
-               const float* B, const float* C, const float* dy,
-               const BwdWork& w, int batch, int S, int H, int P, int G,
-               int N, int chunk, int nc, cudaStream_t stream) {
-  const long long b1 = state_f32_bytes(P, N, chunk);
-  cudaError_t err = allow_shared(chunk_state_f32<false>, b1);
-  if (err == cudaSuccess) err = allow_shared(chunk_state_f32<true>, b1);
+  const long long b1 = states_bytes(NPI, NPF, chunk);
+  const long long b2 = dual_bytes(NPI, NPF, chunk);
+  const long long b3 = group_bytes(NPI, NPF);
+  cudaError_t err = allow_shared(bwd_states<In, NPI, NPF>, b1);
+  if (err == cudaSuccess) err = allow_shared(bwd_dual<In, NPI, NPF>, b2);
+  if (err == cudaSuccess) err = allow_shared(bwd_group<In, NPI, NPF>, b3);
+  if (err == cudaSuccess) err = allow_shared(bwd_finish, 64LL * chunk);
+  // the group's heads in slices of hps over hs CTAs, per cluster pass
+  const int clusters = (tiles_s + 1) / 2 * batch * nc * G;
+  int hs2 = 1, hps2 = rep, hs3 = 1, hps3 = rep;
+  if (err == cudaSuccess)
+    err = pick_cluster(bwd_dual<In, NPI, NPF>, kBwdThreads, b2, rep,
+                       clusters, &hs2, &hps2);
+  if (err == cudaSuccess)
+    err = pick_cluster(bwd_group<In, NPI, NPF>, kWideThreads, b3, rep,
+                       clusters, &hs3, &hps3);
   if (err != cudaSuccess) return static_cast<int>(err);
-  chunk_state_f32<false><<<dim3(nc, H, batch), kThreads, b1, stream>>>(
-      x, dt, A, B, w.cs, w.s_in, S, H, P, G, N, chunk, nc);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  chunk_state_f32<true><<<dim3(nc, H, batch), kThreads, b1, stream>>>(
-      dy, dt, A, C, w.cs, w.g, S, H, P, G, N, chunk, nc);
-  return static_cast<int>(cudaGetLastError());
-}
 
-int bwd_states(const uint16_t* x, const float* dt, const float* A,
-               const uint16_t* B, const uint16_t* C, const uint16_t* dy,
-               const BwdWork& w, int batch, int S, int H, int P, int G,
-               int N, int chunk, int nc, cudaStream_t stream) {
-  const long long b1 = state_bf16_bytes(chunk);
-  cudaError_t err = allow_shared(chunk_state_bf16<false>, b1);
-  if (err == cudaSuccess) err = allow_shared(chunk_state_bf16<true>, b1);
+  const int parts = (N + kPart - 1) / kPart;
+  const int blocks1 = batch * H * parts + batch * nc * G * tiles_s;
+  bwd_states<In, NPI, NPF><<<blocks1, kWideThreads, b1, stream>>>(
+      x, dt, A, B, C, dy, dfinal, w, batch, S, H, P, G, N, chunk, nc, parts,
+      tiles_s, vec_x, vec_bc);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  const int folds = (tiles_s + 1) / 2;
+  cluster_config(&cfg, &attr, dim3(folds * hs2, batch * nc * G), kBwdThreads,
+                 b2, hs2, stream);
+  err = cudaLaunchKernelEx(&cfg, bwd_dual<In, NPI, NPF>, x, dt, B, dy, w, dx,
+                           S, H, P, G, N, chunk, nc, tiles_s, hs2, hps2, vec_x,
+                           vec_bc);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const bool n8 = N % 8 == 0, p8 = P % 8 == 0;
-  const int vec_x = p8 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  const int vec_dy = p8 && reinterpret_cast<uintptr_t>(dy) % 16 == 0;
-  const int vec_b = n8 && reinterpret_cast<uintptr_t>(B) % 16 == 0;
-  const int vec_c = n8 && reinterpret_cast<uintptr_t>(C) % 16 == 0;
-  chunk_state_bf16<false><<<dim3(nc, H, batch), kStateThreads, b1, stream>>>(
-      x, dt, A, B, w.cs, w.s_in, S, H, P, G, N, chunk, nc, vec_x, vec_b);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  chunk_state_bf16<true><<<dim3(nc, H, batch), kStateThreads, b1, stream>>>(
-      dy, dt, A, C, w.cs, w.g, S, H, P, G, N, chunk, nc, vec_dy, vec_c);
+
+  cluster_config(&cfg, &attr, dim3(folds * hs3, batch * nc * G), kWideThreads,
+                 b3, hs3, stream);
+  err = cudaLaunchKernelEx(&cfg, bwd_group<In, NPI, NPF>, x, dt, B, C, dy, w,
+                           dB, dC, S, H, P, G, N, chunk, nc, tiles_s, hs3, hps3,
+                           vec_x, vec_bc);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+
+  bwd_finish<<<H, kWideThreads, 64 * chunk, stream>>>(
+      dt, A, w, ddt, dA, batch, S, H, N, chunk, nc);
   return static_cast<int>(cudaGetLastError());
 }
 
-// carry the state gradient from the last chunk to the first: in: each
-// chunk's sum_q exp(cs_q) dy_q (x) C_q; out, in place: G of each chunk
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-carry_back(const float* __restrict__ cs_g, float* __restrict__ g,
-           const T* __restrict__ dfinal, long long n_elems, int PN, int S,
-           int chunk, int nc) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (i >= n_elems) return;
-  const long long bh = i / PN;
-  const int pn = static_cast<int>(i - bh * PN);
-  const float* cs = cs_g + bh * nc * chunk;
-  float* gc = g + bh * nc * PN + pn;
-  float run = dfinal != nullptr ? ld_f32(dfinal + i) : 0.0f;
-  for (int c = nc - 1; c >= 0; --c) {
-    const int len = min(chunk, S - c * chunk);
-    const float decay = expf(cs[static_cast<long long>(c) * chunk + len - 1]);
-    const float u = gc[static_cast<long long>(c) * PN];
-    gc[static_cast<long long>(c) * PN] = run;
-    run = run * decay + u;
-  }
-}
-
-template <typename T>
-int launch_bwd(const T* x, const float* dt, const float* A, const T* B,
-               const T* C, const T* dy, const T* dfinal, T* dx, float* ddt,
-               float* dA, T* dB, T* dC, float* work, int batch, int S, int H,
-               int P, int G, int N, int chunk, cudaStream_t stream) {
-  const int nc = (S + chunk - 1) / chunk;
-  BwdWork w;
-  bwd_work_floats(batch, S, H, P, N, chunk, &w, work);
-  int err = bwd_states(x, dt, A, B, C, dy, w, batch, S, H, P, G, N, chunk,
-                       nc, stream);
-  if (err != 0) return err;
-  const long long n = static_cast<long long>(batch) * H * P * N;
-  const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
-  carry<float><<<blocks, kThreads, 0, stream>>>(
-      w.cs, w.s_in, nullptr, static_cast<float*>(nullptr), n, P * N, S,
-      chunk, nc);
-  if ((err = cudaGetLastError()) != 0) return err;
-  carry_back<T><<<blocks, kThreads, 0, stream>>>(w.cs, w.g, dfinal, n, P * N,
-                                                 S, chunk, nc);
-  if ((err = cudaGetLastError()) != 0) return err;
-  err = N <= 64 ? launch_bwd_tiles<64>(x, dt, B, C, dy, w, dx, batch, S, H,
-                                       P, G, N, chunk, nc, stream)
-                : launch_bwd_tiles<kMaxN>(x, dt, B, C, dy, w, dx, batch, S,
-                                          H, P, G, N, chunk, nc, stream);
-  if (err != 0) return err;
-  chunk_finish<<<dim3(nc, H, batch), kThreads, 4 * chunk, stream>>>(
-      dt, A, w, ddt, S, H, P, N, chunk, nc);
-  if ((err = cudaGetLastError()) != 0) return err;
-  const long long n_bc = static_cast<long long>(batch) * S * G * N;
-  const long long n_red = n_bc > H ? n_bc : H;
-  bwd_reduce<T><<<static_cast<unsigned>((n_red + kThreads - 1) / kThreads),
-                  kThreads, 0, stream>>>(w, dB, dC, dA, n_bc, batch, H, G, N,
-                                         nc);
-  return static_cast<int>(cudaGetLastError());
+// the most shared memory any backward block of the type uses
+long long bwd_shared_bytes(int P, int N, int chunk, int dtype) {
+  const int npi = dtype == 0 ? 3 : 1, npf = dtype == 0 ? 3 : 2;
+  const long long sizes[] = {states_bytes(npi, npf, chunk),
+                             dual_bytes(npi, npf, chunk),
+                             group_bytes(npi, npf), 64LL * chunk};
+  long long m = 0;
+  for (long long v : sizes) m = v > m ? v : m;
+  return m;
 }
 
 }  // namespace
@@ -2016,37 +2426,35 @@ extern "C" int ssd_scan(const void* x, const void* dt, const void* A,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Shared memory the backward's largest block uses (its passes' most)
-extern "C" long long ssd_scan_bwd_shared_bytes(int P, int N, int chunk) {
-  const int kn = N <= 64 ? 64 : kMaxN;
-  const long long sizes[] = {bwd_tile_bytes(kn, chunk),
-                             tc_tile_bytes(kn, chunk),
-                             shared_bytes(P, N, chunk)};
-  long long m = 0;
-  for (long long v : sizes) m = v > m ? v : m;
-  return m;
+// Shared memory the backward's largest block uses for the type (dtype
+// codes as ssd_scan)
+extern "C" long long ssd_scan_bwd_shared_bytes(int P, int N, int chunk,
+                                               int dtype) {
+  return bwd_shared_bytes(P, N, chunk, dtype);
 }
 
-// The backward: 0 if it takes P, N and chunk, else 1 or 2 (as
+// The backward: 0 if it takes P, N and chunk in the type, else 1 or 2 (as
 // ssd_scan_fits) or 3 (a block of any of its passes would need more
 // shared memory than it may opt into).
-extern "C" int ssd_scan_bwd_fits(int P, int N, int chunk) {
+extern "C" int ssd_scan_bwd_fits(int P, int N, int chunk, int dtype) {
   const int fwd = ssd_scan_fits(P, N, chunk);
   if (fwd != 0) return fwd;
-  return ssd_scan_bwd_shared_bytes(P, N, chunk) > kMaxShared ? 3 : 0;
+  return bwd_shared_bytes(P, N, chunk, dtype) > kMaxShared ? 3 : 0;
 }
 
-// float32 workspace the backward needs (the caller allocates it)
+// float32 words of workspace the backward needs (the caller allocates it)
 extern "C" long long ssd_scan_bwd_workspace(int batch, int S, int H, int P,
-                                            int N, int chunk) {
-  return bwd_work_floats(batch, S, H, P, N, chunk);
+                                            int G, int N, int chunk,
+                                            int dtype) {
+  return (bwd_work_bytes(batch, S, H, P, G, N, chunk, dtype == 0 ? 3 : 2) +
+          3) / 4;
 }
 
 // The backward (dtype codes as ssd_scan): x, dt, A, B, C as the forward
 // took them, dy (B, S, H, P) and dfinal (B, H, P, N) or null in x's type;
 // writes dx (x's type), ddt (B, S, H) float32, dA (H,) float32, dB and dC
-// (B, S, G, N) in x's type, with `work` (ssd_scan_bwd_workspace floats) as
-// scratch. Eight launches on `stream`; returns the first CUDA error (0 =
+// (B, S, G, N) in x's type, with `work` (ssd_scan_bwd_workspace words) as
+// scratch. Four launches on `stream`; returns the first CUDA error (0 =
 // ok). The caller has checked shapes, types, contiguity and
 // ssd_scan_bwd_fits, and that batch, S, H, P, N are non-zero.
 extern "C" int ssd_scan_bwd(const void* x, const void* dt, const void* A,
@@ -2055,29 +2463,28 @@ extern "C" int ssd_scan_bwd(const void* x, const void* dt, const void* A,
                             void* dA, void* dB, void* dC, void* work,
                             int batch, int S, int H, int P, int G, int N,
                             int chunk, int dtype, void* stream) {
-  if (ssd_scan_bwd_fits(P, N, chunk) != 0)
+  if (ssd_scan_bwd_fits(P, N, chunk, dtype) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* dtf = static_cast<const float*>(dt);
   const float* Af = static_cast<const float*>(A);
   float* ddtf = static_cast<float*>(ddt);
   float* dAf = static_cast<float*>(dA);
-  float* wf = static_cast<float*>(work);
   if (dtype == 0)
-    return launch_bwd(
+    return launch_bwd<float, 3, 3>(
         static_cast<const float*>(x), dtf, Af, static_cast<const float*>(B),
         static_cast<const float*>(C), static_cast<const float*>(dy),
         static_cast<const float*>(dfinal), static_cast<float*>(dx), ddtf,
-        dAf, static_cast<float*>(dB), static_cast<float*>(dC), wf, batch, S,
-        H, P, G, N, chunk, s);
+        dAf, static_cast<float*>(dB), static_cast<float*>(dC), work, batch,
+        S, H, P, G, N, chunk, s);
   if (dtype == 1)
-    return launch_bwd(
+    return launch_bwd<uint16_t, 1, 2>(
         static_cast<const uint16_t*>(x), dtf, Af,
         static_cast<const uint16_t*>(B), static_cast<const uint16_t*>(C),
         static_cast<const uint16_t*>(dy),
         static_cast<const uint16_t*>(dfinal), static_cast<uint16_t*>(dx),
         ddtf, dAf, static_cast<uint16_t*>(dB), static_cast<uint16_t*>(dC),
-        wf, batch, S, H, P, G, N, chunk, s);
+        work, batch, S, H, P, G, N, chunk, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

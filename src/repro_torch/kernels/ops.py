@@ -517,10 +517,11 @@ def ssd_scan_bwd(x, dt, A, B, C, dy, dfinal=None, chunk: int = 256):
     H, P, N) in x's type or None (no gradient reaches the final state),
     contiguous on the inputs' device. Returns (dx, ddt, dA, dB, dC): dx,
     dB and dC in x's type, ddt (B, S, H) and dA (H,) float32.
-    ``launches`` counts calls that ran the kernels (eight launches each:
-    the recomputed chunk states and their carry, the chunk state
-    gradients and their carry back, the key and query sides of each
-    chunk, the reverse cumsum, the sums over heads and chunks)."""
+    ``launches`` counts calls that ran the kernels (four launches each:
+    the states and their gradients carried over the chunks with C B^T
+    per group; both sides of each causal tile pair with dCB summed over
+    each group's heads; dB and dC per group; the reverse cumsum, ddt and
+    dA)."""
     name = "ssd_scan_bwd"
     device = _check_scan(name, x, dt, A, B, C, chunk)
     b, s, h, p = x.shape
@@ -534,7 +535,7 @@ def ssd_scan_bwd(x, dt, A, B, C, dy, dfinal=None, chunk: int = 256):
         raise ValueError(f"{name}: inputs on several devices")
     if device.type == "cpu":
         return _ssd.ssd_scan_bwd_torch(x, dt, A, B, C, dy, dfinal, chunk)
-    why = _ssd.bwd_refusal(p, n, chunk)
+    why = _ssd.bwd_refusal(p, n, chunk, x.dtype)
     if why is not None:
         raise ValueError(f"{name}: {why}")
     if x.numel() == 0 or n == 0:

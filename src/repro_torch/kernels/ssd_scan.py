@@ -27,11 +27,14 @@ forward's cumsum, summed in float64 and rounded once).
 
 The CUDA kernels live in ``csrc/ssd_scan.cu``: the forward in three
 passes (the chunks' local states, the carry between chunks, the chunks'
-outputs), the backward in eight (the forward's first two again, the
-state gradients and their carry back, the key and query sides of each
-chunk, the reverse cumsum, the sums over heads); bf16 products on the
-tensor cores with float32 operands split into bf16 hi + lo, float32 on
-SIMT FMAs. :func:`repro_torch.kernels.ops.ssd_scan` and
+outputs), the backward in four (the states and their gradients carried
+over the chunks, with C B^T per group; the key and query sides of each
+causal tile pair, dCB summed over each group's heads; dB and dC, one
+product per pair and group plus the heads' state terms; the reverse
+cumsum); bf16 products on the tensor cores with float32 operands split
+into bf16 hi + lo. The forward's float32 path keeps SIMT FMAs; the
+backward's float32 path takes the same passes with every operand as
+three bf16 planes. :func:`repro_torch.kernels.ops.ssd_scan` and
 :func:`repro_torch.kernels.ops.ssd_scan_bwd` are the guarded entry
 points that pick between the plain versions and the kernels.
 """
@@ -112,42 +115,42 @@ def ssd_scan_torch(x, dt, A, B, C, chunk: int = 256):
     return y.to(x.dtype).contiguous(), state.to(x.dtype)
 
 
-def _by_head(t, rep, nc, chunk):
-    """(B, S', G or H, K) padded to nc chunks -> (B, H, nc, chunk, K),
-    each group repeated over its ``rep`` heads."""
-    b, k = t.shape[0], t.shape[-1]
-    t = t.repeat_interleave(rep, dim=2) if rep > 1 else t
-    return t.reshape(b, nc, chunk, -1, k).permute(0, 3, 1, 2, 4)
+def _by_chunk(t, nc, chunk):
+    """(B, S', K, D) padded to nc chunks -> (B, K, nc, chunk, D)."""
+    b, k, d = t.shape[0], t.shape[2], t.shape[-1]
+    return t.reshape(b, nc, chunk, k, d).permute(0, 3, 1, 2, 4)
 
 
 def ssd_scan_bwd_torch(x, dt, A, B, C, dy, dfinal=None, chunk: int = 256,
                        mm=torch.matmul):
     """Plain PyTorch version of the backward of :func:`ssd_scan_torch`:
-    the explicit chunked formulas the kernel computes, on whatever
-    device the inputs lie on, batched over (b, h, chunk). ``dy`` (B, S,
-    H, P) in x's type, ``dfinal`` (B, H, P, N) or None (zeros). Returns
-    (dx, ddt, dA, dB, dC): dx, dB and dC in x's type, ddt and dA
-    float32 (float64 for float64 inputs).
+    the explicit chunked formulas the kernel computes, with its products,
+    on whatever device the inputs lie on, batched over (b, h, chunk).
+    ``dy`` (B, S, H, P) in x's type, ``dfinal`` (B, H, P, N) or None
+    (zeros). Returns (dx, ddt, dA, dB, dC): dx, dB and dC in x's type,
+    ddt and dA float32 (float64 for float64 inputs).
 
     With cs the chunk's cumsum of dt * A, L[q, k] = exp(cs_q - cs_k)
-    (k <= q), M = (C B^T) * L * dt_k and w_k = exp(cs_end - cs_k) dt_k:
+    (k <= q), CB = C B^T (once per group), M = CB * L * dt_k and w_k =
+    exp(cs_end - cs_k) dt_k:
 
     1. the states entering each chunk, recomputed (the forward's carry);
     2. the state gradient carried backward over the chunks: dS_out of the
        last chunk is ``dfinal``, and dS_in[c] = exp(cs_end) dS_out[c] +
        sum_q exp(cs_q) dy_q (x) C_q is dS_out[c - 1];
     3. per chunk, the dual form's and the state terms' gradients:
-       dx = M^T dy + w (B dS_out^T), dM = dy x^T (causal),
-       dC = (dM L dt_k) B + exp(cs) (dy S_in), dB = (dM L dt_k)^T C +
-       w (x dS_out), and the direct part of ddt;
+       dM = dy x^T (causal), dCB_h = dM L dt_k summed over each group's
+       heads into dCB, dx = M^T dy + w (B dS_out^T), dB = dCB^T C + the
+       group's sum of w (x dS_out), dC = dCB B + the group's sum of
+       exp(cs) (dy S_in), and the direct part of ddt;
     4. d(cs) through the reverse cumsum (float64, rounded once, as the
        forward's cumsum) to d(dt * A): ddt += A d(dt A), dA = sum dt
        d(dt A) over (b, s).
 
     The ragged tail's ``dt = 0`` padding gives nothing back (padded
-    positions are cut off); dB and dC sum the heads of each group.
-    ``mm`` computes every matrix product (the tests pass the bf16
-    kernel's split products to emulate its rounding)."""
+    positions are cut off). ``mm`` computes every matrix product (the
+    tests pass the bf16 kernel's split products to emulate its
+    rounding)."""
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     rep = h // g
@@ -160,16 +163,20 @@ def ssd_scan_bwd_torch(x, dt, A, B, C, dy, dfinal=None, chunk: int = 256,
         xf, Bf, Cf, dyf = (F.pad(t, (0, 0, 0, 0, 0, pad))
                            for t in (xf, Bf, Cf, dyf))
         dtf = F.pad(dtf, (0, 0, 0, pad))
-    xc, dyc = (_by_head(t, 1, nc, chunk) for t in (xf, dyf))  # (b,h,nc,Q,p)
-    Bc, Cc = (_by_head(t, rep, nc, chunk) for t in (Bf, Cf))  # (b,h,nc,Q,n)
+    xc, dyc = (_by_chunk(t, nc, chunk) for t in (xf, dyf))   # (b,h,nc,Q,p)
+    Bg, Cg = (_by_chunk(t, nc, chunk) for t in (Bf, Cf))     # (b,g,nc,Q,n)
+    Bc, Cc = (t.repeat_interleave(rep, dim=1) for t in (Bg, Cg))  # by head
     dtc = dtf.reshape(b, nc, chunk, h).permute(0, 3, 1, 2)    # (b,h,nc,Q)
     cs = chunk_cumsum(dtc * A.to(ft)[None, :, None, None])
     ecs = torch.exp(cs)
     decay = ecs[..., -1]                                      # (b,h,nc)
     w = torch.exp(cs[..., -1:] - cs) * dtc                    # (b,h,nc,Q)
 
+    def group_sum(t):               # (b, h, ...) -> (b, g, ...), heads in order
+        return t.reshape(b, g, rep, *t.shape[2:]).sum(2)
+
     # 1. the states entering each chunk
-    local = mm(xc.transpose(-1, -2), w[..., None] * Bc)        # (b,h,nc,p,n)
+    local = mm((w[..., None] * xc).transpose(-1, -2), Bc)      # (b,h,nc,p,n)
     s_in = torch.zeros_like(local)
     run = torch.zeros((b, h, p, n), dtype=ft, device=dev)
     for c in range(nc):
@@ -189,17 +196,17 @@ def ssd_scan_bwd_torch(x, dt, A, B, C, dy, dfinal=None, chunk: int = 256,
     causal = torch.ones((chunk, chunk), dtype=torch.bool, device=dev).tril()
     L = torch.where(causal, torch.exp(cs[..., :, None] - cs[..., None, :]),
                     0.0)                                      # (.., q, k)
-    CB = mm(Cc, Bc.transpose(-1, -2))
+    CB = mm(Cg, Bg.transpose(-1, -2)).repeat_interleave(rep, dim=1)
     M = CB * L * dtc[..., None, :]
     dM = torch.where(causal, mm(dyc, xc.transpose(-1, -2)), 0.0)
-    dCB = dM * L * dtc[..., None, :]
-    xG = mm(xc, ds_out)                                         # (.., Q, n)
+    dCB = group_sum(dM * L * dtc[..., None, :])               # (b,g,nc,q,k)
+    BG = mm(Bc, ds_out.transpose(-1, -2))                     # (.., Q, p)
     dyS = mm(dyc, s_in)                                         # (.., Q, n)
-    dx = mm(M.transpose(-1, -2), dyc) \
-        + w[..., None] * mm(Bc, ds_out.transpose(-1, -2))
-    dC = mm(dCB, Bc) + ecs[..., None] * dyS
-    dB = mm(dCB.transpose(-1, -2), Cc) + w[..., None] * xG
-    dw = (xG * Bc).sum(-1)                                    # (b,h,nc,Q)
+    dx = mm(M.transpose(-1, -2), dyc) + w[..., None] * BG
+    dB = mm(dCB.transpose(-1, -2), Cg) \
+        + group_sum(w[..., None] * mm(xc, ds_out))
+    dC = mm(dCB, Bg) + group_sum(ecs[..., None] * dyS)
+    dw = (xc * BG).sum(-1)                                    # (b,h,nc,Q)
     ddt = (dM * CB * L).sum(-2) + torch.exp(cs[..., -1:] - cs) * dw
 
     # 4. d(cs) -> d(dt * A)
@@ -211,15 +218,13 @@ def ssd_scan_bwd_torch(x, dt, A, B, C, dy, dfinal=None, chunk: int = 256,
     ddt = ddt + A.to(ft)[None, :, None, None] * da
     dA = (dtc * da).sum((0, 2, 3))
 
-    def back(t, k):                 # (b,h,nc,Q,k) -> (b, s, h, k)
-        return t.permute(0, 2, 3, 1, 4).reshape(b, nc * chunk, h, k)[:, :s]
-
-    def grouped(t):                 # sum each group's heads
-        return back(t, n).reshape(b, s, g, rep, n).sum(3)
+    def back(t):                    # (b, k, nc, Q, d) -> (b, s, k, d)
+        return t.permute(0, 2, 3, 1, 4).reshape(
+            b, nc * chunk, t.shape[1], t.shape[-1])[:, :s]
     ddt = ddt.permute(0, 2, 3, 1).reshape(b, nc * chunk, h)[:, :s]
-    return (back(dx, p).to(x.dtype).contiguous(), ddt.contiguous(),
-            dA, grouped(dB).to(B.dtype).contiguous(),
-            grouped(dC).to(C.dtype).contiguous())
+    return (back(dx).to(x.dtype).contiguous(), ddt.contiguous(), dA,
+            back(dB).to(B.dtype).contiguous(),
+            back(dC).to(C.dtype).contiguous())
 
 
 @functools.cache
@@ -240,11 +245,11 @@ def _library():
     lib.ssd_scan_bwd.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 \
         + [ctypes.c_void_p]
     lib.ssd_scan_bwd.restype = ctypes.c_int
-    lib.ssd_scan_bwd_fits.argtypes = [ctypes.c_int] * 3
+    lib.ssd_scan_bwd_fits.argtypes = [ctypes.c_int] * 4
     lib.ssd_scan_bwd_fits.restype = ctypes.c_int
-    lib.ssd_scan_bwd_shared_bytes.argtypes = [ctypes.c_int] * 3
+    lib.ssd_scan_bwd_shared_bytes.argtypes = [ctypes.c_int] * 4
     lib.ssd_scan_bwd_shared_bytes.restype = ctypes.c_longlong
-    lib.ssd_scan_bwd_workspace.argtypes = [ctypes.c_int] * 6
+    lib.ssd_scan_bwd_workspace.argtypes = [ctypes.c_int] * 8
     lib.ssd_scan_bwd_workspace.restype = ctypes.c_longlong
     return lib
 
@@ -267,17 +272,29 @@ def refusal(p: int, n: int, chunk: int) -> str | None:
     return None
 
 
-def bwd_refusal(p: int, n: int, chunk: int) -> str | None:
+def bwd_refusal(p: int, n: int, chunk: int,
+                dtype: torch.dtype = torch.bfloat16) -> str | None:
     """Why the backward kernel cannot take head dim ``p``, state ``n``
-    and ``chunk`` (the forward's limits, and its own shared memory), or
-    None if it can."""
+    and ``chunk`` in ``dtype`` (the forward's limits, and its own shared
+    memory, which grows with chunk), or None if it can."""
     lib = _library()
-    why = lib.ssd_scan_bwd_fits(p, n, chunk)
+    code = DTYPE_CODES[dtype]
+    why = lib.ssd_scan_bwd_fits(p, n, chunk, code)
     if why == 3:
-        need = lib.ssd_scan_bwd_shared_bytes(p, n, chunk)
-        return (f"chunk {chunk} needs {need} bytes of shared memory per block, more than the "
-                f"{lib.ssd_scan_max_shared_bytes()} a block may use")
+        need = lib.ssd_scan_bwd_shared_bytes(p, n, chunk, code)
+        return (f"chunk {chunk} needs {need} bytes of shared memory per "
+                f"block, more than the {lib.ssd_scan_max_shared_bytes()} a "
+                f"block may use")
     return refusal(p, n, chunk) if why else None
+
+
+def bwd_workspace_bytes(b: int, s: int, h: int, p: int, g: int, n: int,
+                        chunk: int, dtype: torch.dtype) -> int:
+    """Bytes of scratch the backward kernel takes at these shapes (from
+    the library): the states and their gradients as bf16 planes, C B^T
+    and the group's dCB per causal tile pair, per-position partials."""
+    return 4 * _library().ssd_scan_bwd_workspace(b, s, h, p, g, n, chunk,
+                                                 DTYPE_CODES[dtype])
 
 
 def shared_bytes(p: int, n: int, chunk: int) -> int:
@@ -317,10 +334,9 @@ def ssd_scan_cuda(x, dt, A, B, C, chunk: int = 256):
 
 
 def ssd_scan_bwd_cuda(x, dt, A, B, C, dy, dfinal=None, chunk: int = 256):
-    """Launch the backward's eight passes on the current stream of the
-    inputs' device, with one float32 workspace for their scratch (the
-    recomputed cumsums and states, the state gradients, per-position
-    partials and the per-head dB and dC). Returns (dx, ddt, dA, dB, dC).
+    """Launch the backward's four passes on the current stream of the
+    inputs' device, with one workspace for their scratch
+    (:func:`bwd_workspace_bytes`). Returns (dx, ddt, dA, dB, dC).
     Unguarded: the caller has checked shapes (:func:`bwd_refusal`),
     types, contiguity and that nothing is empty."""
     lib = _library()
@@ -331,8 +347,8 @@ def ssd_scan_bwd_cuda(x, dt, A, B, C, dy, dfinal=None, chunk: int = 256):
     dA = torch.empty_like(A)
     dB = torch.empty_like(B)
     dC = torch.empty_like(C)
-    work = torch.empty(lib.ssd_scan_bwd_workspace(b, s, h, p, n, chunk),
-                       dtype=torch.float32, device=x.device)
+    work = torch.empty(bwd_workspace_bytes(b, s, h, p, g, n, chunk, x.dtype)
+                       // 4, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.ssd_scan_bwd(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),

@@ -1313,6 +1313,8 @@ def ssd_grads(device, b, s, h, p, n, dtype, seed, with_final):
     (3, 300, 6, 40, 3, 100, 96, True),       # P, N, chunk off the tile grid
     (1, 1, 4, 64, 1, 128, 256, True),        # one position
     (1, 50, 4, 64, 2, 64, 1, False),         # chunk 1
+    (1, 700, 112, 64, 1, 64, 256, True),     # zamba2-like, ragged, dfinal
+    (2, 300, 16, 64, 4, 128, 256, True),     # 4 heads a group, 4 groups
 ])
 def test_ssd_scan_bwd_kernel_close_to_plain_version(cuda, dtype, b, s, h, p,
                                                     g, n, chunk, with_final):
@@ -1333,6 +1335,15 @@ def test_ssd_scan_bwd_kernel_close_to_plain_version(cuda, dtype, b, s, h, p,
         assert gt.dtype == wt.dtype and gt.shape == wt.shape
         assert_close_to_plain(gt, wt)
         assert torch.equal(gt, g2)
+
+
+def test_ssd_scan_bwd_workspace_at_mamba2_training_shape(cuda):
+    """The backward's scratch at mamba2-780m's training call (2, 1024, 48,
+    64), N 128, chunk 256, bf16, stays at most 40 MB (the design with
+    per-head float32 dB and dC rows took 127.8 MB)."""
+    need = ssd_scan.bwd_workspace_bytes(2, 1024, 48, 64, 1, 128, 256,
+                                        torch.bfloat16)
+    assert 0 < need <= 40e6, need
 
 
 def test_ssd_scan_bwd_refuses_bad_input_without_falling_back(cuda):

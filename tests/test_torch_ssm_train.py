@@ -37,6 +37,7 @@ CASES = {
     "whole-chunks": (1, 64, 2, 16, 1, 32, 16, False),
     "one-ragged-chunk": (1, 5, 2, 4, 1, 4, 8, True),
     "g-equals-h-dfinal": (2, 40, 4, 8, 4, 8, 16, True),
+    "rep8-ragged-dfinal": (1, 40, 8, 8, 1, 16, 16, True),
 }
 NAMES = ("dx", "ddt", "dA", "dB", "dC")
 
