@@ -227,22 +227,40 @@ Run from the repository root (it puts ``src`` on ``sys.path`` itself):
    of zamba2-7b at full width cut in depth to the most layers of the
    form 6 k + 3 whose training state (16 bytes a parameter) and 8 GB of
    activations stay under 70 GB (``zamba_cut``, which prints the
-   reckoning; 39 of 81 layers), B=2 x 1,024, no checkpoint. The float32
+   reckoning; 39 of 81 layers), B=2 x 1,024, no checkpoint; then the
+   MoE family: deepseek-v2-lite-16b at full width cut to the dense layer
+   and the most MoE layers that fit the same reckoning
+   (``deepseek_cut``: 6 of 27 layers), B=2 x 1,024, no checkpoint (its
+   state would be about 48 GB on disk), the last timed step's routes
+   recorded and, after the timing, each MoE layer's routed tokens per
+   expert placed on one H100 node of 8 GPUs (``h100_node(1, 8)``) by
+   AMTHA (``place_experts``) and by round robin (``place_from_routes``:
+   8 experts a device and a permutation, checked; the largest and mean
+   device load printed, which is lower not gated). The float32
    gradient gate of each model at full width cut to 2 layers (zamba2 to
-   7: one group of 6 with its shared block and a tail layer): loss
-   within 1e-5 and every parameter's gradient within 1e-4 of its
+   7: one group of 6 with its shared block and a tail layer; deepseek
+   the dense layer and one MoE layer): loss (and deepseek's Switch aux
+   loss) within 1e-5 and every parameter's gradient within 1e-4 of its
    largest against the same step with every kernel, forward and
-   backward, swapped for its plain version. Checks: exact counts (under
+   backward, swapped for its plain version, deepseek's plain path
+   replaying the kernel path's routes call by call
+   (``recorded_routes(forced=...)``: the forward's and the remat
+   recomputation's). Checks: exact counts (under
    remat each block's norms, attention and scan run forward twice and
    backward once: a Mamba layer two norms and one scan, zamba2's shared
-   block two norms and one attention at head dim 224);
+   block two norms and one attention at head dim 224, an MLA layer three
+   norms with ``kv_norm``);
    ``flash_attention_bwd``, ``rmsnorm_bwd`` and ``ssd_scan_bwd`` within
-   ``close_to_plain`` at every shape the phase launched (and MLA's 192 /
-   128 at (1, 1024, 16)), the forward kernels too (dw of a float32
+   ``close_to_plain`` at every shape the phase launched (deepseek's
+   (2, 1024, 16, 192/128) attention and its norms at 2,048 and 512, and
+   MLA's 192 / 128 at (1, 1024, 16)), the forward kernels too (dw of a float32
    ``rmsnorm_bwd``, a sum over every row, within 1e-5 of its largest x
    max(1, sqrt(rows) / 10)). Numbers: step ms, tokens/s and peak memory
    per model, each model's step profile (device busy ms, kernels per
-   step, idle share, the kernels with the most device time); each
+   step, idle share, the kernels with the most device time; deepseek's
+   from one profiled step, with the expert products' device ms and
+   share); ``flash_attention`` at deepseek's training shape from a CUDA
+   graph beside SDPA; each
    backward kernel's graph-timed ms, plain ms, bound and library ms
    (autograd backward of ``scaled_dot_product_attention`` without a
    softcap, of ``F.rms_norm``; none computes an SSD scan's backward),
@@ -1044,24 +1062,28 @@ def check_batched_equals_alone(label, cfg, params, reqs, dev):
           f"token")
 
 
-def profile_step(step, breakdown):
-    """Five unsynchronised calls of ``step()`` back to back (host ms per
-    step), then ``torch.profiler`` over three: device busy ms, kernels
+def profile_step(step, breakdown, unsynced=5, profiled=3, experts=None):
+    """``unsynced`` calls of ``step()`` back to back (host ms per step),
+    then ``torch.profiler`` over ``profiled``: device busy ms, kernels
     and idle share per step, and the ten kernels with the most device
-    time. Adds them to ``breakdown``."""
+    time. With ``experts`` (a MoE model's E), also the device ms a step
+    and share of the batched matrix products with E in front, forward and
+    backward: the dense dispatch's expert products, which a sparse
+    dispatch would cut. Adds them to ``breakdown``."""
     import torch
     torch.cuda.synchronize()
     t = time.perf_counter()
-    for _ in range(5):
+    for _ in range(unsynced):
         step()
     torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t) * 1e3 / 5
+    step_ms = (time.perf_counter() - t) * 1e3 / unsynced
     breakdown["step_ms_unsynced"] = step_ms
     try:
         from torch.profiler import ProfilerActivity, profile
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
+                                 ProfilerActivity.CUDA],
+                     record_shapes=experts is not None) as prof:
+            for _ in range(profiled):
                 step()
             torch.cuda.synchronize()
         # only the device's own events: a CPU op carries its kernels'
@@ -1075,16 +1097,29 @@ def profile_step(step, breakdown):
                            getattr(e, "self_cuda_time_total", 0))
         dev_us = sum(dev_time(e) for e in evts)
         n_kern = sum(e.count for e in evts)
+        n = profiled
         breakdown["top_device_time_per_step"] = [
-            dict(name=e.key[:80], calls=e.count / 3,
-                 ms=dev_time(e) / 1e3 / 3)
+            dict(name=e.key[:80], calls=e.count / n,
+                 ms=dev_time(e) / 1e3 / n)
             for e in sorted(evts, key=dev_time, reverse=True)[:10]]
-        breakdown["device_busy_ms_per_step"] = dev_us / 1e3 / 3 \
+        breakdown["device_busy_ms_per_step"] = dev_us / 1e3 / n \
             if dev_us else "not measured"
-        breakdown["device_kernels_per_step"] = n_kern / 3 if n_kern \
+        breakdown["device_kernels_per_step"] = n_kern / n if n_kern \
             else "not measured"
         if dev_us:
-            breakdown["device_idle_share"] = 1.0 - dev_us / 1e3 / 3 / step_ms
+            breakdown["device_idle_share"] = 1.0 - dev_us / 1e3 / n / step_ms
+        if experts is not None and dev_us:
+            # an aten::bmm carries its kernels' device time; the expert
+            # products are the ones with an (E, ., .) operand
+            ex_us = sum(
+                getattr(e, "device_time_total",
+                        getattr(e, "cuda_time_total", 0))
+                for e in prof.key_averages(group_by_input_shape=True)
+                if e.key == "aten::bmm" and any(
+                    len(sh) == 3 and sh[0] == experts
+                    for sh in (e.input_shapes or [])))
+            breakdown["expert_bmm_ms_per_step"] = ex_us / 1e3 / n
+            breakdown["expert_bmm_share"] = ex_us / dev_us
     except Exception as e:          # the profiler is untried on this machine
         breakdown["device_busy_ms_per_step"] = f"not measured ({e!r})"
     return breakdown
@@ -2213,26 +2248,19 @@ def recorded_routes(forced=None):
     """Every ``router_topk`` call's ids (T, k), in call order, while the
     block runs. With ``forced`` (a list of ids from another run of the
     same calls) call i takes the experts ``forced[i]`` instead of its own
-    top-k: its weights are its own float32 softmax probabilities at those
-    ids, renormalised, its aux loss the Switch loss over them, as
-    ``router_topk`` computes both."""
-    import torch
-
+    top-k, weighted as ``router_topk`` weights its own
+    (``moe.route_weights`` of its routing softmax)."""
     from repro_torch.models import moe
     calls = []
     real = moe.router_topk
 
     def router_topk(x, w_router, top_k):
-        out = real(x, w_router, top_k)
-        if forced is not None:
+        if forced is None:
+            out = real(x, w_router, top_k)
+        else:
             ids = forced[len(calls)]
-            probs = torch.softmax(torch.einsum(
-                "td,de->te", x.float(), w_router.float()), dim=-1)
-            w = probs.gather(1, ids)
-            w = w / w.sum(-1, keepdim=True).clamp_min(1e-9)
-            ce = torch.bincount(ids.reshape(-1), minlength=probs.shape[1]) \
-                .float() / ids.numel()
-            out = (w, ids, probs.shape[1] * torch.sum(probs.mean(0) * ce))
+            w, aux = moe.route_weights(moe.router_probs(x, w_router), ids)
+            out = (w, ids, aux)
         calls.append(out[1])
         return out
     moe.router_topk = router_topk
@@ -2483,9 +2511,13 @@ GRAD_LAYERS_BY_ARCH = {"zamba2-7b": 7}          # a group of 6 + a tail layer
 GRAD_LOSS_REL = 1e-5                            # |dloss| / |loss|
 GRAD_REL = 1e-4                                 # per parameter, of max|g|
 MLA_BWD_ROW = (1, 1024, 16, 192, 128)           # b, s, h, d, dv
+MOE_TRAIN_ARCH = "deepseek-v2-lite-16b"
+MOE_TRAIN = dict(batch=2, seq=1024)             # as the other cells
+EP_GPUS = 8                                     # of one H100 node
 TRAIN_BYTES_PER_PARAM = 16      # bf16 parameter and gradient, AdamW's
                                 # float32 copy of the gradients, m and v
-TRAIN_PEAK_GB = 70.0            # what the cut zamba2-7b is sized to
+TRAIN_PEAK_GB = 70.0            # what the cut zamba2-7b and deepseek are
+                                # sized to
 TRAIN_ACT_GB = 8.0              # kept for activations and workspaces
 TRAIN_KERNELS = ("rmsnorm", "flash_attention", "rmsnorm_bwd",
                  "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd")
@@ -2793,6 +2825,38 @@ def attention_bwd_row(args, kw, library=True):
                           v.shape[-1])._asdict())
 
 
+def attention_fwd_row(args, kw):
+    """``flash_attention`` at one training shape, as
+    ``attention_bwd_row``: the kernel's and the plain version's device ms
+    from a CUDA graph over input copies past 3x the L2, causal
+    ``scaled_dot_product_attention`` (which takes Dv != D) back to back,
+    the bound and what bounds it."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_cuda, flash_attention_torch)
+    q, k, v = args
+    akw = {k_: kw[k_] for k_ in ("causal", "scale", "window", "softcap",
+                                 "prefix_len", "return_lse") if k_ in kw}
+    n_bytes, flops = attn_cost(q, k, v, causal=akw.get("causal", True),
+                               window=akw.get("window"),
+                               prefix_len=akw.get("prefix_len"))
+    b_ms, b_by = bound(n_bytes, flops, BF16_OPS_PER_S)
+    nxt = turns(q, k, v)
+    ms = graph_ms(lambda: flash_attention_cuda(*nxt(), **akw), 10)
+    plain_ms = graph_ms(lambda: flash_attention_torch(*nxt(), **akw), 2)
+    lib_ms = None
+    if akw.get("softcap") is None and akw.get("window") is None and \
+            akw.get("prefix_len") is None and akw.get("causal", True):
+        lib_ms = cuda_ms(lambda: sdpa(q, k, v, None, True, akw.get("scale")),
+                         10)
+    return dict(shape=f"q {tuple(q.shape)} k {tuple(k.shape)} v "
+                      f"{tuple(v.shape)} {str(q.dtype)[6:]} causal="
+                      f"{akw.get('causal', True)} lse="
+                      f"{akw.get('return_lse', False)}",
+                ms=ms, tflops=flops / ms / 1e9, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                bytes=n_bytes, flops=flops)
+
+
 def norm_bwd_row(x, w, dy, kw):
     """``rmsnorm_bwd`` at one shape: kernel and plain device ms from a
     CUDA graph over input copies past 3x the L2, the library's (autograd
@@ -2915,8 +2979,10 @@ def train_counts(cfg, steps, remat=True):
     runs its norms, attention and scan forward twice under remat (the
     forward and its recomputation in the backward) and backward once; a
     Mamba layer has two norms and one scan, the shared block two norms
-    and one attention; the final norm runs outside the recomputed
-    blocks."""
+    and one attention; an attention layer (dense or MoE) two, two more
+    with post-block norms or qk-norm (one call each for q and k), and
+    MLA's ``kv_norm`` on the latent; the final norm runs outside the
+    recomputed blocks."""
     from repro_torch.models import block_plan
     kinds = cfg.layer_kinds()
     norms = attn = scans = 0
@@ -2926,7 +2992,8 @@ def train_counts(cfg, steps, remat=True):
         elif kinds[i] == "ssm":
             norms, scans = norms + 2, scans + 1
         else:
-            norms += 2 + 2 * cfg.post_block_norms + 2 * cfg.qk_norm
+            norms += 2 + 2 * cfg.post_block_norms + 2 * cfg.qk_norm \
+                + bool(cfg.kv_lora_rank)
             attn += 1
     fwd = 2 if remat else 1
     return {"rmsnorm": steps * (fwd * norms + 1),
@@ -2937,48 +3004,133 @@ def train_counts(cfg, steps, remat=True):
             "ssd_scan_bwd": steps * scans}
 
 
-def zamba_cut(dev):
-    """zamba2-7b at full width cut in depth for training on one card: the
-    most layers of the form 6 k + 3 (whole repeat groups, the tail kept)
-    whose state, ``TRAIN_BYTES_PER_PARAM`` a parameter, and
-    ``TRAIN_ACT_GB`` of activations stay under ``TRAIN_PEAK_GB``. The
-    parameter count is read off a 9-layer instance on the card (one
-    group and the tail): its total, one Mamba layer's and one LoRA
-    slot's."""
+def depth_cut(dev, arch, probe_layers, step, params_of):
+    """``arch`` at full width cut in depth for training on one card: the
+    most layers n (``probe_layers``, then every ``step``-th count up to
+    the whole depth) whose state, ``TRAIN_BYTES_PER_PARAM`` a parameter,
+    and ``TRAIN_ACT_GB`` of activations stay under ``TRAIN_PEAK_GB``.
+    ``params_of(probe)`` reads the counts off a ``probe_layers``-layer
+    instance on the card and returns ``(params, what)``: ``params(n)``,
+    the parameters of n layers, and ``what``, the counts it was built
+    from. Prints the reckoning."""
     import torch
 
     from repro_torch.configs import ARCHS
     from repro_torch.models import init_params
-    full = ARCHS["zamba2-7b"]
+    full = ARCHS[arch]
     gen = torch.Generator(device=dev).manual_seed(0)
-    probe = init_params(full.replace(n_layers=9), gen, dev)
-    total9 = sum(p.numel() for p in probe.parameters())
-    layer = sum(p.numel() for p in probe.layers[0].parameters())
-    lora = sum(p.numel() for p in probe.shared.lora[0].parameters())
+    probe = init_params(full.replace(n_layers=probe_layers), gen, dev)
+    params, what = params_of(probe)
     del probe
     torch.cuda.empty_cache()
 
-    def params(n):                  # n = 6 k + 3: k groups, k LoRA slots
-        return total9 + (n - 9) * layer + ((n - 3) // 6 - 1) * lora
-    fits = [n for n in range(9, full.n_layers + 1, 6)
-            if params(n) * TRAIN_BYTES_PER_PARAM / 1e9 + TRAIN_ACT_GB
-            <= TRAIN_PEAK_GB]
-    n = fits[-1]
-    print(f"train zamba2-7b cut: {n} of {full.n_layers} layers "
-          f"({(n - 3) // 6} groups of 6 + 3), {params(n)} parameters of "
-          f"{params(full.n_layers)} (one Mamba layer {layer}, one LoRA slot "
-          f"{lora}); {TRAIN_BYTES_PER_PARAM} bytes a parameter + "
-          f"{TRAIN_ACT_GB} GB of activations: "
-          f"{params(n) * TRAIN_BYTES_PER_PARAM / 1e9 + TRAIN_ACT_GB:.1f} GB "
-          f"of {TRAIN_PEAK_GB} (whole: "
+    def gb(n):
+        return params(n) * TRAIN_BYTES_PER_PARAM / 1e9 + TRAIN_ACT_GB
+    n = max(n for n in range(probe_layers, full.n_layers + 1, step)
+            if gb(n) <= TRAIN_PEAK_GB)
+    print(f"train {arch} cut: {n} of {full.n_layers} layers, {params(n)} "
+          f"parameters of {params(full.n_layers)} ({what}); "
+          f"{TRAIN_BYTES_PER_PARAM} bytes a parameter + {TRAIN_ACT_GB} GB "
+          f"of activations: {gb(n):.1f} GB of {TRAIN_PEAK_GB} "
+          f"({n + step} layers: {gb(n + step):.1f} GB; whole: "
           f"{params(full.n_layers) * TRAIN_BYTES_PER_PARAM / 1e9:.1f} GB)")
     return full.replace(n_layers=n)
+
+
+def count_params(module):
+    return sum(p.numel() for p in module.parameters())
+
+
+def zamba_cut(dev):
+    """zamba2-7b cut to 6 k + 3 layers (whole repeat groups, the tail
+    kept), read off a 9-layer instance (one group and the tail): its
+    total, one Mamba layer's and one LoRA slot's."""
+    def params_of(probe):
+        total9, layer = count_params(probe), count_params(probe.layers[0])
+        lora = count_params(probe.shared.lora[0])
+
+        def params(n):              # n = 6 k + 3: k groups, k LoRA slots
+            return total9 + (n - 9) * layer + ((n - 3) // 6 - 1) * lora
+        return params, (f"groups of 6 + 3; one Mamba layer {layer}, one "
+                        f"LoRA slot {lora}")
+    return depth_cut(dev, "zamba2-7b", 9, 6, params_of)
+
+
+def deepseek_cut(dev):
+    """deepseek-v2-lite-16b cut to its dense prologue layer and the most
+    MoE layers, read off a 2-layer instance (the dense layer and one MoE
+    layer): its total and each layer's."""
+    def params_of(probe):
+        total2 = count_params(probe)
+        dense, moe = (count_params(layer) for layer in probe.layers)
+
+        def params(n):              # the dense layer and n - 1 MoE layers
+            return total2 + (n - 2) * moe
+        return params, (f"the dense layer and MoE layers; embedding and "
+                        f"head {total2 - dense - moe}, the dense layer "
+                        f"{dense}, one MoE layer {moe}")
+    return depth_cut(dev, MOE_TRAIN_ARCH, 2, 1, params_of)
+
+
+def place_from_routes(cfg, calls):
+    """AMTHA's expert placement (``place_experts`` on ``EP_GPUS`` GPUs of
+    one H100 node, ``ep_machine``: ``h100_node(1, EP_GPUS)``) and round
+    robin from one training step's routes (``recorded_routes``:
+    the forward's calls, then the recomputation's under remat), one MoE
+    layer at a time: each expert's load is its routed tokens times the
+    forward's three products (6 D F FLOPs a token). Reads the routes back
+    once. Fails unless every device holds E / 8 experts and each
+    ``permutation`` is a permutation; prints the largest and the mean
+    device load (tokens) of each placement. Which is lower is not gated:
+    a capacity-bound greedy is not always below round robin."""
+    import torch
+
+    from repro_torch.core import place_experts, round_robin_placement
+    from repro_torch.core.placement import ep_machine
+    n_moe = sum(k.startswith("moe") for k in cfg.layer_kinds())
+    if len(calls) != 2 * n_moe:
+        fail(f"placement: {len(calls)} router calls, expected {n_moe} MoE "
+             f"layers x 2 (forward and recomputation)")
+    e = cfg.n_experts
+    counts = torch.stack([torch.bincount(c.reshape(-1), minlength=e)
+                          for c in calls[:n_moe]]).cpu().tolist()
+    node = ep_machine(EP_GPUS)
+    n_dev, flops = node.n_cores, 6 * cfg.d_model * cfg.d_ff_expert
+    rows = []
+    for layer, cnt in enumerate(counts):
+        loads = [c * flops for c in cnt]
+        t0 = time.perf_counter()
+        amtha = place_experts(loads, n_dev)
+        map_ms = (time.perf_counter() - t0) * 1e3
+        rr = round_robin_placement(loads, n_dev)
+        row = dict(moe_layer=layer, tokens=sum(cnt),
+                   expert_tokens_max=max(cnt), expert_tokens_min=min(cnt),
+                   map_ms=map_ms)
+        for name, pl in (("amtha", amtha), ("round_robin", rr)):
+            per = [pl.expert_to_device.count(d) for d in range(n_dev)]
+            if per != [e // n_dev] * n_dev or \
+                    sorted(pl.permutation) != list(range(e)):
+                fail(f"placement {name} layer {layer}: experts per device "
+                     f"{per}, permutation {pl.permutation[:8]}...")
+            dev = [x / flops for x in pl.device_loads(loads, n_dev)]
+            row.update({f"{name}_device_tokens_max": max(dev),
+                        f"{name}_device_tokens_mean": sum(dev) / n_dev,
+                        f"{name}_t_est_ms": pl.t_est * 1e3})
+        print(f"placement {cfg.name} on {node.name}: " + json.dumps(row))
+        rows.append(row)
+    return rows
 
 
 def grad_gate(label, cfg, dev, batch_of, ops):
     """Loss and every parameter's gradient of one float32 step at full
     width, ``GRAD_LAYERS`` layers, kernel path against the same step with
-    every kernel (forward and backward) swapped for its plain version."""
+    every kernel (forward and backward) swapped for its plain version.
+    With MoE layers both paths take the kernel path's routes: its
+    ``router_topk`` ids are recorded call by call (the forward's, then
+    the recomputation's under remat) and the plain path replays them
+    (``recorded_routes(forced=...)``), so a near tie in the top-k cannot
+    send a token elsewhere; the Switch aux loss (weight 0.01 in the loss)
+    is held as the loss is, the router's gradient with the rest."""
     import torch
 
     from repro_torch.models import ShardCtx
@@ -2988,17 +3140,34 @@ def grad_gate(label, cfg, dev, batch_of, ops):
     _, params = load_model(f"{label} gradient gate", cfg, dev, seed=3)
     params.requires_grad_(True)
     batch = batch_of(cfg)
-    out = {}
+    moe = cfg.family == "moe"
+    out, routes = {}, {}
     for path in ("kernel", "plain"):
         params.zero_grad(set_to_none=True)
         ctx = plain_serving_kernels(ops) if path == "plain" \
             else contextlib.nullcontext()
-        with ctx:
-            total, (loss, _) = make_loss_fn(cfg, ShardCtx())(params, batch)
+        forced = routes.get("kernel") if path == "plain" else None
+        rec = recorded_routes(forced) if moe else contextlib.nullcontext([])
+        with ctx, rec as calls:
+            total, (loss, aux) = make_loss_fn(cfg, ShardCtx())(params, batch)
             total.backward()
-        out[path] = (loss.item(), {k: p.grad for k, p in
-                                   params.named_parameters()})
-    (lk, gk), (lp, gp) = out["kernel"], out["plain"]
+        routes[path] = calls
+        out[path] = (loss.item(), aux.item(), {k: p.grad for k, p in
+                                               params.named_parameters()})
+    if moe:
+        n_moe = sum(k.startswith("moe") for k in cfg.layer_kinds())
+        if len(routes["kernel"]) != 2 * n_moe or not all(
+                torch.equal(a, b) for a, b in zip(routes["kernel"],
+                                                  routes["plain"])):
+            fail(f"{label} gradient gate: the plain path did not replay the "
+                 f"kernel path's {len(routes['kernel'])} router calls")
+        (_, ak, _), (_, ap, _) = out["kernel"], out["plain"]
+        print(f"{label} gradient gate: aux loss kernel {ak!r} plain {ap!r} "
+              f"over {len(routes['kernel'])} router calls ({n_moe} MoE "
+              f"layers, forward and recomputation) on one set of routes")
+        if not abs(ak - ap) <= GRAD_LOSS_REL * abs(ap):
+            fail(f"{label} gradient gate: aux loss {ak!r} vs plain {ap!r}")
+    (lk, _, gk), (lp, _, gp) = out["kernel"], out["plain"]
     worst = max(((float((gk[k] - gp[k]).abs().max())
                   / max(float(gp[k].abs().max()), 1e-30), k) for k in gp))
     print(f"{label} gradient gate (float32, {layers} layers, full "
@@ -3019,12 +3188,15 @@ def train_phase(dev):
     """Train gemma2-2b at full width and depth in bf16 for three steps
     through ``Trainer`` (checkpoint at step 2 and at the end), resume
     step 3 from the checkpoint into a fresh state and hold it to the
-    uninterrupted run bit for bit; one ``make_train_step`` of
-    paligemma-3b and of hubert-xlarge at full size; the float32
-    gradient gate of each; both backward kernels held to their plain
-    versions at every shape the phase launched and timed. Returns the
-    kernels' JSON entries (the two backward kernels) and the forward
-    kernels' counts by run."""
+    uninterrupted run bit for bit; two timed ``make_train_step`` calls of
+    paligemma-3b, hubert-xlarge and mamba2-780m at full size and of
+    zamba2-7b and deepseek-v2-lite-16b cut in depth (deepseek's routes
+    then placed by AMTHA on one H100 node); the float32 gradient gate of
+    each; the backward kernels held to their plain versions at every
+    shape the phase launched and timed. Returns the kernels' JSON entries
+    (the three backward kernels), the forward kernels' counts by run and
+    largest errors, and the forward ``flash_attention`` rows at MLA's
+    training shape."""
     import shutil
 
     import numpy as np
@@ -3145,14 +3317,20 @@ def train_phase(dev):
         shutil.rmtree(ckpt_dir, ignore_errors=True)
         freed("train gemma2-2b")
 
-        # -- paligemma-3b, hubert-xlarge, mamba2-780m whole and zamba2-7b
-        #    at full width cut in depth: a warm-up step and two timed ------
+        # -- paligemma-3b, hubert-xlarge, mamba2-780m whole, zamba2-7b and
+        #    deepseek-v2-lite-16b at full width cut in depth: a warm-up
+        #    step and two timed; deepseek's last timed step's routes then
+        #    placed by AMTHA onto one H100 node ----------------------------
+        cuts = {"zamba2-7b": zamba_cut, MOE_TRAIN_ARCH: deepseek_cut}
         for label, name, run in (("paligemma-3b", "paligemma-3b", VLM_TRAIN),
                                  ("hubert-xlarge", "hubert-xlarge",
                                   ENC_TRAIN),
                                  ("mamba2-780m", "mamba2-780m", SSM_TRAIN),
-                                 ("zamba2-7b", "zamba2-7b", SSM_TRAIN)):
-            cfg = zamba_cut(dev) if name == "zamba2-7b" else ARCHS[name]
+                                 ("zamba2-7b", "zamba2-7b", SSM_TRAIN),
+                                 (MOE_TRAIN_ARCH, MOE_TRAIN_ARCH,
+                                  MOE_TRAIN)):
+            cfg = cuts[name](dev) if name in cuts else ARCHS[name]
+            moe = cfg.family == "moe"
             print(f"train: {cfg.name} {cfg.n_layers} layers "
                   f"d={cfg.d_model} {cfg.dtype} remat={cfg.remat} "
                   f"B={run['batch']} S={run['seq']}")
@@ -3167,9 +3345,14 @@ def train_phase(dev):
                 sp.launches = 0
             times = []
             for i in (1, 2):
+                # the last timed step's routes, kept on the card and read
+                # back after the timing
+                rec = recorded_routes() if moe and i == 2 \
+                    else contextlib.nullcontext([])
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                state, metrics = step_fn(state, pipe.make_batch(i))
+                with rec as routes:
+                    state, metrics = step_fn(state, pipe.make_batch(i))
                 torch.cuda.synchronize()
                 times.append(time.perf_counter() - t0)
             if not np.isfinite(float(metrics["loss"])):
@@ -3178,9 +3361,16 @@ def train_phase(dev):
             launches[key] = {k: sp.launches for k, sp in spies.items()}
             step_record(label, cfg, run, times, train_counts(cfg, 2),
                         launches[key])
+            if moe:
+                steps[label]["placement"] = place_from_routes(cfg, routes)
+                del routes
+            # deepseek's step is the longest: one unsynchronised step and
+            # one profiled
             profile_step(lambda: step_fn(state, pipe.make_batch(3)),
-                         steps[label])
-            print(f"train {label} step profile " + json.dumps(steps[label]))
+                         steps[label], *((1, 1) if moe else ()),
+                         experts=cfg.n_experts if moe else None)
+            print(f"train {label} step profile " + json.dumps(
+                {k: v for k, v in steps[label].items() if k != "placement"}))
             del state, step_fn, metrics
             freed(f"train {label}")
 
@@ -3198,6 +3388,8 @@ def train_phase(dev):
         for name in ("mamba2-780m", "zamba2-7b"):
             grad_gate(name, ARCHS[name], dev, lambda c: lm_batch(
                 c, SSM_TRAIN["batch"], SSM_TRAIN["seq"]), ops)
+        grad_gate(MOE_TRAIN_ARCH, ARCHS[MOE_TRAIN_ARCH], dev, lambda c:
+                  lm_batch(c, MOE_TRAIN["batch"], MOE_TRAIN["seq"]), ops)
 
     # -- the backward kernels against their plain versions, timed --------
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -3268,6 +3460,14 @@ def train_phase(dev):
             print("rmsnorm_bwd " + json.dumps(rows["rmsnorm_bwd"][-1]))
     from repro_torch.kernels.flash_attention import flash_attention_torch
     from repro_torch.kernels.rmsnorm import rmsnorm_torch
+    # the forward at MLA's training shape (D 192, Dv 128), timed
+    fwd_rows = {"flash_attention": []}
+    for (q, k, v), akw in spies["flash_attention"].calls.values():
+        if q.dtype == torch.bfloat16 and q.shape[-1] != v.shape[-1]:
+            fwd_rows["flash_attention"].append(attention_fwd_row((q, k, v),
+                                                                 akw))
+            print("train flash_attention " + json.dumps(
+                fwd_rows["flash_attention"][-1]))
     for name, plain in (("flash_attention", flash_attention_torch),
                         ("rmsnorm", rmsnorm_torch),
                         ("ssd_scan", ssd_scan_torch)):
@@ -3317,7 +3517,7 @@ def train_phase(dev):
             rows=rows[name]))
     fwd = {k: {r: launches[r][k] for r in launches}
            for k in ("rmsnorm", "flash_attention", "ssd_scan")}
-    return entries, fwd, {k: errs[k] for k in fwd}
+    return entries, fwd, {k: errs[k] for k in fwd}, fwd_rows
 
 
 def main() -> int:
@@ -3693,7 +3893,7 @@ def main() -> int:
     fe_launches, fe_err, fe_rows = frontend_phase(dev)
     gc.collect()
     torch.cuda.empty_cache()
-    train_entries, train_fwd, train_err = train_phase(dev)
+    train_entries, train_fwd, train_err, train_rows = train_phase(dev)
     ssd_entry["launches"] += sum(train_fwd["ssd_scan"].values())
     ssd_entry["launches_by_path"].update(train_fwd["ssd_scan"])
     ssd_entry["max_abs_err"] = max(ssd_entry["max_abs_err"],
@@ -3711,6 +3911,7 @@ def main() -> int:
             row["prefix_row"], row["bidirectional_row"] = (
                 {k: v for k, v in fe_rows[r].items() if k != "args"}
                 for r in ("prefix", "bidirectional"))
+            row["mla_train_rows"] = train_rows["flash_attention"]
 
     # the device GA's largest shape: where the path spends its launches
     main_row = max((r for r in kernel_rows

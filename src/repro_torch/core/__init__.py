@@ -5,7 +5,9 @@
 # package. The host algorithms stay on the host in NumPy; the batched simulator (core/sim_engine.py) evaluates a
 # whole suite in one call on the card through the hand-written
 # ``sim_relax_pop`` kernel (the dense ``sim_step`` kernel relaxes the same
-# batch from ``dense_lags``).
+# batch from ``dense_lags``). The placement layer (core/placement.py) maps
+# experts and layer blocks onto nodes of H100 GPUs (``h100_node``) with
+# AMTHA.
 from .amtha import AMTHA, amtha_schedule
 from .convert import graph_from, machine_from, schedule_from
 from .engine import ArrayAMTHA, engine_schedule
@@ -18,8 +20,11 @@ from .lowering import (FaultArrays, GraphArrays, MachineArrays,
                        lower_scenario, machine_arrays, population_arrays,
                        repeat_batch)
 from .machine import (CommLevel, MachineModel, cluster_of_multicores,
-                      dell_poweredge_1950, heterogeneous_cluster, hp_bl260c)
+                      dell_poweredge_1950, h100_node, heterogeneous_cluster,
+                      hp_bl260c)
 from .mpaha import AppGraph, CommEdge, Subtask, merge_graphs
+from .placement import (assign_layers_to_pods, place_experts,
+                        round_robin_placement)
 from .registry import (SCHEDULERS, SIMULATORS, Scheduler, get_scheduler,
                        get_simulator, register_scheduler, register_simulator,
                        scheduler_entry)
@@ -36,6 +41,8 @@ __all__ = [
     "AppGraph", "CommEdge", "Subtask", "merge_graphs",
     "CommLevel", "MachineModel", "cluster_of_multicores",
     "dell_poweredge_1950", "hp_bl260c", "heterogeneous_cluster",
+    "h100_node", "place_experts", "round_robin_placement",
+    "assign_layers_to_pods",
     "Schedule", "ScheduleError", "validate", "SimResult", "simulate",
     "ExecResult", "execute_threaded",
     "heft_schedule", "etf_schedule", "SynthParams", "generate_app",

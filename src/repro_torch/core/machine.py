@@ -168,3 +168,44 @@ def cluster_of_multicores(n_blades: int = 4, sockets_per_blade: int = 2,
     n_cores = n_blades * sockets_per_blade * pairs_per_socket * 2
     return MachineModel(f"cluster-of-multicores ({n_blades}x{n_cores // n_blades} cores)",
                         types, locations, levels)
+
+
+# NVIDIA H100 SXM5 80GB (``nvidia-smi``: "NVIDIA H100 80GB HBM3", 700 W)
+# datasheet figures, not measurements: the rates the placement layer
+# (core/placement.py) turns FLOP and byte counts into times with.
+H100_PEAK_FLOPS = 989e12             # dense bf16 tensor-core FLOP/s per GPU
+H100_HBM_BW = 3.35e12                # HBM3 bytes/s per GPU
+H100_NVLINK_BW = 450e9               # NVLink 4 bytes/s per GPU per direction
+H100_IB_BW = 50e9                    # bytes/s per GPU between nodes: one
+                                     # 400 Gb/s NDR InfiniBand port per GPU
+
+
+def h100_node(n_nodes: int = 1, gpus_per_node: int = 8,
+              type_speeds: tuple[float, ...] = (H100_PEAK_FLOPS,)
+              ) -> MachineModel:
+    """Nodes of H100 GPUs (an HGX H100 node holds 8, joined all to all by
+    NVLink through NVSwitch; nodes joined by InfiniBand), with one level
+    per location depth, slowest first: inter-node ≫ NVLink (same node) ≫
+    HBM (same GPU). Location = (node, gpu, 0): the last index is the one
+    worker of a GPU, so two tasks on one GPU fall to its HBM level.
+    ``type_speeds`` / ``type_mem_bw`` carry the datasheet peaks
+    (heterogeneity per node when more than one type is given), so cost
+    extractors can turn FLOP/byte profiles into per-type subtask times.
+    The latencies are modelled, as the other machines' are. Used by
+    :mod:`repro_torch.core.placement` to map experts, layer blocks and
+    pipeline stages onto GPUs."""
+    locations = [(n, g, 0) for n in range(n_nodes)
+                 for g in range(gpus_per_node)]
+    n_types = len(type_speeds)
+    types = [0] * len(locations) if n_types == 1 else \
+        [n % n_types for n, _, _ in locations]     # heterogeneity per node
+    levels = [
+        CommLevel("infiniband", 1e-5, H100_IB_BW),
+        CommLevel("nvlink", 1e-6, H100_NVLINK_BW),
+        CommLevel("hbm", 1e-7, H100_HBM_BW),
+    ]
+    return MachineModel(
+        f"h100 {n_nodes}x{gpus_per_node}", types, locations, levels,
+        type_speeds=type_speeds,
+        type_mem_bw=(H100_HBM_BW,) * n_types,
+    )

@@ -2,13 +2,20 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch demo-100m \
         --steps 300 --batch 8 --seq 512 [--reduced] [--device cpu] \
-        [--ckpt-dir DIR] [--compression int8]
+        [--ckpt-dir DIR] [--compression int8] [--from-reference DIR]
 
 Runs the fault-tolerant ``Trainer`` (checkpoints, retry, straggler
 monitor) on seeded synthetic data (``TokenPipeline`` behind a
 ``Prefetcher``), resuming from the latest committed checkpoint in
-``--ckpt-dir`` when there is one. ``--arch`` names a demo or an assigned
-config of any family: dense, MoE, SSM (``mamba2-780m``), hybrid
+``--ckpt-dir`` when there is one. ``--from-reference DIR`` starts from a
+checkpoint the JAX package's trainer wrote instead (a checkpoint
+directory, its latest committed step, or one ``step_XXXXXXXX``;
+:func:`repro_torch.checkpoint.state_from_reference`), at that
+checkpoint's step, and refuses when ``--ckpt-dir`` already holds a
+committed checkpoint of the port (the resume point would be ambiguous);
+the run then writes the port's own checkpoints to ``--ckpt-dir``.
+``--arch`` names a demo or an assigned config of any family: dense,
+MoE, SSM (``mamba2-780m``), hybrid
 (``zamba2-7b``), the encoder (``hubert-xlarge``) or the VLM
 (``paligemma-3b``). ``--reduced`` gives the config's tiny same-family
 variant in float32. Runs on the card unless ``--device cpu`` is given.
@@ -25,6 +32,7 @@ import tempfile
 import torch
 
 from ..checkpoint.ckpt import CheckpointManager
+from ..checkpoint.convert import state_from_reference
 from ..configs import ARCHS, reduced as reduce_cfg
 from ..configs.demo import DEMO_20M, DEMO_100M
 from ..data.pipeline import PipelineConfig, Prefetcher, TokenPipeline
@@ -61,6 +69,9 @@ def main(argv=None):
     ap.add_argument("--ckpt-dir", default=None,
                     help="default: a fresh temporary directory")
     ap.add_argument("--ckpt-every", type=int, default=100)
+    ap.add_argument("--from-reference", default=None, metavar="DIR",
+                    help="start from a checkpoint of the JAX package's "
+                         "trainer")
     ap.add_argument("--compression", default="none", choices=["none", "int8"])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
@@ -74,18 +85,28 @@ def main(argv=None):
     ckpt_dir = args.ckpt_dir or tempfile.mkdtemp(prefix="repro_torch_ckpt_")
     os.makedirs(ckpt_dir, exist_ok=True)
 
+    mgr = CheckpointManager(ckpt_dir)
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    state = init_train_state(cfg, opt, gen, device)
+    if args.from_reference is not None:
+        if mgr.list_steps():
+            raise SystemExit(f"--from-reference: {ckpt_dir} already holds "
+                             f"committed checkpoints {mgr.list_steps()}; "
+                             f"give an empty --ckpt-dir")
+        state = state_from_reference(args.from_reference, cfg, opt, device)
+        start = int(state["opt"]["step"])
+        resumed = (f"resumed from the reference's step {start} "
+                   f"({args.from_reference})")
+    elif mgr.list_steps():
+        state = mgr.restore_latest(init_train_state(cfg, opt, gen, device))
+        start = int(state["opt"]["step"])
+        resumed = f"resumed from step {start}"
+    else:
+        state, start, resumed = init_train_state(cfg, opt, gen, device), 0, ""
     n_params = sum(p.numel() for p in state["params"].parameters())
     print(f"arch={cfg.name} device={device} params={n_params / 1e6:.1f}M "
           f"steps={args.steps} batch={args.batch} seq={args.seq}")
-
-    mgr = CheckpointManager(ckpt_dir)
-    start = 0
-    if mgr.list_steps():
-        state = mgr.restore_latest(state)
-        start = int(state["opt"]["step"])
-        print(f"resumed from step {start}")
+    if resumed:
+        print(resumed)
     pipe = Prefetcher(TokenPipeline(
         cfg, PipelineConfig(batch=args.batch, seq_len=args.seq,
                             seed=args.seed), device=device,

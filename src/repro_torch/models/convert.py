@@ -17,9 +17,11 @@ over the ``n_rep`` repeat slots and unstacked here, one
 beside ``embed``. Every leaf is copied as it is: the layouts are the
 same.
 
-The tree's leaves are NumPy arrays (``np.asarray`` of each JAX array);
+The tree's leaves are NumPy arrays (``np.asarray`` of each JAX array;
 bfloat16 arrives as ml_dtypes' ``bfloat16`` and is reinterpreted bit for
-bit.
+bit) or tensors already of the port's types (a reference checkpoint read
+by :mod:`repro_torch.checkpoint.convert`, which finds each of the port's
+parameters in it by :func:`reference_key`).
 """
 
 from __future__ import annotations
@@ -32,7 +34,10 @@ from .model import TOP_LEVEL, Model
 
 
 def to_tensor(a, device=None) -> torch.Tensor:
-    """A copy of the array ``a`` as a tensor on ``device``."""
+    """A copy of the array or tensor ``a`` as a tensor on ``device``."""
+    if isinstance(a, torch.Tensor):
+        t = a.detach().clone(memory_format=torch.contiguous_format)
+        return t.to(device) if device is not None else t
     a = np.array(a, copy=True, order="C")          # writable, contiguous
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
@@ -82,3 +87,23 @@ def params_from_reference(tree: dict, cfg: ModelConfig,
         tensors["shared_lora"] = [_flat(tree["shared_lora"], device, rep)
                                   for rep in range(n_rep)]
     return Model(cfg, tensors)
+
+
+def reference_key(name: str, cfg: ModelConfig) -> tuple[str, int | None]:
+    """The reference's tree path of the port's parameter ``name`` and,
+    for a leaf stacked over repeats, the repeat's index along its leading
+    axis: the layout :func:`params_from_reference` reads, the other way
+    round."""
+    parts = name.split(".")
+    if parts[0] == "layers":
+        prologue, n_rep, unit, _ = cfg.repeat_structure()
+        i, rest = int(parts[1]), "/".join(parts[2:])
+        if i < len(prologue):
+            return f"prologue/{i}/{rest}", None
+        j = i - len(prologue)
+        if j < n_rep * len(unit):
+            return f"groups/{j % len(unit)}/{rest}", j // len(unit)
+        return f"tail/{j - n_rep * len(unit)}/{rest}", None
+    if parts[:2] == ["shared", "lora"]:
+        return "shared_lora/" + "/".join(parts[3:]), int(parts[2])
+    return "/".join(parts), None

@@ -25,24 +25,38 @@ import torch
 import torch.nn.functional as F
 
 
+def router_probs(x: torch.Tensor, w_router: torch.Tensor) -> torch.Tensor:
+    """x (T, D); w_router (D, E) -> the routing softmax (T, E) float32."""
+    return torch.softmax(torch.einsum("td,de->te", x.float(),
+                                      w_router.float()), dim=-1)
+
+
+def route_weights(probs: torch.Tensor, ids: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """probs (T, E) the routing softmax; ids (T, k) int64 the experts each
+    token goes to -> (weights (T, k) float32, aux_loss () float32). The
+    weights are the chosen experts' probabilities renormalised to sum to
+    one; ``aux_loss`` is the Switch load-balancing loss E · sum_e f_e ·
+    p_e (f_e the share of the T·k routed copies sent to expert e, p_e
+    its mean probability)."""
+    weights = probs.gather(1, ids)
+    weights = weights / weights.sum(-1, keepdim=True).clamp_min(1e-9)
+    e = probs.shape[1]
+    ce = torch.zeros((e,), dtype=torch.float32, device=probs.device)
+    ce = ce.index_add_(0, ids.reshape(-1),
+                       torch.ones(ids.numel(), dtype=torch.float32,
+                                  device=probs.device)) / ids.numel()
+    return weights, e * torch.sum(probs.mean(0) * ce)
+
+
 def router_topk(x: torch.Tensor, w_router: torch.Tensor, top_k: int
                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x (T, D); w_router (D, E) -> (weights (T, k) float32, ids (T, k)
-    int64, aux_loss () float32). The weights are the top-k softmax
-    probabilities renormalised to sum to one; ``aux_loss`` is the
-    Switch load-balancing loss E · sum_e f_e · p_e (f_e the share of the
-    T·k routed copies sent to expert e, p_e its mean probability)."""
-    logits = torch.einsum("td,de->te", x.float(), w_router.float())
-    probs = torch.softmax(logits, dim=-1)
-    weights, ids = torch.topk(probs, top_k, dim=-1)
-    weights = weights / weights.sum(-1, keepdim=True).clamp_min(1e-9)
-    e = w_router.shape[1]
-    me = probs.mean(0)
-    ce = torch.zeros((e,), dtype=torch.float32, device=x.device)
-    ce = ce.index_add_(0, ids.reshape(-1),
-                       torch.ones(ids.numel(), dtype=torch.float32,
-                                  device=x.device)) / (ids.shape[0] * top_k)
-    aux = e * torch.sum(me * ce)
+    int64, aux_loss () float32): each token's ``top_k`` most probable
+    experts, weighted by :func:`route_weights`."""
+    probs = router_probs(x, w_router)
+    ids = torch.topk(probs, top_k, dim=-1).indices
+    weights, aux = route_weights(probs, ids)
     return weights, ids, aux
 
 

@@ -5,6 +5,13 @@ prompt is prefilled into the slot's cache) and leave when finished (EOS
 or length budget). Each slot holds a batch of 1 with its own cache and
 position, and every tick steps each active slot once — the reference's
 discipline, whose model decode takes a scalar position.
+
+A request emits exactly ``max_new`` tokens, fewer when one of them is
+``eos_id``: the prefill's token counts, so a request whose prefill token
+is its last (``max_new == 1``, or the token is EOS) leaves at its join
+and is never decoded. ``generate(n_tokens=max_new)`` gives the same
+tokens for the same prompt. (The reference's batcher decodes once more
+after such a join and emits two tokens for ``max_new == 1``.)
 """
 
 from __future__ import annotations
@@ -78,6 +85,11 @@ class ContinuousBatcher:
         s.pos = int(prompt.shape[1])
         s.remaining = req.max_new - 1
         self.tokens[slot_idx] = tok
+        if s.remaining <= 0 or self._is_eos(req.out[-1]):
+            self._retire(slot_idx)          # the prefill's token was its last
+
+    def _is_eos(self, t: int) -> bool:
+        return self.eos_id is not None and t == self.eos_id
 
     def _retire(self, slot_idx: int):
         s = self.slots[slot_idx]
@@ -105,8 +117,7 @@ class ContinuousBatcher:
             t = int(tok[0, 0])
             req = self.by_rid[s.rid]
             req.out.append(t)
-            if s.remaining <= 0 or (self.eos_id is not None and
-                                    t == self.eos_id) or \
+            if s.remaining <= 0 or self._is_eos(t) or \
                     s.pos >= self.max_seq - 1:
                 self._retire(i)
 

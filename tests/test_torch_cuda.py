@@ -9,6 +9,7 @@ card giving the CPU's tokens.
 Every test needs an NVIDIA GPU with ``nvcc``; elsewhere they skip. On
 the card: ``python3 -m pytest -q -m cuda tests/test_torch_cuda.py``."""
 
+import contextlib
 import copy
 
 import numpy as np
@@ -1404,12 +1405,45 @@ def test_reduced_ssm_train_step_on_the_card_matches_the_cpu(cuda, name):
         assert err <= 1e-4 * float(b.abs().max()), (name, k, err)
 
 
-def test_reduced_train_step_on_the_card_matches_the_cpu(cuda):
+@contextlib.contextmanager
+def routes(forced=None):
+    """Every ``router_topk`` call's ids in call order (the forward's, then
+    the recomputation's under remat); with ``forced`` (another run's
+    ids) call i takes ``forced[i]`` instead of its own top-k, weighted as
+    ``router_topk`` weights its own (``moe.route_weights``)."""
+    from repro_torch.models import moe
+    calls, real = [], moe.router_topk
+
+    def router_topk(x, w_router, top_k):
+        if forced is None:
+            out = real(x, w_router, top_k)
+        else:
+            ids = forced[len(calls)].to(x.device)
+            w, aux = moe.route_weights(moe.router_probs(x, w_router), ids)
+            out = (w, ids, aux)
+        calls.append(out[1])
+        return out
+    moe.router_topk = router_topk
+    try:
+        yield calls
+    finally:
+        moe.router_topk = real
+
+
+@pytest.mark.parametrize("name", ["gemma2-2b", "paligemma-3b",
+                                  "deepseek-v2-lite-16b",
+                                  "qwen3-moe-235b-a22b"])
+def test_reduced_train_step_on_the_card_matches_the_cpu(cuda, name):
     """One float32 ``make_train_step`` of reduced gemma2-2b (softcaps,
-    windowed layers) and paligemma-3b (the prefix) on the card against
-    the CPU's: the loss and every new parameter within 1e-4 of the
-    largest; both backward kernels launched, once per attention layer
-    and once per norm of the forward."""
+    windowed layers), paligemma-3b (the prefix), deepseek-v2-lite-16b
+    (MLA: head dims 24/16, ``kv_norm``; a dense layer and MoE layers) and
+    qwen3-moe-235b-a22b (GQA, qk-norm over rows of the head dim) on the
+    card against the CPU's: the loss and every new parameter within 1e-4
+    of the largest; both backward kernels launched, once per attention
+    layer and once per norm of the forward. The MoE models run under
+    remat full, their router twice a layer (the forward and its
+    recomputation), and the CPU replays the card's routes call by call,
+    so a near tie in the top-k cannot send a token elsewhere."""
     from repro_torch.configs import ARCHS, reduced
     from repro_torch.data import PipelineConfig, TokenPipeline
     from repro_torch.models import ShardCtx
@@ -1417,26 +1451,36 @@ def test_reduced_train_step_on_the_card_matches_the_cpu(cuda):
     from repro_torch.runtime.train_loop import (init_train_state,
                                                 make_train_step)
     torch.backends.cuda.matmul.allow_tf32 = False
-    for name in ("gemma2-2b", "paligemma-3b"):
-        cfg = reduced(ARCHS[name]).replace(dtype="float32", remat="none")
-        opt = OptConfig(lr=1e-2, warmup_steps=1, total_steps=4, eps=1e-3)
-        cpu = init_train_state(cfg, opt, torch.Generator().manual_seed(0))
-        card = {"params": copy.deepcopy(cpu["params"]).to(cuda),
-                "opt": {k: ({n: t.to(cuda) for n, t in v.items()}
-                            if isinstance(v, dict) else v.to(cuda))
-                        for k, v in cpu["opt"].items()}}
-        pipe = TokenPipeline(cfg, PipelineConfig(batch=2, seq_len=40))
-        step = make_train_step(cfg, opt, ShardCtx())
-        before = (ops.flash_attention_bwd.launches, ops.rmsnorm_bwd.launches)
+    moe = ARCHS[name].family == "moe"
+    cfg = reduced(ARCHS[name]).replace(dtype="float32",
+                                       remat="full" if moe else "none")
+    opt = OptConfig(lr=1e-2, warmup_steps=1, total_steps=4, eps=1e-3)
+    cpu = init_train_state(cfg, opt, torch.Generator().manual_seed(0))
+    card = {"params": copy.deepcopy(cpu["params"]).to(cuda),
+            "opt": {k: ({n: t.to(cuda) for n, t in v.items()}
+                        if isinstance(v, dict) else v.to(cuda))
+                    for k, v in cpu["opt"].items()}}
+    pipe = TokenPipeline(cfg, PipelineConfig(batch=2, seq_len=40))
+    step = make_train_step(cfg, opt, ShardCtx())
+    before = (ops.flash_attention_bwd.launches, ops.rmsnorm_bwd.launches)
+    with routes() as card_routes:
         card, got = step(card, {k: v.to(cuda)
                                 for k, v in pipe.make_batch(0).items()})
-        norms = cfg.n_layers * (4 if cfg.post_block_norms else 2) + 1
-        assert (ops.flash_attention_bwd.launches - before[0],
-                ops.rmsnorm_bwd.launches - before[1]) == (cfg.n_layers, norms)
+    per_layer = 2 + 2 * cfg.post_block_norms + 2 * cfg.qk_norm \
+        + bool(cfg.kv_lora_rank)
+    assert (ops.flash_attention_bwd.launches - before[0],
+            ops.rmsnorm_bwd.launches - before[1]) == \
+        (cfg.n_layers, cfg.n_layers * per_layer + 1)
+    n_moe = sum(k.startswith("moe") for k in cfg.layer_kinds())
+    assert len(card_routes) == 2 * n_moe and (n_moe > 0) == moe
+    with routes([r.cpu() for r in card_routes]) as cpu_routes:
         cpu, want = step(cpu, pipe.make_batch(0))
-        np.testing.assert_allclose(float(got["loss"]), float(want["loss"]),
-                                   rtol=1e-5)
-        for (k, a), (_, b) in zip(card["params"].named_parameters(),
-                                  cpu["params"].named_parameters()):
-            err = float((a.detach().cpu() - b.detach()).abs().max())
-            assert err <= 1e-4 * float(b.abs().max()), (name, k, err)
+    assert len(cpu_routes) == len(card_routes)
+    np.testing.assert_allclose(float(got["loss"]), float(want["loss"]),
+                               rtol=1e-5)
+    np.testing.assert_allclose(float(got["aux_loss"]),
+                               float(want["aux_loss"]), rtol=1e-5)
+    for (k, a), (_, b) in zip(card["params"].named_parameters(),
+                              cpu["params"].named_parameters()):
+        err = float((a.detach().cpu() - b.detach()).abs().max())
+        assert err <= 1e-4 * float(b.abs().max()), (name, k, err)

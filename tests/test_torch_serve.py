@@ -35,6 +35,10 @@ def gemma2():
 
 
 def test_batcher_matches_reference_batcher(gemma2):
+    """Every request's tokens and the tick count against the reference's
+    batcher. The reference emits one token more than ``max_new`` when
+    ``max_new`` is 1 (it decodes once after the prefill's token), so each
+    request is held to the reference's first ``max_new`` tokens."""
     jax_cfg, jax_params, cfg, params = gemma2
     want = JaxBatcher(jax_cfg, jax_params, n_slots=2, max_seq=MAX_SEQ)
     got = ContinuousBatcher(cfg, params, n_slots=2, max_seq=MAX_SEQ)
@@ -43,9 +47,10 @@ def test_batcher_matches_reference_batcher(gemma2):
     for r in requests(cfg.vocab, Request):
         got.submit(r)
     assert got.run() == want.run()
-    for rid in range(len(REQUESTS)):
+    for rid, (_, max_new) in enumerate(REQUESTS):
         assert got.by_rid[rid].done and want.by_rid[rid].done
-        assert got.by_rid[rid].out == want.by_rid[rid].out, rid
+        assert len(got.by_rid[rid].out) == max_new, rid
+        assert got.by_rid[rid].out == want.by_rid[rid].out[:max_new], rid
     assert len({t for r in got.by_rid.values() for t in r.out}) > 3
 
 
@@ -63,6 +68,51 @@ def test_each_batched_request_equals_generate_alone(gemma2):
                          {"tokens": torch.from_numpy(r.prompt[None]).long()},
                          len(r.out), max_seq=MAX_SEQ)
         assert alone[0].tolist() == r.out, r.rid
+
+
+def alone(cfg, params, prompt, n):
+    return generate(cfg, ShardCtx(), params,
+                    {"tokens": torch.from_numpy(prompt[None]).long()}, n,
+                    max_seq=MAX_SEQ)[0].tolist()
+
+
+@pytest.mark.parametrize("max_new", [1, 2, 3])
+def test_batcher_emits_max_new_tokens_or_stops_at_eos(gemma2, max_new):
+    """Each request emits exactly ``max_new`` tokens, ``generate(n_tokens=
+    max_new)`` of it alone; with ``eos_id`` the first request's prefill
+    token, every request stops at its first EOS, that one at its join."""
+    _, _, cfg, params = gemma2
+    prompts = [r.prompt for r in requests(cfg.vocab, Request)]
+    want = [alone(cfg, params, p, max_new) for p in prompts]
+    eos = want[0][0]
+    for eos_id in (None, eos):
+        batcher = ContinuousBatcher(cfg, params, n_slots=2, max_seq=MAX_SEQ,
+                                    eos_id=eos_id)
+        for rid, p in enumerate(prompts):
+            batcher.submit(Request(rid=rid, prompt=p, max_new=max_new))
+        batcher.run()
+        for rid, w in enumerate(want):
+            if eos_id is not None and eos_id in w:
+                w = w[:w.index(eos_id) + 1]
+            assert batcher.by_rid[rid].done
+            assert batcher.by_rid[rid].out == w, (eos_id, rid)
+    assert batcher.by_rid[0].out == [eos]
+
+
+def test_reference_batcher_emits_two_tokens_for_max_new_one(gemma2):
+    """The reference's batcher decodes once after the prefill's token, so
+    a request of ``max_new`` 1 gets two tokens there (the port emits
+    one); its first is the port's."""
+    jax_cfg, jax_params, cfg, params = gemma2
+    prompt = requests(cfg.vocab, Request)[0].prompt
+    ref = JaxBatcher(jax_cfg, jax_params, n_slots=1, max_seq=MAX_SEQ)
+    ref.submit(JaxRequest(rid=0, prompt=prompt, max_new=1))
+    ref.run()
+    port = ContinuousBatcher(cfg, params, n_slots=1, max_seq=MAX_SEQ)
+    port.submit(Request(rid=0, prompt=prompt, max_new=1))
+    port.run()
+    assert len(ref.by_rid[0].out) == 2 and len(port.by_rid[0].out) == 1
+    assert port.by_rid[0].out == ref.by_rid[0].out[:1]
 
 
 def test_pad_cache_to_grows_only_the_sequence_axis():
@@ -145,7 +195,9 @@ def test_batcher_with_ssm_caches_matches_reference_batcher(name):
         got.submit(r)
     assert got.run() == want.run()
     for r in reqs:
-        assert r.done and r.out == want.by_rid[r.rid].out, r.rid
+        # the reference's batcher emits two tokens for max_new 1
+        assert len(r.out) == r.max_new, r.rid
+        assert r.done and r.out == want.by_rid[r.rid].out[:r.max_new], r.rid
         alone = generate(cfg, ShardCtx(), params,
                          {"tokens": torch.from_numpy(r.prompt[None]).long()},
                          len(r.out), max_seq=MAX_SEQ)
@@ -196,7 +248,9 @@ def test_batcher_with_moe_and_mla_caches_matches_reference_batcher(name):
         got.submit(r)
     assert got.run() == want.run()
     for r in reqs:
-        assert r.done and r.out == want.by_rid[r.rid].out, r.rid
+        # the reference's batcher emits two tokens for max_new 1
+        assert len(r.out) == r.max_new, r.rid
+        assert r.done and r.out == want.by_rid[r.rid].out[:r.max_new], r.rid
         alone = generate(cfg, ShardCtx(), params,
                          {"tokens": torch.from_numpy(r.prompt[None]).long()},
                          len(r.out), max_seq=MAX_SEQ)

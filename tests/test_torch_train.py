@@ -9,8 +9,8 @@ autodiff of its windowed and prefix-LM forms) and ``rmsnorm`` against
 the data pipeline array for array; ``make_train_step``'s loss,
 gradients and new parameters for the dense, VLM, encoder, MoE/MLA, SSM
 and hybrid families (reduced gemma2-2b, paligemma-3b, hubert-xlarge,
-deepseek-v2-lite-16b, mamba2-780m, zamba2-7b), with gradient
-accumulation; remat policies; the ``Trainer`` on the SSM and hybrid
+deepseek-v2-lite-16b, qwen3-moe-235b-a22b, mamba2-780m, zamba2-7b), with
+gradient accumulation; remat policies; the ``Trainer`` on the SSM and hybrid
 families; the checkpoint manager and the ``Trainer``'s resume; the
 training CLI. The ``ssd_scan`` backward itself is held to the reference
 in ``test_torch_ssm_train.py``. Everything in
@@ -274,7 +274,8 @@ def test_token_pipeline_batches_equal_the_reference(name):
 # ---------------------------------------------------------------------------
 
 TRAIN_MODELS = ["gemma2-2b", "paligemma-3b", "hubert-xlarge",
-                "deepseek-v2-lite-16b", "mamba2-780m", "zamba2-7b"]
+                "deepseek-v2-lite-16b", "qwen3-moe-235b-a22b", "mamba2-780m",
+                "zamba2-7b"]
 SSM_MODELS = ("mamba2-780m", "zamba2-7b")
 SEQ = 24            # above the reduced window of 16; 3 chunks of 8
 
