@@ -269,6 +269,35 @@ Run from the repository root (it puts ``src`` on ``sys.path`` itself):
    share of the bound at each width, for ``ssd_scan_bwd`` each
    gradient's error over the gate's bound (``tools/kernel_probe.py``
    splits its time by pass).
+16. AMTHA's placements executed on a mesh: a one-rank NCCL process
+   group (``HashStore``, world size 1), destroyed at the end of the
+   phase. deepseek-v2-lite-16b whole in bf16 under a (1, 1) ``("data",
+   "model")`` mesh, its experts kept by ``shard_experts`` (ep = 1: all
+   64): run A's prompt through ``generate`` for 8 tokens with the
+   capacity raised to E / k x 1.01 of the even share, so no copy drops
+   (the prefill by ``moe_a2a``'s sort-based dispatch and all-to-alls,
+   the decode by ``moe_local_decode``); the same prompt and tokens
+   teacher-forced through the dense dispatch on the mesh run's routes
+   (``recorded_routes(forced=...)``), within 5e-2 of the largest logit;
+   7 decode steps from one cache by the local and the dense dispatch, bit
+   for bit; run A's prefill at the config's capacity 1.25, the share of
+   routed copies dropped per MoE layer printed; one MoE layer's forward
+   and backward at B = 2 x 1,024 through ``a2a`` and through the dense
+   dispatch in turns (a2a, dense, dense, a2a; 5 CUDA-event readings
+   each), with the layer's expert loads and dropped share. gemma2-2b
+   whole in bf16 through ``make_pipelined_forward`` on a one-rank
+   ``("pod",)`` mesh, one stage (13 repeat units), 4 microbatches of 1 x
+   1,024: the logits and the gradient of mean(logits^2) against the
+   per-microbatch ``forward`` (logits bit for bit; every gradient bit for
+   bit but the tied embedding's, whose bf16 contributions sum in another
+   order, within 2^-6 of its largest), the pipeline's ms a microbatch.
+   Checks: exact counts (deepseek rmsnorm 3 a layer + 1 a forward,
+   flash_attention one a layer a prefill, no flash_decode; the pipeline
+   rmsnorm 4 a layer + 1 a microbatch, flash_attention one a layer a
+   microbatch, each backward once); each kernel within
+   ``close_to_plain`` at every shape the phase launched. The kernels
+   line adds the phase's counts to ``rmsnorm``, ``flash_attention``,
+   ``rmsnorm_bwd`` and ``flash_attention_bwd``.
 
 Exits non-zero, printing no result, on any failure, when no CUDA device
 is present, or when run outside a checkout. The last line of standard
@@ -924,16 +953,17 @@ def check_against_plain(label, spies, plain, stress, ops):
     return max_err
 
 
-def teacher_forced(cfg, params, prompt, toks, extra=None):
+def teacher_forced(cfg, params, prompt, toks, extra=None, ctx=None):
     """(B, n, V) float32 logits of the prefill of ``prompt`` (with the
     batch entries ``extra``: a VLM's patches, which come first) and of
-    every decode step fed ``toks`` (the run's own tokens)."""
+    every decode step fed ``toks`` (the run's own tokens), under ``ctx``
+    (one device when not given)."""
     import torch
 
     from repro_torch.models import ShardCtx
     from repro_torch.runtime import make_prefill, make_serve_step, \
         pad_cache_to
-    ctx = ShardCtx()
+    ctx = ctx or ShardCtx()
     prefill, step = make_prefill(cfg, ctx), make_serve_step(cfg, ctx)
     b, s = prompt.shape
     if extra and "patches" in extra:
@@ -3468,21 +3498,11 @@ def train_phase(dev):
                                                                  akw))
             print("train flash_attention " + json.dumps(
                 fwd_rows["flash_attention"][-1]))
-    for name, plain in (("flash_attention", flash_attention_torch),
-                        ("rmsnorm", rmsnorm_torch),
-                        ("ssd_scan", ssd_scan_torch)):
-        errs[name] = 0.0
-        for case, (args, kw) in spies[name].calls.items():
-            got = getattr(ops, name)(*args, **kw)
-            want = plain(*args, **kw)
-            torch.cuda.synchronize()
-            for g, w in zip(*((got, want) if isinstance(got, tuple)
-                              else ((got,), (want,)))):
-                ok, err = close_to_plain(g, w)
-                if not ok:
-                    fail(f"train {name} {case}: kernel off the plain version "
-                         f"(max abs err {err:.3e})")
-                errs[name] = max(errs[name], err)
+    errs.update(hold_to_plain(
+        "train", {k: spies[k] for k in ("flash_attention", "rmsnorm",
+                                        "ssd_scan")},
+        {"flash_attention": flash_attention_torch, "rmsnorm": rmsnorm_torch,
+         "ssd_scan": ssd_scan_torch}))
     print(f"training kernels within tolerance of their plain versions at "
           f"{len(bwd_cases)} flash_attention_bwd, "
           f"{len(spies['rmsnorm_bwd'].calls)} rmsnorm_bwd and "
@@ -3518,6 +3538,353 @@ def train_phase(dev):
     fwd = {k: {r: launches[r][k] for r in launches}
            for k in ("rmsnorm", "flash_attention", "ssd_scan")}
     return entries, fwd, {k: errs[k] for k in fwd}, fwd_rows
+
+
+# -- 16. AMTHA's placements executed on a mesh: the expert-parallel MoE
+#        dispatches and the GPipe pipeline on a one-rank NCCL group -------
+
+MESH_GEN = 8                        # deepseek run A's prompt, then 7 steps
+MOE_LAYER_RUN = dict(batch=2, seq=1024)   # one MoE layer, as phase 15
+MOE_LAYER_REPS = 5
+PIPE_RUN = dict(n_micro=4, bm=1, seq=1024)
+PIPE_KERNELS = ("rmsnorm", "flash_attention", "rmsnorm_bwd",
+                "flash_attention_bwd")
+TIED_GRAD_REL = 2.0 ** -6           # four bf16 ulps at the largest value
+
+
+@contextlib.contextmanager
+def recorded_drops():
+    """Each ``moe._dispatch_indices`` call's share of routed copies past
+    their expert's capacity, in call order (one a MoE layer a forward),
+    while the block runs."""
+    from repro_torch.models import moe
+    shares, real = [], moe._dispatch_indices
+
+    def dispatch(ids, top_k, n_experts, capacity):
+        out = real(ids, top_k, n_experts, capacity)
+        shares.append(1.0 - out[3].float().mean())
+        return out
+    moe._dispatch_indices = dispatch
+    try:
+        yield shares
+    finally:
+        moe._dispatch_indices = real
+
+
+def hold_to_plain(label, spies, plains):
+    """Each spied kernel at every shape it was called with, against its
+    plain version (``close_to_plain``); returns the largest errors."""
+    import torch
+
+    from repro_torch.kernels import ops
+    errs = {}
+    for name, spy in spies.items():
+        errs[name] = 0.0
+        for case, (args, kw) in spy.calls.items():
+            got = getattr(ops, name)(*args, **kw)
+            want = plains[name](*args, **kw)
+            torch.cuda.synchronize()
+            for g, w in zip(*((got, want) if isinstance(got, tuple)
+                              else ((got,), (want,)))):
+                if g is None:
+                    continue
+                ok, err = close_to_plain(g, w)
+                if not ok:
+                    fail(f"{label} {name} {case}: kernel off the plain "
+                         f"version (max abs err {err:.3e})")
+                errs[name] = max(errs[name], err)
+    print(f"{label}: kernels within tolerance of their plain versions at "
+          f"{ {k: len(s.calls) for k, s in spies.items()} } shapes, max "
+          f"abs err {errs}")
+    return errs
+
+
+def moe_layer_times(cfg, layer, ctx, dev):
+    """One MoE layer's forward plus backward at ``MOE_LAYER_RUN`` in
+    bf16, through the ``a2a`` dispatch (under ``ctx``, at the config's
+    capacity) and the dense one, in turns (a2a, dense, dense, a2a), each
+    ``MOE_LAYER_REPS`` readings of ``cuda_ms(step, 1)`` (CUDA events,
+    after two warm-up calls), with the routes of the a2a call
+    (``recorded_routes``) and its dropped share."""
+    import torch
+
+    from repro_torch.models.moe import moe_ffn
+    p = layer.moe
+    gen = torch.Generator(device=dev).manual_seed(16)
+    shape = (MOE_LAYER_RUN["batch"], MOE_LAYER_RUN["seq"], cfg.d_model)
+    x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    c = torch.randn(shape, generator=gen, device=dev)
+    x.requires_grad_(True)
+    for w in (p.router, p.wi, p.wo):
+        w.requires_grad_(True)
+
+    def step(c_ctx):
+        y, aux = moe_ffn(x, p, cfg, c_ctx)
+        ((y.float() * c).sum() + aux).backward()
+        x.grad = None
+        for w in (p.router, p.wi, p.wo):
+            w.grad = None
+    with recorded_routes() as routes, recorded_drops() as drops:
+        step(ctx)
+    ms = {"a2a": [], "dense": []}
+    for name in ("a2a", "dense", "dense", "a2a"):
+        ms[name] += [cuda_ms(lambda: step(ctx if name == "a2a" else None), 1)
+                     for _ in range(MOE_LAYER_REPS)]
+    for w in (p.router, p.wi, p.wo):
+        w.requires_grad_(False)
+    t = shape[0] * shape[1]
+    cap = max(1, int(t * cfg.top_k / cfg.n_experts * cfg.capacity_factor))
+    load = torch.bincount(routes[0].reshape(-1), minlength=cfg.n_experts)
+    return dict(shape=list(shape), dtype="bfloat16",
+                a2a_ms=sorted(ms["a2a"]), dense_ms=sorted(ms["dense"]),
+                a2a_ms_median=float(sorted(ms["a2a"])[len(ms["a2a"]) // 2]),
+                dense_ms_median=float(
+                    sorted(ms["dense"])[len(ms["dense"]) // 2]),
+                capacity=cap, copy_slots=cfg.n_experts * cap,
+                dense_products=cfg.n_experts * t,
+                expert_load_max=int(load.max()),
+                expert_load_min=int(load.min()),
+                dropped_share=float(drops[0]))
+
+
+def mesh_phase(dev):
+    """AMTHA's placements executed on a one-rank NCCL group (a
+    ``HashStore``, world size 1), destroyed at the end. (a)
+    deepseek-v2-lite-16b whole in bf16 under a (1, 1) ``("data",
+    "model")`` mesh, its experts kept by ``shard_experts``: run A's
+    prompt through ``generate`` with the capacity raised so no copy
+    drops (prefill by ``moe_a2a``, decode by ``moe_local_decode``), exact
+    counts; its teacher-forced logits against the dense dispatch on the
+    same routes within ``LOGIT_REL``; decode steps from one cache by
+    both dispatches, bit for bit; the copies dropped at the config's
+    capacity, per MoE layer; one MoE layer's forward and backward timed
+    through both. (b) gemma2-2b whole in bf16 through
+    ``make_pipelined_forward`` on a one-rank ``("pod",)`` mesh, one
+    stage: the logits and the gradients of mean(logits²) against the
+    per-microbatch ``forward`` bit for bit, exact counts. Returns the
+    four kernels' counts by run and their largest errors."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_torch, flash_attention_torch)
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd_torch, rmsnorm_torch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import ShardCtx, forward
+    from repro_torch.runtime import generate
+    from repro_torch.runtime.pipeline import make_pipelined_forward
+    from repro_torch.sharding import MeshAxes, Partitioner, shard_experts
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    plains = {"rmsnorm": rmsnorm_torch,
+              "flash_attention": flash_attention_torch,
+              "rmsnorm_bwd": rmsnorm_bwd_torch,
+              "flash_attention_bwd": flash_attention_bwd_torch}
+    keys = spy_train_keys()
+    launches, errs = {}, {k: 0.0 for k in PIPE_KERNELS}
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        # -- (a) deepseek-v2-lite-16b, experts over a (1, 1) mesh --------
+        full = ARCHS["deepseek-v2-lite-16b"].replace(dtype="bfloat16")
+        torch.cuda.reset_peak_memory_stats()
+        gen, params = load_model("mesh", full, dev)
+        mesh = make_mesh((1, 1), ("data", "model"))
+        shard_experts(params, Partitioner(mesh, MeshAxes()))
+        ctx = ShardCtx(mesh=mesh, dp_axes=("data",), model_axis="model")
+        # capacity E / k x 1.01 of the even share: every expert can take
+        # every token once, so no copy drops
+        nodrop = full.replace(capacity_factor=full.n_experts / full.top_k
+                              * 1.01)
+        prompt = torch.randint(0, full.vocab, (RUN_A["batch"],
+                                               RUN_A["prompt"]),
+                               generator=gen, device=dev)
+        with contextlib.ExitStack() as stack:
+            spies = {k: stack.enter_context(Spy(ops, k, *keys[k]))
+                     for k in ("rmsnorm", "flash_attention")}
+            for sp in spies.values():
+                sp.launches = 0
+            decode_n = ops.flash_decode.launches
+            with recorded_drops() as drops:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                toks = generate(nodrop, ctx, params, {"tokens": prompt},
+                                MESH_GEN)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            launches["mesh_deepseek_A"] = {k: sp.launches
+                                           for k, sp in spies.items()}
+            n_moe = sum(k.startswith("moe") for k in full.layer_kinds())
+            norms = 2 + bool(full.kv_lora_rank)
+            want = {"rmsnorm": MESH_GEN * (norms * full.n_layers + 1),
+                    "flash_attention": full.n_layers}
+            print(f"mesh deepseek run A (a2a prefill, local decode, "
+                  f"{MESH_GEN} tokens): wall_s {wall:.3f} launches "
+                  f"{launches['mesh_deepseek_A']} copies dropped "
+                  f"{max(float(d) for d in drops):.3g}")
+            if launches["mesh_deepseek_A"] != want or \
+                    ops.flash_decode.launches != decode_n:
+                fail(f"mesh deepseek run A: launches "
+                     f"{launches['mesh_deepseek_A']} != {want}, "
+                     f"flash_decode moved")
+            if len(drops) != n_moe or max(float(d) for d in drops) != 0.0:
+                fail(f"mesh deepseek run A: {len(drops)} a2a dispatches "
+                     f"for {n_moe} MoE layers, or copies dropped at "
+                     f"capacity {nodrop.capacity_factor:.3f}")
+            if toks.shape != (RUN_A["batch"], MESH_GEN):
+                fail(f"mesh deepseek run A: tokens {tuple(toks.shape)}")
+            errs.update(hold_to_plain("mesh deepseek", spies, plains))
+
+        # the a2a prefill and the local decode against the dense dispatch
+        # on the same routes: the plain ctx replays the mesh run's routes
+        with recorded_routes() as rk:
+            kern = teacher_forced(nodrop, params, prompt, toks, ctx=ctx)
+        with recorded_routes(forced=rk):
+            dense = teacher_forced(nodrop, params, prompt, toks)
+        scale = float(dense.abs().max())
+        d_logit = float((kern - dense).abs().max())
+        print(f"mesh deepseek a2a/local vs dense on the same routes: max "
+              f"|dlogit| {d_logit:.4e}, bound {LOGIT_REL} x {scale:.4f}, "
+              f"top-1 agreement "
+              f"{float((kern.argmax(-1) == dense.argmax(-1)).float().mean()):.4f}")
+        if not torch.isfinite(kern).all() or not d_logit <= LOGIT_REL * scale:
+            fail(f"mesh deepseek: a2a prefill off the dense dispatch's by "
+                 f"{d_logit:.4e} > {LOGIT_REL * scale:.4e}")
+
+        # decode from one cache: at ep = 1 the local dispatch runs the
+        # dense dispatch's products over every expert
+        from repro_torch.runtime import make_prefill, make_serve_step, \
+            pad_cache_to
+        plain_ctx = ShardCtx()
+        _, cache = make_prefill(nodrop, plain_ctx)(params,
+                                                   {"tokens": prompt})
+        cache = pad_cache_to(nodrop, cache, RUN_A["batch"],
+                             RUN_A["prompt"] + MESH_GEN)
+        twin = [{k: v.clone() for k, v in c.items()} for c in cache]
+        local_step = make_serve_step(nodrop, ctx)
+        dense_step = make_serve_step(nodrop, plain_ctx)
+        same = True
+        for i in range(MESH_GEN - 1):
+            tok = toks[:, i:i + 1]
+            _, lg_local, cache = local_step(params, cache, tok,
+                                            RUN_A["prompt"] + i)
+            _, lg_dense, twin = dense_step(params, twin, tok,
+                                           RUN_A["prompt"] + i)
+            same = same and torch.equal(lg_local, lg_dense)
+        print(f"mesh deepseek local decode vs dense decode, "
+              f"{MESH_GEN - 1} steps from one cache: bit for bit {same}")
+        if not same:
+            fail("mesh deepseek: the local decode at ep = 1 differs from "
+                 "the dense decode")
+        del cache, twin
+
+        # the config's capacity (1.25): copies dropped per MoE layer
+        with torch.inference_mode(), recorded_drops() as drops:
+            forward(params, {"tokens": prompt}, full,
+                    ctx.with_mode("prefill"))
+        t = RUN_A["batch"] * RUN_A["prompt"]
+        cap = int(t * full.top_k / full.n_experts * full.capacity_factor)
+        shares = [round(float(d), 5) for d in drops]
+        print(f"mesh deepseek run A prefill at capacity "
+              f"{full.capacity_factor} ({cap} copies an expert of "
+              f"{t * full.top_k}): dropped share by MoE layer "
+              + json.dumps(shares))
+        mesh_layer = moe_layer_times(full, params.layers[1], ctx, dev)
+        print("mesh deepseek one MoE layer forward+backward "
+              + json.dumps(mesh_layer))
+        del params
+        freed("mesh deepseek")
+
+        # -- (b) gemma2-2b through the pipeline, one stage ----------------
+        cfg = ARCHS["gemma2-2b"].replace(dtype="bfloat16")
+        gen, params = load_model("mesh", cfg, dev)
+        for w in params.parameters():
+            w.requires_grad_(True)
+        pods = make_mesh((1,), ("pod",))
+        fwd = make_pipelined_forward(cfg, pods, 1)
+        tokens = torch.randint(0, cfg.vocab, (PIPE_RUN["n_micro"],
+                                              PIPE_RUN["bm"],
+                                              PIPE_RUN["seq"]),
+                               generator=gen, device=dev)
+
+        def pipelined():
+            logits = fwd(params, tokens)
+            logits.float().square().mean().backward()
+            return logits.detach()
+        pipelined()                                  # warm-up
+        params.zero_grad(set_to_none=True)
+        with contextlib.ExitStack() as stack:
+            spies = {k: stack.enter_context(Spy(ops, k, *keys[k]))
+                     for k in PIPE_KERNELS}
+            for sp in spies.values():
+                sp.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits_pp = pipelined()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches["mesh_gemma2_pipeline"] = {k: sp.launches
+                                                for k, sp in spies.items()}
+            want = train_counts(cfg, PIPE_RUN["n_micro"], remat=False)
+            want = {k: want[k] for k in PIPE_KERNELS}
+            print(f"mesh gemma2 pipeline (1 stage, {PIPE_RUN}): fwd+bwd "
+                  f"{wall * 1e3:.2f} ms, "
+                  f"{wall * 1e3 / PIPE_RUN['n_micro']:.2f} ms a microbatch, "
+                  f"launches {launches['mesh_gemma2_pipeline']}")
+            if launches["mesh_gemma2_pipeline"] != want:
+                fail(f"mesh gemma2 pipeline: launches "
+                     f"{launches['mesh_gemma2_pipeline']} != {want}")
+            pipe_errs = hold_to_plain("mesh gemma2 pipeline", spies, plains)
+            errs = {k: max(errs.get(k, 0.0), pipe_errs.get(k, 0.0))
+                    for k in PIPE_KERNELS}
+        grads_pp = {k: w.grad.clone() for k, w in params.named_parameters()}
+        params.zero_grad(set_to_none=True)
+        seq = torch.stack([forward(params, {"tokens": tokens[i]}, cfg,
+                                   ShardCtx(mode="train"))[0]
+                           for i in range(PIPE_RUN["n_micro"])])
+        seq.float().square().mean().backward()
+        d_logit = float((logits_pp.float() - seq.detach().float()).abs()
+                        .max())
+        g_diff = {k: float((grads_pp[k].float() - w.grad.float()).abs()
+                           .max()) for k, w in params.named_parameters()}
+        g_max = {k: float(w.grad.float().abs().max())
+                 for k, w in params.named_parameters()}
+        moved = sorted(k for k, v in g_diff.items() if v != 0.0)
+        print(f"mesh gemma2 pipeline vs per-microbatch forward: logits bit "
+              f"for bit {torch.equal(logits_pp, seq.detach())} (max "
+              f"|d| {d_logit:.3e}); gradients bit for bit "
+              f"{len(g_diff) - len(moved)} of {len(g_diff)}; the others, "
+              f"max |d| / max |g|: "
+              + json.dumps({k: g_diff[k] / g_max[k] for k in moved}))
+        if not torch.equal(logits_pp, seq.detach()):
+            fail("mesh gemma2 pipeline: logits differ from the "
+                 "per-microbatch forward")
+        # the tied embedding's gradient sums bf16 contributions (each
+        # microbatch's gather and head) in another order: the sequential
+        # backward takes them microbatch by microbatch, the pipeline's all
+        # heads before the pipeline and then all gathers
+        tied = {"embed"} if cfg.tie_embeddings else set()
+        if set(moved) - tied or any(g_diff[k] > TIED_GRAD_REL * g_max[k]
+                                    for k in moved):
+            fail(f"mesh gemma2 pipeline: gradients {moved} differ from the "
+                 f"per-microbatch forward's (only the tied embedding may, "
+                 f"within {TIED_GRAD_REL} of its largest)")
+        print("mesh phase " + json.dumps(dict(
+            moe_layer=mesh_layer, dropped_share_by_layer=shares,
+            pipeline_ms=wall * 1e3,
+            pipeline_ms_per_microbatch=wall * 1e3 / PIPE_RUN["n_micro"],
+            grads_bit_equal=len(g_diff) - len(moved), grads=len(g_diff),
+            grads_moved={k: g_diff[k] / g_max[k] for k in moved})))
+        del params, grads_pp, seq, logits_pp
+        freed("mesh gemma2")
+    finally:
+        dist.destroy_process_group()
+    by_run = {k: {r: launches[r].get(k, 0) for r in launches}
+              for k in PIPE_KERNELS}
+    return by_run, errs
 
 
 def main() -> int:
@@ -3912,6 +4279,15 @@ def main() -> int:
                 {k: v for k, v in fe_rows[r].items() if k != "args"}
                 for r in ("prefix", "bidirectional"))
             row["mla_train_rows"] = train_rows["flash_attention"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_launches, mesh_err = mesh_phase(dev)
+    for row in serve_rows + train_entries:
+        name = row["name"]
+        if name in mesh_launches:
+            row["launches"] += sum(mesh_launches[name].values())
+            row["launches_by_path"].update(mesh_launches[name])
+            row["max_abs_err"] = max(row["max_abs_err"], mesh_err[name])
 
     # the device GA's largest shape: where the path spends its launches
     main_row = max((r for r in kernel_rows

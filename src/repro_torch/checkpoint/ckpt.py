@@ -1,4 +1,5 @@
-"""Checkpointing: async save, keep-K retention, restore onto a device.
+"""Checkpointing: async save, keep-K retention, restore onto a device,
+and restore with reshard.
 
 The reference's on-disk layout (``checkpoint/ckpt.py``): one directory
 ``step_%08d`` per step holding a flat ``state.npz`` (leaves keyed by
@@ -25,12 +26,17 @@ import os
 import shutil
 import threading
 import time
+import zipfile
 
 import numpy as np
 import torch
 
+from ..sharding.partition import Spec, gather, shard_slices
+
 
 def _flatten(tree, prefix="") -> dict:
+    if isinstance(tree, Spec):
+        return {prefix: tree}
     if isinstance(tree, torch.nn.Module):
         return {f"{prefix}/{k}" if prefix else k: v
                 for k, v in tree.named_parameters()}
@@ -60,6 +66,37 @@ def _from_numpy(a: np.ndarray, dtype: str) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
+_HEADERS = {(1, 0): np.lib.format.read_array_header_1_0,
+            (2, 0): np.lib.format.read_array_header_2_0}
+
+
+def _member(npz: str, info: zipfile.ZipInfo) -> np.ndarray:
+    """The array of one stored ``.npz`` member, memory-mapped read-only:
+    only the pages a slice of it touches are read."""
+    if info.compress_type != zipfile.ZIP_STORED:
+        raise ValueError(f"{npz}: {info.filename} is compressed")
+    with open(npz, "rb") as f:
+        f.seek(info.header_offset)
+        head = f.read(30)                   # the zip local file header
+        name_len = int.from_bytes(head[26:28], "little")
+        extra_len = int.from_bytes(head[28:30], "little")
+        f.seek(info.header_offset + 30 + name_len + extra_len)
+        version = np.lib.format.read_magic(f)
+        read = _HEADERS.get(version)
+        if read is None:
+            raise ValueError(f"{npz}: {info.filename} has .npy format "
+                             f"{version}")
+        shape, fortran, dtype = read(f)
+        offset = f.tell()
+    if dtype.hasobject:
+        raise ValueError(f"{npz}: {info.filename} holds objects")
+    if not shape:
+        return np.fromfile(npz, dtype=dtype, count=1,
+                           offset=offset).reshape(())
+    return np.memmap(npz, dtype=dtype, mode="r", offset=offset, shape=shape,
+                     order="F" if fortran else "C")
+
+
 class CheckpointManager:
     def __init__(self, directory: str, keep: int = 3,
                  async_save: bool = True):
@@ -71,11 +108,20 @@ class CheckpointManager:
         os.makedirs(directory, exist_ok=True)
 
     # ---- save -----------------------------------------------------------
-    def save(self, state, step: int, block: bool = False):
+    def save(self, state, step: int, block: bool = False, shardings=None):
         """Snapshot ``state`` to host memory now, write it on a thread
-        (or here with ``block`` or ``async_save=False``)."""
+        (or here with ``block`` or ``async_save=False``). With
+        ``shardings`` every rank of the mesh calls it: each sharded leaf
+        is gathered whole, and rank 0 alone writes."""
+        leaves = _flatten(state)
+        if shardings is not None:
+            specs = _flatten(shardings.specs)
+            leaves = {k: gather(v.detach(), specs[k], shardings.mesh)
+                      if k in specs else v for k, v in leaves.items()}
+            if torch.distributed.get_rank() != 0:
+                return
         flat, dtypes = {}, {}
-        for k, v in _flatten(state).items():
+        for k, v in leaves.items():
             flat[k], dtypes[k] = _to_numpy(v)
         self.wait()
         if self.async_save and not block:
@@ -133,31 +179,42 @@ class CheckpointManager:
                 out.append(int(name.split("_")[1]))
         return sorted(out)
 
-    def restore(self, template, step: int):
+    def restore(self, template, step: int, shardings=None):
         """Copy step ``step`` into ``template`` (a state of the same
-        structure, types and shapes) in place, each leaf onto its own
-        device; returns the template."""
+        structure and types) in place, each leaf onto its own device;
+        returns the template. With ``shardings`` a leaf that has a spec
+        is this rank's slice under it (the template holds the local
+        shapes), read alone from the file; the others are whole."""
         path = os.path.join(self.dir, f"step_{step:08d}")
         with open(os.path.join(path, "meta.json")) as f:
             dtypes = json.load(f)["dtypes"]
-        data = np.load(os.path.join(path, "state.npz"))
+        npz = os.path.join(path, "state.npz")
+        with zipfile.ZipFile(npz) as z:
+            stored = {n[:-len(".npy")]: z.getinfo(n) for n in z.namelist()}
         leaves = _flatten(template)
-        differ = sorted(set(leaves) ^ set(data.files))
+        differ = sorted(set(leaves) ^ set(stored))
         if differ:
             raise ValueError(f"checkpoint {path}: leaves differ from the "
                              f"template's: {differ[:5]}")
+        specs = _flatten(shardings.specs) if shardings is not None else {}
         with torch.no_grad():
             for k, t in leaves.items():
-                src = _from_numpy(data[k], dtypes[k])
+                whole = _member(npz, stored[k])
+                if k in specs:
+                    whole = whole[shard_slices(whole.shape, specs[k],
+                                               shardings.mesh)]
+                src = _from_numpy(np.array(whole, order="C"), dtypes[k])
                 if src.dtype != t.dtype or src.shape != t.shape:
                     raise ValueError(f"{k}: saved {src.dtype} "
-                                     f"{tuple(src.shape)}, template "
-                                     f"{t.dtype} {tuple(t.shape)}")
+                                     f"{tuple(src.shape)}"
+                                     f"{' sliced' if k in specs else ''}, "
+                                     f"template {t.dtype} "
+                                     f"{tuple(t.shape)}")
                 t.copy_(src.to(t.device))
         return template
 
-    def restore_latest(self, template):
+    def restore_latest(self, template, shardings=None):
         steps = self.list_steps()
         if not steps:
             raise FileNotFoundError(f"no committed checkpoint in {self.dir}")
-        return self.restore(template, steps[-1])
+        return self.restore(template, steps[-1], shardings)

@@ -19,7 +19,8 @@ MoE, SSM (``mamba2-780m``), hybrid
 (``zamba2-7b``), the encoder (``hubert-xlarge``) or the VLM
 (``paligemma-3b``). ``--reduced`` gives the config's tiny same-family
 variant in float32. Runs on the card unless ``--device cpu`` is given.
-A mesh (``--mesh``) is refused until the sharding slice of the port.
+A mesh (``--mesh``) is refused: the sharded train step (tensor
+parallelism over the mesh) comes with ROADMAP A13b2.
 """
 
 from __future__ import annotations
@@ -64,8 +65,8 @@ def main(argv=None):
     ap.add_argument("--reduced", action="store_true",
                     help="tiny same-family config in float32 (CI)")
     ap.add_argument("--mesh", default=None,
-                    help="refused: sharded training comes with the "
-                         "sharding slice")
+                    help="refused: the sharded train step comes with "
+                         "ROADMAP A13b2")
     ap.add_argument("--ckpt-dir", default=None,
                     help="default: a fresh temporary directory")
     ap.add_argument("--ckpt-every", type=int, default=100)
@@ -76,11 +77,15 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    if args.mesh is not None:
+        raise SystemExit(f"--mesh {args.mesh}: the sharded train step "
+                         f"(tensor parallelism over a mesh) comes with "
+                         f"ROADMAP A13b2")
 
     cfg = resolve_config(args.arch, args.reduced)
     opt = OptConfig(lr=args.lr, warmup_steps=min(100, args.steps // 10 + 1),
                     total_steps=args.steps, compression=args.compression)
-    ctx = ShardCtx(mesh=args.mesh, mode="train")
+    ctx = ShardCtx(mode="train")
     device = torch.device(args.device)
     ckpt_dir = args.ckpt_dir or tempfile.mkdtemp(prefix="repro_torch_ckpt_")
     os.makedirs(ckpt_dir, exist_ok=True)

@@ -299,12 +299,14 @@ def init_layer(kind, cfg, gen, dtype, device) -> dict:
 
 
 def layer_forward(kind, p, x, *, cfg, mode, positions, cache=None,
-                  prefix_len=None):
+                  prefix_len=None, ctx=None):
     """One layer ``p`` (a :class:`repro_torch.models.model.Layer`, or a
     :class:`~repro_torch.models.model.MambaLayer` for ``ssm``). Returns
     (x, aux, new_cache): ``aux`` is the router's load-balancing loss of
     a MoE layer, 0.0 for the others. ``prefix_len`` as
-    :func:`attn_forward`'s."""
+    :func:`attn_forward`'s; ``ctx`` (a
+    :class:`~repro_torch.models.model.ShardCtx`) picks a MoE layer's
+    dispatch (:func:`repro_torch.models.moe.moe_ffn`)."""
     if kind == "ssm":
         y, new_cache = mamba_forward(p, x, cfg=cfg, mode=mode, cache=cache)
         return x + y, 0.0, new_cache
@@ -318,7 +320,7 @@ def layer_forward(kind, p, x, *, cfg, mode, positions, cache=None,
 
     h = rms_norm(x, p.ln2)
     if kind.startswith("moe"):
-        ff, aux = moe_ffn(h, p.moe, cfg)
+        ff, aux = moe_ffn(h, p.moe, cfg, ctx)
         if cfg.n_shared_experts:
             ff = ff + glu_mlp(h, p.shared_mlp.wi, p.shared_mlp.wo,
                               cfg.activation)

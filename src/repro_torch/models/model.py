@@ -41,11 +41,13 @@ outputs and recomputes the rest.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from dataclasses import dataclass
 
 import torch
 from torch import nn
+from torch.distributed.device_mesh import DeviceMesh
 
 from ..configs.base import ModelConfig
 from .blocks import (_init, check_supported, init_layer, init_shared_block,
@@ -58,19 +60,48 @@ TOP_LEVEL = ("embed", "frontend", "patch_proj", "final_norm", "head")
 
 @dataclass(frozen=True)
 class ShardCtx:
-    """Execution context threaded through the model. The port runs on
-    one device, so it carries the mode only; a mesh raises until the
-    sharding slice."""
+    """Execution context threaded through the model: the mesh (None on
+    one device), which axes shard the batch, the model / expert-parallel
+    axis name, and the mode, as the reference's.
+
+    Under a mesh each rank runs the model on its data-parallel shard of
+    the batch, whole over ``model_axis``. Every weight but the experts
+    is whole on each rank; a MoE layer's experts are sharded over
+    ``model_axis`` (:func:`repro_torch.sharding.shard_experts`) and its
+    tokens reach them by the ``a2a`` dispatch, or in decode the ``local``
+    one (:func:`repro_torch.models.moe.moe_ffn`). A parameter's gradient
+    on a rank is its data-parallel shard's; summing it over ``dp_axes``
+    is the trainer's. The reference's ``attn_mode`` (how small-head
+    attention claims the model axis) comes with tensor-parallel
+    execution (ROADMAP A13b2), and ``vma_axes`` is JAX-only (the varying
+    axes of a manual ``shard_map``): either set raises
+    ``NotImplementedError``."""
     mesh: object = None
+    dp_axes: tuple[str, ...] = ()
+    model_axis: str | None = None
     mode: str = "train"
+    attn_mode: str | None = None
+    vma_axes: tuple[str, ...] = ()
 
     def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError("sharded execution (a mesh) comes with "
-                                      "the sharding slice of the port")
+        if self.attn_mode is not None or self.vma_axes:
+            raise NotImplementedError(
+                f"attn_mode={self.attn_mode!r}, vma_axes={self.vma_axes!r}:"
+                f" tensor-parallel attention comes with ROADMAP A13b2")
+        if self.mesh is None:
+            return
+        if not isinstance(self.mesh, DeviceMesh):
+            raise TypeError(f"mesh: a DeviceMesh "
+                            f"(repro_torch.launch.mesh.make_mesh), not "
+                            f"{type(self.mesh).__name__}")
+        names = self.mesh.mesh_dim_names
+        missing = [a for a in (self.model_axis, *self.dp_axes)
+                   if a not in names]
+        if missing:
+            raise ValueError(f"axes {missing} not in the mesh's {names}")
 
     def with_mode(self, mode: str) -> "ShardCtx":
-        return ShardCtx(mode=mode)
+        return dataclasses.replace(self, mode=mode)
 
 
 def _params(module: nn.Module, tensors: dict) -> None:
@@ -126,10 +157,10 @@ class Layer(nn.Module):
             self.mlp = MLP(tensors["mlp"])
 
     def forward(self, x, *, cfg, mode, positions, cache=None,
-                prefix_len=None):
+                prefix_len=None, ctx=None):
         return layer_forward(self.kind, self, x, cfg=cfg, mode=mode,
                              positions=positions, cache=cache,
-                             prefix_len=prefix_len)
+                             prefix_len=prefix_len, ctx=ctx)
 
 
 class MambaLayer(nn.Module):
@@ -146,7 +177,7 @@ class MambaLayer(nn.Module):
         _params(self, tensors)
 
     def forward(self, x, *, cfg, mode, positions, cache=None,
-                prefix_len=None):
+                prefix_len=None, ctx=None):
         return layer_forward(self.kind, self, x, cfg=cfg, mode=mode,
                              positions=positions, cache=cache)
 
@@ -352,7 +383,8 @@ def forward(params: Model, batch: dict, cfg: ModelConfig, ctx: ShardCtx):
         else:
             x, a, nc = call(functools.partial(
                 params.layers[i], x, cfg=cfg, mode=mode,
-                positions=positions, cache=c, prefix_len=prefix_len))
+                positions=positions, cache=c, prefix_len=prefix_len,
+                ctx=ctx))
             aux = aux + a
         new_cache.append(nc)
     aux = torch.as_tensor(aux, dtype=torch.float32, device=x.device)

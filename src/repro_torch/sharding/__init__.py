@@ -1,0 +1,9 @@
+"""The port's sharding: the partition rules (``partition``) and the
+boundaries of the reference's ``shard_map`` as autograd Functions over
+``torch.distributed`` (``collectives``)."""
+
+from .partition import (MeshAxes, Partitioner, Shardings, Spec, gather,
+                        permute_expert_params, shard, shard_experts)
+
+__all__ = ["MeshAxes", "Partitioner", "Shardings", "Spec", "gather",
+           "permute_expert_params", "shard", "shard_experts"]

@@ -1484,3 +1484,103 @@ def test_reduced_train_step_on_the_card_matches_the_cpu(cuda, name):
                               cpu["params"].named_parameters()):
         err = float((a.detach().cpu() - b.detach()).abs().max())
         assert err <= 1e-4 * float(b.abs().max()), (name, k, err)
+
+
+# ---------------------------------------------------------------------------
+# the expert-parallel dispatches and the pipeline on a one-rank NCCL group
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def nccl_rank(cuda):
+    """A one-rank NCCL process group (a ``HashStore``), destroyed after
+    the test."""
+    import torch.distributed as dist
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    yield cuda
+    dist.destroy_process_group()
+
+
+def test_one_rank_nccl_moe_dispatches_equal_dense(nccl_rank):
+    """Reduced qwen3-moe's first MoE layer in bf16 on a (1, 1) mesh:
+    ``moe_a2a`` with the capacity raised so nothing drops within 2e-2 of
+    the dense dispatch's largest output (the routed copies' products in
+    another order and weighted in bf16, as the reference's); the local
+    decode equal to the dense one bit for bit (at ep = 1 it runs the same
+    products over every expert)."""
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import init_params, moe
+    cfg = reduced(ARCHS["qwen3-moe-235b-a22b"]).replace(dtype="bfloat16")
+    dev = nccl_rank
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p = init_params(cfg, gen, dev).layers[0].moe
+    mesh = make_mesh((1, 1), ("data", "model"))
+    kw = dict(top_k=cfg.top_k, activation=cfg.activation,
+              n_experts=cfg.n_experts, mesh=mesh, dp_axes=("data",),
+              ep_axis="model")
+    x = torch.randn((2, 16, cfg.d_model), generator=gen, device=dev) \
+        .to(torch.bfloat16)
+    y, aux = moe.moe_a2a(x, p.router, p.wi, p.wo, capacity_factor=float(
+        cfg.n_experts), **kw)
+    want, want_aux = moe.moe_dense(x, p.router, p.wi, p.wo, cfg.top_k,
+                                   cfg.activation)
+    err = float((y.float() - want.float()).abs().max())
+    assert err <= 2e-2 * float(want.float().abs().max()), err
+    assert torch.allclose(aux, want_aux, rtol=1e-5)
+    xd = x[:, :1].contiguous()
+    y, _ = moe.moe_local_decode(xd, p.router, p.wi, p.wo, **kw)
+    assert torch.equal(y, moe.moe_dense(xd, p.router, p.wi, p.wo, cfg.top_k,
+                                        cfg.activation)[0])
+
+
+def test_one_stage_gpipe_equals_per_microbatch_forward(nccl_rank):
+    """Reduced gemma2-2b in bf16 through ``make_pipelined_forward`` on a
+    one-rank pod axis: the logits equal the per-microbatch ``forward``'s
+    bit for bit."""
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import ShardCtx, forward, init_params
+    from repro_torch.runtime.pipeline import make_pipelined_forward
+    cfg = reduced(ARCHS["gemma2-2b"]).replace(dtype="bfloat16")
+    dev = nccl_rank
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = init_params(cfg, gen, dev)
+    tokens = torch.randint(0, cfg.vocab, (3, 2, 32), generator=gen,
+                           device=dev)
+    fwd = make_pipelined_forward(cfg, make_mesh((1,), ("pod",)), 1)
+    with torch.no_grad():
+        got = fwd(model, tokens)
+        want = torch.stack([forward(model, {"tokens": t}, cfg,
+                                    ShardCtx(mode="train"))[0]
+                            for t in tokens])
+    assert torch.equal(got, want)
+
+
+def test_cuda_tensor_under_a_gloo_mesh_raises(cuda):
+    """No silent move: a CUDA tensor under a CPU (gloo) mesh raises in
+    the placement and in the dispatch; a mesh larger than the world
+    raises."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe
+    from repro_torch.sharding import Spec, shard
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device_type="cpu")
+        with pytest.raises(ValueError, match="cuda tensor under a cpu"):
+            shard(torch.ones(4, device=cuda), Spec("model"), mesh)
+        x = torch.ones((1, 2, 8), device=cuda)
+        with pytest.raises(ValueError, match="cuda tensor under a cpu"):
+            moe.moe_a2a(x, torch.ones((8, 2), device=cuda),
+                        torch.ones((2, 8, 2, 4), device=cuda),
+                        torch.ones((2, 4, 8), device=cuda), top_k=1,
+                        activation="swiglu", n_experts=2,
+                        capacity_factor=1.0, mesh=mesh, dp_axes=("data",),
+                        ep_axis="model")
+        with pytest.raises(RuntimeError, match="need 2 ranks, have 1"):
+            make_mesh((2,), ("model",), device_type="cpu")
+    finally:
+        dist.destroy_process_group()

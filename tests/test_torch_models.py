@@ -498,5 +498,15 @@ def test_families_of_later_slices_raise(name):
 
 
 def test_mesh_is_refused():
-    with pytest.raises(NotImplementedError, match="sharding"):
+    """A mesh must be a DeviceMesh; tensor-parallel attention modes and
+    the JAX-only varying axes wait for ROADMAP A13b2, and so does the
+    train CLI's ``--mesh``."""
+    from repro_torch.launch.train import main as train_main
+    with pytest.raises(TypeError, match="DeviceMesh"):
         ShardCtx(mesh=object())
+    with pytest.raises(NotImplementedError, match="A13b2"):
+        ShardCtx(attn_mode="seq")
+    with pytest.raises(NotImplementedError, match="A13b2"):
+        ShardCtx(vma_axes=("pod",))
+    with pytest.raises(SystemExit, match="A13b2"):
+        train_main(["--mesh", "2x4", "--device", "cpu"])
