@@ -298,6 +298,27 @@ Run from the repository root (it puts ``src`` on ``sys.path`` itself):
    ``close_to_plain`` at every shape the phase launched. The kernels
    line adds the phase's counts to ``rmsnorm``, ``flash_attention``,
    ``rmsnorm_bwd`` and ``flash_attention_bwd``.
+17. Tensor-parallel training (ROADMAP A13b2). Both attention kernels on
+   query chunks at their offsets (``q_offset``, Sk != Sq) against the
+   whole K/V, bf16: gemma2-2b's training attention (2, 1024, 8/4, 256,
+   softcap 50), gemma3-4b's windowed layer (1, 4096, 8/4, 256, window
+   1024, where the window bites), paligemma-3b's prefix (1, 1024, 8/1,
+   256, prefix 256) and hubert-xlarge's bidirectional (2, 1000, 16/16,
+   80), each cut into 4 chunks. Checks: each chunk's output, lse, dq, dk
+   and dv within ``close_to_plain`` of the plain versions; its output,
+   lse and dq within the gate of the whole-sequence kernel's rows (bit
+   equality printed); the chunks' dk and dv summed within the sum of the
+   gates of the whole-sequence kernel's. Numbers: the last chunk's
+   forward and backward ms from a CUDA graph over input copies past the
+   L2, plain ms, the bound of its pairs, and
+   ``scaled_dot_product_attention`` with the equivalent boolean mask
+   (null under the softcap). Then gemma2-2b whole in bf16, one
+   ``make_train_step`` at B = 2 x 1,024 on one device, then the same
+   weights on a one-rank NCCL (1, 1) ``("data", "model")`` mesh through
+   ``mesh_axes_for``, ``make_ctx``, ``shard_params`` and the sharded
+   step: the loss, the grad norm and every updated parameter bit for
+   bit, the counts exact. The kernels line adds the phase's counts and
+   the offset rows to ``flash_attention`` and ``flash_attention_bwd``.
 
 Exits non-zero, printing no result, on any failure, when no CUDA device
 is present, or when run outside a checkout. The last line of standard
@@ -3887,6 +3908,284 @@ def mesh_phase(dev):
     return by_run, errs
 
 
+# phase 17: offset attention kernels and the sharded train step
+OFFSET_CHUNKS = 4
+OFFSET_CASES = {   # b, s, hq, hkv, d, causal, window, softcap, prefix
+    "gemma2-2b": (2, 1024, 8, 4, 256, True, None, 50.0, None),
+    "gemma3-4b windowed": (1, 4096, 8, 4, 256, True, 1024, None, None),
+    "paligemma-3b prefix": (1, 1024, 8, 1, 256, True, None, None, 256),
+    "hubert-xlarge bidirectional": (2, 1000, 16, 16, 80, False, None, None,
+                                    None),
+}
+TP_KERNELS = ("rmsnorm", "flash_attention", "rmsnorm_bwd",
+              "flash_attention_bwd")
+
+
+def chunk_pairs(off, n, sk, causal, window, prefix=0):
+    """Visible (query, key) pairs of query rows at positions off .. off +
+    n - 1 against sk keys, under the kernels' mask."""
+    total = 0
+    for p in range(off, off + n):
+        hi = min(sk, max(p + 1, prefix)) if causal else sk
+        lo = max(0, p - window + 1) if window else 0
+        total += max(0, hi - lo)
+    return total
+
+
+def offset_rows(dev):
+    """Both attention kernels on query chunks at their offsets against
+    the whole K/V, at the four training shapes of ``OFFSET_CASES``, cut
+    into ``OFFSET_CHUNKS`` chunks. Each chunk's output and lse (forward)
+    and dq, dk, dv (backward) within ``close_to_plain`` of the plain
+    versions on the same chunk; its output, lse and dq against the
+    whole-sequence kernel's rows (within the gate, bit equality
+    reported); the chunks' dk and dv summed in float32 against the
+    whole-sequence kernel's, within the sum of the five tensors' gates
+    (each within its gate of the exact value; the ratio to the whole
+    one's own gate is reported). The last chunk timed from a CUDA graph
+    over input copies past the L2: both kernels, the plain versions,
+    the bound of its own pairs, and ``scaled_dot_product_attention``
+    with the equivalent boolean mask (forward, and its autograd
+    backward; null with a softcap). Calls the launchers, so no count
+    moves. Returns (rows, largest errors)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_bwd_torch,
+        flash_attention_cuda, flash_attention_torch, visible)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    rows, errs = [], {"flash_attention": 0.0, "flash_attention_bwd": 0.0}
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev) \
+            .to(torch.bfloat16)
+    for name, (b, s, hq, hkv, d, causal, window, cap, pre) in \
+            OFFSET_CASES.items():
+        q, k, v, dout = randn(b, s, hq, d), randn(b, s, hkv, d), \
+            randn(b, s, hkv, d), randn(b, s, hq, d)
+        prefix = None if pre is None else torch.full(
+            (b,), pre, dtype=torch.int32, device=dev)
+        kw = dict(causal=causal, scale=d ** -0.5, window=window,
+                  softcap=cap, prefix_len=prefix)
+        out, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, dout, lse, **kw)
+        n = s // OFFSET_CHUNKS
+        sum_k = torch.zeros(dk.shape, dtype=torch.float32, device=dev)
+        sum_v = torch.zeros(dv.shape, dtype=torch.float32, device=dev)
+        gate_k, gate_v = plain_bound(dk), plain_bound(dv)
+        bit = {"out": True, "lse": True, "dq": True}
+        for c in range(OFFSET_CHUNKS):
+            off, rs = c * n, slice(c * n, (c + 1) * n)
+            qc, doc = q[:, rs].contiguous(), dout[:, rs].contiguous()
+            ckw = dict(kw, q_offset=off)
+            oc, lc = flash_attention_cuda(qc, k, v, return_lse=True, **ckw)
+            po, pl = flash_attention_torch(qc, k, v, return_lse=True, **ckw)
+            g = flash_attention_bwd_cuda(qc, k, v, oc, doc, lc, **ckw)
+            pg = flash_attention_bwd_torch(qc, k, v, oc, doc, lc, **ckw)
+            torch.cuda.synchronize()
+            for what, got, want, kern in (
+                    ("out", oc, po, "flash_attention"),
+                    ("lse", lc, pl, "flash_attention"),
+                    ("dq", g[0], pg[0], "flash_attention_bwd"),
+                    ("dk", g[1], pg[1], "flash_attention_bwd"),
+                    ("dv", g[2], pg[2], "flash_attention_bwd")):
+                ok, err = close_to_plain(got, want)
+                if not ok:
+                    fail(f"offset {name} chunk @{off} {what}: kernel off "
+                         f"the plain version (max abs err {err:.3e})")
+                errs[kern] = max(errs[kern], err)
+            for what, got, want in (("out", oc, out[:, rs]),
+                                    ("lse", lc, lse[:, :, rs]),
+                                    ("dq", g[0], dq[:, rs])):
+                ok, err = close_to_plain(got, want.contiguous())
+                if not ok:
+                    fail(f"offset {name} chunk @{off} {what}: off the "
+                         f"whole sequence's rows (max abs err {err:.3e})")
+                bit[what] = bit[what] and torch.equal(got, want)
+            sum_k += g[1].float()
+            sum_v += g[2].float()
+            gate_k += plain_bound(g[1])
+            gate_v += plain_bound(g[2])
+        sums = {}
+        for what, got, want, gate in (("dk", sum_k, dk, gate_k),
+                                      ("dv", sum_v, dv, gate_v)):
+            err = (got.double() - want.double()).abs()
+            if not bool((err <= gate).all()):
+                fail(f"offset {name}: the chunks' {what} summed off the "
+                     f"whole sequence's by {float(err.max()):.3e}, past "
+                     f"the sum of the gates")
+            sums[what] = dict(max_abs_err=float(err.max()),
+                              over_sum_of_gates=float((err / gate).max()),
+                              over_whole_gate=gate_ratio(got, want))
+        # the last chunk timed: kernels, plain versions, bound, library
+        off, rs = (OFFSET_CHUNKS - 1) * n, slice((OFFSET_CHUNKS - 1) * n,
+                                                 OFFSET_CHUNKS * n)
+        qc, doc = q[:, rs].contiguous(), dout[:, rs].contiguous()
+        ckw = dict(kw, q_offset=off)
+        oc, lc = flash_attention_cuda(qc, k, v, return_lse=True, **ckw)
+        pairs = b * chunk_pairs(off, n, s, causal, window, pre or 0)
+        el = q.element_size()
+        f_bytes = el * (qc.numel() + k.numel() + v.numel() + oc.numel()) \
+            + 4 * lc.numel()
+        b_bytes = el * (3 * qc.numel() + 2 * k.numel() + 2 * v.numel()
+                        + oc.numel()) + 4 * lc.numel()
+        f_ms, f_by = bound(f_bytes, 2 * hq * pairs * 2 * d, BF16_OPS_PER_S)
+        bw_ms, bw_by = bound(b_bytes, 2 * hq * pairs * 5 * d,
+                             BF16_OPS_PER_S)
+        nxt = turns(qc, k, v)
+        fwd = graph_ms(lambda: flash_attention_cuda(
+            *nxt(), return_lse=True, **ckw), 10)
+        fwd_plain = graph_ms(lambda: flash_attention_torch(
+            *nxt(), return_lse=True, **ckw), 2)
+        nxb = turns(qc, k, v, oc, doc, lc)
+        bwd = graph_ms(lambda: flash_attention_bwd_cuda(*nxb(), **ckw), 10)
+        bwd_plain = graph_ms(lambda: flash_attention_bwd_torch(*nxb(),
+                                                               **ckw), 2)
+        lib_f = lib_b = None
+        if cap is None:
+            mask = visible(n, causal=causal, window=window, prefix_len=prefix,
+                           device=dev, sk=s, q_offset=off)
+            mask = mask[:, None] if mask.dim() == 3 else mask
+            lib_f = graph_ms(lambda: sdpa(qc, k, v, mask, False,
+                                          kw["scale"]), 10)
+            leaves = [t.detach().clone().requires_grad_(True)
+                      for t in (qc, k, v)]
+            lout = sdpa(*leaves, mask, False, kw["scale"])
+            lib_b = cuda_ms(lambda: torch.autograd.grad(
+                lout, leaves, doc, retain_graph=True), 10)
+        rows.append(dict(
+            name=name, chunk=f"q ({b}, {n}, {hq}, {d}) at q_offset {off} "
+                             f"against k/v ({b}, {s}, {hkv}, {d})",
+            causal=causal, window=window, softcap=cap, prefix=pre,
+            bit_equal_to_whole=bit, summed_dk_dv=sums,
+            fwd_ms=fwd, fwd_plain_ms=fwd_plain, fwd_bound_ms=f_ms,
+            fwd_bound_by=f_by, fwd_library_ms=lib_f,
+            bwd_ms=bwd, bwd_plain_ms=bwd_plain, bwd_bound_ms=bw_ms,
+            bwd_bound_by=bw_by, bwd_library_ms=lib_b))
+        print("offset attention " + json.dumps(rows[-1]))
+        del q, k, v, dout, out, lse, dq, dk, dv, sum_k, sum_v
+    return rows, errs
+
+
+def tp_phase(dev):
+    """Tensor-parallel execution (ROADMAP A13b2) on one card. (a)
+    ``offset_rows``: both attention kernels on query chunks at their
+    offsets. (b) gemma2-2b whole in bf16, one ``make_train_step`` on one
+    device from seed 0, then the same weights on a one-rank NCCL (1, 1)
+    ``("data", "model")`` mesh through ``mesh_axes_for``, ``make_ctx``,
+    ``shard_params`` and the sharded step (``param_specs``), counts
+    zeroed just before and read just after: the loss, the grad norm and
+    every updated parameter against the one-device step's bit for bit
+    (at one rank every collective is the identity and the sums run in
+    the one-device order), the launches exact. Returns (the kernels'
+    counts by run, their largest errors, the offset rows)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import ARCHS, ShapeConfig
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_torch, flash_attention_torch)
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd_torch, rmsnorm_torch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.specs import make_ctx, mesh_axes_for
+    from repro_torch.models import ShardCtx
+    from repro_torch.optim import OptConfig, init_opt_state
+    from repro_torch.runtime.train_loop import make_train_step
+    from repro_torch.sharding import Partitioner, shard_params
+
+    t_phase = time.perf_counter()
+    rows, errs = offset_rows(dev)
+    cfg = ARCHS["gemma2-2b"].replace(dtype="bfloat16")
+    opt = OptConfig()
+    batch = TokenPipeline(cfg, PipelineConfig(
+        batch=TRAIN_RUN["batch"], seq_len=TRAIN_RUN["seq"], seed=0),
+        device=dev).make_batch(0)
+
+    def one_step(ctx, shard=None):
+        _, params = load_model("tp", cfg, dev)
+        specs = shard(params) if shard else None
+        params.requires_grad_(True)
+        state = {"params": params, "opt": init_opt_state(params, opt)}
+        step = make_train_step(cfg, opt, ctx, param_specs=specs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        return state, metrics, (time.perf_counter() - t0) * 1e3
+
+    state, want, one_ms = one_step(ShardCtx(mode="train"))
+    host = {k: p.detach().to("cpu") for k, p in
+            state["params"].named_parameters()}
+    want = {k: float(v) for k, v in want.items()}
+    del state
+    freed("tp one device")
+    launches = {}
+    keys = spy_train_keys()
+    plains = {"rmsnorm": rmsnorm_torch,
+              "flash_attention": flash_attention_torch,
+              "rmsnorm_bwd": rmsnorm_bwd_torch,
+              "flash_attention_bwd": flash_attention_bwd_torch}
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        axes = mesh_axes_for(cfg, mesh)
+        part = Partitioner(mesh, axes)
+        ctx = make_ctx(cfg, ShapeConfig("train", TRAIN_RUN["seq"],
+                                        TRAIN_RUN["batch"], "train"),
+                       mesh, axes)
+
+        def shard(params):
+            specs = part.param_specs(params)
+            shard_params(params, part)
+            return specs
+        with contextlib.ExitStack() as stack:
+            spies = {k: stack.enter_context(Spy(ops, k, *keys[k]))
+                     for k in TP_KERNELS}
+            for sp in spies.values():
+                sp.launches = 0
+            state, got, mesh_ms = one_step(ctx, shard)
+            launches["tp_gemma2_mesh_step"] = {k: sp.launches
+                                               for k, sp in spies.items()}
+            counts = train_counts(cfg, 1)
+            counts = {k: counts[k] for k in TP_KERNELS}
+            if launches["tp_gemma2_mesh_step"] != counts:
+                fail(f"tp gemma2 mesh step: launches "
+                     f"{launches['tp_gemma2_mesh_step']} != {counts}")
+            step_errs = hold_to_plain("tp gemma2 mesh step", spies, plains)
+        got = {k: float(v) for k, v in got.items()}
+        same = [k for k, p in state["params"].named_parameters()
+                if torch.equal(p.detach().cpu(), host[k])]
+        n = len(host)
+        print(f"tp gemma2-2b one step on the (1, 1) mesh (fsdp="
+              f"{axes.fsdp}, attn_mode={ctx.attn_mode}) vs one device: "
+              f"loss {got['loss']!r} / {want['loss']!r}, grad_norm "
+              f"{got['grad_norm']!r} / {want['grad_norm']!r}, parameters "
+              f"bit for bit {len(same)} of {n}; step ms {mesh_ms:.2f} / "
+              f"{one_ms:.2f} (first steps, not timings)")
+        if got["loss"] != want["loss"] or \
+                got["grad_norm"] != want["grad_norm"] or len(same) != n:
+            fail(f"tp gemma2 mesh step: not the one-device step bit for bit "
+                 f"({n - len(same)} parameters differ)")
+        del state, host
+        freed("tp gemma2 mesh")
+    finally:
+        dist.destroy_process_group()
+    for k in errs:
+        errs[k] = max(errs[k], step_errs.get(k, 0.0))
+    for k in ("rmsnorm", "rmsnorm_bwd"):
+        errs[k] = step_errs.get(k, 0.0)
+    print("tp phase " + json.dumps(dict(
+        seconds=time.perf_counter() - t_phase, loss=got["loss"],
+        grad_norm=got["grad_norm"], mesh_first_step_ms=mesh_ms,
+        one_device_first_step_ms=one_ms, launches=launches)))
+    by_run = {k: {r: launches[r].get(k, 0) for r in launches}
+              for k in TP_KERNELS}
+    return by_run, errs, rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4282,12 +4581,26 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     mesh_launches, mesh_err = mesh_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp_launches, tp_err, tp_rows = tp_phase(dev)
     for row in serve_rows + train_entries:
         name = row["name"]
-        if name in mesh_launches:
-            row["launches"] += sum(mesh_launches[name].values())
-            row["launches_by_path"].update(mesh_launches[name])
-            row["max_abs_err"] = max(row["max_abs_err"], mesh_err[name])
+        for by_run, err in ((mesh_launches, mesh_err), (tp_launches, tp_err)):
+            if name in by_run:
+                row["launches"] += sum(by_run[name].values())
+                row["launches_by_path"].update(by_run[name])
+                row["max_abs_err"] = max(row["max_abs_err"], err[name])
+        if name in ("flash_attention", "flash_attention_bwd"):
+            pre = "fwd" if name == "flash_attention" else "bwd"
+            row["offset_rows"] = [dict(
+                name=r["name"], chunk=r["chunk"],
+                bit_equal_to_whole=r["bit_equal_to_whole"],
+                ms=r[f"{pre}_ms"], plain_ms=r[f"{pre}_plain_ms"],
+                bound_ms=r[f"{pre}_bound_ms"], bound_by=r[f"{pre}_bound_by"],
+                library_ms=r[f"{pre}_library_ms"],
+                **({"summed_dk_dv": r["summed_dk_dv"]} if pre == "bwd"
+                   else {})) for r in tp_rows]
 
     # the device GA's largest shape: where the path spends its launches
     main_row = max((r for r in kernel_rows

@@ -4,17 +4,20 @@
 //   p_ij = exp(s_ij - m_i) over the visible keys j, 0 elsewhere,
 //   s_ij = cap * tanh(scale * (q[b, i, h] . k[b, j, h / G]) / cap)
 //
-// q (B, S, Hq, D), k (B, S, Hkv, D), v (B, S, Hkv, Dv), out (B, S, Hq,
-// Dv), all float32 or all bfloat16 and contiguous; G = Hq / Hkv (GQA).
-// Key j is visible from query i iff it lies inside the sequence, when
-// causal j <= i or j < prefix[b] (the prefix-LM mask of a VLM: the image
-// prefix attends bidirectionally; no prefix array means 0), and i - j <
-// window when a window is set (the last `window` keys including the
-// query itself). The softcap, when set, is applied before the mask, as
-// in the reference. Scores, the running max/sum and the accumulator are
-// float32. When asked, both kernels also write each row's log-sum-exp,
-// lse[b, h, i] = max_j s_ij + log sum_j exp(s_ij - max_j s_ij) (float32,
-// natural units), which the backward (flash_attention_bwd.cu) reads to
+// q (B, Sq, Hq, D), k (B, Sk, Hkv, D), v (B, Sk, Hkv, Dv), out (B, Sq,
+// Hq, Dv), all float32 or all bfloat16 and contiguous; G = Hq / Hkv
+// (GQA). Query row i sits at global position p_i = q_off + i (q_off > 0
+// when the rows are one rank's chunk of a sequence whose keys are all
+// given: sequence-parallel attention; q_off + Sq <= Sk). Key j is visible
+// from query row i iff j < Sk, when causal j <= p_i or j < prefix[b] (the
+// prefix-LM mask of a VLM: the image prefix attends bidirectionally; no
+// prefix array means 0), and p_i - j < window when a window is set (the
+// last `window` keys including the query itself). The softcap, when set,
+// is applied before the mask, as in the reference. Scores, the running
+// max/sum and the accumulator are float32. When asked, both kernels also
+// write each row's log-sum-exp, lse[b, h, i] = max_j s_ij + log sum_j
+// exp(s_ij - max_j s_ij) (float32, natural units), which the backward
+// (flash_attention_bwd.cu) reads to
 // recompute P without a second pass. The tensor-core kernel is compiled
 // once per head-dim tile and per (prefix, lse) pair asked for, so a launch
 // without them runs the code it ran before they existed.
@@ -75,6 +78,10 @@
 //  * The band: KV tiles from the first the window reaches to the one
 //    holding the block's last diagonal; a consumer only passes on a tile
 //    that is wholly masked for its 64 rows (waits for it and frees it).
+//  * A query offset (a chunk of the queries against every key) moves the
+//    band and the mask to the rows' positions q_off + i: the Q map has Sq
+//    rows, the K and V maps Sk, and out and lse are written at the rows
+//    themselves. It is a host int, so it costs no read and no branch.
 //  * Two traps of bf16 arithmetic, both measured against the float32
 //    plain version's 2-ulp gate (tests/test_torch_attention_numerics.py
 //    pins them): rounding P once to bf16 before PV is 11-14x over the
@@ -131,9 +138,9 @@ flash_attention_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
                        const float* __restrict__ v,
                        float* __restrict__ out, float* __restrict__ lse,
-                       const int* __restrict__ prefix, int S,
-                       int Hq, int Hkv, int D, int Dv, float scale,
-                       int causal, int window, float softcap) {
+                       const int* __restrict__ prefix, int Sq, int Sk,
+                       int q_off, int Hq, int Hkv, int D, int Dv,
+                       float scale, int causal, int window, float softcap) {
   extern __shared__ float smem[];
   float* qs = smem;                                   // kBQ x (D + 1)
   float* ps = qs + kBQ * (D + 1);                     // kBQ x (kBK + 1)
@@ -148,20 +155,21 @@ flash_attention_kernel(const float* __restrict__ q,
   const int tid = threadIdx.x;
   const int r = tid >> 3;          // this thread's query row in the tile
   const int cg = tid & 7;          // its key / head-dim lane in the row
-  const int qpos = q0 + r;
+  const int qrow_i = q0 + r;       // the row in q, and its position:
+  const int qpos = q_off + qrow_i;
   const int pre = prefix != nullptr ? prefix[b] : 0;
 
   for (int i = tid; i < kBQ * D; i += kThreads) {
     const int rr = i / D, dd = i - rr * D, s = q0 + rr;
     qs[rr * (D + 1) + dd] =
-        s < S ? q[((long long)(b * S + s) * Hq + h) * D + dd] * scale
-              : 0.0f;
+        s < Sq ? q[((long long)(b * Sq + s) * Hq + h) * D + dd] * scale
+               : 0.0f;
   }
 
   // keys [lo, hi) can be visible from some row of this tile
-  int lo = 0, hi = S;
-  if (window > 0) lo = max(0, q0 - window + 1);
-  if (causal) hi = min(S, max(pre, q0 + kBQ));
+  int lo = 0, hi = Sk;
+  if (window > 0) lo = max(0, q_off + q0 - window + 1);
+  if (causal) hi = min(Sk, max(pre, q_off + q0 + kBQ));
   const int first_tile = (lo / kBK) * kBK;
 
   float m = kNegInf, l = 0.0f;
@@ -174,14 +182,14 @@ flash_attention_kernel(const float* __restrict__ q,
     for (int i = tid; i < kBK * D; i += kThreads) {
       const int c = i / D, dd = i - c * D, t = kv0 + c;
       ks[c * kst + dd] =
-          t < S ? k[((long long)(b * S + t) * Hkv + hk) * D + dd]
-                : 0.0f;
+          t < Sk ? k[((long long)(b * Sk + t) * Hkv + hk) * D + dd]
+                 : 0.0f;
     }
     for (int i = tid; i < kBK * Dv; i += kThreads) {
       const int c = i / Dv, dd = i - c * Dv, t = kv0 + c;
       vs[c * Dv + dd] =
-          t < S ? v[((long long)(b * S + t) * Hkv + hk) * Dv + dd]
-                : 0.0f;
+          t < Sk ? v[((long long)(b * Sk + t) * Hkv + hk) * Dv + dd]
+                 : 0.0f;
     }
     __syncthreads();
 
@@ -203,7 +211,7 @@ flash_attention_kernel(const float* __restrict__ q,
       const int t = kv0 + cg + 8 * j;
       float s = sc[j];
       if (softcap > 0.0f) s = softcap * tanhf(s / softcap);
-      ok[j] = t < S && (!causal || t <= qpos || t < pre) &&
+      ok[j] = t < Sk && (!causal || t <= qpos || t < pre) &&
               (window <= 0 || qpos - t < window);
       sc[j] = ok[j] ? s : kNegInf;
       tile_max = fmaxf(tile_max, sc[j]);
@@ -242,33 +250,33 @@ flash_attention_kernel(const float* __restrict__ q,
     }
   }
 
-  if (qpos < S) {
+  if (qrow_i < Sq) {
     const float denom = fmaxf(l, 1e-30f);
-    float* orow = out + ((long long)(b * S + qpos) * Hq + h) * Dv;
+    float* orow = out + ((long long)(b * Sq + qrow_i) * Hq + h) * Dv;
 #pragma unroll
     for (int i = 0; i < kMaxD / 8; ++i) {
       const int dd = cg + 8 * i;
       if (dd < Dv) orow[dd] = acc[i] / denom;
     }
     if (lse != nullptr && cg == 0)
-      lse[((long long)b * Hq + h) * S + qpos] = m + logf(denom);
+      lse[((long long)b * Hq + h) * Sq + qrow_i] = m + logf(denom);
   }
 }
 
 int launch_simt(const void* q, const void* k, const void* v, void* out,
-                float* lse, const int* prefix, int B, int S, int Hq,
-                int Hkv, int D, int Dv, float scale, int causal, int window,
-                float softcap, cudaStream_t stream) {
+                float* lse, const int* prefix, int B, int Sq, int Sk,
+                int q_off, int Hq, int Hkv, int D, int Dv, float scale,
+                int causal, int window, float softcap, cudaStream_t stream) {
   const size_t smem = shared_bytes(D, Dv);
   cudaError_t err = cudaFuncSetAttribute(
       flash_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((S + kBQ - 1) / kBQ, Hq, B);
+  const dim3 grid((Sq + kBQ - 1) / kBQ, Hq, B);
   flash_attention_kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), lse, prefix, S,
-      Hq, Hkv, D, Dv, scale, causal, window, softcap);
+      static_cast<const float*>(v), static_cast<float*>(out), lse, prefix,
+      Sq, Sk, q_off, Hq, Hkv, D, Dv, scale, causal, window, softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -575,9 +583,10 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const __grid_constant__ CUtensorMap tm_v,
                           __nv_bfloat16* __restrict__ out,
                           float* __restrict__ lse,
-                          const int* __restrict__ prefix, int B, int S,
-                          int Hq, int Hkv, int Dv, float scale, int causal,
-                          int window, float softcap, int n_qtiles) {
+                          const int* __restrict__ prefix, int B, int Sq,
+                          int Sk, int q_off, int Hq, int Hkv, int Dv,
+                          float scale, int causal, int window, float softcap,
+                          int n_qtiles) {
   using L = TcLayout<kHD>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -598,10 +607,12 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int hk = h / (Hq / Hkv);
   const int pre = kPrefix ? prefix[b] : 0;
 
-  // KV tiles [first, first + n_tiles) hold every key some row can see
-  int lo = 0, hi = S;
-  if (window > 0) lo = max(0, q0 - window + 1);
-  if (causal) hi = min(S, kPrefix ? max(pre, q0 + kBM) : q0 + kBM);
+  // KV tiles [first, first + n_tiles) hold every key some row can see;
+  // the tile's rows q0 .. sit at positions p0 = q_off + q0 ..
+  const int p0 = q_off + q0;
+  int lo = 0, hi = Sk;
+  if (window > 0) lo = max(0, p0 - window + 1);
+  if (causal) hi = min(Sk, kPrefix ? max(pre, p0 + kBM) : p0 + kBM);
   const int first = lo / kBN;
   const int n_tiles = (hi - 1) / kBN - first + 1;
 
@@ -648,6 +659,8 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int t = threadIdx.x % 128;
   const int r_first = q0 + cw * 64;             // this warpgroup's rows
   const int row0 = r_first + (t / 32) * 16 + (t % 32) / 4;   // and + 8
+  const int pr_first = q_off + r_first;         // and their positions
+  const int prow0 = q_off + row0;
   const int col = 2 * (t % 4);                  // + 8 j + {0, 1}
   const uint32_t sq_wg = sq + cw * 64 * kRowBytes;
   const uint32_t sp_hi = base + L::kP + cw * 2 * L::kPBytes;
@@ -662,10 +675,10 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   // the tile is masked for its 64 rows, and it only keeps the ring going
   int it_lo = 0, it_hi = n_tiles - 1;
   if (window > 0)
-    it_lo = max(it_lo, max(0, r_first - window + 1) / kBN - first);
+    it_lo = max(it_lo, max(0, pr_first - window + 1) / kBN - first);
   if (causal)
-    it_hi = min(it_hi, (min(S, kPrefix ? max(pre, r_first + 64)
-                                       : r_first + 64) - 1) / kBN - first);
+    it_hi = min(it_hi, (min(Sk, kPrefix ? max(pre, pr_first + 64)
+                                        : pr_first + 64) - 1) / kBN - first);
 
   // scores in log2 units: s2 = log2(e) * s
   const bool capped = softcap > 0.0f;
@@ -704,9 +717,10 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int kv0 = (first + it) * kBN;
     // a tile wholly inside the prefix needs no causal mask
     const bool need_mask =
-        kv0 + kBN > S
-        || (causal && kv0 + kBN - 1 > r_first && (!kPrefix || kv0 + kBN > pre))
-        || (window > 0 && r_first + 63 - kv0 >= window);
+        kv0 + kBN > Sk
+        || (causal && kv0 + kBN - 1 > pr_first
+            && (!kPrefix || kv0 + kBN > pre))
+        || (window > 0 && pr_first + 63 - kv0 >= window);
     float mx[2] = {m2[0], m2[1]};
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
@@ -717,8 +731,8 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
           : sc[i] * s2_scale;
       if (need_mask) {
         const int key = kv0 + 8 * (i >> 2) + col + (i & 1);
-        const int row = row0 + 8 * hf;
-        const bool ok = key < S
+        const int row = prow0 + 8 * hf;
+        const bool ok = key < Sk
                         && (!causal || key <= row || (kPrefix && key < pre))
                         && (window <= 0 || row - key < window);
         if (!ok) x = -INFINITY;
@@ -818,14 +832,14 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     l[hf] += __shfl_xor_sync(0xffffffffu, l[hf], 1);
     l[hf] += __shfl_xor_sync(0xffffffffu, l[hf], 2);
     const int row = row0 + 8 * hf;
-    if (row < S) {
+    if (row < Sq) {
       const float inv = 1.0f / fmaxf(l[hf], 1e-30f);
       // m2 and l are in log2 units: lse = ln 2 (m2 + log2 l)
       if (kLse && t % 4 == 0)
-        lse[(static_cast<long long>(b) * Hq + h) * S + row] =
+        lse[(static_cast<long long>(b) * Hq + h) * Sq + row] =
             0.6931471805599453f * (m2[hf] + log2f(fmaxf(l[hf], 1e-30f)));
       __nv_bfloat16* orow =
-          out + ((static_cast<long long>(b) * S + row) * Hq + h) * Dv;
+          out + ((static_cast<long long>(b) * Sq + row) * Hq + h) * Dv;
 #pragma unroll
       for (int j = 0; j < kHD / 8; ++j) {
         const int c = 8 * j + col;
@@ -889,51 +903,52 @@ cudaError_t encode(CUtensorMap* map, const void* ptr, int B, int S, int H,
 
 template <int kHD, bool kPrefix, bool kLse>
 int launch_tc(const void* q, const void* k, const void* v, void* out,
-              float* lse, const int* prefix, int B, int S, int Hq, int Hkv,
-              int D, int Dv, float scale, int causal, int window,
-              float softcap, cudaStream_t stream) {
+              float* lse, const int* prefix, int B, int Sq, int Sk,
+              int q_off, int Hq, int Hkv, int D, int Dv, float scale,
+              int causal, int window, float softcap, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
-  cudaError_t err = encode(&tq, q, B, S, Hq, D, kBM);
-  if (err == cudaSuccess) err = encode(&tk, k, B, S, Hkv, D, kBN);
-  if (err == cudaSuccess) err = encode(&tv, v, B, S, Hkv, Dv, kBN);
+  cudaError_t err = encode(&tq, q, B, Sq, Hq, D, kBM);
+  if (err == cudaSuccess) err = encode(&tk, k, B, Sk, Hkv, D, kBN);
+  if (err == cudaSuccess) err = encode(&tv, v, B, Sk, Hkv, Dv, kBN);
   if (err != cudaSuccess) return static_cast<int>(err);
   constexpr int smem = TcLayout<kHD>::kBytes;
   err = cudaFuncSetAttribute(flash_attention_tc_kernel<kHD, kPrefix, kLse>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_qtiles = (S + kBM - 1) / kBM;
+  const int n_qtiles = (Sq + kBM - 1) / kBM;
   const long long blocks = static_cast<long long>(n_qtiles) * Hq * B;
   if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
   flash_attention_tc_kernel<kHD, kPrefix, kLse>
       <<<static_cast<unsigned>(blocks), kTcThreads, smem, stream>>>(
-          tq, tk, tv, static_cast<__nv_bfloat16*>(out), lse, prefix, B, S,
-          Hq, Hkv, Dv, scale, causal, window, softcap, n_qtiles);
+          tq, tk, tv, static_cast<__nv_bfloat16*>(out), lse, prefix, B, Sq,
+          Sk, q_off, Hq, Hkv, Dv, scale, causal, window, softcap, n_qtiles);
   return static_cast<int>(cudaGetLastError());
 }
 
 // the instantiation for the options asked for (a prefix only when causal)
 template <int kHD>
 int launch_tc_options(const void* q, const void* k, const void* v, void* out,
-                      float* lse, const int* prefix, int B, int S, int Hq,
-                      int Hkv, int D, int Dv, float scale, int causal,
-                      int window, float softcap, cudaStream_t stream) {
+                      float* lse, const int* prefix, int B, int Sq, int Sk,
+                      int q_off, int Hq, int Hkv, int D, int Dv, float scale,
+                      int causal, int window, float softcap,
+                      cudaStream_t stream) {
   const bool pre = prefix != nullptr && causal;
   if (pre && lse != nullptr)
-    return launch_tc<kHD, true, true>(q, k, v, out, lse, prefix, B, S, Hq,
-                                      Hkv, D, Dv, scale, causal, window,
-                                      softcap, stream);
+    return launch_tc<kHD, true, true>(q, k, v, out, lse, prefix, B, Sq, Sk,
+                                      q_off, Hq, Hkv, D, Dv, scale, causal,
+                                      window, softcap, stream);
   if (pre)
-    return launch_tc<kHD, true, false>(q, k, v, out, lse, prefix, B, S, Hq,
-                                       Hkv, D, Dv, scale, causal, window,
-                                       softcap, stream);
+    return launch_tc<kHD, true, false>(q, k, v, out, lse, prefix, B, Sq, Sk,
+                                       q_off, Hq, Hkv, D, Dv, scale, causal,
+                                       window, softcap, stream);
   if (lse != nullptr)
-    return launch_tc<kHD, false, true>(q, k, v, out, lse, prefix, B, S, Hq,
-                                       Hkv, D, Dv, scale, causal, window,
-                                       softcap, stream);
-  return launch_tc<kHD, false, false>(q, k, v, out, lse, prefix, B, S, Hq,
-                                      Hkv, D, Dv, scale, causal, window,
-                                      softcap, stream);
+    return launch_tc<kHD, false, true>(q, k, v, out, lse, prefix, B, Sq, Sk,
+                                       q_off, Hq, Hkv, D, Dv, scale, causal,
+                                       window, softcap, stream);
+  return launch_tc<kHD, false, false>(q, k, v, out, lse, prefix, B, Sq, Sk,
+                                      q_off, Hq, Hkv, D, Dv, scale, causal,
+                                      window, softcap, stream);
 }
 
 bool aligned16(const void* p) {
@@ -962,37 +977,43 @@ extern "C" int flash_attention_fits(int D, int Dv, const void* q,
 extern "C" int flash_attention_max_head_dim() { return kMaxD; }
 
 // dtype code as for flash_attention_fits, which the arguments must pass
-// (the bfloat16 kernel also needs `out` 16-byte aligned). window <= 0: no
-// window; softcap <= 0: no softcap. lse: null, or float32 (B, Hq, S) to
+// (the bfloat16 kernel also needs `out` 16-byte aligned). Sq query rows
+// at positions q_off .. q_off + Sq - 1 against Sk keys (0 <= q_off,
+// q_off + Sq <= Sk, else cudaErrorInvalidValue). window <= 0: no window;
+// softcap <= 0: no softcap. lse: null, or float32 (B, Hq, Sq) to
 // receive each row's log-sum-exp; prefix: null, or int32 (B,) prefix
 // lengths of the prefix-LM mask (read only when causal). Launch on
 // `stream`; returns the first CUDA error of the tensor maps, the
 // attribute call or the launch (0 = ok). The caller has checked shapes
-// (Hq a multiple of Hkv), types and contiguity, and that B, S and the
+// (Hq a multiple of Hkv), types and contiguity, and that B, Sq and the
 // heads are non-zero.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* out, float* lse, const int* prefix,
-                               int B, int S, int Hq, int Hkv,
-                               int D, int Dv, float scale, int causal,
-                               int window, float softcap, int dtype,
-                               void* stream) {
+                               int B, int Sq, int Sk, int Hq, int Hkv,
+                               int D, int Dv, int q_off, float scale,
+                               int causal, int window, float softcap,
+                               int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int why = flash_attention_fits(D, Dv, q, k, v, dtype);
   if (why == 3 || (dtype == 1 && !aligned16(out)))
     return static_cast<int>(cudaErrorMisalignedAddress);
-  if (why != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (why != 0 || q_off < 0 || q_off > Sk - Sq)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
-    return launch_simt(q, k, v, out, lse, prefix, B, S, Hq, Hkv, D, Dv,
-                       scale, causal, window, softcap, s);
+    return launch_simt(q, k, v, out, lse, prefix, B, Sq, Sk, q_off, Hq, Hkv,
+                       D, Dv, scale, causal, window, softcap, s);
   const int hd = D > Dv ? D : Dv;
   if (hd <= 64)
-    return launch_tc_options<64>(q, k, v, out, lse, prefix, B, S, Hq, Hkv, D,
-                                 Dv, scale, causal, window, softcap, s);
+    return launch_tc_options<64>(q, k, v, out, lse, prefix, B, Sq, Sk, q_off,
+                                 Hq, Hkv, D, Dv, scale, causal, window,
+                                 softcap, s);
   if (hd <= 128)
-    return launch_tc_options<128>(q, k, v, out, lse, prefix, B, S, Hq, Hkv,
-                                  D, Dv, scale, causal, window, softcap, s);
-  return launch_tc_options<256>(q, k, v, out, lse, prefix, B, S, Hq, Hkv, D,
-                                Dv, scale, causal, window, softcap, s);
+    return launch_tc_options<128>(q, k, v, out, lse, prefix, B, Sq, Sk,
+                                  q_off, Hq, Hkv, D, Dv, scale, causal,
+                                  window, softcap, s);
+  return launch_tc_options<256>(q, k, v, out, lse, prefix, B, Sq, Sk, q_off,
+                                Hq, Hkv, D, Dv, scale, causal, window,
+                                softcap, s);
 }
 
 extern "C" const char* flash_attention_error_string(int err) {

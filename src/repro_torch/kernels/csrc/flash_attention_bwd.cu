@@ -9,12 +9,18 @@
 //   dv[b, j, hk]     = sum_{h of hk} sum_i P_ij dout[b, i, h]
 //
 // with s_ij = cap tanh(scale q_i . k_j / cap) (or scale q_i . k_j) and the
-// forward's mask: key j is visible from query i iff j < S, when causal
-// j <= i or j < prefix[b], and i - j < window when a window is set. q
-// (B, S, Hq, D), k (B, S, Hkv, D), v (B, S, Hkv, Dv), out and dout (B, S,
-// Hq, Dv), all float32 or all bfloat16 and contiguous; lse (B, Hq, S)
-// float32 from the forward. dq, dk, dv come out in the inputs' type;
-// every product and sum is float32.
+// forward's mask: query row i sits at position p_i = q_off + i, and key j
+// is visible from it iff j < Sk, when causal j <= p_i or j < prefix[b],
+// and p_i - j < window when a window is set. q (B, Sq, Hq, D), k (B, Sk,
+// Hkv, D), v (B, Sk, Hkv, Dv), out and dout (B, Sq, Hq, Dv), all float32
+// or all bfloat16 and contiguous; lse (B, Hq, Sq) float32 from the
+// forward; 0 <= q_off, q_off + Sq <= Sk. dq, dk, dv come out in the
+// inputs' type (dq q's shape, dk and dv k's and v's); every product and
+// sum is float32. A key that no row sees (causal, j > q_off + Sq - 1, or
+// a window that ends before it) still gets its dk and dv written: zeros,
+// from a dK/dV block whose range of query tiles is empty. Its partials,
+// where the plan splits, are zeros too and are summed in the same fixed
+// order as the others.
 //
 // This is what the reference computes in plain JAX: the custom VJP
 // _flash_bwd of src/repro/models/layers.py (its windowed and prefix-LM
@@ -135,10 +141,11 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-__device__ __forceinline__ bool visible(int i, int j, int S, int causal,
+// key j visible from the query row at position p
+__device__ __forceinline__ bool visible(int p, int j, int Sk, int causal,
                                         int window, int pre) {
-  return j < S && (!causal || j <= i || j < pre)
-         && (window <= 0 || i - j < window);
+  return j < Sk && (!causal || j <= p || j < pre)
+         && (window <= 0 || p - j < window);
 }
 
 // P and dS of one (query, key) pair from the unscaled q . k, dO . v and
@@ -180,7 +187,7 @@ __device__ __forceinline__ void load_rows(float* dst, int ld,
 template <typename T>
 __global__ void __launch_bounds__(kDeltaRows * 32)
 delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
-             float* __restrict__ delta, long long rows, int S, int Hq,
+             float* __restrict__ delta, long long rows, int Sq, int Hq,
              int Dv) {
   const long long row = static_cast<long long>(blockIdx.x) * kDeltaRows
                         + threadIdx.x / 32;
@@ -194,17 +201,17 @@ delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
   for (int w = 16; w > 0; w >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, w);
   if (lane == 0) {
-    // row = (b S + i) Hq + h  ->  delta[(b Hq + h) S + i]
+    // row = (b Sq + i) Hq + h  ->  delta[(b Hq + h) Sq + i]
     const long long bi = row / Hq;
     const int h = static_cast<int>(row - bi * Hq);
-    const long long b = bi / S;
-    const int i = static_cast<int>(bi - b * S);
-    delta[(b * Hq + h) * S + i] = acc;
+    const long long b = bi / Sq;
+    const int i = static_cast<int>(bi - b * Sq);
+    delta[(b * Hq + h) * Sq + i] = acc;
   }
 }
 
 struct Dims {
-  int S, Hq, Hkv, D, Dv;
+  int Sq, Sk, q_off, Hq, Hkv, D, Dv;
   float scale;
   int causal, window;
   float softcap;
@@ -260,19 +267,20 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int hk = blockIdx.y;
   const int b = blockIdx.z;
   const int G = a.Hq / a.Hkv;
-  const int S = a.S;
+  const int Sq = a.Sq, Sk = a.Sk, off = a.q_off;
   const int pre = prefix != nullptr ? prefix[b] : 0;
   const int tid = threadIdx.x;
   const int r = tid >> 3;            // score row / accumulator key
   const int c8 = tid & 7;            // score key lane / accumulator column
 
-  load_rows(ks, ldq, k, b, kv0, kBK, S, a.Hkv, hk, a.D);
-  load_rows(vs, ldo, v, b, kv0, kBK, S, a.Hkv, hk, a.Dv);
+  load_rows(ks, ldq, k, b, kv0, kBK, Sk, a.Hkv, hk, a.D);
+  load_rows(vs, ldo, v, b, kv0, kBK, Sk, a.Hkv, hk, a.Dv);
 
-  // query rows [q_lo, q_hi) can see some key of the tile
-  int q_lo = 0, q_hi = S;
-  if (a.causal && kv0 >= pre) q_lo = kv0;
-  if (a.window > 0) q_hi = min(S, kv0 + kBK - 1 + a.window);
+  // query rows [q_lo, q_hi) can see some key of the tile (none when
+  // q_hi <= q_lo: the tile's dK and dV are zeros)
+  int q_lo = 0, q_hi = Sq;
+  if (a.causal && kv0 >= pre) q_lo = max(0, kv0 - off);
+  if (a.window > 0) q_hi = min(Sq, kv0 + kBK - 1 + a.window - off);
 
   float acc_k[kCols], acc_v[kCols];
 #pragma unroll
@@ -280,15 +288,15 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int g = 0; g < G; ++g) {
     const int h = hk * G + g;
-    const float* lse_h = lse + (static_cast<long long>(b) * a.Hq + h) * S;
-    const float* del_h = delta + (static_cast<long long>(b) * a.Hq + h) * S;
+    const float* lse_h = lse + (static_cast<long long>(b) * a.Hq + h) * Sq;
+    const float* del_h = delta + (static_cast<long long>(b) * a.Hq + h) * Sq;
     for (int q0 = (q_lo / kBQ) * kBQ; q0 < q_hi; q0 += kBQ) {
       __syncthreads();               // the previous tile is no longer read
-      load_rows(qs, ldq, q, b, q0, kBQ, S, a.Hq, h, a.D);
-      load_rows(dos, ldo, dout, b, q0, kBQ, S, a.Hq, h, a.Dv);
+      load_rows(qs, ldq, q, b, q0, kBQ, Sq, a.Hq, h, a.D);
+      load_rows(dos, ldo, dout, b, q0, kBQ, Sq, a.Hq, h, a.Dv);
       if (tid < kBQ) {
-        lse_s[tid] = q0 + tid < S ? lse_h[q0 + tid] : 0.0f;
-        del_s[tid] = q0 + tid < S ? del_h[q0 + tid] : 0.0f;
+        lse_s[tid] = q0 + tid < Sq ? lse_h[q0 + tid] : 0.0f;
+        del_s[tid] = q0 + tid < Sq ? del_h[q0 + tid] : 0.0f;
       }
       __syncthreads();
 
@@ -299,8 +307,8 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
         const int j = c8 + 8 * c, i = q0 + r;
         float p, ds;
         p_ds(raw[c], dp[c], lse_s[r], del_s[r], a.scale, a.softcap,
-             i < S && visible(i, kv0 + j, S, a.causal, a.window, pre), p,
-             ds);
+             i < Sq && visible(off + i, kv0 + j, Sk, a.causal, a.window,
+                               pre), p, ds);
         ps[r * (kBK + 1) + j] = p;
         dss[r * (kBK + 1) + j] = ds;
       }
@@ -321,8 +329,8 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   const int j = kv0 + r;
-  if (j < S) {
-    const long long row = (static_cast<long long>(b) * S + j) * a.Hkv + hk;
+  if (j < Sk) {
+    const long long row = (static_cast<long long>(b) * Sk + j) * a.Hkv + hk;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
       const int d = c8 + 8 * c;
@@ -353,25 +361,25 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (a.Hq / a.Hkv);
-  const int S = a.S;
+  const int Sq = a.Sq, Sk = a.Sk, off = a.q_off;
   const int pre = prefix != nullptr ? prefix[b] : 0;
   const int tid = threadIdx.x;
   const int r = tid >> 3;
   const int c8 = tid & 7;
 
-  load_rows(qs, ldq, q, b, q0, kBQ, S, a.Hq, h, a.D);
-  load_rows(dos, ldo, dout, b, q0, kBQ, S, a.Hq, h, a.Dv);
+  load_rows(qs, ldq, q, b, q0, kBQ, Sq, a.Hq, h, a.D);
+  load_rows(dos, ldo, dout, b, q0, kBQ, Sq, a.Hq, h, a.Dv);
   if (tid < kBQ) {
-    const long long at = (static_cast<long long>(b) * a.Hq + h) * S + q0
+    const long long at = (static_cast<long long>(b) * a.Hq + h) * Sq + q0
                          + tid;
-    lse_s[tid] = q0 + tid < S ? lse[at] : 0.0f;
-    del_s[tid] = q0 + tid < S ? delta[at] : 0.0f;
+    lse_s[tid] = q0 + tid < Sq ? lse[at] : 0.0f;
+    del_s[tid] = q0 + tid < Sq ? delta[at] : 0.0f;
   }
 
   // keys [lo, hi) can be visible from some row of this tile
-  int lo = 0, hi = S;
-  if (a.window > 0) lo = max(0, q0 - a.window + 1);
-  if (a.causal) hi = min(S, max(pre, q0 + kBQ));
+  int lo = 0, hi = Sk;
+  if (a.window > 0) lo = max(0, off + q0 - a.window + 1);
+  if (a.causal) hi = min(Sk, max(pre, off + q0 + kBQ));
 
   float acc[kCols];
 #pragma unroll
@@ -379,8 +387,8 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int kv0 = (lo / kBK) * kBK; kv0 < hi; kv0 += kBK) {
     __syncthreads();                 // the previous tile is no longer read
-    load_rows(ks, ldq, k, b, kv0, kBK, S, a.Hkv, hk, a.D);
-    load_rows(vs, ldo, v, b, kv0, kBK, S, a.Hkv, hk, a.Dv);
+    load_rows(ks, ldq, k, b, kv0, kBK, Sk, a.Hkv, hk, a.D);
+    load_rows(vs, ldo, v, b, kv0, kBK, Sk, a.Hkv, hk, a.Dv);
     __syncthreads();
 
     float raw[4], dp[4];
@@ -390,7 +398,8 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int j = c8 + 8 * c, i = q0 + r;
       float p, ds;
       p_ds(raw[c], dp[c], lse_s[r], del_s[r], a.scale, a.softcap,
-           i < S && visible(i, kv0 + j, S, a.causal, a.window, pre), p, ds);
+           i < Sq && visible(off + i, kv0 + j, Sk, a.causal, a.window, pre),
+           p, ds);
       dss[r * (kBK + 1) + j] = ds;
     }
     __syncthreads();
@@ -407,8 +416,8 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   const int i = q0 + r;
-  if (i < S) {
-    float* row = dq + ((static_cast<long long>(b) * S + i) * a.Hq + h) * a.D;
+  if (i < Sq) {
+    float* row = dq + ((static_cast<long long>(b) * Sq + i) * a.Hq + h) * a.D;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
       const int d = c8 + 8 * c;
@@ -420,11 +429,11 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <typename T>
 int launch_delta(const T* out, const T* dout, float* delta, int B,
                  const Dims& a, cudaStream_t stream) {
-  const long long rows = static_cast<long long>(B) * a.S * a.Hq;
+  const long long rows = static_cast<long long>(B) * a.Sq * a.Hq;
   const long long blocks = (rows + kDeltaRows - 1) / kDeltaRows;
   if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
   delta_kernel<T><<<static_cast<unsigned>(blocks), kDeltaRows * 32, 0,
-                    stream>>>(out, dout, delta, rows, a.S, a.Hq, a.Dv);
+                    stream>>>(out, dout, delta, rows, a.Sq, a.Hq, a.Dv);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -468,8 +477,8 @@ struct TcArgs {
   __nv_bfloat16* dq;
   __nv_bfloat16* dk;
   __nv_bfloat16* dv;
-  float* ws;            // dK then dV partials, (n_g n_q, B, S, Hkv, d) each
-  int B, S, Hq, Hkv, D, Dv;
+  float* ws;            // dK then dV partials, (n_g n_q, B, Sk, Hkv, d) each
+  int B, Sq, Sk, q_off, Hq, Hkv, D, Dv;
   float scale;
   int causal, window;
   float softcap;
@@ -662,7 +671,7 @@ bwd_tc_kernel(const TcArgs a) {
   uint16_t* w_phi = w + 2 * kF * kLdW;     // dK/dV only
   uint16_t* w_plo = w + 3 * kF * kLdW;
 
-  const int S = a.S, G = a.Hq / a.Hkv;
+  const int Sq = a.Sq, Sk = a.Sk, off = a.q_off, G = a.Hq / a.Hkv;
   const int blk = static_cast<int>(blockIdx.x);
   int f0, b, hk, h = 0, g0 = 0, n_heads = 1, sq = 0;
   if constexpr (kKV) {
@@ -679,7 +688,7 @@ bwd_tc_kernel(const TcArgs a) {
     sq = sp % a.n_q;
   } else {
     // query tiles in reverse, the longest causal ones first
-    const int hb = a.Hq * a.B, n_f = (S + kF - 1) / kF;
+    const int hb = a.Hq * a.B, n_f = (Sq + kF - 1) / kF;
     f0 = (n_f - 1 - blk / hb) * kF;
     h = blk % hb % a.Hq;
     b = blk % hb / a.Hq;
@@ -688,17 +697,22 @@ bwd_tc_kernel(const TcArgs a) {
   const int pre = a.causal && a.prefix != nullptr ? a.prefix[b] : 0;
   int t_first, n_t;
   if constexpr (kKV) {
-    // query rows [lo, hi) can see some key of the tile
-    const int lo = a.causal && f0 >= pre ? f0 : 0;
-    const int hi = a.window > 0 ? min(S, f0 + kF - 1 + a.window) : S;
-    const int first = lo / kT, all = (hi - 1) / kT - first + 1;
+    // query rows [lo, hi) (rows of q, at positions off + row) can see
+    // some key of the tile; none when hi <= lo, and the tile's dK and dV
+    // (or its partials) are then written as zeros
+    const int lo = a.causal && f0 >= pre ? max(0, f0 - off) : 0;
+    const int hi =
+        a.window > 0 ? min(Sq, f0 + kF - 1 + a.window - off) : Sq;
+    const int first = lo / kT;
+    const int all = hi > lo ? (hi - 1) / kT - first + 1 : 0;
     const int part = (all + a.n_q - 1) / a.n_q;
     t_first = first + sq * part;
     n_t = max(0, min(part, all - sq * part));
   } else {
     // keys [lo, hi) can be visible from some row of the tile
-    const int lo = a.window > 0 ? max(0, f0 - a.window + 1) : 0;
-    const int hi = a.causal ? min(S, max(pre, f0 + kF)) : S;
+    const int p0 = off + f0;
+    const int lo = a.window > 0 ? max(0, p0 - a.window + 1) : 0;
+    const int hi = a.causal ? min(Sk, max(pre, p0 + kF)) : Sk;
     t_first = lo / kT;
     n_t = (hi - 1) / kT - t_first + 1;
   }
@@ -711,12 +725,12 @@ bwd_tc_kernel(const TcArgs a) {
 
   // the fixed tile, then the first streamed one
   if constexpr (kKV) {
-    load_tile(fa, ldA, a.k, b, f0, kF, S, a.Hkv, hk, a.D);
-    load_tile(fb, ldB, a.v, b, f0, kF, S, a.Hkv, hk, a.Dv);
+    load_tile(fa, ldA, a.k, b, f0, kF, Sk, a.Hkv, hk, a.D);
+    load_tile(fb, ldB, a.v, b, f0, kF, Sk, a.Hkv, hk, a.Dv);
   } else {
-    load_tile(fa, ldA, a.q, b, f0, kF, S, a.Hq, h, a.D);
-    load_tile(fb, ldB, a.dout, b, f0, kF, S, a.Hq, h, a.Dv);
-    load_rows_f32(rows, a.lse, a.delta, b, h, a.Hq, f0, kF, S);
+    load_tile(fa, ldA, a.q, b, f0, kF, Sq, a.Hq, h, a.D);
+    load_tile(fb, ldB, a.dout, b, f0, kF, Sq, a.Hq, h, a.Dv);
+    load_rows_f32(rows, a.lse, a.delta, b, h, a.Hq, f0, kF, Sq);
   }
   cp_async_commit();
   auto issue = [&](int i) {
@@ -724,14 +738,15 @@ bwd_tc_kernel(const TcArgs a) {
     const int t0 = (t_first + i % n_t) * kT;
     if constexpr (kKV) {
       const int hq = hk * G + g0 + i / n_t;
-      load_tile(ta + st * kT * ldA, ldA, a.q, b, t0, kT, S, a.Hq, hq, a.D);
-      load_tile(tb + st * kT * ldB, ldB, a.dout, b, t0, kT, S, a.Hq, hq,
+      load_tile(ta + st * kT * ldA, ldA, a.q, b, t0, kT, Sq, a.Hq, hq, a.D);
+      load_tile(tb + st * kT * ldB, ldB, a.dout, b, t0, kT, Sq, a.Hq, hq,
                 a.Dv);
       load_rows_f32(rows + st * 2 * kT, a.lse, a.delta, b, hq, a.Hq, t0, kT,
-                    S);
+                    Sq);
     } else {
-      load_tile(ta + st * kT * ldA, ldA, a.k, b, t0, kT, S, a.Hkv, hk, a.D);
-      load_tile(tb + st * kT * ldB, ldB, a.v, b, t0, kT, S, a.Hkv, hk, a.Dv);
+      load_tile(ta + st * kT * ldA, ldA, a.k, b, t0, kT, Sk, a.Hkv, hk, a.D);
+      load_tile(tb + st * kT * ldB, ldB, a.v, b, t0, kT, Sk, a.Hkv, hk,
+                a.Dv);
     }
     cp_async_commit();
   };
@@ -791,9 +806,9 @@ bwd_tc_kernel(const TcArgs a) {
     const float* lse_t = rows + st * 2 * kT;   // dK/dV: the streamed rows'
     const int q_lo = kKV ? t0 : f0, q_hi = q_lo + (kKV ? kT : kF) - 1;
     const int k_lo = kKV ? f0 : t0, k_hi = k_lo + (kKV ? kF : kT) - 1;
-    const bool edge = q_hi >= S || k_hi >= S
-                      || (a.causal && k_hi > q_lo && k_hi >= pre)
-                      || (a.window > 0 && q_hi - k_lo >= a.window);
+    const bool edge = q_hi >= Sq || k_hi >= Sk
+                      || (a.causal && k_hi > off + q_lo && k_hi >= pre)
+                      || (a.window > 0 && off + q_hi - k_lo >= a.window);
     const float inv_cap = a.softcap > 0.0f ? 1.0f / a.softcap : 0.0f;
 #pragma unroll
     for (int n = 0; n < kXT; ++n) {
@@ -818,7 +833,8 @@ bwd_tc_kernel(const TcArgs a) {
             del_i = rows[kF + fr];
           }
           if (!edge
-              || (qi < S && visible(qi, kj, S, a.causal, a.window, pre)))
+              || (qi < Sq
+                  && visible(off + qi, kj, Sk, a.causal, a.window, pre)))
             p_ds_tc(x[n][2 * hf + e], y[n][2 * hf + e], lse_i, del_i,
                     a.scale, a.softcap, inv_cap, p[e], ds[e]);
           else
@@ -887,12 +903,13 @@ bwd_tc_kernel(const TcArgs a) {
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
     const int r = f0 + wr + g8 + 8 * hf;
-    if (r >= S) continue;
+    if (r >= (kKV ? Sk : Sq)) continue;
 #pragma unroll
     for (int j = 0; j < kNT; ++j) {
       const int c = 8 * (kCG * j + wc) + 2 * t4;
       if constexpr (kKV) {
-        const long long row = (static_cast<long long>(b) * S + r) * a.Hkv + hk;
+        const long long row =
+            (static_cast<long long>(b) * Sk + r) * a.Hkv + hk;
         const float k0 = acc_a[j][2 * hf] * a.scale,
                     k1 = acc_a[j][2 * hf + 1] * a.scale;
         const float v0 = acc_b[j][2 * hf], v1 = acc_b[j][2 * hf + 1];
@@ -906,8 +923,10 @@ bwd_tc_kernel(const TcArgs a) {
         } else {
           // partial sp of (n_g n_q) at ws: dK's, then dV's
           const int sp = blk % splits;
-          const long long nk = static_cast<long long>(a.B) * S * a.Hkv * a.D;
-          const long long nv = static_cast<long long>(a.B) * S * a.Hkv * a.Dv;
+          const long long nk =
+              static_cast<long long>(a.B) * Sk * a.Hkv * a.D;
+          const long long nv =
+              static_cast<long long>(a.B) * Sk * a.Hkv * a.Dv;
           if (c < a.D)
             *reinterpret_cast<float2*>(a.ws + sp * nk + row * a.D + c) =
                 make_float2(k0, k1);
@@ -919,7 +938,7 @@ bwd_tc_kernel(const TcArgs a) {
       } else {
         if (c < a.D)
           *reinterpret_cast<__nv_bfloat162*>(
-              a.dq + ((static_cast<long long>(b) * S + r) * a.Hq + h) * a.D
+              a.dq + ((static_cast<long long>(b) * Sq + r) * a.Hq + h) * a.D
               + c) = __floats2bfloat162_rn(acc_a[j][2 * hf] * a.scale,
                                            acc_a[j][2 * hf + 1] * a.scale);
       }
@@ -966,9 +985,9 @@ int launch_tc(const TcArgs& a, cudaStream_t stream) {
   if (err != cudaSuccess) return static_cast<int>(err);
   const int splits = a.n_g * a.n_q;
   constexpr int kF = fixed_rows(kHD);
-  const long long kv_blocks = static_cast<long long>((a.S + kF - 1) / kF)
+  const long long kv_blocks = static_cast<long long>((a.Sk + kF - 1) / kF)
                               * a.B * a.Hkv * splits;
-  const long long q_blocks = static_cast<long long>((a.S + kF - 1) / kF)
+  const long long q_blocks = static_cast<long long>((a.Sq + kF - 1) / kF)
                              * a.B * a.Hq;
   if (kv_blocks > INT_MAX || q_blocks > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -977,8 +996,8 @@ int launch_tc(const TcArgs& a, cudaStream_t stream) {
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   if (splits > 1) {
-    const long long n_k = static_cast<long long>(a.B) * a.S * a.Hkv * a.D;
-    const long long n_v = static_cast<long long>(a.B) * a.S * a.Hkv * a.Dv;
+    const long long n_k = static_cast<long long>(a.B) * a.Sk * a.Hkv * a.D;
+    const long long n_v = static_cast<long long>(a.B) * a.Sk * a.Hkv * a.Dv;
     const long long blocks = ((n_k + n_v) / 4 + 255) / 256;
     if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
     sum_partials<<<static_cast<unsigned>(blocks), 256, 0, stream>>>(
@@ -1011,13 +1030,13 @@ int launch_simt(const float* q, const float* k, const float* v,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 gkv((a.S + kBK - 1) / kBK, a.Hkv, B);
+  const dim3 gkv((a.Sk + kBK - 1) / kBK, a.Hkv, B);
   dkdv_kernel<<<gkv, kThreads, smem, stream>>>(q, k, v, dout, lse,
                                                       delta, prefix, dk, dv,
                                                       a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 gq((a.S + kBQ - 1) / kBQ, a.Hq, B);
+  const dim3 gq((a.Sq + kBQ - 1) / kBQ, a.Hq, B);
   dq_kernel<<<gq, kThreads, smem, stream>>>(q, k, v, dout, lse, delta,
                                                    prefix, dq, a);
   return static_cast<int>(cudaGetLastError());
@@ -1037,25 +1056,31 @@ extern "C" long long flash_attention_bwd_shared_bytes(int D, int Dv, int kv) {
 // unused), 1 = bfloat16 (delta, dK/dV in n_g x n_q splits, their sum when
 // n_g n_q > 1, dQ; ws float32 (n_g n_q) B S Hkv (D + Dv), null when not
 // split). q, k, v, out, dout, dq, dk, dv in that type; lse and delta
-// (scratch, written here) float32 (B, Hq, S); prefix null or int32 (B,),
-// read only when causal; window <= 0: none; softcap <= 0: none. Launch
+// (scratch, written here) float32 (B, Hq, Sq); Sq query rows at positions
+// q_off .. q_off + Sq - 1 against Sk keys (0 <= q_off, q_off + Sq <= Sk,
+// else cudaErrorInvalidValue); ws float32 (n_g n_q) B Sk Hkv (D + Dv);
+// prefix null or int32 (B,), read only when causal; window <= 0: none;
+// softcap <= 0: none. Launch
 // on `stream`; returns the first CUDA error (0 = ok). bfloat16 needs head
 // dims that are multiples of 8 and q, k, v, dout 16-byte aligned (the
 // rule of flash_attention_fits). The caller has checked shapes (Hq a
 // multiple of Hkv, head dims at most kMaxD, G a multiple of n_g), types
-// and contiguity, and that B, S and the heads are non-zero.
+// and contiguity, and that B, Sq and the heads are non-zero.
 extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* out,
                                    const void* dout, const float* lse,
                                    const int* prefix, float* delta,
                                    void* dq, void* dk, void* dv, float* ws,
-                                   int B, int S, int Hq, int Hkv, int D,
-                                   int Dv, float scale, int causal,
-                                   int window, float softcap, int n_g,
-                                   int n_q, int dtype, void* stream) {
-  if (D > kMaxD || Dv > kMaxD || Hkv <= 0 || Hq % Hkv)
+                                   int B, int Sq, int Sk, int Hq, int Hkv,
+                                   int D, int Dv, int q_off, float scale,
+                                   int causal, int window, float softcap,
+                                   int n_g, int n_q, int dtype,
+                                   void* stream) {
+  if (D > kMaxD || Dv > kMaxD || Hkv <= 0 || Hq % Hkv || q_off < 0
+      || q_off > Sk - Sq)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Dims a{S, Hq, Hkv, D, Dv, scale, causal, window, softcap};
+  const Dims a{Sq, Sk, q_off, Hq, Hkv, D, Dv, scale, causal, window,
+               softcap};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch_simt(static_cast<const float*>(q),
@@ -1077,8 +1102,9 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
   const TcArgs t{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                  static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
                  lse, delta, prefix, static_cast<bf16*>(dq),
-                 static_cast<bf16*>(dk), static_cast<bf16*>(dv), ws, B, S,
-                 Hq, Hkv, D, Dv, scale, causal, window, softcap, n_g, n_q};
+                 static_cast<bf16*>(dk), static_cast<bf16*>(dv), ws, B, Sq,
+                 Sk, q_off, Hq, Hkv, D, Dv, scale, causal, window, softcap,
+                 n_g, n_q};
   const int hd = D > Dv ? D : Dv;
   if (hd <= 64) return launch_tc<64>(t, s);
   if (hd <= 96) return launch_tc<96>(t, s);

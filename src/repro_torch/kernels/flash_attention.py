@@ -1,20 +1,23 @@
 """Attention with an online softmax, forward and backward: the CUDA
 kernels' launchers and their plain PyTorch versions.
 
-``q`` (B, S, Hq, D), ``k`` (B, S, Hkv, D), ``v`` (B, S, Hkv, Dv), all
-float32 or all bfloat16; the result is (B, S, Hq, Dv) in q's type. GQA:
-q head ``h`` attends kv head ``h // (Hq // Hkv)``. Key ``j`` is visible
-from query ``i`` iff, when ``causal``, ``j <= i`` or ``j <
-prefix_len[b]`` (the prefix-LM mask of the reference's
+``q`` (B, Sq, Hq, D), ``k`` (B, Sk, Hkv, D), ``v`` (B, Sk, Hkv, Dv), all
+float32 or all bfloat16; the result is (B, Sq, Hq, Dv) in q's type. GQA:
+q head ``h`` attends kv head ``h // (Hq // Hkv)``. Query row ``i`` sits
+at global position ``q_offset + i`` (a host int, 0 unless the queries
+are a chunk of a longer sequence whose keys are all given, as in
+sequence-parallel attention; ``q_offset + Sq <= Sk``). Key ``j`` is
+visible from query row ``i`` iff, when ``causal``, ``j <= q_offset + i``
+or ``j < prefix_len[b]`` (the prefix-LM mask of the reference's
 ``attention_streamed``: a VLM's image prefix attends bidirectionally),
-and ``i - j < window`` when a window is set (the last ``window`` keys
-including the query itself, the HF convention of the reference). The
-softcap ``cap * tanh(s / cap)`` is applied to the scaled scores before
-the mask. Scores and sums are float32; any S is accepted (the TPU kernel
-wanted a multiple of its 512-row blocks). The forward can also return
-each row's log-sum-exp ``lse`` (B, Hq, S) float32, from which the
-backward recomputes the probabilities, as the reference's custom VJP
-``_flash_bwd`` does.
+and ``q_offset + i - j < window`` when a window is set (the last
+``window`` keys including the query itself, the HF convention of the
+reference). The softcap ``cap * tanh(s / cap)`` is applied to the scaled
+scores before the mask. Scores and sums are float32; any S is accepted
+(the TPU kernel wanted a multiple of its 512-row blocks). The forward
+can also return each row's log-sum-exp ``lse`` (B, Hq, Sq) float32, from
+which the backward recomputes the probabilities, as the reference's
+custom VJP ``_flash_bwd`` does.
 
 ``csrc/flash_attention.cu`` holds two CUDA kernels, chosen by dtype:
 bfloat16 launches the tensor-core kernel (wgmma products, TMA loads,
@@ -24,7 +27,8 @@ whose float32 FMAs keep float32's tolerance.
 ``csrc/flash_attention_bwd.cu`` holds the backward: delta, then dK/dV,
 then dQ; bfloat16 on the tensor cores (``mma.sync``, P and dS split into
 bf16 hi + lo, the dK/dV blocks split by :func:`bwd_plan` and their
-float32 partials summed in a fixed order), float32 on SIMT.
+float32 partials summed in a fixed order), float32 on SIMT. A key that
+no query row sees (causal, past ``q_offset + Sq - 1``) gets dk = dv = 0.
 :func:`repro_torch.kernels.ops.flash_attention` and
 :func:`repro_torch.kernels.ops.flash_attention_bwd` are the guarded entry
 points that pick between the plain versions and the CUDA kernels.
@@ -51,12 +55,16 @@ BWD_STREAM = 32                     # rows of the tiles a bf16 backward
 
 def visible(s: int, *, causal: bool, window: int | None,
             prefix_len: torch.Tensor | None = None,
-            device=None) -> torch.Tensor:
-    """(S, S) bool: key ``j`` (column) visible from query ``i`` (row);
-    (B, S, S) with a ``prefix_len`` (B,) when causal."""
-    i = torch.arange(s, device=device)[:, None]
-    j = torch.arange(s, device=device)[None, :]
-    mask = torch.ones((s, s), dtype=torch.bool, device=device)
+            device=None, sk: int | None = None,
+            q_offset: int = 0) -> torch.Tensor:
+    """(Sq, Sk) bool, ``s`` = Sq query rows at global positions
+    ``q_offset ..`` and ``sk`` keys (default ``s``): key ``j`` (column)
+    visible from query row ``i`` (row); (B, Sq, Sk) with a ``prefix_len``
+    (B,) when causal."""
+    sk = s if sk is None else sk
+    i = q_offset + torch.arange(s, device=device)[:, None]
+    j = torch.arange(sk, device=device)[None, :]
+    mask = torch.ones((s, sk), dtype=torch.bool, device=device)
     if window is not None:
         mask &= i - j < window
     if not causal:
@@ -68,8 +76,8 @@ def visible(s: int, *, causal: bool, window: int | None,
 
 
 def _grouped_scores(q, k, *, scale, softcap, mask):
-    """Scaled, softcapped float32 scores (B, Hkv, G, S, S), masked
-    entries ``NEG_INF``; ``mask`` (S, S) or (B, S, S)."""
+    """Scaled, softcapped float32 scores (B, Hkv, G, Sq, Sk), masked
+    entries ``NEG_INF``; ``mask`` (Sq, Sk) or (B, Sq, Sk)."""
     b, s, hq, d = q.shape
     hkv = k.shape[2]
     qg = (q.float() * scale).view(b, s, hkv, hq // hkv, d)
@@ -85,16 +93,16 @@ def flash_attention_torch(q, k, v, *, causal: bool = True,
                           window: int | None = None,
                           softcap: float | None = None,
                           prefix_len: torch.Tensor | None = None,
-                          return_lse: bool = False):
-    """Plain PyTorch version: the whole (S, S) score matrix in float32,
+                          return_lse: bool = False, q_offset: int = 0):
+    """Plain PyTorch version: the whole (Sq, Sk) score matrix in float32,
     masked probabilities set to 0, on whatever device the inputs lie on.
-    With ``return_lse``, ``(out, lse)``: lse (B, Hq, S) float32 in
+    With ``return_lse``, ``(out, lse)``: lse (B, Hq, Sq) float32 in
     natural units."""
     b, s, hq, d = q.shape
     hkv, dv = k.shape[2], v.shape[-1]
     scale = d ** -0.5 if scale is None else scale
     mask = visible(s, causal=causal, window=window, prefix_len=prefix_len,
-                   device=q.device)
+                   device=q.device, sk=k.shape[1], q_offset=q_offset)
     scores, m5 = _grouped_scores(q, k, scale=scale, softcap=softcap,
                                  mask=mask)
     m = scores.amax(dim=-1, keepdim=True)
@@ -114,10 +122,11 @@ def flash_attention_bwd_torch(q, k, v, out, dout, lse, *,
                               scale: float | None = None,
                               window: int | None = None,
                               softcap: float | None = None,
-                              prefix_len: torch.Tensor | None = None):
+                              prefix_len: torch.Tensor | None = None,
+                              q_offset: int = 0):
     """Plain PyTorch version of the backward, the reference's
-    ``_flash_bwd`` on the whole (S, S) matrix: ``delta = rowsum(dout ·
-    out)``, P recomputed from ``lse`` (B, Hq, S), ``ds = P (dP - delta)``
+    ``_flash_bwd`` on the whole (Sq, Sk) matrix: ``delta = rowsum(dout ·
+    out)``, P recomputed from ``lse`` (B, Hq, Sq), ``ds = P (dP - delta)``
     times ``1 - (sc / cap)^2`` under a softcap, masked pairs 0, the G q
     heads of a kv head summed into dk/dv. Float32 throughout; returns
     (dq, dk, dv) in the inputs' types."""
@@ -126,7 +135,7 @@ def flash_attention_bwd_torch(q, k, v, out, dout, lse, *,
     g = hq // hkv
     scale = d ** -0.5 if scale is None else scale
     mask = visible(s, causal=causal, window=window, prefix_len=prefix_len,
-                   device=q.device)
+                   device=q.device, sk=k.shape[1], q_offset=q_offset)
     sc, m5 = _grouped_scores(q, k, scale=scale, softcap=softcap, mask=mask)
     do = dout.float()
     delta = (do * out.float()).sum(-1)                # (B, S, Hq)
@@ -151,7 +160,7 @@ def flash_attention_bwd_torch(q, k, v, out, dout, lse, *,
 def _library():
     lib = build.load("flash_attention")
     lib.flash_attention.argtypes = [ctypes.c_void_p] * 6 \
-        + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+        + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                                 ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     lib.flash_attention.restype = ctypes.c_int
     lib.flash_attention_fits.argtypes = [ctypes.c_int] * 2 \
@@ -194,16 +203,17 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
                          window: int | None = None,
                          softcap: float | None = None,
                          prefix_len: torch.Tensor | None = None,
-                         return_lse: bool = False):
+                         return_lse: bool = False, q_offset: int = 0):
     """Launch the kernel of the inputs' dtype (bfloat16: tensor cores;
     float32: SIMT) on the current stream of their device; with
     ``return_lse``, ``(out, lse)``. Unguarded: the caller has checked
     shapes (head dims at most ``MAX_HEAD_DIM``, ``prefix_len`` int32
-    (B,) on the same device), types, contiguity, :func:`refusal` and that
-    nothing is empty."""
+    (B,) on the same device, ``0 <= q_offset``, ``q_offset + Sq <=
+    Sk``), types, contiguity, :func:`refusal` and that nothing is
+    empty."""
     lib = _library()
     b, s, hq, d = q.shape
-    hkv, dv = k.shape[2], v.shape[-1]
+    sk, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
     scale = d ** -0.5 if scale is None else scale
     out = torch.empty((b, s, hq, dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device) \
@@ -213,7 +223,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(),
             None if prefix_len is None else prefix_len.data_ptr(),
-            b, s, hq, hkv, d, dv, scale, int(causal),
+            b, s, sk, hq, hkv, d, dv, q_offset, scale, int(causal),
             0 if window is None else window,
             0.0 if softcap is None else softcap, DTYPE_CODES[q.dtype],
             torch.cuda.current_stream().cuda_stream)
@@ -261,19 +271,21 @@ def bwd_shared_bytes(d: int, dv: int, kv: bool) -> int:
 
 @functools.lru_cache(maxsize=256)
 def bwd_plan(b: int, s: int, hq: int, hkv: int, d: int,
-             dv: int) -> BwdPlan:
-    """The launch rule of the bfloat16 backward, by shape alone. Unsplit,
-    dK/dV has one block per (key tile, kv head, batch) and dQ one per
-    (query tile, q head, batch), tiles of :func:`bwd_fixed_rows` rows.
-    The target is the blocks the card holds at once, two an SM on the
-    132 SMs. While the dK/dV blocks are fewer, the G q heads of a kv
-    head are split: ``n_g`` is the smallest divisor of G that reaches
-    the target, else G; then, if still short, the query range: ``n_q``
-    = ceil(target / blocks), at most its 32-row tiles. Each split block
-    writes a float32 partial of its tile's dK and dV."""
+             dv: int, sk: int | None = None) -> BwdPlan:
+    """The launch rule of the bfloat16 backward, by shape alone: ``s``
+    query rows against ``sk`` keys (default ``s``). Unsplit, dK/dV has
+    one block per (key tile, kv head, batch) and dQ one per (query tile,
+    q head, batch), tiles of :func:`bwd_fixed_rows` rows. The target is
+    the blocks the card holds at once, two an SM on the 132 SMs. While
+    the dK/dV blocks are fewer, the G q heads of a kv head are split:
+    ``n_g`` is the smallest divisor of G that reaches the target, else
+    G; then, if still short, the query range: ``n_q`` = ceil(target /
+    blocks), at most its 32-row tiles. Each split block writes a float32
+    partial of its tile's dK and dV."""
+    sk = s if sk is None else sk
     g = hq // hkv
-    tiles = -(-s // bwd_fixed_rows(d, dv))
-    base = tiles * hkv * b
+    f = bwd_fixed_rows(d, dv)
+    base = -(-sk // f) * hkv * b
     target = BWD_BLOCKS_PER_SM * SMS
     n_g = next((x for x in range(1, g + 1) if g % x == 0
                 and base * x >= target), g)
@@ -281,15 +293,15 @@ def bwd_plan(b: int, s: int, hq: int, hkv: int, d: int,
     if base * n_g < target:
         n_q = min(-(-target // (base * n_g)), -(-s // BWD_STREAM))
     splits = n_g * n_q
-    partial = 4 * splits * b * s * hkv * (d + dv) if splits > 1 else 0
-    return BwdPlan(n_g, n_q, base * splits, tiles * hq * b, partial)
+    partial = 4 * splits * b * sk * hkv * (d + dv) if splits > 1 else 0
+    return BwdPlan(n_g, n_q, base * splits, -(-s // f) * hq * b, partial)
 
 
 @functools.cache
 def _bwd_library():
     lib = build.load("flash_attention_bwd")
     lib.flash_attention_bwd.argtypes = [ctypes.c_void_p] * 12 \
-        + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+        + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                                 ctypes.c_float] + [ctypes.c_int] * 3 \
         + [ctypes.c_void_p]
     lib.flash_attention_bwd.restype = ctypes.c_int
@@ -304,19 +316,21 @@ def flash_attention_bwd_cuda(q, k, v, out, dout, lse, *, causal: bool = True,
                              scale: float | None = None,
                              window: int | None = None,
                              softcap: float | None = None,
-                             prefix_len: torch.Tensor | None = None):
+                             prefix_len: torch.Tensor | None = None,
+                             q_offset: int = 0):
     """Launch the backward on the current stream of the inputs' device;
     returns (dq, dk, dv) in their type. float32: delta, dK/dV, dQ on
     SIMT. bfloat16: delta, dK/dV split by :func:`bwd_plan` (with a
     float32 workspace for its partials and their sum when it splits),
     dQ, on the tensor cores. Unguarded: the caller has checked shapes
-    (head dims at most ``MAX_HEAD_DIM``), types (``lse`` float32 (B, Hq,
-    S), ``prefix_len`` int32 (B,)), one device, contiguity,
+    (head dims at most ``MAX_HEAD_DIM``, ``0 <= q_offset``, ``q_offset +
+    Sq <= Sk``), types (``lse`` float32 (B, Hq, Sq), ``prefix_len`` int32
+    (B,)), one device, contiguity,
     :func:`refusal` of q, k, v and dout's alignment for bfloat16, and that
     nothing is empty."""
     lib = _bwd_library()
     b, s, hq, d = q.shape
-    hkv, dv = k.shape[2], v.shape[-1]
+    sk, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
     scale = d ** -0.5 if scale is None else scale
     dq, dk, dvv = torch.empty_like(q), torch.empty_like(k), \
         torch.empty_like(v)
@@ -324,7 +338,7 @@ def flash_attention_bwd_cuda(q, k, v, out, dout, lse, *, causal: bool = True,
     n_g = n_q = 1
     ws = None
     if q.dtype == torch.bfloat16:
-        plan = bwd_plan(b, s, hq, hkv, d, dv)
+        plan = bwd_plan(b, s, hq, hkv, d, dv, sk)
         n_g, n_q = plan.n_g, plan.n_q
         if plan.partial_bytes:
             ws = torch.empty(plan.partial_bytes // 4, dtype=torch.float32,
@@ -336,7 +350,7 @@ def flash_attention_bwd_cuda(q, k, v, out, dout, lse, *, causal: bool = True,
             None if prefix_len is None else prefix_len.data_ptr(),
             delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dvv.data_ptr(),
             None if ws is None else ws.data_ptr(),
-            b, s, hq, hkv, d, dv, scale, int(causal),
+            b, s, sk, hq, hkv, d, dv, q_offset, scale, int(causal),
             0 if window is None else window,
             0.0 if softcap is None else softcap, n_g, n_q,
             DTYPE_CODES[q.dtype], torch.cuda.current_stream().cuda_stream)

@@ -323,35 +323,51 @@ def _check_qkv(name: str, q, k, v) -> torch.device:
     _check_one_type(name, q=q, k=k, v=v)
     for arg, x in (("q", q), ("k", k), ("v", v)):
         _check_rank(f"{name}.{arg}", x, 4, "(B, S, H, D)")
-    b, s, hq, d = q.shape
-    hkv, dv = k.shape[2], v.shape[-1]
-    check_shape(f"{name}.k", k, (b, s, hkv, d))
-    check_shape(f"{name}.v", v, (b, s, hkv, dv))
+    b, _, _, d = q.shape
+    sk, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
+    check_shape(f"{name}.k", k, (b, sk, hkv, d))
+    check_shape(f"{name}.v", v, (b, sk, hkv, dv))
     return device
+
+
+def _check_offset(name: str, q_offset, sq: int, sk: int) -> None:
+    """``q_offset``: a host int with ``0 <= q_offset`` and ``q_offset +
+    Sq <= Sk`` (every query row's position has its key)."""
+    if isinstance(q_offset, bool) or not isinstance(q_offset, int):
+        raise TypeError(f"{name}: q_offset must be a host int, not "
+                        f"{type(q_offset).__name__}")
+    if q_offset < 0 or q_offset + sq > sk:
+        raise ValueError(f"{name}: q_offset {q_offset} with {sq} query rows "
+                         f"does not fit {sk} keys (0 <= q_offset, q_offset "
+                         f"+ Sq <= Sk)")
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
                     scale: float | None = None, window: int | None = None,
                     softcap: float | None = None,
                     prefix_len: torch.Tensor | None = None,
-                    return_lse: bool = False):
-    """Prefill attention (see :mod:`.flash_attention`): ``q`` (B, S, Hq,
-    D), ``k`` (B, S, Hkv, D), ``v`` (B, S, Hkv, Dv), one type (float32
-    or bfloat16), contiguous on one device; Hq a multiple of Hkv,
-    ``window`` None or >= 1, ``softcap`` None or > 0, ``prefix_len``
-    None or int32 (B,) on the same device (the prefix-LM mask, read when
-    ``causal``); on the card, head dims at most 256, and for bfloat16
-    multiples of 8 with 16-byte aligned tensors
-    (:func:`.flash_attention.refusal`). Returns (B, S, Hq, Dv) in q's
-    type; with ``return_lse``, ``(out, lse)``, lse (B, Hq, S) float32."""
+                    return_lse: bool = False, q_offset: int = 0):
+    """Prefill attention (see :mod:`.flash_attention`): ``q`` (B, Sq,
+    Hq, D), ``k`` (B, Sk, Hkv, D), ``v`` (B, Sk, Hkv, Dv), one type
+    (float32 or bfloat16), contiguous on one device; Hq a multiple of
+    Hkv, ``window`` None or >= 1, ``softcap`` None or > 0,
+    ``prefix_len`` None or int32 (B,) on the same device (the prefix-LM
+    mask, read when ``causal``), ``q_offset`` a host int, the global
+    position of query row 0, with ``q_offset + Sq <= Sk``; on the card,
+    head dims at most 256, and for bfloat16 multiples of 8 with 16-byte
+    aligned tensors (:func:`.flash_attention.refusal`). Returns (B, Sq,
+    Hq, Dv) in q's type; with ``return_lse``, ``(out, lse)``, lse (B, Hq,
+    Sq) float32."""
     device = _check_qkv("flash_attention", q, k, v)
     b, s, hq, d = q.shape
     hkv, dv = k.shape[2], v.shape[-1]
+    _check_offset("flash_attention", q_offset, s, k.shape[1])
     _check_attention_options("flash_attention", hq, hkv, d, dv, softcap,
                              device, window, tensors=(q, k, v))
     _check_prefix("flash_attention", prefix_len, b, device)
     kw = dict(causal=causal, scale=scale, window=window, softcap=softcap,
-              prefix_len=prefix_len, return_lse=return_lse)
+              prefix_len=prefix_len, return_lse=return_lse,
+              q_offset=q_offset)
     if device.type == "cpu":
         return _fa.flash_attention_torch(q, k, v, **kw)
     if q.numel() == 0 or v.numel() == 0:
@@ -370,11 +386,13 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
                         scale: float | None = None,
                         window: int | None = None,
                         softcap: float | None = None,
-                        prefix_len: torch.Tensor | None = None):
+                        prefix_len: torch.Tensor | None = None,
+                        q_offset: int = 0):
     """The gradients of :func:`flash_attention` (see
     :mod:`.flash_attention`): ``q``, ``k``, ``v`` as there, ``out`` and
-    ``dout`` (B, S, Hq, Dv) of their type, ``lse`` (B, Hq, S) float32
-    from the forward with ``return_lse``, the forward's options; all
+    ``dout`` (B, Sq, Hq, Dv) of their type, ``lse`` (B, Hq, Sq) float32
+    from the forward with ``return_lse``, the forward's options (and
+    ``q_offset``); dq has q's shape, dk and dv k's and v's; all
     contiguous on one device; on the card head dims at most 256, and for
     bfloat16 what :func:`.flash_attention.refusal` takes (head dims
     multiples of 8, q, k, v 16-byte aligned) with dout 16-byte aligned.
@@ -392,6 +410,7 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
     check_shape("flash_attention_bwd.lse", lse, (b, hq, s))
     if len({x.device for x in (q, out, dout, lse)}) != 1:
         raise ValueError("flash_attention_bwd: inputs on several devices")
+    _check_offset("flash_attention_bwd", q_offset, s, k.shape[1])
     _check_attention_options("flash_attention_bwd", hq, hkv, d, dv, softcap,
                              device, window, tensors=(q, k, v))
     if device.type == "cuda" and q.dtype == torch.bfloat16 \
@@ -400,7 +419,7 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
                          "which the bfloat16 kernel's loads need")
     _check_prefix("flash_attention_bwd", prefix_len, b, device)
     kw = dict(causal=causal, scale=scale, window=window, softcap=softcap,
-              prefix_len=prefix_len)
+              prefix_len=prefix_len, q_offset=q_offset)
     if device.type == "cpu":
         return _fa.flash_attention_bwd_torch(q, k, v, out, dout, lse, **kw)
     if q.numel() == 0 or v.numel() == 0:

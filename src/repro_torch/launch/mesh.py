@@ -118,9 +118,11 @@ def check_tensors(mesh: DeviceMesh, *tensors: torch.Tensor) -> None:
 # N CPU ranks on gloo (the counterpart of forced host devices)
 # ---------------------------------------------------------------------------
 
-def _rank_main(rank, n, store_path, results, fn, args, timeout_s):
+def _rank_main(rank, n, store_path, results, payload, timeout_s):
     torch.set_num_threads(1)
     try:
+        with open(payload, "rb") as f:
+            fn, args = pickle.load(f)
         store = dist.FileStore(store_path, n)
         dist.init_process_group("gloo", store=store, rank=rank,
                                 world_size=n,
@@ -138,17 +140,23 @@ def spawn_cpu_ranks(n: int, fn, *args, timeout: float = 120.0) -> list:
     """Run ``fn(rank, *args)`` in ``n`` new CPU processes joined in one
     gloo process group (a ``FileStore`` in a fresh temporary directory,
     world size ``n``), one thread each, and return their results in rank
-    order. ``fn`` and ``args`` are pickled (``fn`` by its import path);
-    so is each result, by value. Raises with the rank's traceback when a
+    order. ``fn`` and ``args`` are pickled once (``fn`` by its import
+    path) into a file each rank reads, so the ranks start together
+    whatever the arguments' size (through the process arguments each
+    start would wait for the last rank to take them); each result is
+    pickled by value. Raises with the rank's traceback when a
     rank fails, and ``TimeoutError`` when the ranks have not all
     returned ``timeout`` seconds after the start; either way every rank
     still running is killed."""
     ctx = mp.get_context("spawn")
     with tempfile.TemporaryDirectory(prefix="repro_torch_gloo_") as tmp:
+        payload = os.path.join(tmp, "payload.pkl")
+        with open(payload, "wb") as f:
+            pickle.dump((fn, args), f)
         results = ctx.Queue()
         procs = [ctx.Process(target=_rank_main,
                              args=(r, n, os.path.join(tmp, "store"),
-                                   results, fn, args, timeout),
+                                   results, payload, timeout),
                              daemon=True) for r in range(n)]
         deadline = time.monotonic() + timeout
         done = {}

@@ -15,6 +15,29 @@ False), the VLM's takes the prefix-LM mask over its image patches
 (``prefix_len``); their frontends live in
 :mod:`repro_torch.models.model`.
 
+Tensor parallelism (a mesh's ``model`` axis of M ranks, weights kept by
+:func:`repro_torch.sharding.shard_params`): each block reads its layout
+from the weights it holds, against the config's counts, so one model
+runs whole, experts-only (MoE) or tensor-parallel alike. The residual
+stream is held whole by every rank of the axis, and its gradient, after
+the backward, is the whole gradient on every rank (the convention of
+:mod:`repro_torch.sharding.collectives`). Attention whose heads divide M
+holds ``H / M`` q heads (and ``Hkv / M`` kv heads, or all of them when
+those do not divide: each rank then takes the kv heads of its own q
+heads); its input enters by ``replicated_in`` (the ranks' partial input
+gradients summed), ``wo`` is row-parallel and the output a ``psum``.
+Attention whose heads do not divide M keeps its weights whole and claims
+the axis by the context's ``attn_mode``: ``"seq"``/``"shard_map_seq"``
+(each rank a contiguous slice of the queries against every key, at
+``q_offset`` = rank x S / M, the output assembled over the sequence) or
+``"batch"`` (a slice of the batch); None computes it whole on every
+rank. The MLP holds F / M columns of ``wi`` and rows of ``wo``, then a
+``psum``. A replicated weight whose use is split over the ranks (the
+selected ``wk``/``wv``, ``qnorm``/``knorm`` over split heads, every
+attention weight under ``"seq"``/``"batch"``) enters by
+``replicated_in``, so its gradient is summed over the axis; a norm scale
+on the replicated residual is not.
+
 Init functions return dicts of tensors in the reference's layouts
 (``wq`` (d, H, Dh), ``wo`` (H, Dh, d), ``wi`` (d, 2, F), ``wx`` (d,
 d_inner), ``conv_x`` (K, d_inner), an expert ``wi`` (E, d, 2, F)); the
@@ -35,10 +58,14 @@ in place and returns the same dict.
 from __future__ import annotations
 
 import math
+from types import SimpleNamespace
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.device_mesh import DeviceMesh
 
+from ..launch.mesh import axis_sizes, mesh_coords
+from ..sharding.collectives import assemble, psum, replicated_in, slice_in
 from .layers import (NEG_INF, apply_rope, attention, attention_decode,
                      glu_mlp, rms_norm, ssd_scan)
 from .moe import moe_ffn
@@ -114,24 +141,50 @@ def _qkv(p, x, lora=None):
     return q, k, v
 
 
-def attn_forward(p, x, *, cfg, kind, mode, positions, cache=None,
-                 prefix_len=None):
-    """Returns (attn_out (B,S,d), new_cache). ``prefix_len`` (B,): the
-    prefix-LM boundary of the prefill (a VLM's image patches)."""
-    if cfg.kv_lora_rank:
-        return _mla_forward(p, x, cfg=cfg, mode=mode, positions=positions,
-                            cache=cache)
+def model_axis(ctx, what: str):
+    """(group, index, size) of the context's model axis, for a block
+    whose weights are this rank's slice; raises without a mesh to run
+    on."""
+    if ctx is None or not isinstance(ctx.mesh, DeviceMesh):
+        raise ValueError(f"{what}: the weights are this rank's slice; run "
+                         f"under a ShardCtx of the DeviceMesh they were "
+                         f"sharded over")
+    axis = ctx.model_axis
+    return (ctx.mesh.get_group(axis), mesh_coords(ctx.mesh)[axis],
+            axis_sizes(ctx.mesh)[axis])
+
+
+def _kv_heads(h0: int, hl: int, g: int) -> list[int]:
+    """The kv heads q heads ``h0 .. h0 + hl - 1`` attend (head h the kv
+    head h // g): each once where every one serves as many of them, in
+    order, else one per q head."""
+    idx = [h // g for h in range(h0, h0 + hl)]
+    uniq = sorted(set(idx))
+    per = hl // len(uniq)
+    return uniq if idx == [u for u in uniq for _ in range(per)] else idx
+
+
+def _attn_body(w, xq, xkv, *, cfg, kind, mode, positions, q_pos=None,
+               q_offset=0, cache=None, prefix_len=None, kv_group=None):
+    """The attention math on prepared inputs, the one body of every
+    layout: q from ``xq``, k/v from ``xkv``, with ``w``'s ``wq``/``wk``/
+    ``wv``/``wo`` (and ``qnorm``/``knorm`` under qk-norm). ``q_pos``
+    (default ``positions``) are the queries' RoPE positions and
+    ``q_offset`` the first one's place among the keys; under
+    ``kv_group`` the roped k/v enter by ``replicated_in`` (every rank's
+    queries see every key, so their gradients are summed). Returns
+    (out (B, Sq, d) before any collective, new_cache)."""
     local = kind.endswith("local")
     theta = cfg.rope_theta_local if local else cfg.rope_theta
     window = cfg.window if local else None
-
-    q, k, v = _qkv(p, x)
+    scale = cfg.attn_scale or (w.wq.shape[-1] ** -0.5)
+    q = torch.einsum("bsd,dhk->bshk", xq, w.wq)
+    k = torch.einsum("bsd,dhk->bshk", xkv, w.wk)
+    v = torch.einsum("bsd,dhk->bshk", xkv, w.wv)
     if cfg.qk_norm:
-        q = rms_norm(q, p.qnorm)
-        k = rms_norm(k, p.knorm)
-    q = apply_rope(q, positions, theta)
+        q, k = rms_norm(q, w.qnorm), rms_norm(k, w.knorm)
+    q = apply_rope(q, positions if q_pos is None else q_pos, theta)
     k = apply_rope(k, positions, theta)
-    scale = cfg.attn_scale or (q.shape[-1] ** -0.5)
 
     if mode == "decode":
         # the slots < pos + 1 are valid, capped at T for a local ring:
@@ -142,13 +195,102 @@ def attn_forward(p, x, *, cfg, kind, mode, positions, cache=None,
                                ring=window is not None)
         new_cache = cache
     else:
+        if kv_group is not None:
+            k, v = replicated_in(k, kv_group), replicated_in(v, kv_group)
         out = attention(q, k, v, causal=cfg.causal, window=window,
                         scale=scale, attn_softcap=cfg.attn_softcap,
-                        prefix_len=prefix_len)
+                        prefix_len=prefix_len, q_offset=q_offset)
         new_cache = _prefill_cache(k, v, window) if mode == "prefill" \
             else None
-    out = torch.einsum("bshk,hkd->bsd", out, p.wo)
-    return out, new_cache
+    return torch.einsum("bshk,hkd->bsd", out, w.wo), new_cache
+
+
+def _attn_tp(p, x, *, cfg, ctx, **kw):
+    """Attention of this rank's q heads (``p.wq`` holds H / M of them):
+    q/k/v column-parallel, ``wo`` row-parallel, a psum."""
+    group, r, _ = model_axis(ctx, "attention heads")
+    hl = p.wq.shape[1]
+    wk, wv = p.wk, p.wv
+    if wk.shape[1] == cfg.n_kv_heads:       # kv heads whole: pick ours
+        sel = _kv_heads(r * hl, hl, cfg.n_heads // cfg.n_kv_heads)
+        wk = replicated_in(wk, group)[:, sel]
+        wv = replicated_in(wv, group)[:, sel]
+    w = SimpleNamespace(wq=p.wq, wk=wk, wv=wv, wo=p.wo)
+    if cfg.qk_norm:
+        w.qnorm = replicated_in(p.qnorm, group)
+        w.knorm = replicated_in(p.knorm, group)
+    x = replicated_in(x, group)
+    out, new_cache = _attn_body(w, x, x, cfg=cfg, **kw)
+    return psum(out, ctx.mesh, (ctx.model_axis,)), new_cache
+
+
+def _attn_claimed(p, x, *, cfg, ctx, positions, prefix_len, **kw):
+    """Small-head attention (weights whole) over the model axis by
+    ``ctx.attn_mode``: ``"batch"`` gives each rank B / M rows of the
+    batch; ``"seq"``/``"shard_map_seq"`` gives it S / M contiguous query
+    rows at ``q_offset`` = rank x S / M against every key, the reference's
+    ``_shard_map_seq_attention``. The output is assembled, whole on
+    every rank of the axis (the reference hands the residual back in its
+    dp-only layout)."""
+    group, r, m = model_axis(ctx, f"attn_mode {ctx.attn_mode!r}")
+    by_batch = ctx.attn_mode == "batch"
+    dim = 0 if by_batch else 1
+    if x.shape[dim] % m:
+        raise ValueError(f"attn_mode {ctx.attn_mode!r}: dim {dim} of "
+                         f"{tuple(x.shape)} does not split over {m} ranks")
+    w = SimpleNamespace(wq=replicated_in(p.wq, group),
+                        wo=replicated_in(p.wo, group), wk=p.wk, wv=p.wv)
+    if cfg.qk_norm:
+        w.qnorm, w.knorm = replicated_in(p.qnorm, group), p.knorm
+    x_loc = slice_in(x, dim, group)
+    if by_batch:
+        w.wk, w.wv = replicated_in(p.wk, group), replicated_in(p.wv, group)
+        if cfg.qk_norm:
+            w.knorm = replicated_in(p.knorm, group)
+        if prefix_len is not None:
+            n = prefix_len.shape[0] // m
+            prefix_len = prefix_len[r * n:(r + 1) * n]
+        out, new_cache = _attn_body(w, x_loc, x_loc, cfg=cfg,
+                                    positions=positions,
+                                    prefix_len=prefix_len, **kw)
+        if new_cache is not None:
+            new_cache = {n: assemble(t, 0, group)
+                         for n, t in new_cache.items()}
+    else:
+        n = x.shape[1] // m
+        out, new_cache = _attn_body(
+            w, x_loc, x, cfg=cfg, positions=positions,
+            q_pos=positions[r * n:(r + 1) * n], q_offset=r * n,
+            prefix_len=prefix_len, kv_group=group, **kw)
+    return assemble(out, dim, group), new_cache
+
+
+def attn_forward(p, x, *, cfg, kind, mode, positions, cache=None,
+                 prefix_len=None, ctx=None):
+    """Returns (attn_out (B,S,d), new_cache). ``prefix_len`` (B,): the
+    prefix-LM boundary of the prefill (a VLM's image patches). Under a
+    mesh (``ctx``), the tensor-parallel heads where ``p.wq`` holds fewer
+    than the config's, else the context's ``attn_mode`` outside decode
+    (see the module's notes); decode under tensor parallelism is ROADMAP
+    A13b4. Every layout runs :func:`_attn_body`."""
+    if cfg.kv_lora_rank:
+        return _mla_forward(p, x, cfg=cfg, mode=mode, positions=positions,
+                            cache=cache)
+    kw = dict(cfg=cfg, kind=kind, mode=mode, positions=positions,
+              prefix_len=prefix_len)
+    split = p.wq.shape[1] != cfg.n_heads
+    claim = ctx.attn_mode if ctx is not None and ctx.mesh is not None \
+        and mode != "decode" else None
+    if not (split or claim):
+        return _attn_body(p, x, x, cache=cache, **kw)
+    if mode == "decode":
+        raise NotImplementedError("decode under tensor parallelism "
+                                  "(cache_spec) is ROADMAP A13b4")
+    if split and claim:
+        raise ValueError(f"attn_mode {claim!r} is for heads that do not "
+                         f"divide the model axis; these are split "
+                         f"({p.wq.shape[1]} of {cfg.n_heads} here)")
+    return (_attn_tp if split else _attn_claimed)(p, x, ctx=ctx, **kw)
 
 
 def _cache_insert(cache, k, v, positions, window):
@@ -305,15 +447,17 @@ def layer_forward(kind, p, x, *, cfg, mode, positions, cache=None,
     (x, aux, new_cache): ``aux`` is the router's load-balancing loss of
     a MoE layer, 0.0 for the others. ``prefix_len`` as
     :func:`attn_forward`'s; ``ctx`` (a
-    :class:`~repro_torch.models.model.ShardCtx`) picks a MoE layer's
-    dispatch (:func:`repro_torch.models.moe.moe_ffn`)."""
+    :class:`~repro_torch.models.model.ShardCtx`) carries the mesh of the
+    tensor-parallel attention and MLP and picks a MoE layer's dispatch
+    (:func:`repro_torch.models.moe.moe_ffn`)."""
     if kind == "ssm":
         y, new_cache = mamba_forward(p, x, cfg=cfg, mode=mode, cache=cache)
         return x + y, 0.0, new_cache
     h = rms_norm(x, p.ln1)
     attn_out, new_cache = attn_forward(p.attn, h, cfg=cfg, kind=kind,
                                        mode=mode, positions=positions,
-                                       cache=cache, prefix_len=prefix_len)
+                                       cache=cache, prefix_len=prefix_len,
+                                       ctx=ctx)
     if cfg.post_block_norms:
         attn_out = rms_norm(attn_out, p.post_ln1)
     x = x + attn_out
@@ -324,6 +468,11 @@ def layer_forward(kind, p, x, *, cfg, mode, positions, cache=None,
         if cfg.n_shared_experts:
             ff = ff + glu_mlp(h, p.shared_mlp.wi, p.shared_mlp.wo,
                               cfg.activation)
+    elif p.mlp.wi.shape[-1] != cfg.d_ff:   # this rank's F columns
+        group, _, _ = model_axis(ctx, "MLP")
+        ff = psum(glu_mlp(replicated_in(h, group), p.mlp.wi, p.mlp.wo,
+                          cfg.activation), ctx.mesh, (ctx.model_axis,))
+        aux = 0.0
     else:
         ff = glu_mlp(h, p.mlp.wi, p.mlp.wo, cfg.activation)
         aux = 0.0                          # dense layers add no aux loss

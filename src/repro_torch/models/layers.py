@@ -113,13 +113,15 @@ def glu_mlp(x: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
     return torch.einsum("...f,fd->...d", h, wo)
 
 
+def embed_scale(x: torch.Tensor, d: int) -> torch.Tensor:
+    """x · sqrt(d) in x's type: the gemma family's embedding scale."""
+    return x * torch.tensor(math.sqrt(d), dtype=x.dtype, device=x.device)
+
+
 def embed_tokens(tokens: torch.Tensor, table: torch.Tensor,
                  scale_by_dim: bool = False) -> torch.Tensor:
     out = table[tokens]
-    if scale_by_dim:     # gemma family scales embeddings by sqrt(d)
-        out = out * torch.tensor(math.sqrt(table.shape[1]), dtype=out.dtype,
-                                 device=out.device)
-    return out
+    return embed_scale(out, table.shape[1]) if scale_by_dim else out
 
 
 # ---------------------------------------------------------------------------
@@ -156,9 +158,10 @@ class FlashAttentionFn(torch.autograd.Function):
     custom VJP ``_flash_fwd``/``_flash_bwd``."""
 
     @staticmethod
-    def forward(ctx, q, k, v, prefix_len, causal, scale, window, softcap):
+    def forward(ctx, q, k, v, prefix_len, causal, scale, window, softcap,
+                q_offset):
         kw = dict(causal=causal, scale=scale, window=window, softcap=softcap,
-                  prefix_len=prefix_len)
+                  prefix_len=prefix_len, q_offset=q_offset)
         out, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
         ctx.save_for_backward(q, k, v, out, lse, prefix_len)
         ctx.kw = kw
@@ -170,19 +173,21 @@ class FlashAttentionFn(torch.autograd.Function):
         kw = dict(ctx.kw, prefix_len=prefix_len)
         dq, dk, dv = ops.flash_attention_bwd(q, k, v, out, dout.contiguous(),
                                              lse, **kw)
-        return dq, dk, dv, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def attention(q, k, v, *, causal=True, window=None, scale=None,
-              attn_softcap=None, prefix_len=None):
-    """Prefill attention, q (B, S, Hq, D) against k/v (B, S, Hkv, D[v]),
-    through the ``flash_attention`` kernel (and, when a gradient is
+              attn_softcap=None, prefix_len=None, q_offset: int = 0):
+    """Prefill attention, q (B, Sq, Hq, D) against k/v (B, Sk, Hkv,
+    D[v]), through the ``flash_attention`` kernel (and, when a gradient is
     wanted, its backward kernel). ``window`` selects the local
     (sliding-window) mask; ``prefix_len`` (B,) the prefix-LM mask of a
     VLM, under which keys before the prefix length are visible from
     every query (the reference's ``attention_streamed`` prefix branch).
-    The reference's sequence-parallel options belong to meshes this port
-    does not run yet."""
+    ``q_offset`` (a host int) is the global position of q's first row
+    when q is one rank's chunk of the sequence and k/v cover all of it
+    (sequence-parallel attention, the reference's ``q_offset``); the
+    kernels take it, so no path falls back to the plain version."""
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if prefix_len is not None:
         prefix_len = prefix_len.to(device=q.device,
@@ -190,10 +195,10 @@ def attention(q, k, v, *, causal=True, window=None, scale=None,
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FlashAttentionFn.apply(q, k, v, prefix_len, causal, scale,
-                                      window, attn_softcap)
+                                      window, attn_softcap, q_offset)
     return ops.flash_attention(q, k, v, causal=causal, scale=scale,
                                window=window, softcap=attn_softcap,
-                               prefix_len=prefix_len)
+                               prefix_len=prefix_len, q_offset=q_offset)
 
 
 def attention_decode(q, k_cache, v_cache, *, pos, scale=None,

@@ -43,6 +43,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+from collections.abc import Mapping
 from dataclasses import dataclass
 
 import torch
@@ -50,32 +51,48 @@ from torch import nn
 from torch.distributed.device_mesh import DeviceMesh
 
 from ..configs.base import ModelConfig
+from ..sharding.collectives import assemble, psum, replicated_in
 from .blocks import (_init, check_supported, init_layer, init_shared_block,
-                     init_shared_lora, layer_forward, shared_block_forward)
-from .layers import embed_tokens, rms_norm, softcap
+                     init_shared_lora, layer_forward, model_axis,
+                     shared_block_forward)
+from .layers import embed_scale, embed_tokens, rms_norm, softcap
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 TOP_LEVEL = ("embed", "frontend", "patch_proj", "final_norm", "head")
+
+
+ATTN_MODES = (None, "batch", "seq", "shard_map_seq")
 
 
 @dataclass(frozen=True)
 class ShardCtx:
     """Execution context threaded through the model: the mesh (None on
     one device), which axes shard the batch, the model / expert-parallel
-    axis name, and the mode, as the reference's.
+    axis name, the mode, and ``attn_mode``, as the reference's.
 
     Under a mesh each rank runs the model on its data-parallel shard of
-    the batch, whole over ``model_axis``. Every weight but the experts
-    is whole on each rank; a MoE layer's experts are sharded over
-    ``model_axis`` (:func:`repro_torch.sharding.shard_experts`) and its
-    tokens reach them by the ``a2a`` dispatch, or in decode the ``local``
-    one (:func:`repro_torch.models.moe.moe_ffn`). A parameter's gradient
-    on a rank is its data-parallel shard's; summing it over ``dp_axes``
-    is the trainer's. The reference's ``attn_mode`` (how small-head
-    attention claims the model axis) comes with tensor-parallel
-    execution (ROADMAP A13b2), and ``vma_axes`` is JAX-only (the varying
-    axes of a manual ``shard_map``): either set raises
-    ``NotImplementedError``."""
+    the batch, whole over ``model_axis``: the residual stream is held
+    alike by every rank of the axis. Each block reads its layout from
+    the weights it holds (:func:`repro_torch.sharding.shard_params`
+    keeps each rank's slice by :meth:`~repro_torch.sharding.Partitioner.
+    param_spec`): attention heads, the MLP's F and the vocabulary split
+    over ``model_axis`` run tensor-parallel
+    (:mod:`repro_torch.models.blocks`), a MoE layer's experts split over
+    it take the ``a2a`` dispatch, or in decode the ``local`` one
+    (:func:`repro_torch.models.moe.moe_ffn`), and whole weights run as
+    on one device. ``attn_mode`` says how small-head attention (heads
+    that do not divide the axis, weights whole) claims the model axis:
+    None (each rank computes it whole), ``"batch"`` (each rank takes a
+    slice of the batch), ``"seq"`` or ``"shard_map_seq"`` (each rank
+    takes a contiguous slice of the queries against every key, at its
+    ``q_offset``); :func:`repro_torch.launch.specs.make_ctx` picks it.
+    A parameter's gradient on a rank is its data-parallel shard's;
+    averaging it over ``dp_axes`` is the train step's
+    (:func:`repro_torch.runtime.train_loop.make_train_step`). ``mesh``
+    may also be a mapping from axis name to size: such a context names
+    a layout (the reference's ``AbstractMesh``) and executes nothing.
+    ``vma_axes`` is JAX-only (the varying axes of a manual
+    ``shard_map``): setting it raises ``NotImplementedError``."""
     mesh: object = None
     dp_axes: tuple[str, ...] = ()
     model_axis: str | None = None
@@ -84,17 +101,24 @@ class ShardCtx:
     vma_axes: tuple[str, ...] = ()
 
     def __post_init__(self):
-        if self.attn_mode is not None or self.vma_axes:
+        if self.vma_axes:
             raise NotImplementedError(
-                f"attn_mode={self.attn_mode!r}, vma_axes={self.vma_axes!r}:"
-                f" tensor-parallel attention comes with ROADMAP A13b2")
+                f"vma_axes={self.vma_axes!r}: the varying axes of a JAX "
+                f"shard_map have no counterpart in the port")
+        if self.attn_mode not in ATTN_MODES:
+            raise ValueError(f"attn_mode {self.attn_mode!r} is not one of "
+                             f"{ATTN_MODES}")
         if self.mesh is None:
             return
-        if not isinstance(self.mesh, DeviceMesh):
+        if isinstance(self.mesh, Mapping):
+            names = tuple(self.mesh)
+        elif isinstance(self.mesh, DeviceMesh):
+            names = self.mesh.mesh_dim_names
+        else:
             raise TypeError(f"mesh: a DeviceMesh "
-                            f"(repro_torch.launch.mesh.make_mesh), not "
+                            f"(repro_torch.launch.mesh.make_mesh) or a "
+                            f"mapping of axis sizes, not "
                             f"{type(self.mesh).__name__}")
-        names = self.mesh.mesh_dim_names
         missing = [a for a in (self.model_axis, *self.dp_axes)
                    if a not in names]
         if missing:
@@ -297,26 +321,60 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 # forward
 # ---------------------------------------------------------------------------
 
-def _head(params: Model, x, cfg):
+def _head(params: Model, x, cfg, ctx=None):
+    """Logits (B, S, V). A head (or tied embedding) holding V / M of the
+    vocabulary gives this rank's columns, assembled over the model axis:
+    the loss is then the reference's ``cross_entropy`` on every rank
+    (gathering the logits keeps that code and its softcap whole; a
+    vocabulary-parallel log-sum-exp would save the (B, S, V) gather)."""
     x = rms_norm(x, params.final_norm)
-    if cfg.tie_embeddings:
-        return torch.einsum("bsd,vd->bsv", x, params.embed)
-    return torch.einsum("bsd,dv->bsv", x, params.head)
+    w = params.embed if cfg.tie_embeddings else params.head
+    eq = "bsd,vd->bsv" if cfg.tie_embeddings else "bsd,dv->bsv"
+    if w.shape[0 if cfg.tie_embeddings else 1] == cfg.vocab:
+        return torch.einsum(eq, x, w)
+    group, _, _ = model_axis(ctx, "head")
+    return assemble(torch.einsum(eq, replicated_in(x, group), w), 2, group)
 
 
-def _embed(params: Model, batch: dict, cfg: ModelConfig):
+def _column_parallel(x, w, d_out, ctx, what):
+    """x · w, where ``w`` may hold this rank's columns of a (d, d_out)
+    projection: then assembled over the model axis."""
+    y = torch.einsum("bsd,de->bse", x, w)
+    if w.shape[1] == d_out:
+        return y
+    return assemble(y, 2, model_axis(ctx, what)[0])
+
+
+def _lookup(tokens, table, cfg, ctx):
+    """The embedding rows of ``tokens``; a table holding V / M rows of
+    the vocabulary (rank r rows r V / M ..) looks up the tokens it holds,
+    zeros for the others, and a psum over the model axis joins them."""
+    if table.shape[0] == cfg.vocab:
+        return embed_tokens(tokens, table, cfg.embed_scale_by_dim)
+    _, r, _ = model_axis(ctx, "embedding")
+    vl = table.shape[0]
+    local = tokens - r * vl
+    mine = (local >= 0) & (local < vl)
+    rows = table[local.clamp(0, vl - 1)]
+    zero = torch.zeros((), dtype=rows.dtype, device=rows.device)
+    x = psum(torch.where(mine[..., None], rows, zero), ctx.mesh,
+             (ctx.model_axis,))
+    return embed_scale(x, table.shape[1]) if cfg.embed_scale_by_dim else x
+
+
+def _embed(params: Model, batch: dict, cfg: ModelConfig, ctx=None):
     """(x (B, S, d), positions (S,), prefix_len (B,) int32 or None), as
     the reference's ``_embed``."""
     dt = DTYPES[cfg.dtype]
     if cfg.frontend == "frame_stub":
-        x = torch.einsum("bsd,de->bse", batch["frames"].to(dt),
-                         params.frontend)
+        x = _column_parallel(batch["frames"].to(dt), params.frontend,
+                             cfg.d_model, ctx, "frontend")
         return x, torch.arange(x.shape[1], device=x.device), None
-    x = embed_tokens(batch["tokens"], params.embed, cfg.embed_scale_by_dim)
+    x = _lookup(batch["tokens"], params.embed, cfg, ctx)
     prefix_len = None
     if cfg.frontend == "patch_stub" and "patches" in batch:
-        px = torch.einsum("bpd,de->bpe", batch["patches"].to(dt),
-                          params.patch_proj)
+        px = _column_parallel(batch["patches"].to(dt), params.patch_proj,
+                              cfg.d_model, ctx, "patch_proj")
         x = torch.cat([px, x], dim=1)
         prefix_len = torch.full((x.shape[0],), cfg.n_patches,
                                 dtype=torch.int32, device=x.device)
@@ -366,7 +424,7 @@ def forward(params: Model, batch: dict, cfg: ModelConfig, ctx: ShardCtx):
     mode = ctx.mode
     decode = mode == "decode"
     caches = batch["cache"] if decode else None
-    x, positions, prefix_len = _embed(params, batch, cfg)
+    x, positions, prefix_len = _embed(params, batch, cfg, ctx)
     if decode:
         positions = int(batch["pos"])
     emb0 = x if cfg.shared_attn_every else None
@@ -390,11 +448,11 @@ def forward(params: Model, batch: dict, cfg: ModelConfig, ctx: ShardCtx):
     aux = torch.as_tensor(aux, dtype=torch.float32, device=x.device)
 
     if mode == "train":
-        return _head(params, x, cfg), aux
+        return _head(params, x, cfg, ctx), aux
     if mode == "prefill":
-        logits = _head(params, x[:, -1:], cfg)[:, 0]
+        logits = _head(params, x[:, -1:], cfg, ctx)[:, 0]
         return softcap(logits, cfg.logit_softcap), aux, new_cache
-    logits = _head(params, x, cfg)[:, 0]
+    logits = _head(params, x, cfg, ctx)[:, 0]
     return softcap(logits, cfg.logit_softcap), aux, new_cache
 
 

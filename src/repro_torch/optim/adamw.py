@@ -15,6 +15,13 @@ and the error-feedback residual, so a step holds one set of moments and
 not two (at gemma2-2b's 2.6 B parameters a second set is 21 GB). The
 step counter and every scalar stay on the parameters' device: a step
 reads nothing back to the host.
+
+Under a mesh the parameters, gradients and moments are this rank's
+slices (:func:`repro_torch.sharding.shard_params`; the moments keep the
+parameters' layout, ZeRO-1 is ROADMAP A13b3) and the clip reads the
+norm of the whole gradient: :func:`global_norm` with the parameters'
+specs adds each sharded gradient's slices over the axes that split it,
+and counts a replicated one once.
 """
 
 from __future__ import annotations
@@ -23,6 +30,9 @@ import math
 from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
+
+from ..sharding.partition import spec_axes
 
 
 @dataclass(frozen=True)
@@ -72,11 +82,28 @@ def init_opt_state(params, cfg: OptConfig) -> dict:
     return state
 
 
-def global_norm(tree: dict) -> torch.Tensor:
-    """sqrt of the sum of squares of every tensor, in float32."""
-    leaves = [torch.sum(torch.square(x.to(torch.float32)))
-              for x in tree.values()]
-    return torch.sqrt(torch.sum(torch.stack(leaves)))
+def global_norm(tree: dict, specs: dict | None = None,
+                mesh=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every tensor, in float32. With
+    ``specs`` (``{name: Spec}``, the layout each tensor is this rank's
+    slice of on ``mesh``), each sharded tensor's sum of squares is first
+    summed over the axes its spec names, so the norm is the whole
+    tree's on every rank; the sums are added in the tree's order either
+    way, so a mesh of one rank gives the one-device bits."""
+    sums = torch.stack([torch.sum(torch.square(x.to(torch.float32)))
+                        for x in tree.values()])
+    if specs:
+        by_axes = {}
+        for i, k in enumerate(tree):
+            axes = spec_axes(specs[k])
+            if axes:
+                by_axes.setdefault(axes, []).append(i)
+        for axes, idx in by_axes.items():
+            part = sums[idx]
+            for a in axes:
+                dist.all_reduce(part, group=mesh.get_group(a))
+            sums[idx] = part
+    return torch.sqrt(torch.sum(sums))
 
 
 def _quantize_int8(g: torch.Tensor) -> torch.Tensor:
@@ -85,14 +112,22 @@ def _quantize_int8(g: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.round(g / scale), -127, 127) * scale
 
 
-def apply_updates(params, grads: dict, state: dict, cfg: OptConfig):
+def apply_updates(params, grads: dict, state: dict, cfg: OptConfig,
+                  specs: dict | None = None, mesh=None):
     """One AdamW step. ``params`` a module or a dict of tensors,
-    ``grads`` a dict of the same names (any float type). Updates the
-    parameters, ``state["m"]``, ``state["v"]`` and ``state["ef"]`` in
-    place; returns (params, state with the new ``step``, stats
-    {"grad_norm", "lr"} as float32 tensors)."""
+    ``grads`` a dict of the same names (any float type); ``specs`` and
+    ``mesh`` as :func:`global_norm`'s, where they are this rank's slices.
+    Updates the parameters, ``state["m"]``, ``state["v"]`` and
+    ``state["ef"]`` in place; returns (params, state with the new
+    ``step``, stats {"grad_norm", "lr"} as float32 tensors)."""
     named = _named(params)
     grads = {k: g.to(torch.float32) for k, g in grads.items()}
+    if cfg.compression == "int8" and specs and any(
+            spec_axes(s) for s in specs.values()):
+        raise NotImplementedError("int8 gradient compression of sharded "
+                                  "parameters (a per-tensor scale over "
+                                  "their slices) comes with ZeRO-1, "
+                                  "ROADMAP A13b3")
 
     if cfg.compression == "int8":
         # error feedback: compress (grad + residual), keep the residual
@@ -102,7 +137,7 @@ def apply_updates(params, grads: dict, state: dict, cfg: OptConfig):
             state["ef"][k].copy_(summed - comp)
             grads[k] = comp
 
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, specs, mesh)
     clip = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
 
     step = state["step"] + 1

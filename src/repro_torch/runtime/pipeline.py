@@ -17,7 +17,8 @@ pipeline, as the reference's ``runtime/pipeline.py`` does:
   gradient to the previous pod.
 
 Scope: the stage body is local compute (no mesh inside a stage);
-pipeline × tensor parallelism waits for ROADMAP A13b2.
+pipeline × tensor parallelism (a model axis inside a stage) is ROADMAP
+A13b4.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Training step + fault-tolerant loop on one device.
+"""Training step + fault-tolerant loop, on one device or a mesh.
 
 A copy of the reference's ``runtime/train_loop.py``. ``make_train_step``
 builds the step for every family (dense, MoE, SSM, hybrid, encoder,
@@ -16,20 +16,30 @@ outliers.
 
 A train state is ``{"params": Model, "opt": {"m", "v", "step", ...}}``;
 the step updates both in place (see :mod:`repro_torch.optim.adamw`) and
-returns the same state.
+returns the same state. Under a mesh (a context whose ``mesh`` is a
+``DeviceMesh``) the parameters and moments are this rank's slices
+(:func:`repro_torch.sharding.shard_params`), every rank is handed the
+whole batch and takes its data-parallel rows, and the step averages the
+gradients and the loss over the data-parallel axes, so it equals the
+one-device step.
 """
 
 from __future__ import annotations
 
+import math
 import time
 from dataclasses import dataclass, field
 
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
 from ..checkpoint.ckpt import CheckpointManager
+from ..launch.mesh import axis_sizes
 from ..models.layers import cross_entropy
 from ..models.model import ShardCtx, forward, init_params
 from ..optim.adamw import OptConfig, apply_updates, init_opt_state
+from ..sharding.partition import Shardings, Spec, shard
 
 def family_loss(cfg, logits, batch):
     """Next-token CE for LMs; masked-unit CE for the encoder; text-only
@@ -60,14 +70,49 @@ def _split(batch: dict, n: int, i: int) -> dict:
     return out
 
 
+def _mean_over(tensors: list, mesh, axes: tuple[str, ...], n: int) -> list:
+    """The float32 mean of each tensor over the ranks of ``axes`` (one
+    all-reduce an axis over the tensors joined), in order."""
+    flat = torch.cat([t.reshape(-1).to(torch.float32) for t in tensors])
+    for a in axes:
+        dist.all_reduce(flat, group=mesh.get_group(a))
+    flat /= n
+    return [x.view(t.shape) for x, t in
+            zip(flat.split([t.numel() for t in tensors]), tensors)]
+
+
 def make_train_step(cfg, opt_cfg: OptConfig, ctx: ShardCtx,
-                    grad_accum: int = 1):
+                    grad_accum: int = 1, param_specs: dict | None = None):
     """Returns train_step(state, batch) -> (state, metrics). ``batch``
     leaves are (B, ...) tensors on the parameters' device; with
     ``grad_accum`` > 1 they are cut into that many microbatches whose
     gradients are summed in float32 and averaged. ``metrics``: ``loss``,
-    ``aux_loss``, ``grad_norm``, ``lr`` as float32 tensors."""
+    ``aux_loss``, ``grad_norm``, ``lr`` as float32 tensors.
+
+    Under a mesh ``param_specs`` (``{name: Spec}``, the layout
+    :func:`repro_torch.sharding.shard_params` kept the parameters in) is
+    required. Every rank is handed the same whole batch and takes its
+    rows over ``ctx.dp_axes`` (the partitioner's ``batch_spec``); each
+    microbatch is then a slice of those rows, as the reference pins the
+    data-parallel axes onto the microbatch dim. Gradients (in float32),
+    the loss and the aux loss are averaged over the data-parallel axes,
+    and the clip reads the global norm of the sharded gradients
+    (:func:`repro_torch.optim.adamw.global_norm`)."""
     loss_fn = make_loss_fn(cfg, ctx)
+    mesh = ctx.mesh
+    if mesh is not None and not isinstance(mesh, DeviceMesh):
+        raise TypeError("make_train_step: a ShardCtx on a mapping of axis "
+                        "sizes names a layout; run it on a DeviceMesh")
+    if mesh is not None and param_specs is None:
+        raise ValueError("make_train_step: under a mesh give param_specs, "
+                         "the specs the parameters were sharded by")
+    dp = tuple(ctx.dp_axes) if mesh is not None else ()
+    dp_n = math.prod(axis_sizes(mesh)[a] for a in dp) if dp else 1
+
+    def rows(batch):
+        if not dp:
+            return batch
+        return {k: shard(x, Spec(dp), mesh) for k, x in batch.items()}
 
     def grads_of(params, micro):
         params.zero_grad(set_to_none=True)
@@ -80,6 +125,7 @@ def make_train_step(cfg, opt_cfg: OptConfig, ctx: ShardCtx,
     def train_step(state, batch):
         params = state["params"]
         params.requires_grad_(True)
+        batch = rows(batch)
         if grad_accum == 1:
             grads, loss, aux = grads_of(params, batch)
         else:
@@ -95,12 +141,30 @@ def make_train_step(cfg, opt_cfg: OptConfig, ctx: ShardCtx,
                 del g
             grads = {k: g / grad_accum for k, g in grads.items()}
             loss, aux = loss / grad_accum, aux / grad_accum
-        _, opt, stats = apply_updates(params, grads, state["opt"], opt_cfg)
+        if dp_n > 1:
+            names = list(grads)
+            *averaged, loss, aux = _mean_over(
+                [grads[k] for k in names] + [torch.as_tensor(loss),
+                                             torch.as_tensor(aux)],
+                mesh, dp, dp_n)
+            grads = dict(zip(names, averaged))
+        _, opt, stats = apply_updates(params, grads, state["opt"], opt_cfg,
+                                      param_specs, mesh)
         del grads
         metrics = {"loss": loss, "aux_loss": aux, **stats}
         return {"params": params, "opt": opt}, metrics
 
     return train_step
+
+
+def state_shardings(mesh, param_specs: dict) -> Shardings:
+    """The :class:`~repro_torch.sharding.Shardings` of a train state
+    whose parameters lie at ``param_specs`` on ``mesh``: the moments in
+    the parameters' layout, the step whole (int8 compression of sharded
+    parameters is ROADMAP A13b3). What a checkpoint of a sharded state is
+    saved and restored by."""
+    return Shardings(mesh, {"params": param_specs,
+                            "opt": {"m": param_specs, "v": param_specs}})
 
 
 def init_train_state(cfg, opt_cfg: OptConfig, generator: torch.Generator,
@@ -145,6 +209,7 @@ class Trainer:
     ckpt_every: int = 50
     max_retries: int = 3
     grad_accum: int = 1
+    param_specs: dict | None = None   # under a mesh: the parameters' specs
 
     def run(self, state, data_iter, n_steps: int, log_every: int = 10):
         """Step ``state`` from its optimizer step to ``n_steps`` on the
@@ -152,9 +217,13 @@ class Trainer:
         ``max_retries`` times; after the last, the state is restored from
         the latest checkpoint (if any) and the error raised. Returns
         (state, history, monitor); ``history`` holds {step, loss,
-        sec_per_step} every ``log_every`` steps and at the end."""
+        sec_per_step} every ``log_every`` steps and at the end. Under a
+        mesh every rank runs it; checkpoints are saved and restored by
+        :func:`state_shardings` (rank 0 writes)."""
         step_fn = make_train_step(self.cfg, self.opt_cfg, self.ctx,
-                                  self.grad_accum)
+                                  self.grad_accum, self.param_specs)
+        shardings = None if self.ctx.mesh is None else state_shardings(
+            self.ctx.mesh, self.param_specs)
         mgr = CheckpointManager(self.ckpt_dir)
         monitor = StragglerMonitor()
         step = int(state["opt"]["step"])
@@ -171,7 +240,7 @@ class Trainer:
                     if attempt == self.max_retries - 1:
                         # unrecoverable in-process: restart from checkpoint
                         if mgr.list_steps():
-                            state = mgr.restore_latest(state)
+                            state = mgr.restore_latest(state, shardings)
                         raise
             dt = time.perf_counter() - t0
             step += 1
@@ -180,6 +249,6 @@ class Trainer:
                 history.append({"step": step, "loss": loss,
                                 "sec_per_step": dt})
             if step % self.ckpt_every == 0 or step == n_steps:
-                mgr.save(state, step)
+                mgr.save(state, step, shardings=shardings)
         mgr.wait()          # drain the async writer before returning
         return state, history, monitor

@@ -3,7 +3,9 @@ boundaries of the reference's ``shard_map`` as autograd Functions over
 ``torch.distributed`` (``collectives``)."""
 
 from .partition import (MeshAxes, Partitioner, Shardings, Spec, gather,
-                        permute_expert_params, shard, shard_experts)
+                        permute_expert_params, shard, shard_experts,
+                        shard_params)
 
 __all__ = ["MeshAxes", "Partitioner", "Shardings", "Spec", "gather",
-           "permute_expert_params", "shard", "shard_experts"]
+           "permute_expert_params", "shard", "shard_experts",
+           "shard_params"]

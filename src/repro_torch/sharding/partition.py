@@ -28,11 +28,15 @@ rules need sizes only). In place of the reference's ``named``,
 :func:`shard` gives this rank's slice of a tensor and :func:`gather`
 gives the whole tensor back.
 
-What executes under a mesh in this port: the expert weights sharded over
-``model`` (:func:`shard_experts`, for MoE's ``a2a`` and ``local``
-dispatches), every other weight whole on each rank. The tensor-parallel
-layouts of attention, MLP and SSM weights are rules here, and wait for
-their execution (ROADMAP A13b2).
+What executes under a mesh in this port: every weight of the dense,
+encoder and VLM families at its spec (:func:`shard_params`: heads, the
+MLP's F and the vocabulary over ``model``, run by the tensor-parallel
+blocks of :mod:`repro_torch.models.blocks`), and MoE's experts over
+``model`` (:func:`shard_experts`, for the ``a2a`` and ``local``
+dispatches) with every other MoE weight whole. Still rules only: FSDP
+and ZeRO-1 with ``data`` above 1 (ROADMAP A13b3), and the
+tensor-parallel layouts of the SSM, hybrid and MLA layers and of MoE's
+attention (A13b4).
 """
 
 from __future__ import annotations
@@ -49,7 +53,10 @@ from ..launch.mesh import axis_sizes, check_tensors, mesh_coords
 
 __all__ = ["MeshAxes", "Partitioner", "Shardings", "Spec", "gather",
            "permute_expert_params", "shard", "shard_experts",
-           "shard_slices"]
+           "shard_params", "shard_slices", "spec_axes"]
+
+#: the families whose every weight shards by its spec (shard_params)
+TP_FAMILIES = ("dense", "encoder", "vlm")
 
 
 def _entry(e):
@@ -331,21 +338,63 @@ def _moe_modules(model):
             if name.split(".")[-1] == "moe"]
 
 
+def spec_axes(spec) -> tuple[str, ...]:
+    """Every mesh axis ``spec`` shards some dim over, in order."""
+    return tuple(a for e in spec for a in _entry_axes(e))
+
+
+def _refuse_fsdp(part: Partitioner) -> None:
+    if part.axes.fsdp and part.data_n > 1:
+        raise NotImplementedError(
+            f"FSDP execution (weights sharded over {part.axes.data} = "
+            f"{part.data_n} ranks, gathered per layer) is ROADMAP A13b3")
+
+
+def _keep_local(model, part: Partitioner, names) -> None:
+    """Replace each parameter of ``names`` that its spec shards by this
+    rank's slice of it, keeping ``requires_grad``."""
+    for name in names:
+        prefix, _, leaf = name.rpartition(".")
+        owner = model.get_submodule(prefix)
+        w = getattr(owner, leaf)
+        spec = part.param_spec(name, tuple(w.shape))
+        if not spec_axes(spec):
+            continue
+        owner.register_parameter(leaf, torch.nn.Parameter(
+            shard(w.detach(), spec, part.mesh),
+            requires_grad=w.requires_grad))
+
+
+def shard_params(model, part: Partitioner):
+    """Keep this rank's slice of every parameter of ``model`` (a
+    :class:`~repro_torch.models.Model` of the dense, encoder or VLM
+    family) by :meth:`Partitioner.param_spec`: attention heads, the
+    MLP's F, the vocabulary and the frontends' output columns over
+    ``model`` where they divide, the rest whole. In place; returns the
+    model, which the tensor-parallel blocks then run
+    (:mod:`repro_torch.models.blocks`). Refuses FSDP with ``data`` above
+    1 (ROADMAP A13b3) and the SSM, hybrid, MoE and MLA layers (A13b4)."""
+    _refuse_fsdp(part)
+    cfg = model.cfg
+    if cfg.family not in TP_FAMILIES or cfg.kv_lora_rank:
+        raise NotImplementedError(
+            f"{cfg.name}: tensor parallelism of the {cfg.family} family"
+            f"{' (MLA)' if cfg.kv_lora_rank else ''} is ROADMAP A13b4 "
+            f"(MoE's experts alone: shard_experts)")
+    _keep_local(model, part, [k for k, _ in model.named_parameters()])
+    return model
+
+
 def shard_experts(model, part: Partitioner):
     """Keep each MoE layer's expert weights (``wi``, ``wo``) as this
     rank's slice over ``model``, by the partitioner's expert rule; every
-    other weight stays whole. In place; returns the model. The layout
-    MoE's ``a2a`` and ``local`` dispatches read (ROADMAP A13d)."""
-    if part.axes.fsdp:
-        raise NotImplementedError("FSDP execution (weights sharded over "
-                                  "data) waits for ROADMAP A13b2")
-    for name, m in _moe_modules(model):
-        for k in ("wi", "wo"):
-            w = getattr(m, k)
-            spec = part.param_spec(f"{name}.{k}", tuple(w.shape))
-            local = shard(w.detach(), spec, part.mesh)
-            m.register_parameter(k, torch.nn.Parameter(
-                local, requires_grad=w.requires_grad))
+    other weight stays whole: :func:`shard_params`' MoE case, the layout
+    MoE's ``a2a`` and ``local`` dispatches read (ROADMAP A13d). In
+    place; returns the model. Refuses FSDP with ``data`` above 1
+    (ROADMAP A13b3)."""
+    _refuse_fsdp(part)
+    _keep_local(model, part, [f"{name}.{k}" for name, _ in
+                              _moe_modules(model) for k in ("wi", "wo")])
     return model
 
 

@@ -1122,6 +1122,63 @@ def test_flash_attention_bwd_kernel_close_to_plain_version(
         assert torch.equal(g, a)
 
 
+def plain_gate(want):
+    """``assert_close_to_plain``'s bound on each element's error."""
+    w = want.double()
+    amax = float(w.abs().max()) if w.numel() else 0.0
+    if want.dtype == torch.float32:
+        return 1e-5 * w.abs() + 1e-5 * amax
+    mag = torch.clamp(w.abs(), min=max(amax / 256, 2.0 ** -126))
+    return 2 * torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,hq,hkv,d,dv,causal,window,softcap,prefix",
+                         BWD_CASES)
+def test_flash_attention_offset_chunks_close_to_plain_and_whole(
+        cuda, dtype, b, s, hq, hkv, d, dv, causal, window, softcap, prefix):
+    """Both kernels on 4 query chunks (the last ragged where S does not
+    split) at their ``q_offset`` against the whole K/V: each chunk's
+    out, lse, dq, dk, dv against the plain versions on the chunk; out,
+    lse and dq against the whole-sequence kernels' rows; the chunks' dk
+    and dv summed within the sum of the five gates of the whole's."""
+    q, k, v, dout, pre = bwd_inputs(cuda, dtype, b, s, hq, hkv, d, dv,
+                                    prefix)
+    kw = dict(causal=causal, window=window, softcap=softcap, prefix_len=pre,
+              scale=d ** -0.5)
+    out, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
+    dq, dk, dv_ = ops.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+    sums = [torch.zeros(t.shape, dtype=torch.float64, device=cuda)
+            for t in (dk, dv_)]
+    gates = [plain_gate(dk), plain_gate(dv_)]
+    n = -(-s // 4)
+    for off in range(0, s, n):
+        rows = slice(off, min(s, off + n))
+        qc, doc = q[:, rows].contiguous(), dout[:, rows].contiguous()
+        oc, lc = ops.flash_attention(qc, k, v, return_lse=True,
+                                     q_offset=off, **kw)
+        g = ops.flash_attention_bwd(qc, k, v, oc, doc, lc, q_offset=off,
+                                    **kw)
+        po, pl = flash_attention.flash_attention_torch(
+            qc, k, v, return_lse=True, q_offset=off, **kw)
+        pg = flash_attention.flash_attention_bwd_torch(
+            qc, k, v, oc, doc, lc, q_offset=off, **kw)
+        torch.cuda.synchronize()
+        assert_close_to_plain(oc, po)
+        assert_lse_close(lc, pl)
+        for got, want in zip(g, pg):
+            assert_close_to_plain(got, want)
+        assert_close_to_plain(oc, out[:, rows].contiguous())
+        assert_lse_close(lc, lse[:, :, rows].contiguous())
+        assert_close_to_plain(g[0], dq[:, rows].contiguous())
+        for i in (0, 1):
+            sums[i] += g[1 + i].double()
+            gates[i] += plain_gate(g[1 + i])
+    for got, want, gate in zip(sums, (dk, dv_), gates):
+        err = (got - want.double()).abs()
+        assert bool((err <= gate).all()), f"max abs err {float(err.max())}"
+
+
 def test_flash_attention_bwd_plan_on_the_card(cuda):
     """The bf16 launch plan splits the dK/dV blocks at the paligemma
     case of ``BWD_CASES`` (so the fixed-order sum of the partials ran

@@ -498,15 +498,18 @@ def test_families_of_later_slices_raise(name):
 
 
 def test_mesh_is_refused():
-    """A mesh must be a DeviceMesh; tensor-parallel attention modes and
-    the JAX-only varying axes wait for ROADMAP A13b2, and so does the
-    train CLI's ``--mesh``."""
+    """A mesh must be a DeviceMesh or a mapping of axis sizes; an
+    ``attn_mode`` must be one of the reference's; the JAX-only varying
+    axes have no counterpart; the train CLI's ``--mesh`` refuses a world
+    that is not D x M ranks (here, no process group at all)."""
     from repro_torch.launch.train import main as train_main
     with pytest.raises(TypeError, match="DeviceMesh"):
         ShardCtx(mesh=object())
-    with pytest.raises(NotImplementedError, match="A13b2"):
-        ShardCtx(attn_mode="seq")
-    with pytest.raises(NotImplementedError, match="A13b2"):
+    with pytest.raises(ValueError, match="attn_mode"):
+        ShardCtx(attn_mode="heads")
+    with pytest.raises(NotImplementedError, match="vma_axes"):
         ShardCtx(vma_axes=("pod",))
-    with pytest.raises(SystemExit, match="A13b2"):
+    assert ShardCtx(mesh={"data": 2, "model": 4}, dp_axes=("data",),
+                    model_axis="model", attn_mode="seq").attn_mode == "seq"
+    with pytest.raises(SystemExit, match="8 ranks"):
         train_main(["--mesh", "2x4", "--device", "cpu"])

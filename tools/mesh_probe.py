@@ -1,6 +1,6 @@
-"""Run the port's expert-parallel MoE dispatch and GPipe pipeline across
-the GPUs of one host, one process a GPU on NCCL, held to one GPU's
-answer and timed.
+"""Run the port's expert-parallel MoE dispatch, GPipe pipeline and
+tensor-parallel training step across the GPUs of one host, one process
+a GPU on NCCL, held to one GPU's answer and timed.
 
     python3 tools/mesh_probe.py [--gpus N]
 
@@ -28,12 +28,36 @@ the same weights. Cases:
   forward's: how many are bit for bit and the largest difference over
   its largest gradient. ms of the pipelined forward and backward (host
   clock after a synchronise, after a warm-up) a microbatch.
+- ``tp``: gemma2-2b whole in bf16 on a (1, N) ``("data", "model")``
+  mesh (heads 8/4 over N = 4: 2 q heads and 1 kv head a rank; F and the
+  vocabulary over N), through ``mesh_axes_for``, ``make_ctx``,
+  ``shard_params`` and ``make_train_step(param_specs=)``, against one
+  GPU's (every rank runs it on its whole model) on the same batch of
+  B = 2 x 1,024 tokens. The gradients of one forward and backward of
+  the train loss, before any step: each rank's gradient of every
+  parameter against its slice of the one-GPU gradient, per leaf, its
+  cosine at least ``TP_GRAD_COS`` and its norm within ``TP_GRAD_NORM``
+  of the one-GPU slice's (two bf16 runs whose sums split over N ranks
+  differ by rounding, which moves neither; a slice taken from the wrong
+  rows, a zero, a flipped sign or a sum taken twice moves one of them
+  far past its gate), with the largest difference over the slice's
+  largest element beside them. Then one step (AdamW at lr 1e-3, no
+  warm-up): its loss within ``TP_LOSS_ATOL``, its grad norm within
+  ``TP_NORM_RTOL``, and every element of the rank's parameter slices
+  within 2 lr + 2 bf16 ulps of the one-GPU step's. That last bound
+  checks the update, not the gradient: at step 1 Adam moves an element
+  by lr times a factor in [-1, 1] whatever its gradient, so it catches
+  only a move past that (a wrong rate or weight decay, a corrupted
+  store) and passes any gradient. Then ``TP_TIMED`` more steps each way, ms by
+  the host clock after a synchronise.
 
-Prints one JSON line per case (rank 0's) and, last, the card's name and
-power limit. Exits non-zero when a check fails: an output off the dense
-dispatch's by more than 2e-2 of its largest, or pipelined logits not bit
-for bit. The same dispatches and pipeline run on gloo CPU ranks in
-``tests/test_torch_moe_ep.py`` and ``tests/test_torch_pipeline.py``.
+Prints one JSON line per case (rank 0's; for ``tp`` also every rank's
+check) and, last, the card's name and power limit. Exits non-zero when a
+check fails: an output off the dense dispatch's by more than 2e-2 of its
+largest, pipelined logits not bit for bit, or a ``tp`` gradient or
+step past its gates. The same dispatches and pipeline run on gloo CPU
+ranks in ``tests/test_torch_moe_ep.py`` and
+``tests/test_torch_pipeline.py``.
 """
 
 from __future__ import annotations
@@ -56,6 +80,12 @@ MOE_ARCH, PIPE_ARCH = "deepseek-v2-lite-16b", "glm4-9b"
 MOE_TOKENS = (2, 1024)
 PIPE_RUN = dict(n_micro=8, bm=1, seq=1024)
 BF16_REL = 2e-2
+TP_ARCH, TP_RUN, TP_TIMED = "gemma2-2b", dict(batch=2, seq=1024), 3
+TP_OPT = dict(lr=1e-3, warmup_steps=1)
+TP_LOSS_ATOL = 1e-2       # bf16 sums split over N ranks, 26 layers
+TP_NORM_RTOL = 2e-2
+TP_GRAD_COS = 0.99        # per leaf, against the one-GPU slice
+TP_GRAD_NORM = 5e-2       # per leaf, relative
 
 
 def median(xs):
@@ -192,6 +222,130 @@ def pipeline_case(rank, n, dev):
                                                   key=lambda kv: kv[1])}
 
 
+def bf16_ulp(x):
+    """The spacing of bfloat16 numbers at |x| (8 significant bits)."""
+    import torch
+    mag = x.float().abs().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def tp_case(rank, n, dev):
+    import torch
+
+    from chip_smoke import redraw
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.specs import make_ctx, mesh_axes_for
+    from repro_torch.models import ShardCtx, init_params
+    from repro_torch.optim import OptConfig, init_opt_state
+    from repro_torch.runtime.train_loop import make_loss_fn, make_train_step
+    from repro_torch.sharding import Partitioner, shard, shard_params
+    cfg = cfg_of(TP_ARCH)
+    opt = OptConfig(**TP_OPT)
+    mesh = make_mesh((1, n), ("data", "model"))
+    axes = mesh_axes_for(cfg, mesh)
+    part = Partitioner(mesh, axes)
+    ctx = make_ctx(cfg, ShapeConfig("tp", TP_RUN["seq"], TP_RUN["batch"],
+                                    "train"), mesh, axes)
+    batch = TokenPipeline(cfg, PipelineConfig(
+        batch=TP_RUN["batch"], seq_len=TP_RUN["seq"], seed=0),
+        device=dev).make_batch(0)
+
+    def model():
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = init_params(cfg, gen, dev)
+        redraw(params, gen, dev)
+        return params
+
+    def steps(params, step_ctx, specs, keep):
+        """``keep`` of the gradients of one forward and backward, then
+        the first step's metrics and ``keep`` of the parameters after
+        it, then ``TP_TIMED`` timed steps."""
+        params.requires_grad_(True)
+        loss, _ = make_loss_fn(cfg, step_ctx)(params, batch)
+        loss.backward()
+        grads = keep({k: w.grad for k, w in params.named_parameters()})
+        params.zero_grad(set_to_none=True)
+        state = {"params": params, "opt": init_opt_state(params, opt)}
+        step = make_train_step(cfg, opt, step_ctx, param_specs=specs)
+        state, m = step(state, batch)
+        first = {k: float(v) for k, v in m.items()}
+        kept = keep(dict(state["params"].named_parameters()))
+        ms = []
+        for _ in range(TP_TIMED):
+            torch.cuda.synchronize()
+            torch.distributed.barrier()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            float(m["loss"])
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        del state
+        return grads, first, kept, ms
+
+    whole = model()
+    specs = part.param_specs(whole)
+    one_g, one, want, one_ms = steps(
+        whole, ShardCtx(mode="train"), None,
+        lambda tree: {k: shard(w.detach(), specs[k], mesh).clone()
+                      for k, w in tree.items()})
+    del whole
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = shard_params(model(), part)
+    my_g, got, mine, tp_ms = steps(
+        params, ctx, specs,
+        lambda tree: {k: w.detach().clone() for k, w in tree.items()})
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del params
+    grad = {}                            # leaf: (cosine, norm ratio, max)
+    for k, w in one_g.items():
+        a, b = my_g[k].double().reshape(-1), w.double().reshape(-1)
+        na, nb = float(a.norm()), float(b.norm())
+        grad[k] = (float(a @ b) / (na * nb) if na * nb else
+                   float(na == nb), na / nb if nb else float(na == 0.0),
+                   float((a - b).abs().max() / b.abs().max().clamp_min(
+                       1e-30)))
+    grad_bad = sorted(k for k, (c, r, _) in grad.items()
+                      if not (c >= TP_GRAD_COS
+                              and abs(r - 1.0) <= TP_GRAD_NORM))
+    lr1 = float(opt.lr)                  # no warm-up: the first step's rate
+    worst, apart, total = (0.0, None), 0, 0
+    for k, w in want.items():
+        d = (mine[k].float() - w.float()).abs()
+        lim = 2 * lr1 + 2 * bf16_ulp(torch.maximum(mine[k].float().abs(),
+                                                   w.float().abs()))
+        r = d / lim
+        i = int(r.argmax())
+        if float(r.reshape(-1)[i]) > worst[0]:
+            worst = (float(r.reshape(-1)[i]), k, float(w.reshape(-1)[i]),
+                     float(mine[k].reshape(-1)[i]))
+        apart += int((d > bf16_ulp(w)).sum())
+        total += d.numel()
+    return {"case": "tp", "ranks": n, "arch": cfg.name, **TP_RUN,
+            "mesh": [1, n], "attn_mode": ctx.attn_mode, "fsdp": axes.fsdp,
+            "local_heads": mine["layers.0.attn.wq"].shape[1],
+            "loss": got["loss"], "one_gpu_loss": one["loss"],
+            "grad_norm": got["grad_norm"],
+            "one_gpu_grad_norm": one["grad_norm"],
+            "loss_diff": abs(got["loss"] - one["loss"]),
+            "grad_norm_rel": abs(got["grad_norm"] - one["grad_norm"])
+            / one["grad_norm"],
+            "grad_leaves": len(grad), "grad_bad": grad_bad,
+            "grad_min_cos": min(c for c, _, _ in grad.values()),
+            "grad_worst_norm_ratio": max((r for _, r, _ in grad.values()),
+                                         key=lambda r: abs(r - 1.0)),
+            "grad_max_rel": max(grad.items(), key=lambda kv: kv[1][2]),
+            "param_over_bound": worst[0],
+            "param_worst": worst[1:],
+            "param_share_past_one_ulp": apart / total,
+            "step_ms": tp_ms, "one_gpu_step_ms": one_ms,
+            "step_ms_median": median(tp_ms),
+            "one_gpu_step_ms_median": median(one_ms),
+            "peak_gb_tp": peak}
+
+
 def rank_main(rank, n, store):
     import torch
     import torch.distributed as dist
@@ -202,16 +356,28 @@ def rank_main(rank, n, store):
                             rank=rank, world_size=n,
                             timeout=timedelta(seconds=300))
     try:
-        for case in (moe_case, pipeline_case):
+        for case in (moe_case, pipeline_case, tp_case):
             out = case(rank, n, dev)
             outs = [None] * n
             dist.all_gather_object(outs, out)
             if rank == 0:
                 print(json.dumps(outs[0]), flush=True)
+                if out["case"] == "tp":
+                    print(json.dumps({"case": "tp ranks", "ranks": [
+                        {k: o[k] for k in ("loss_diff", "grad_norm_rel",
+                                           "grad_bad", "grad_min_cos",
+                                           "grad_worst_norm_ratio",
+                                           "grad_max_rel", "param_over_bound",
+                                           "param_share_past_one_ulp")}
+                        for o in outs]}), flush=True)
                 bad = [o for o in outs if o["case"] == "moe" and
                        max(o["a2a_err"], o["local_err"]) > BF16_REL]
                 bad += [o for o in outs if o["case"] == "pipeline" and
                         not o["logits_bit_equal"]]
+                bad += [o for o in outs if o["case"] == "tp" and (
+                    o["loss_diff"] > TP_LOSS_ATOL
+                    or o["grad_norm_rel"] > TP_NORM_RTOL or o["grad_bad"]
+                    or o["param_over_bound"] > 1.0)]
                 if bad:
                     raise RuntimeError(f"mesh_probe: FAIL: {json.dumps(bad)}")
             torch.cuda.empty_cache()
