@@ -60,7 +60,7 @@ Run from the repository root (it puts ``src`` on ``sys.path`` itself):
    new tokens; run B: B=1, prompt 4608 (past the 4096 window, so the
    local layers' ring caches wrap), 16 new tokens; run C:
    ``ContinuousBatcher(n_slots=4, max_seq=1024)`` over 8 requests with
-   prompts of 37-700 tokens and 8-24 new tokens each. The three serving
+   prompts of 37-700 tokens and 4-12 new tokens each. The three serving
    kernels' counts are zeroed before each run and read after it. Checks:
    the counts equal what the path implies (rmsnorm 4 per layer + 1 per
    forward, flash_attention one per layer per prefill, flash_decode one
@@ -257,9 +257,9 @@ Run from the repository root (it puts ``src`` on ``sys.path`` itself):
    ``rmsnorm_bwd``, a sum over every row, within 1e-5 of its largest x
    max(1, sqrt(rows) / 10)). Numbers: step ms, tokens/s and peak memory
    per model, each model's step profile (device busy ms, kernels per
-   step, idle share, the kernels with the most device time; deepseek's
-   from one profiled step, with the expert products' device ms and
-   share); ``flash_attention`` at deepseek's training shape from a CUDA
+   step, idle share, the kernels with the most device time, from two
+   unsynchronised steps and one profiled; deepseek's from one and one,
+   with the expert products' device ms and share); ``flash_attention`` at deepseek's training shape from a CUDA
    graph beside SDPA; each
    backward kernel's graph-timed ms, plain ms, bound and library ms
    (autograd backward of ``scaled_dot_product_attention`` without a
@@ -298,13 +298,14 @@ Run from the repository root (it puts ``src`` on ``sys.path`` itself):
    ``close_to_plain`` at every shape the phase launched. The kernels
    line adds the phase's counts to ``rmsnorm``, ``flash_attention``,
    ``rmsnorm_bwd`` and ``flash_attention_bwd``.
-17. Tensor-parallel training (ROADMAP A13b2). Both attention kernels on
-   query chunks at their offsets (``q_offset``, Sk != Sq) against the
-   whole K/V, bf16: gemma2-2b's training attention (2, 1024, 8/4, 256,
-   softcap 50), gemma3-4b's windowed layer (1, 4096, 8/4, 256, window
-   1024, where the window bites), paligemma-3b's prefix (1, 1024, 8/1,
-   256, prefix 256) and hubert-xlarge's bidirectional (2, 1000, 16/16,
-   80), each cut into 4 chunks. Checks: each chunk's output, lse, dq, dk
+17. Tensor-parallel and FSDP training (ROADMAP A13b2, A13b3). Both
+   attention kernels on query chunks at their offsets (``q_offset``,
+   Sk != Sq) against the whole K/V, bf16: gemma2-2b's training
+   attention (2, 1024, 8/4, 256, softcap 50), gemma3-4b's windowed
+   layer (1, 4096, 8/4, 256, window 1024, where the window bites),
+   paligemma-3b's prefix (1, 1024, 8/1, 256, prefix 256) and
+   hubert-xlarge's bidirectional (2, 1000, 16/16, 80), each cut into 4
+   chunks. Checks: each chunk's output, lse, dq, dk
    and dv within ``close_to_plain`` of the plain versions; its output,
    lse and dq within the gate of the whole-sequence kernel's rows (bit
    equality printed); the chunks' dk and dv summed within the sum of the
@@ -313,12 +314,17 @@ Run from the repository root (it puts ``src`` on ``sys.path`` itself):
    L2, plain ms, the bound of its pairs, and
    ``scaled_dot_product_attention`` with the equivalent boolean mask
    (null under the softcap). Then gemma2-2b whole in bf16, one
-   ``make_train_step`` at B = 2 x 1,024 on one device, then the same
-   weights on a one-rank NCCL (1, 1) ``("data", "model")`` mesh through
-   ``mesh_axes_for``, ``make_ctx``, ``shard_params`` and the sharded
-   step: the loss, the grad norm and every updated parameter bit for
-   bit, the counts exact. The kernels line adds the phase's counts and
-   the offset rows to ``flash_attention`` and ``flash_attention_bwd``.
+   ``make_train_step`` at B = 2 x 1,024 on one device and one with int8
+   compression, then the same weights on a one-rank NCCL (1, 1)
+   ``("data", "model")`` mesh through ``mesh_axes_for`` (FSDP on, ROADMAP
+   A13b3), ``make_ctx``, ``launch.train.sharded_train_state`` (the
+   moments at their ZeRO-1 specs) and the sharded step, without and with int8:
+   each layer's weights gathered by a one-rank all-gather inside its
+   remat region and their gradients reduce-scattered; the loss, the
+   grad norm and every updated parameter bit for bit the matching
+   one-device step's, the counts exact. The kernels line adds the
+   phase's counts and the offset rows to ``flash_attention`` and
+   ``flash_attention_bwd``.
 
 Exits non-zero, printing no result, on any failure, when no CUDA device
 is present, or when run outside a checkout. The last line of standard
@@ -647,7 +653,7 @@ SERVE_ARCH = "gemma2-2b"
 RUN_A = dict(batch=4, prompt=512, gen=32)
 RUN_B = dict(batch=1, prompt=4608, gen=16)     # past the 4096 window
 RUN_C = dict(n_slots=4, max_seq=1024, n_requests=8, prompt=(37, 700),
-             max_new=(8, 24))
+             max_new=(4, 12))
 SSM_RUN_A = dict(batch=4, prompt=512, gen=32)  # two whole chunks of 256
 SSM_RUN_B = dict(batch=1, prompt=4000, gen=16)  # 15 chunks + a ragged 160
 SSM_RUN_D = dict(batch=2, prompt=700, gen=16)  # zamba2-7b
@@ -865,7 +871,7 @@ def redraw(params, gen, dev):
 
 def ragged_requests(vocab, seed=0):
     """RUN_C's requests: prompts of 37-700 tokens (both ends included),
-    8-24 new tokens each."""
+    4-12 new tokens each."""
     import numpy as np
     from repro_torch.runtime import Request
     rng = np.random.default_rng(seed)
@@ -2554,6 +2560,9 @@ ENC_RUN = dict(batch=2, frames=1000)
 PREFIX_ROW = (1, 768, 8, 1, 256, 256)           # b, s, hq, hkv, d, prefix
 TRAIN_ARCH = "gemma2-2b"
 TRAIN_RUN = dict(batch=2, seq=1024, steps=3, ckpt_at=2)
+# a training cell's step profile: unsynchronised steps, profiled steps
+# (deepseek's step, the longest: one and one)
+TRAIN_PROFILE = (2, 1)
 VLM_TRAIN = dict(batch=1, seq=1024)             # 256 patches + 768 tokens
 ENC_TRAIN = dict(batch=2, seq=1000)
 SSM_TRAIN = dict(batch=2, seq=1024)             # 4 chunks of 256
@@ -3339,7 +3348,7 @@ def train_phase(dev):
         final = {k: p.detach().to("cpu", copy=True) for k, p in
                  state["params"].named_parameters()}
         profile_step(lambda: step_fn(state, pipe.make_batch(at + 1)),
-                     steps["gemma2-2b"])
+                     steps["gemma2-2b"], *TRAIN_PROFILE)
         print("train gemma2-2b step profile " + json.dumps(
             steps["gemma2-2b"]))
         del state, trainer, step_fn
@@ -3415,10 +3424,8 @@ def train_phase(dev):
             if moe:
                 steps[label]["placement"] = place_from_routes(cfg, routes)
                 del routes
-            # deepseek's step is the longest: one unsynchronised step and
-            # one profiled
             profile_step(lambda: step_fn(state, pipe.make_batch(3)),
-                         steps[label], *((1, 1) if moe else ()),
+                         steps[label], *((1, 1) if moe else TRAIN_PROFILE),
                          experts=cfg.n_experts if moe else None)
             print(f"train {label} step profile " + json.dumps(
                 {k: v for k, v in steps[label].items() if k != "placement"}))
@@ -4068,17 +4075,23 @@ def offset_rows(dev):
 
 
 def tp_phase(dev):
-    """Tensor-parallel execution (ROADMAP A13b2) on one card. (a)
-    ``offset_rows``: both attention kernels on query chunks at their
-    offsets. (b) gemma2-2b whole in bf16, one ``make_train_step`` on one
-    device from seed 0, then the same weights on a one-rank NCCL (1, 1)
-    ``("data", "model")`` mesh through ``mesh_axes_for``, ``make_ctx``,
-    ``shard_params`` and the sharded step (``param_specs``), counts
-    zeroed just before and read just after: the loss, the grad norm and
-    every updated parameter against the one-device step's bit for bit
-    (at one rank every collective is the identity and the sums run in
-    the one-device order), the launches exact. Returns (the kernels'
-    counts by run, their largest errors, the offset rows)."""
+    """Tensor-parallel execution (ROADMAP A13b2) and FSDP with ZeRO-1
+    (A13b3) on one card. (a) ``offset_rows``: both attention kernels on
+    query chunks at their offsets. (b) gemma2-2b whole in bf16, one
+    ``make_train_step`` on one device from seed 0, and one with int8
+    compression; then the same weights on a one-rank NCCL (1, 1)
+    ``("data", "model")`` mesh through ``mesh_axes_for`` (FSDP on: 5.2
+    GB of weights over one model rank), ``make_ctx`` and
+    ``launch.train.sharded_train_state`` (every matrix cut by its whole
+    spec, the moments made at their ZeRO-1 specs), one sharded step
+    (``param_specs``, ``moment_specs``) and one with int8, counts zeroed
+    just before each and read just after: the loss, the grad norm and
+    every updated parameter against the matching one-device step's bit
+    for bit (at one rank every collective, the layers' all-gathers and
+    their gradients' reduce-scatters too, is a copy, and the sums run in
+    the one-device order), the launches exact. One state is resident at
+    a time. Returns (the kernels' counts by run, their largest errors,
+    the offset rows)."""
     import torch
     import torch.distributed as dist
 
@@ -4090,87 +4103,98 @@ def tp_phase(dev):
     from repro_torch.kernels.rmsnorm import rmsnorm_bwd_torch, rmsnorm_torch
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.specs import make_ctx, mesh_axes_for
+    from repro_torch.launch.train import sharded_train_state
     from repro_torch.models import ShardCtx
     from repro_torch.optim import OptConfig, init_opt_state
     from repro_torch.runtime.train_loop import make_train_step
-    from repro_torch.sharding import Partitioner, shard_params
+    from repro_torch.sharding import Partitioner
 
     t_phase = time.perf_counter()
     rows, errs = offset_rows(dev)
     cfg = ARCHS["gemma2-2b"].replace(dtype="bfloat16")
-    opt = OptConfig()
+    opts = {"": OptConfig(), " int8": OptConfig(compression="int8")}
     batch = TokenPipeline(cfg, PipelineConfig(
         batch=TRAIN_RUN["batch"], seq_len=TRAIN_RUN["seq"], seed=0),
         device=dev).make_batch(0)
 
-    def one_step(ctx, shard=None):
+    def one_step(ctx, opt, part=None):
         _, params = load_model("tp", cfg, dev)
-        specs = shard(params) if shard else None
-        params.requires_grad_(True)
-        state = {"params": params, "opt": init_opt_state(params, opt)}
-        step = make_train_step(cfg, opt, ctx, param_specs=specs)
+        if part is not None:
+            state, specs = sharded_train_state(params, opt, part)
+        else:
+            params.requires_grad_(True)
+            state = {"params": params, "opt": init_opt_state(params, opt)}
+            specs = (None, None)
+        step = make_train_step(cfg, opt, ctx, 1, *specs)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, metrics = step(state, batch)
         torch.cuda.synchronize()
         return state, metrics, (time.perf_counter() - t0) * 1e3
 
-    state, want, one_ms = one_step(ShardCtx(mode="train"))
-    host = {k: p.detach().to("cpu") for k, p in
-            state["params"].named_parameters()}
-    want = {k: float(v) for k, v in want.items()}
-    del state
-    freed("tp one device")
+    hosts, wants, one_ms = {}, {}, {}
+    for tag, opt in opts.items():
+        state, want, one_ms[tag] = one_step(ShardCtx(mode="train"), opt)
+        hosts[tag] = {k: p.detach().to("cpu") for k, p in
+                      state["params"].named_parameters()}
+        wants[tag] = {k: float(v) for k, v in want.items()}
+        del state
+        freed(f"tp one device{tag}")
     launches = {}
     keys = spy_train_keys()
     plains = {"rmsnorm": rmsnorm_torch,
               "flash_attention": flash_attention_torch,
               "rmsnorm_bwd": rmsnorm_bwd_torch,
               "flash_attention_bwd": flash_attention_bwd_torch}
+    counts = train_counts(cfg, 1)
+    counts = {k: counts[k] for k in TP_KERNELS}
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
                             world_size=1)
     try:
         mesh = make_mesh((1, 1), ("data", "model"))
         axes = mesh_axes_for(cfg, mesh)
+        if not axes.fsdp:
+            fail(f"tp gemma2 mesh: mesh_axes_for gave {axes}, not FSDP")
         part = Partitioner(mesh, axes)
         ctx = make_ctx(cfg, ShapeConfig("train", TRAIN_RUN["seq"],
                                         TRAIN_RUN["batch"], "train"),
                        mesh, axes)
-
-        def shard(params):
-            specs = part.param_specs(params)
-            shard_params(params, part)
-            return specs
+        got, mesh_ms = {}, {}
         with contextlib.ExitStack() as stack:
             spies = {k: stack.enter_context(Spy(ops, k, *keys[k]))
                      for k in TP_KERNELS}
-            for sp in spies.values():
-                sp.launches = 0
-            state, got, mesh_ms = one_step(ctx, shard)
-            launches["tp_gemma2_mesh_step"] = {k: sp.launches
-                                               for k, sp in spies.items()}
-            counts = train_counts(cfg, 1)
-            counts = {k: counts[k] for k in TP_KERNELS}
-            if launches["tp_gemma2_mesh_step"] != counts:
-                fail(f"tp gemma2 mesh step: launches "
-                     f"{launches['tp_gemma2_mesh_step']} != {counts}")
-            step_errs = hold_to_plain("tp gemma2 mesh step", spies, plains)
-        got = {k: float(v) for k, v in got.items()}
-        same = [k for k, p in state["params"].named_parameters()
-                if torch.equal(p.detach().cpu(), host[k])]
-        n = len(host)
-        print(f"tp gemma2-2b one step on the (1, 1) mesh (fsdp="
-              f"{axes.fsdp}, attn_mode={ctx.attn_mode}) vs one device: "
-              f"loss {got['loss']!r} / {want['loss']!r}, grad_norm "
-              f"{got['grad_norm']!r} / {want['grad_norm']!r}, parameters "
-              f"bit for bit {len(same)} of {n}; step ms {mesh_ms:.2f} / "
-              f"{one_ms:.2f} (first steps, not timings)")
-        if got["loss"] != want["loss"] or \
-                got["grad_norm"] != want["grad_norm"] or len(same) != n:
-            fail(f"tp gemma2 mesh step: not the one-device step bit for bit "
-                 f"({n - len(same)} parameters differ)")
-        del state, host
-        freed("tp gemma2 mesh")
+            for tag, opt in opts.items():
+                run = f"tp_gemma2_mesh{tag.replace(' ', '_')}_step"
+                for sp in spies.values():
+                    sp.launches = 0
+                state, metrics, mesh_ms[tag] = one_step(ctx, opt, part)
+                launches[run] = {k: sp.launches for k, sp in spies.items()}
+                if launches[run] != counts:
+                    fail(f"{run}: launches {launches[run]} != {counts}")
+                fsdp = len(state["params"].fsdp_dims)
+                got[tag] = {k: float(v) for k, v in metrics.items()}
+                same = [k for k, p in state["params"].named_parameters()
+                        if torch.equal(p.detach().cpu(), hosts[tag][k])]
+                n = len(hosts[tag])
+                want = wants[tag]
+                print(f"tp gemma2-2b one{tag} step on the (1, 1) mesh "
+                      f"(fsdp={axes.fsdp}: {fsdp} of {n} parameters "
+                      f"gathered, moments at ZeRO-1 specs, attn_mode="
+                      f"{ctx.attn_mode}) vs one device: loss "
+                      f"{got[tag]['loss']!r} / {want['loss']!r}, grad_norm "
+                      f"{got[tag]['grad_norm']!r} / {want['grad_norm']!r}, "
+                      f"parameters bit for bit {len(same)} of {n}; step ms "
+                      f"{mesh_ms[tag]:.2f} / {one_ms[tag]:.2f} (first "
+                      f"steps, not timings)")
+                if got[tag]["loss"] != want["loss"] or \
+                        got[tag]["grad_norm"] != want["grad_norm"] or \
+                        len(same) != n or not fsdp:
+                    fail(f"{run}: not the one-device step bit for bit "
+                         f"({n - len(same)} parameters differ, {fsdp} "
+                         f"gathered)")
+                del state, hosts[tag]
+                freed(f"tp gemma2 mesh{tag}")
+            step_errs = hold_to_plain("tp gemma2 mesh steps", spies, plains)
     finally:
         dist.destroy_process_group()
     for k in errs:
@@ -4178,9 +4202,12 @@ def tp_phase(dev):
     for k in ("rmsnorm", "rmsnorm_bwd"):
         errs[k] = step_errs.get(k, 0.0)
     print("tp phase " + json.dumps(dict(
-        seconds=time.perf_counter() - t_phase, loss=got["loss"],
-        grad_norm=got["grad_norm"], mesh_first_step_ms=mesh_ms,
-        one_device_first_step_ms=one_ms, launches=launches)))
+        seconds=time.perf_counter() - t_phase, loss=got[""]["loss"],
+        grad_norm=got[""]["grad_norm"], int8_loss=got[" int8"]["loss"],
+        int8_grad_norm=got[" int8"]["grad_norm"],
+        mesh_first_step_ms=mesh_ms[""], one_device_first_step_ms=one_ms[""],
+        mesh_int8_first_step_ms=mesh_ms[" int8"],
+        one_device_int8_first_step_ms=one_ms[" int8"], launches=launches)))
     by_run = {k: {r: launches[r].get(k, 0) for r in launches}
               for k in TP_KERNELS}
     return by_run, errs, rows

@@ -29,10 +29,13 @@ card a rank) or, with ``--device cpu``, as gloo ranks
 (:func:`repro_torch.launch.mesh.spawn_cpu_ranks` joins them and calls
 :func:`main` in each). A world of another size is refused. Every rank
 builds the same state from ``--seed`` (or restores it), keeps its slice
-(:func:`repro_torch.sharding.shard_params`, moments alike) and runs the
-sharded train step on its rows of the same seeded batches; rank 0
-prints, and checkpoints are saved and restored through ``shardings=``
-(whole leaves on disk, restorable on one device or another mesh).
+(:func:`repro_torch.sharding.shard_params`; FSDP over the data axes
+where :func:`repro_torch.launch.specs.mesh_axes_for` turns it on, and
+the moments, with ``--compression int8``'s residual, at their ZeRO-1
+specs) and runs the sharded train step on its rows of the same seeded
+batches; rank 0 prints, and checkpoints are saved and restored through
+``shardings=`` (whole leaves on disk, restorable on one device or
+another mesh).
 """
 
 from __future__ import annotations
@@ -50,10 +53,11 @@ from ..checkpoint.convert import state_from_reference
 from ..configs import ARCHS, ShapeConfig, reduced as reduce_cfg
 from ..configs.demo import DEMO_20M, DEMO_100M
 from ..data.pipeline import PipelineConfig, Prefetcher, TokenPipeline
-from ..models.model import ShardCtx
-from ..optim.adamw import OptConfig
+from ..models.model import ShardCtx, init_params
+from ..optim.adamw import OptConfig, init_opt_state
 from ..runtime.train_loop import Trainer, init_train_state, state_shardings
-from ..sharding.partition import Partitioner, shard, shard_params
+from ..sharding.partition import (Partitioner, shard, shard_params,
+                                  shard_slices)
 from .mesh import BACKENDS, make_mesh
 from .specs import make_ctx, mesh_axes_for
 
@@ -108,16 +112,38 @@ def join_mesh(text: str, device: torch.device):
                      device_type=device.type), device
 
 
-def shard_state(state: dict, part: Partitioner) -> dict:
+def shard_state(state: dict, part: Partitioner) -> tuple[dict, dict]:
     """``state`` with its parameters (:func:`shard_params`) and moments
-    cut to this rank's slices, in place; returns the specs of the whole
-    parameters."""
+    (``m``, ``v`` and ``ef``, at :meth:`Partitioner.moment_specs`) cut to
+    this rank's slices, in place; returns the specs of the parameters
+    and of the moments."""
     specs = part.param_specs(state["params"])
+    moments = part.moment_specs(state["params"], specs)
     shard_params(state["params"], part)
-    for key in ("m", "v"):
-        state["opt"][key] = {k: shard(t, specs[k], part.mesh)
-                             for k, t in state["opt"][key].items()}
-    return specs
+    for key in ("m", "v", "ef"):
+        if key in state["opt"]:
+            state["opt"][key] = {k: shard(t, moments[k], part.mesh)
+                                 for k, t in state["opt"][key].items()}
+    return specs, moments
+
+
+def sharded_train_state(params, opt: OptConfig,
+                        part: Partitioner) -> tuple[dict, tuple[dict, dict]]:
+    """A fresh train state on this rank of ``part``'s mesh from whole
+    parameters (every rank holding the same): the parameters cut to this
+    rank's slices (:func:`shard_params`) and made trainable, and the
+    optimizer state made at its slices (the moments at
+    :meth:`Partitioner.moment_specs`), so no rank holds the whole
+    moments. Returns (state, (param specs, moment specs))."""
+    params.requires_grad_(True)
+    specs = part.param_specs(params)
+    moments = part.moment_specs(params, specs)
+    shapes = {k: tuple(s.stop - s.start for s in shard_slices(
+        p.shape, moments[k], part.mesh)) for k, p in
+        params.named_parameters()}
+    shard_params(params, part)
+    return ({"params": params, "opt": init_opt_state(params, opt, shapes)},
+            (specs, moments))
 
 
 def main(argv=None):
@@ -143,10 +169,6 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.mesh is not None and args.compression != "none":
-        raise SystemExit(f"--compression {args.compression} with --mesh: "
-                         f"compressing sharded gradients comes with ZeRO-1, "
-                         f"ROADMAP A13b3")
 
     cfg = resolve_config(args.arch, args.reduced)
     opt = OptConfig(lr=args.lr, warmup_steps=min(100, args.steps // 10 + 1),
@@ -175,23 +197,25 @@ def main(argv=None):
     gen = torch.Generator(device=device).manual_seed(args.seed)
 
     def fresh():
-        state = init_train_state(cfg, opt, gen, device)
-        specs = shard_state(state, part) if part is not None else None
-        return state, specs
+        if part is not None:
+            return sharded_train_state(init_params(cfg, gen, device), opt,
+                                       part)
+        return init_train_state(cfg, opt, gen, device), (None, None)
     if args.from_reference is not None:
         if mgr.list_steps():
             raise SystemExit(f"--from-reference: {ckpt_dir} already holds "
                              f"committed checkpoints {mgr.list_steps()}; "
                              f"give an empty --ckpt-dir")
         state = state_from_reference(args.from_reference, cfg, opt, device)
-        specs = shard_state(state, part) if part is not None else None
+        specs = shard_state(state, part) if part is not None else (None,
+                                                                   None)
         start = int(state["opt"]["step"])
         resumed = (f"resumed from the reference's step {start} "
                    f"({args.from_reference})")
     elif mgr.list_steps():
         state, specs = fresh()
-        if specs is not None:
-            shardings = state_shardings(part.mesh, specs)
+        if part is not None:
+            shardings = state_shardings(part.mesh, *specs)
         state = mgr.restore_latest(state, shardings)
         start = int(state["opt"]["step"])
         resumed = f"resumed from step {start}"
@@ -203,7 +227,9 @@ def main(argv=None):
               f"{' a rank' if part else ''} steps={args.steps} "
               f"batch={args.batch} seq={args.seq}"
               + (f" mesh={args.mesh} attn_mode={ctx.attn_mode}"
-                 f" fsdp={part.axes.fsdp}" if part else ""))
+                 f" fsdp={part.axes.fsdp} moments="
+                 f"{'zero1' if specs[1] != specs[0] else 'params'}"
+                 if part else ""))
         if resumed:
             print(resumed)
     pipe = Prefetcher(TokenPipeline(
@@ -211,7 +237,8 @@ def main(argv=None):
                             seed=args.seed), device=device,
         start_step=start))
     trainer = Trainer(cfg, opt, ctx, ckpt_dir, ckpt_every=args.ckpt_every,
-                      grad_accum=args.grad_accum, param_specs=specs)
+                      grad_accum=args.grad_accum, param_specs=specs[0],
+                      moment_specs=specs[1])
     try:
         state, history, monitor = trainer.run(state, pipe, args.steps)
     finally:

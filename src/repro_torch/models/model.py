@@ -37,6 +37,17 @@ with ``cfg.remat`` ``"full"`` a training forward recomputes each layer
 in the backward (``torch.utils.checkpoint``, as the reference
 rematerialises its repeat groups); ``"dots"`` keeps the matrix products'
 outputs and recomputes the rest.
+
+Under FSDP (:func:`repro_torch.sharding.shard_params` or
+``shard_experts`` with ``MeshAxes(fsdp=True)``) the model holds each
+rank's slice over the data axes too, and ``fsdp_dims`` names them: the
+forward gathers a layer's such weights over the data axes inside the
+call that ``cfg.remat`` wraps, so under remat the gather runs again in
+the backward's recomputation and no gathered weight is held from the
+forward to the backward (FSDP's reshard after forward); the embedding,
+frontends and head are gathered once a forward, outside the layers.
+The blocks then see the tensor-parallel weights they read their layout
+from.
 """
 
 from __future__ import annotations
@@ -45,13 +56,15 @@ import dataclasses
 import functools
 from collections.abc import Mapping
 from dataclasses import dataclass
+from types import SimpleNamespace
 
 import torch
 from torch import nn
 from torch.distributed.device_mesh import DeviceMesh
 
 from ..configs.base import ModelConfig
-from ..sharding.collectives import assemble, psum, replicated_in
+from ..sharding.collectives import (assemble, fsdp_gather, psum,
+                                    replicated_in)
 from .blocks import (_init, check_supported, init_layer, init_shared_block,
                      init_shared_lora, layer_forward, model_axis,
                      shared_block_forward)
@@ -409,6 +422,32 @@ def _remat(cfg: ModelConfig, mode: str):
     return lambda fn: ckpt.checkpoint(fn, use_reentrant=False, **kw)
 
 
+def _fsdp_weights(params: Model, prefix: str, ctx) -> dict:
+    """The parameters under ``prefix`` (``"layers.3."``; ``""`` for the
+    top level alone) that ``params.fsdp_dims`` names, each gathered
+    whole over its data axes: ``{name below prefix: tensor}``."""
+    dims = getattr(params, "fsdp_dims", None)
+    if not dims:
+        return {}
+    if ctx is None or not isinstance(ctx.mesh, DeviceMesh):
+        raise ValueError("a model sharded over the data axes (FSDP) runs "
+                         "under a ShardCtx on its DeviceMesh")
+    return {name[len(prefix):]: fsdp_gather(params.get_parameter(name), dim,
+                                            ctx.mesh, axes)
+            for name, (dim, axes) in dims.items()
+            if name.startswith(prefix) and (prefix or "." not in name)}
+
+
+def _run_layer(params: Model, i: int, *args, **kwargs):
+    """Layer ``i`` on ``args``, its FSDP weights gathered first: the body
+    of a remat region."""
+    layer = params.layers[i]
+    weights = _fsdp_weights(params, f"layers.{i}.", kwargs.get("ctx"))
+    if not weights:
+        return layer(*args, **kwargs)
+    return torch.func.functional_call(layer, weights, args, kwargs)
+
+
 def forward(params: Model, batch: dict, cfg: ModelConfig, ctx: ShardCtx):
     """train -> (logits, aux); prefill -> (last_logits, aux, cache);
     decode -> (logits (B,V), aux, cache). ``aux`` is the float32 sum of
@@ -424,7 +463,10 @@ def forward(params: Model, batch: dict, cfg: ModelConfig, ctx: ShardCtx):
     mode = ctx.mode
     decode = mode == "decode"
     caches = batch["cache"] if decode else None
-    x, positions, prefix_len = _embed(params, batch, cfg, ctx)
+    top = SimpleNamespace(**{k: getattr(params, k) for k in TOP_LEVEL
+                             if hasattr(params, k)})
+    vars(top).update(_fsdp_weights(params, "", ctx))
+    x, positions, prefix_len = _embed(top, batch, cfg, ctx)
     if decode:
         positions = int(batch["pos"])
     emb0 = x if cfg.shared_attn_every else None
@@ -440,7 +482,7 @@ def forward(params: Model, batch: dict, cfg: ModelConfig, ctx: ShardCtx):
                 x, emb0, cfg=cfg, mode=mode, positions=positions, cache=c))
         else:
             x, a, nc = call(functools.partial(
-                params.layers[i], x, cfg=cfg, mode=mode,
+                _run_layer, params, i, x, cfg=cfg, mode=mode,
                 positions=positions, cache=c, prefix_len=prefix_len,
                 ctx=ctx))
             aux = aux + a
@@ -448,11 +490,11 @@ def forward(params: Model, batch: dict, cfg: ModelConfig, ctx: ShardCtx):
     aux = torch.as_tensor(aux, dtype=torch.float32, device=x.device)
 
     if mode == "train":
-        return _head(params, x, cfg, ctx), aux
+        return _head(top, x, cfg, ctx), aux
     if mode == "prefill":
-        logits = _head(params, x[:, -1:], cfg, ctx)[:, 0]
+        logits = _head(top, x[:, -1:], cfg, ctx)[:, 0]
         return softcap(logits, cfg.logit_softcap), aux, new_cache
-    logits = _head(params, x, cfg, ctx)[:, 0]
+    logits = _head(top, x, cfg, ctx)[:, 0]
     return softcap(logits, cfg.logit_softcap), aux, new_cache
 
 

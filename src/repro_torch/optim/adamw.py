@@ -16,12 +16,19 @@ not two (at gemma2-2b's 2.6 B parameters a second set is 21 GB). The
 step counter and every scalar stay on the parameters' device: a step
 reads nothing back to the host.
 
-Under a mesh the parameters, gradients and moments are this rank's
-slices (:func:`repro_torch.sharding.shard_params`; the moments keep the
-parameters' layout, ZeRO-1 is ROADMAP A13b3) and the clip reads the
-norm of the whole gradient: :func:`global_norm` with the parameters'
-specs adds each sharded gradient's slices over the axes that split it,
-and counts a replicated one once.
+Under a mesh the parameters and gradients are this rank's slices
+(:func:`repro_torch.sharding.shard_params`) and the moments may be cut
+finer (ZeRO-1: :meth:`repro_torch.sharding.Partitioner.moment_specs`
+adds the data axes on a dim the parameter's spec leaves whole).
+:func:`apply_updates` takes this rank's slice of each averaged gradient
+at its moment's spec, updates its slices of the moments and of the
+parameter in float32, and all-gathers the new parameter slices over the
+data axes. The clip reads the norm of the whole gradient:
+:func:`global_norm` with the moments' specs adds each sharded
+gradient's slices over the axes that split it, and counts a replicated
+one once. int8 compression takes its per-tensor scale over every slice
+(an all-reduce MAX of ``max |g|``; the max is exact, so each rank's
+slice of the result is bit for bit the one-device tensor's).
 """
 
 from __future__ import annotations
@@ -32,7 +39,7 @@ from dataclasses import dataclass
 import torch
 import torch.distributed as dist
 
-from ..sharding.partition import spec_axes
+from ..sharding.partition import Spec, gather, shard_slices, spec_axes
 
 
 @dataclass(frozen=True)
@@ -65,21 +72,42 @@ def _named(params) -> dict:
     return dict(params)
 
 
-def init_opt_state(params, cfg: OptConfig) -> dict:
+def init_opt_state(params, cfg: OptConfig,
+                   shapes: dict | None = None) -> dict:
     """{"m", "v" (float32 zeros per parameter), "step" (int32 0), and
     "ef" (float32 zeros) under int8 compression}; ``params`` a module or
-    a dict of tensors."""
+    a dict of tensors; ``shapes`` ({name: shape}) the moments' shapes
+    where they are not the parameters' (this rank's ZeRO-1 slices)."""
     named = _named(params)
+    shapes = shapes or {}
 
     def zeros():
-        return {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                for k, p in named.items()}
+        return {k: torch.zeros(shapes.get(k, p.shape), dtype=torch.float32,
+                               device=p.device) for k, p in named.items()}
     device = next(iter(named.values())).device
     state = {"m": zeros(), "v": zeros(),
              "step": torch.zeros((), dtype=torch.int32, device=device)}
     if cfg.compression == "int8":
         state["ef"] = zeros()            # error-feedback accumulator
     return state
+
+
+def _over_slices(vals: torch.Tensor, names, specs: dict | None, mesh,
+                 op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``vals`` (one per name, stacked) each reduced by ``op`` over the
+    axes the name's spec in ``specs`` shards its tensor over: one
+    all-reduce an axis for every tensor sharded alike."""
+    by_axes = {}
+    for i, k in enumerate(names):
+        axes = spec_axes(specs[k]) if specs else ()
+        if axes:
+            by_axes.setdefault(axes, []).append(i)
+    for axes, idx in by_axes.items():
+        part = vals[idx]
+        for a in axes:
+            dist.all_reduce(part, op=op, group=mesh.get_group(a))
+        vals[idx] = part
+    return vals
 
 
 def global_norm(tree: dict, specs: dict | None = None,
@@ -92,52 +120,71 @@ def global_norm(tree: dict, specs: dict | None = None,
     way, so a mesh of one rank gives the one-device bits."""
     sums = torch.stack([torch.sum(torch.square(x.to(torch.float32)))
                         for x in tree.values()])
-    if specs:
-        by_axes = {}
-        for i, k in enumerate(tree):
-            axes = spec_axes(specs[k])
-            if axes:
-                by_axes.setdefault(axes, []).append(i)
-        for axes, idx in by_axes.items():
-            part = sums[idx]
-            for a in axes:
-                dist.all_reduce(part, group=mesh.get_group(a))
-            sums[idx] = part
-    return torch.sqrt(torch.sum(sums))
+    return torch.sqrt(torch.sum(_over_slices(sums, list(tree), specs,
+                                             mesh)))
 
 
-def _quantize_int8(g: torch.Tensor) -> torch.Tensor:
-    """Symmetric per-tensor int8 quantize -> dequantize."""
-    scale = torch.max(torch.abs(g)) / 127.0 + 1e-30
+def _quantize_int8(g: torch.Tensor, amax: torch.Tensor) -> torch.Tensor:
+    """Symmetric per-tensor int8 quantize -> dequantize, the scale from
+    the whole tensor's ``max |g|``."""
+    scale = amax / 127.0 + 1e-30
     return torch.clamp(torch.round(g / scale), -127, 127) * scale
 
 
+def _finer(pspec, mspec) -> Spec | None:
+    """The spec that cuts a parameter's slice (at ``pspec``) down to its
+    moments' (at ``mspec``): the axes ZeRO-1 put on dims the parameter
+    holds whole. None where the two agree."""
+    n = max(len(pspec), len(mspec))
+    ps, ms = (list(x) + [None] * (n - len(x)) for x in (pspec, mspec))
+    if ps == ms:
+        return None
+    if any(a is not None and a != b for a, b in zip(ps, ms)):
+        raise ValueError(f"moment spec {mspec} does not refine the "
+                         f"parameter's {pspec}")
+    return Spec(*(b if a is None else None for a, b in zip(ps, ms)))
+
+
+def _narrow(t: torch.Tensor, cut, mesh) -> torch.Tensor:
+    return t if cut is None else t[shard_slices(t.shape, cut, mesh)]
+
+
 def apply_updates(params, grads: dict, state: dict, cfg: OptConfig,
-                  specs: dict | None = None, mesh=None):
+                  specs: dict | None = None, mesh=None,
+                  moment_specs: dict | None = None):
     """One AdamW step. ``params`` a module or a dict of tensors,
-    ``grads`` a dict of the same names (any float type); ``specs`` and
-    ``mesh`` as :func:`global_norm`'s, where they are this rank's slices.
+    ``grads`` a dict of the same names (any float type, the gradient
+    averaged over the data ranks); ``specs`` and ``mesh`` as
+    :func:`global_norm`'s, where they are this rank's slices, and
+    ``moment_specs`` (default ``specs``) the specs of ``state``'s
+    moments: where one cuts a dim its parameter holds whole (ZeRO-1),
+    this rank updates that slice of the parameter and all-gathers it.
     Updates the parameters, ``state["m"]``, ``state["v"]`` and
-    ``state["ef"]`` in place; returns (params, state with the new
-    ``step``, stats {"grad_norm", "lr"} as float32 tensors)."""
+    ``state["ef"]`` (at the moments' specs) in place; returns (params,
+    state with the new ``step``, stats {"grad_norm", "lr"} as float32
+    tensors)."""
     named = _named(params)
-    grads = {k: g.to(torch.float32) for k, g in grads.items()}
-    if cfg.compression == "int8" and specs and any(
-            spec_axes(s) for s in specs.values()):
-        raise NotImplementedError("int8 gradient compression of sharded "
-                                  "parameters (a per-tensor scale over "
-                                  "their slices) comes with ZeRO-1, "
-                                  "ROADMAP A13b3")
+    mspecs, cuts = specs, dict.fromkeys(named)
+    if moment_specs is not None:
+        mspecs = moment_specs
+        cuts = {k: _finer(specs[k], mspecs[k]) for k in named}
+    # this rank's slice of each gradient, then float32, one at a time
+    grads = {k: _narrow(g, cuts[k], mesh).to(torch.float32)
+             for k, g in grads.items()}
 
     if cfg.compression == "int8":
-        # error feedback: compress (grad + residual), keep the residual
-        for k, g in grads.items():
-            summed = g + state["ef"][k]
-            comp = _quantize_int8(summed)
-            state["ef"][k].copy_(summed - comp)
-            grads[k] = comp
+        # error feedback: compress (grad + residual), keep the residual;
+        # the scale is the whole tensor's, the sum formed again after it
+        ef = state["ef"]
+        amax = _over_slices(torch.stack([torch.max(torch.abs(g + ef[k]))
+                                         for k, g in grads.items()]),
+                            list(grads), mspecs, mesh, dist.ReduceOp.MAX)
+        for (k, g), m in zip(list(grads.items()), amax):
+            summed = g + ef[k]
+            grads[k] = _quantize_int8(summed, m)
+            ef[k].copy_(summed - grads[k])
 
-    gnorm = global_norm(grads, specs, mesh)
+    gnorm = global_norm(grads, mspecs, mesh)
     clip = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
 
     step = state["step"] + 1
@@ -155,9 +202,12 @@ def apply_updates(params, grads: dict, state: dict, cfg: OptConfig,
             m.copy_(cfg.b1 * m + (1 - cfg.b1) * g)
             v.copy_(cfg.b2 * v + (1 - cfg.b2) * g * g)
             del g
-            pf = p.to(torch.float32)
+            pf = _narrow(p, cuts[k], mesh).to(torch.float32)
             delta = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps) \
                 + cfg.weight_decay * pf
-            p.copy_((pf - lr * delta).to(p.dtype))
+            new = (pf - lr * delta).to(p.dtype)
+            if cuts[k] is not None:       # the slices joined over data
+                new = gather(new, cuts[k], mesh)
+            p.copy_(new)
     state["step"] = step
     return params, state, {"grad_norm": gnorm, "lr": lr}

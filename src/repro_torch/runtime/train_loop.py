@@ -18,10 +18,13 @@ A train state is ``{"params": Model, "opt": {"m", "v", "step", ...}}``;
 the step updates both in place (see :mod:`repro_torch.optim.adamw`) and
 returns the same state. Under a mesh (a context whose ``mesh`` is a
 ``DeviceMesh``) the parameters and moments are this rank's slices
-(:func:`repro_torch.sharding.shard_params`), every rank is handed the
-whole batch and takes its data-parallel rows, and the step averages the
-gradients and the loss over the data-parallel axes, so it equals the
-one-device step.
+(:func:`repro_torch.sharding.shard_params`; the moments at their ZeRO-1
+specs, :meth:`~repro_torch.sharding.Partitioner.moment_specs`), every
+rank is handed the whole batch and takes its data-parallel rows, and
+the step averages the gradients and the loss over the data-parallel
+axes, so it equals the one-device step. A parameter FSDP cuts over the
+data axes gets its gradient reduce-scattered by the forward's gather,
+summed over the data ranks; the step divides it by their number.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from ..models.layers import cross_entropy
 from ..models.model import ShardCtx, forward, init_params
 from ..optim.adamw import OptConfig, apply_updates, init_opt_state
 from ..sharding.partition import Shardings, Spec, shard
+
 
 def family_loss(cfg, logits, batch):
     """Next-token CE for LMs; masked-unit CE for the encoder; text-only
@@ -81,33 +85,31 @@ def _mean_over(tensors: list, mesh, axes: tuple[str, ...], n: int) -> list:
             zip(flat.split([t.numel() for t in tensors]), tensors)]
 
 
-def make_train_step(cfg, opt_cfg: OptConfig, ctx: ShardCtx,
-                    grad_accum: int = 1, param_specs: dict | None = None):
-    """Returns train_step(state, batch) -> (state, metrics). ``batch``
-    leaves are (B, ...) tensors on the parameters' device; with
-    ``grad_accum`` > 1 they are cut into that many microbatches whose
-    gradients are summed in float32 and averaged. ``metrics``: ``loss``,
-    ``aux_loss``, ``grad_norm``, ``lr`` as float32 tensors.
+def make_grad_fn(cfg, ctx: ShardCtx, grad_accum: int = 1):
+    """Returns grad_fn(params, batch) -> (grads, loss, aux): the gradients
+    a train step applies (``{name: tensor}``, each this rank's slice
+    under a mesh), the loss and the aux loss. ``batch`` leaves are (B,
+    ...) tensors on the parameters' device; with ``grad_accum`` > 1 they
+    are cut into that many microbatches whose gradients are summed in
+    float32 and averaged.
 
-    Under a mesh ``param_specs`` (``{name: Spec}``, the layout
-    :func:`repro_torch.sharding.shard_params` kept the parameters in) is
-    required. Every rank is handed the same whole batch and takes its
+    Under a mesh every rank is handed the same whole batch and takes its
     rows over ``ctx.dp_axes`` (the partitioner's ``batch_spec``); each
     microbatch is then a slice of those rows, as the reference pins the
     data-parallel axes onto the microbatch dim. Gradients (in float32),
-    the loss and the aux loss are averaged over the data-parallel axes,
-    and the clip reads the global norm of the sharded gradients
-    (:func:`repro_torch.optim.adamw.global_norm`)."""
+    the loss and the aux loss are averaged over the data-parallel axes.
+    The gradient of a parameter the model holds cut over the data axes
+    (FSDP, its ``fsdp_dims``) arrives summed over the data ranks and is
+    divided by their number instead, whether or not the batch divides
+    over them (where it does not, every rank runs all rows)."""
     loss_fn = make_loss_fn(cfg, ctx)
     mesh = ctx.mesh
     if mesh is not None and not isinstance(mesh, DeviceMesh):
-        raise TypeError("make_train_step: a ShardCtx on a mapping of axis "
+        raise TypeError("train step: a ShardCtx on a mapping of axis "
                         "sizes names a layout; run it on a DeviceMesh")
-    if mesh is not None and param_specs is None:
-        raise ValueError("make_train_step: under a mesh give param_specs, "
-                         "the specs the parameters were sharded by")
+    sizes = axis_sizes(mesh) if mesh is not None else {}
     dp = tuple(ctx.dp_axes) if mesh is not None else ()
-    dp_n = math.prod(axis_sizes(mesh)[a] for a in dp) if dp else 1
+    dp_n = math.prod(sizes[a] for a in dp)
 
     def rows(batch):
         if not dp:
@@ -122,8 +124,8 @@ def make_train_step(cfg, opt_cfg: OptConfig, ctx: ShardCtx,
         params.zero_grad(set_to_none=True)
         return grads, loss.detach(), torch.as_tensor(aux).detach()
 
-    def train_step(state, batch):
-        params = state["params"]
+    def grad_fn(params, batch):
+        fsdp = getattr(params, "fsdp_dims", {})
         params.requires_grad_(True)
         batch = rows(batch)
         if grad_accum == 1:
@@ -142,14 +144,45 @@ def make_train_step(cfg, opt_cfg: OptConfig, ctx: ShardCtx,
             grads = {k: g / grad_accum for k, g in grads.items()}
             loss, aux = loss / grad_accum, aux / grad_accum
         if dp_n > 1:
-            names = list(grads)
+            names = [k for k in grads if k not in fsdp]
             *averaged, loss, aux = _mean_over(
                 [grads[k] for k in names] + [torch.as_tensor(loss),
                                              torch.as_tensor(aux)],
                 mesh, dp, dp_n)
-            grads = dict(zip(names, averaged))
+            grads.update(zip(names, averaged))
+        for k, (_, axes) in fsdp.items():        # summed over data ranks
+            n = math.prod(sizes[a] for a in axes)
+            if n > 1:
+                grads[k] = grads[k].to(torch.float32) / n
+        return grads, loss, aux
+
+    return grad_fn
+
+
+def make_train_step(cfg, opt_cfg: OptConfig, ctx: ShardCtx,
+                    grad_accum: int = 1, param_specs: dict | None = None,
+                    moment_specs: dict | None = None):
+    """Returns train_step(state, batch) -> (state, metrics): the
+    gradients of :func:`make_grad_fn`, then AdamW. ``metrics``:
+    ``loss``, ``aux_loss``, ``grad_norm``, ``lr`` as float32 tensors.
+
+    Under a mesh ``param_specs`` (``{name: Spec}``, the layout
+    :func:`repro_torch.sharding.shard_params` kept the parameters in) is
+    required, and the clip reads the global norm of the sharded
+    gradients (:func:`repro_torch.optim.adamw.global_norm`);
+    ``moment_specs`` (default ``param_specs``) is the layout of the
+    optimizer moments, ZeRO-1's
+    (:func:`repro_torch.optim.adamw.apply_updates`)."""
+    grad_fn = make_grad_fn(cfg, ctx, grad_accum)
+    if ctx.mesh is not None and param_specs is None:
+        raise ValueError("make_train_step: under a mesh give param_specs, "
+                         "the specs the parameters were sharded by")
+
+    def train_step(state, batch):
+        params = state["params"]
+        grads, loss, aux = grad_fn(params, batch)
         _, opt, stats = apply_updates(params, grads, state["opt"], opt_cfg,
-                                      param_specs, mesh)
+                                      param_specs, ctx.mesh, moment_specs)
         del grads
         metrics = {"loss": loss, "aux_loss": aux, **stats}
         return {"params": params, "opt": opt}, metrics
@@ -157,14 +190,18 @@ def make_train_step(cfg, opt_cfg: OptConfig, ctx: ShardCtx,
     return train_step
 
 
-def state_shardings(mesh, param_specs: dict) -> Shardings:
+def state_shardings(mesh, param_specs: dict,
+                    moment_specs: dict | None = None) -> Shardings:
     """The :class:`~repro_torch.sharding.Shardings` of a train state
-    whose parameters lie at ``param_specs`` on ``mesh``: the moments in
-    the parameters' layout, the step whole (int8 compression of sharded
-    parameters is ROADMAP A13b3). What a checkpoint of a sharded state is
-    saved and restored by."""
+    whose parameters lie at ``param_specs`` on ``mesh`` and whose
+    moments (``m``, ``v`` and int8's residual ``ef``) lie at
+    ``moment_specs`` (default the parameters'), the step whole. What a
+    checkpoint of a sharded state is saved and restored by; the saved
+    leaves are whole, so it restores on one device or another mesh."""
+    moments = param_specs if moment_specs is None else moment_specs
     return Shardings(mesh, {"params": param_specs,
-                            "opt": {"m": param_specs, "v": param_specs}})
+                            "opt": {"m": moments, "v": moments,
+                                    "ef": moments}})
 
 
 def init_train_state(cfg, opt_cfg: OptConfig, generator: torch.Generator,
@@ -210,6 +247,7 @@ class Trainer:
     max_retries: int = 3
     grad_accum: int = 1
     param_specs: dict | None = None   # under a mesh: the parameters' specs
+    moment_specs: dict | None = None  # and the moments' (ZeRO-1)
 
     def run(self, state, data_iter, n_steps: int, log_every: int = 10):
         """Step ``state`` from its optimizer step to ``n_steps`` on the
@@ -221,9 +259,10 @@ class Trainer:
         mesh every rank runs it; checkpoints are saved and restored by
         :func:`state_shardings` (rank 0 writes)."""
         step_fn = make_train_step(self.cfg, self.opt_cfg, self.ctx,
-                                  self.grad_accum, self.param_specs)
+                                  self.grad_accum, self.param_specs,
+                                  self.moment_specs)
         shardings = None if self.ctx.mesh is None else state_shardings(
-            self.ctx.mesh, self.param_specs)
+            self.ctx.mesh, self.param_specs, self.moment_specs)
         mgr = CheckpointManager(self.ckpt_dir)
         monitor = StragglerMonitor()
         step = int(state["opt"]["step"])

@@ -31,6 +31,11 @@ once a rank.
   the ranks' equal gradients.
 * :func:`all_to_all` — ``all_to_all_single`` over dim 0 in equal splits,
   autograd-aware (its backward is the reverse all-to-all).
+* :func:`fsdp_gather` — a weight FSDP keeps cut over the data axes
+  along one dim (each data rank its chunk), gathered whole over them:
+  the backward reduce-scatters the gradient back to this rank's chunk,
+  summed over the data ranks (each ran its own rows through the whole
+  weight). Dividing that sum into a mean is the train step's.
 
 ``group`` is a mesh axis' process group (``mesh.get_group(axis)``); a
 rank's index in it is its index along the axis.
@@ -46,8 +51,8 @@ import torch.distributed.nn.functional as dnn
 
 from ..launch.mesh import axis_sizes
 
-__all__ = ["all_to_all", "assemble", "pmean", "psum", "replicated_in",
-           "slice_in"]
+__all__ = ["all_to_all", "assemble", "fsdp_gather", "pmean", "psum",
+           "replicated_in", "slice_in"]
 
 
 def _chunk(x: torch.Tensor, dim: int, group) -> torch.Tensor:
@@ -109,6 +114,62 @@ class _Psum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None
+
+
+# ``all_gather_into_tensor`` and ``reduce_scatter_tensor``, under the
+# names newer releases give them
+_all_gather = getattr(dist, "all_gather_single", dist.all_gather_into_tensor)
+_reduce_scatter = getattr(dist, "reduce_scatter_single",
+                          dist.reduce_scatter_tensor)
+
+
+def _gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The group's chunks of ``x`` joined along ``dim`` in group-rank
+    order (one ``all_gather_into_tensor`` on dim 0)."""
+    n = dist.get_world_size(group)
+    x = x.movedim(dim, 0).contiguous()
+    out = torch.empty((n * x.shape[0], *x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    _all_gather(out, x, group=group)
+    return out.movedim(0, dim)
+
+
+def _scatter_dim(g: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's chunk along ``dim`` of the sum of ``g`` over the group
+    (one ``reduce_scatter_tensor`` on dim 0)."""
+    n = dist.get_world_size(group)
+    g = g.movedim(dim, 0).contiguous()
+    out = torch.empty((g.shape[0] // n, *g.shape[1:]), dtype=g.dtype,
+                      device=g.device)
+    _reduce_scatter(out, g, group=group)
+    return out.movedim(0, dim)
+
+
+class _FsdpGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, groups):
+        ctx.dim, ctx.groups = dim, groups
+        for group in reversed(groups):          # the minor axis first
+            x = _gather_dim(x, dim, group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        for group in ctx.groups:                # the major axis first
+            g = _scatter_dim(g, ctx.dim, group)
+        return g.contiguous(), None, None
+
+
+def fsdp_gather(x: torch.Tensor, dim: int, mesh,
+                axes: tuple[str, ...]) -> torch.Tensor:
+    """The whole of ``x`` along ``dim`` from the ranks of ``mesh`` that
+    differ only along ``axes`` (the data axes, the first major; each
+    holds its chunk, as :func:`repro_torch.sharding.partition.shard`
+    cuts it), gathered the minor axis first as
+    :func:`~repro_torch.sharding.partition.gather` does. The gradient of
+    ``x`` is this rank's chunk of the sum of the ranks' gradients of the
+    result: a reduce-scatter an axis, in the reverse order."""
+    return _FsdpGather.apply(x, dim, tuple(mesh.get_group(a) for a in axes))
 
 
 def replicated_in(x: torch.Tensor, group) -> torch.Tensor:

@@ -33,10 +33,17 @@ encoder and VLM families at its spec (:func:`shard_params`: heads, the
 MLP's F and the vocabulary over ``model``, run by the tensor-parallel
 blocks of :mod:`repro_torch.models.blocks`), and MoE's experts over
 ``model`` (:func:`shard_experts`, for the ``a2a`` and ``local``
-dispatches) with every other MoE weight whole. Still rules only: FSDP
-and ZeRO-1 with ``data`` above 1 (ROADMAP A13b3), and the
-tensor-parallel layouts of the SSM, hybrid and MLA layers and of MoE's
-attention (A13b4).
+dispatches) with every other MoE weight whole. Under FSDP
+(``MeshAxes.fsdp``) each rank keeps its slice by the whole spec, data
+axes included; the model records which parameters carry data axes, on
+which dim (``fsdp_dims``), and its forward gathers them over the data
+axes a layer at a time (:func:`repro_torch.sharding.collectives.
+fsdp_gather`), whose backward reduce-scatters the gradients. ZeRO-1:
+:meth:`Partitioner.moment_specs` lays the optimizer moments out by
+:meth:`Partitioner.zero1_spec`, and
+:func:`repro_torch.optim.adamw.apply_updates` updates each rank's
+slice of them. Still rules only: the tensor-parallel layouts of the
+SSM, hybrid and MLA layers and of MoE's attention (ROADMAP A13b4).
 """
 
 from __future__ import annotations
@@ -53,7 +60,7 @@ from ..launch.mesh import axis_sizes, check_tensors, mesh_coords
 
 __all__ = ["MeshAxes", "Partitioner", "Shardings", "Spec", "gather",
            "permute_expert_params", "shard", "shard_experts",
-           "shard_params", "shard_slices", "spec_axes"]
+           "shard_params", "shard_slices", "spec_axes", "split_spec"]
 
 #: the families whose every weight shards by its spec (shard_params)
 TP_FAMILIES = ("dense", "encoder", "vlm")
@@ -227,6 +234,19 @@ class Partitioner:
                 return Spec(*spec)
         return pspec
 
+    def moment_specs(self, params, specs: dict) -> dict:
+        """``{name: Spec}`` of the optimizer moments of ``params`` (a
+        module, or ``{name: tensor}`` of whole tensors) whose parameters
+        lie at ``specs``: each :meth:`zero1_spec`, as the reference's dry
+        run lays them out. With one data rank, the parameter's spec (a
+        one-rank axis would slice nothing)."""
+        named = dict(params.named_parameters()) \
+            if isinstance(params, torch.nn.Module) else dict(params)
+        if self.data_n == 1:
+            return dict(specs)
+        return {k: self.zero1_spec(specs[k], tuple(p.shape))
+                for k, p in named.items()}
+
     # -- activations / batch -------------------------------------------------
     def dp_axes_for_batch(self, batch: int) -> tuple[str, ...]:
         """Largest prefix of the DP axes whose product divides the batch."""
@@ -343,16 +363,31 @@ def spec_axes(spec) -> tuple[str, ...]:
     return tuple(a for e in spec for a in _entry_axes(e))
 
 
-def _refuse_fsdp(part: Partitioner) -> None:
-    if part.axes.fsdp and part.data_n > 1:
-        raise NotImplementedError(
-            f"FSDP execution (weights sharded over {part.axes.data} = "
-            f"{part.data_n} ranks, gathered per layer) is ROADMAP A13b3")
+def split_spec(spec, data: tuple[str, ...]) -> tuple[dict, Spec]:
+    """``spec`` split into ``{dim: axes}`` of the dims it shards over the
+    data axes ``data`` and the spec without them (its tensor-parallel
+    part): what FSDP gathers, and the layout it gathers to. A dim split
+    over data and other axes alike is refused: gathering its data part
+    would not join contiguous blocks."""
+    dims, rest = {}, []
+    for i, entry in enumerate(spec):
+        axes = _entry_axes(entry)
+        mine = tuple(a for a in axes if a in data)
+        if mine and len(mine) != len(axes):
+            raise ValueError(f"spec {spec}: dim {i} is split over data "
+                             f"axes and others alike {axes}")
+        if mine:
+            dims[i] = mine
+        rest.append(None if mine else entry)
+    return dims, Spec(*rest)
 
 
 def _keep_local(model, part: Partitioner, names) -> None:
     """Replace each parameter of ``names`` that its spec shards by this
-    rank's slice of it, keeping ``requires_grad``."""
+    rank's slice of it, keeping ``requires_grad``; record in
+    ``model.fsdp_dims`` (``{name: (dim, data axes)}``) each one whose
+    spec shards a dim over the data axes, which the forward gathers."""
+    fsdp = dict(getattr(model, "fsdp_dims", {}))
     for name in names:
         prefix, _, leaf = name.rpartition(".")
         owner = model.get_submodule(prefix)
@@ -360,9 +395,15 @@ def _keep_local(model, part: Partitioner, names) -> None:
         spec = part.param_spec(name, tuple(w.shape))
         if not spec_axes(spec):
             continue
+        dims, _ = split_spec(spec, part.axes.data)
+        if len(dims) > 1:
+            raise ValueError(f"{name}: spec {spec} shards {len(dims)} dims "
+                             f"over the data axes")
+        fsdp.update({name: (i, axes) for i, axes in dims.items()})
         owner.register_parameter(leaf, torch.nn.Parameter(
             shard(w.detach(), spec, part.mesh),
             requires_grad=w.requires_grad))
+    model.fsdp_dims = fsdp
 
 
 def shard_params(model, part: Partitioner):
@@ -372,9 +413,10 @@ def shard_params(model, part: Partitioner):
     MLP's F, the vocabulary and the frontends' output columns over
     ``model`` where they divide, the rest whole. In place; returns the
     model, which the tensor-parallel blocks then run
-    (:mod:`repro_torch.models.blocks`). Refuses FSDP with ``data`` above
-    1 (ROADMAP A13b3) and the SSM, hybrid, MoE and MLA layers (A13b4)."""
-    _refuse_fsdp(part)
+    (:mod:`repro_torch.models.blocks`). Under FSDP the weights' other
+    dim is also cut over the data axes (``model.fsdp_dims`` records it),
+    and the forward gathers it back a layer at a time. Refuses the SSM,
+    hybrid, MoE and MLA layers (ROADMAP A13b4)."""
     cfg = model.cfg
     if cfg.family not in TP_FAMILIES or cfg.kv_lora_rank:
         raise NotImplementedError(
@@ -389,10 +431,9 @@ def shard_experts(model, part: Partitioner):
     """Keep each MoE layer's expert weights (``wi``, ``wo``) as this
     rank's slice over ``model``, by the partitioner's expert rule; every
     other weight stays whole: :func:`shard_params`' MoE case, the layout
-    MoE's ``a2a`` and ``local`` dispatches read (ROADMAP A13d). In
-    place; returns the model. Refuses FSDP with ``data`` above 1
-    (ROADMAP A13b3)."""
-    _refuse_fsdp(part)
+    MoE's ``a2a`` and ``local`` dispatches read (ROADMAP A13d). Under
+    FSDP the experts' model dim is also cut over the data axes and
+    gathered in their layer. In place; returns the model."""
     _keep_local(model, part, [f"{name}.{k}" for name, _ in
                               _moe_modules(model) for k in ("wi", "wo")])
     return model

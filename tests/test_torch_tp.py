@@ -411,14 +411,11 @@ def test_make_ctx_and_mesh_axes_equal_the_reference(monkeypatch):
 
 
 def test_shard_params_refuses_what_waits_for_later_items():
-    """FSDP with data above 1 names A13b3; the SSM, hybrid, MoE and MLA
-    families name A13b4; decode under split heads names A13b4."""
+    """The SSM, hybrid, MoE and MLA families name A13b4 (decode under
+    split heads, which names it too, is
+    ``test_decode_under_split_heads_is_refused``)."""
     from repro_torch.models import init_params
     gen = torch.Generator().manual_seed(0)
-    dense = init_params(cfg_of("glm4-9b"), gen)
-    fsdp = Partitioner({"data": 2, "model": 4}, MeshAxes(fsdp=True))
-    with pytest.raises(NotImplementedError, match="A13b3"):
-        shard_params(dense, fsdp)
     tp = Partitioner({"data": 1, "model": 4}, MeshAxes())
     for name in ("mamba2-780m", "zamba2-7b", "qwen3-moe-235b-a22b",
                  "deepseek-v2-lite-16b"):

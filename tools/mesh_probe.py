@@ -1,8 +1,8 @@
-"""Run the port's expert-parallel MoE dispatch, GPipe pipeline and
-tensor-parallel training step across the GPUs of one host, one process
-a GPU on NCCL, held to one GPU's answer and timed.
+"""Run the port's expert-parallel MoE dispatch, GPipe pipeline,
+tensor-parallel and FSDP training steps across the GPUs of one host,
+one process a GPU on NCCL, held to one GPU's answer and timed.
 
-    python3 tools/mesh_probe.py [--gpus N]
+    python3 tools/mesh_probe.py [--gpus N] [--cases moe,pipeline,tp,fsdp]
 
 ``chip_smoke.py`` runs these paths on a one-rank group; this probe
 gives them N ranks, so the all-to-alls, shifts and psums cross GPUs.
@@ -51,13 +51,29 @@ the same weights. Cases:
   store) and passes any gradient. Then ``TP_TIMED`` more steps each way, ms by
   the host clock after a synchronise.
 
-Prints one JSON line per case (rank 0's; for ``tp`` also every rank's
-check) and, last, the card's name and power limit. Exits non-zero when a
-check fails: an output off the dense dispatch's by more than 2e-2 of its
-largest, pipelined logits not bit for bit, or a ``tp`` gradient or
-step past its gates. The same dispatches and pipeline run on gloo CPU
-ranks in ``tests/test_torch_moe_ep.py`` and
-``tests/test_torch_pipeline.py``.
+- ``fsdp``: FSDP with ZeRO-1 (ROADMAP A13b3). gemma2-2b whole in bf16
+  on an (N, 1) mesh, B = N x 1,024 (one row a rank), against one GPU on
+  the same batch over 2 microbatches (``grad_accum=2``, so it fits);
+  glm4-9b whole on (N / 2, 2), B = N / 2 x 1,024, against (1, N)
+  without FSDP (at one data rank there is nothing to cut over data).
+  Both meshes take their axes from ``mesh_axes_for``, which turns FSDP
+  on (the tensor-parallel weights pass 4 GB a GPU): each layer's
+  weights gathered over the data ranks in its remat region, the
+  gradients reduce-scattered, the moments at their ZeRO-1 specs. The
+  checks of ``tp`` on the gradients the step applies (``make_grad_fn``,
+  before any step) and on the parameters after one step, each leaf
+  gathered whole one at a time on every rank; the loss and norm gates
+  too. Numbers: median step ms of ``TP_TIMED`` timed steps and peak GB
+  a GPU, beside the comparison run's.
+
+Prints one JSON line per case (rank 0's; for ``tp`` and ``fsdp`` also
+every rank's check) and, last, the card's name and power limit. Exits
+non-zero when a check fails: an output off the dense dispatch's by more
+than 2e-2 of its largest, pipelined logits not bit for bit, or a ``tp``
+gradient or step past its gates (an ``fsdp`` run likewise, or one
+without FSDP). The same dispatches, pipeline and steps run on gloo CPU
+ranks in ``tests/test_torch_moe_ep.py``, ``tests/test_torch_pipeline.py``,
+``tests/test_torch_tp.py`` and ``tests/test_torch_fsdp.py``.
 """
 
 from __future__ import annotations
@@ -86,6 +102,9 @@ TP_LOSS_ATOL = 1e-2       # bf16 sums split over N ranks, 26 layers
 TP_NORM_RTOL = 2e-2
 TP_GRAD_COS = 0.99        # per leaf, against the one-GPU slice
 TP_GRAD_NORM = 5e-2       # per leaf, relative
+# fsdp: (arch, mesh, the comparison: "one" GPU over 2 microbatches, or a
+# mesh without FSDP); B = one row a data rank, 1,024 tokens
+FSDP_SEQ = 1024
 
 
 def median(xs):
@@ -346,7 +365,185 @@ def tp_case(rank, n, dev):
             "peak_gb_tp": peak}
 
 
-def rank_main(rank, n, store):
+def leaf_stats(a, b):
+    """(cosine, norm ratio, largest difference over b's largest) of two
+    tensors of one shape, summed in float64."""
+    import torch
+    a, b = a.float().reshape(-1), b.float().reshape(-1)
+    dot = float((a * b).sum(dtype=torch.float64))
+    na = float(a.square().sum(dtype=torch.float64)) ** 0.5
+    nb = float(b.square().sum(dtype=torch.float64)) ** 0.5
+    return (dot / (na * nb) if na * nb else float(na == nb),
+            na / nb if nb else float(na == 0.0),
+            float((a - b).abs().max() / b.abs().max().clamp_min(1e-30)))
+
+
+def fsdp_train(cfg, opt, batch, dev, mesh=None, axes=None, accum=1):
+    """gemma2-style training of ``cfg`` from seed 0 (norms redrawn) on
+    one GPU, or on ``mesh`` under ``axes`` (parameters and moments cut by
+    ``launch.train.shard_state``): the gradients the step applies (from
+    ``make_grad_fn`` before any step) and the parameters after one step,
+    each as this rank's slices with their specs, kept in host memory,
+    the first step's metrics, then ``TP_TIMED`` timed steps (host clock
+    after a synchronise) and the run's peak GB from its first step on
+    (above what was allocated before it; the whole weights drawn on each
+    rank before they are cut are not counted). On a mesh the optimizer
+    state is made at its slices (``launch.train.sharded_train_state``):
+    glm4-9b's whole moments would not fit a GPU."""
+    import torch
+
+    from chip_smoke import redraw
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.specs import make_ctx
+    from repro_torch.launch.train import sharded_train_state
+    from repro_torch.models import ShardCtx, init_params
+    from repro_torch.optim import init_opt_state
+    from repro_torch.runtime.train_loop import make_grad_fn, make_train_step
+    from repro_torch.sharding import Partitioner
+    base = torch.cuda.memory_allocated()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_params(cfg, gen, dev)
+    redraw(params, gen, dev)
+    ctx, specs = ShardCtx(mode="train"), (None, None)
+    if mesh is None:
+        params.requires_grad_(True)
+        state = {"params": params, "opt": init_opt_state(params, opt)}
+    else:
+        b, s = batch["tokens"].shape
+        ctx = make_ctx(cfg, ShapeConfig("fsdp", s, b, "train"), mesh, axes)
+        state, specs = sharded_train_state(params, opt,
+                                           Partitioner(mesh, axes))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    grads, _, _ = make_grad_fn(cfg, ctx, accum)(params, batch)
+    grads = {k: grads.pop(k).detach().to("cpu") for k in list(grads)}
+    step = make_train_step(cfg, opt, ctx, accum, *specs)
+    state, m = step(state, batch)
+    first = {k: float(v) for k, v in m.items()}
+    kept = {k: w.detach().to("cpu") for k, w in params.named_parameters()}
+    ms = []
+    for _ in range(TP_TIMED):
+        torch.cuda.synchronize()
+        torch.distributed.barrier()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    fsdp = len(params.fsdp_dims) if mesh is not None else 0
+    del state, params, step
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    return dict(grads=grads, params=kept, specs=specs[0], first=first,
+                ms=ms, peak=peak, fsdp=fsdp,
+                attn_mode=ctx.attn_mode)
+
+
+def whole_leaf(run, mesh, key, k, dev):
+    """Leaf ``k`` of ``run[key]`` (taken out of it) on ``dev``, gathered
+    whole by its spec on ``mesh`` (as it is, without a mesh)."""
+    from repro_torch.sharding import gather
+    t = run[key].pop(k).to(dev)
+    return t if mesh is None else gather(t, run["specs"][k], mesh)
+
+
+def fsdp_case(rank, n, dev):
+    """gemma2-2b on an (N, 1) mesh against one GPU over 2 microbatches,
+    and glm4-9b on (N / 2, 2) against (1, N) without FSDP, both meshes'
+    axes from ``mesh_axes_for`` (FSDP on) and B one row a data rank of
+    ``FSDP_SEQ`` tokens: the gradient and parameter checks of ``tp``,
+    each leaf gathered whole one at a time, and the step ms and peak GB
+    of both runs."""
+    import torch
+
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.specs import mesh_axes_for
+    from repro_torch.optim import OptConfig
+    from repro_torch.sharding import MeshAxes
+    opt = OptConfig(**TP_OPT)
+    runs = []
+    for arch, shape, against in (("gemma2-2b", (n, 1), "one"),
+                                 ("glm4-9b", (n // 2, 2), (1, n))):
+        cfg = cfg_of(arch)
+        batch = TokenPipeline(cfg, PipelineConfig(
+            batch=shape[0], seq_len=FSDP_SEQ, seed=0),
+            device=dev).make_batch(0)
+        if against == "one":
+            ref_mesh = None
+            ref = fsdp_train(cfg, opt, batch, dev, accum=2)
+        else:
+            ref_mesh = make_mesh(against, ("data", "model"))
+            ref = fsdp_train(cfg, opt, batch, dev, ref_mesh, MeshAxes())
+        mesh = make_mesh(shape, ("data", "model"))
+        axes = mesh_axes_for(cfg, mesh)
+        got = fsdp_train(cfg, opt, batch, dev, mesh, axes)
+        lr1 = float(opt.lr)
+        grad, worst, apart, total = {}, (0.0, None), 0, 0
+        for k in list(ref["grads"]):
+            a = whole_leaf(got, mesh, "grads", k, dev)
+            b = whole_leaf(ref, ref_mesh, "grads", k, dev)
+            grad[k] = leaf_stats(a, b)
+            del a, b
+            w = whole_leaf(ref, ref_mesh, "params", k, dev)
+            mine = whole_leaf(got, mesh, "params", k, dev)
+            d = (mine.float() - w.float()).abs()
+            lim = 2 * lr1 + 2 * bf16_ulp(torch.maximum(mine.float().abs(),
+                                                       w.float().abs()))
+            r = d / lim
+            i = int(r.argmax())
+            if float(r.reshape(-1)[i]) > worst[0]:
+                worst = (float(r.reshape(-1)[i]), k,
+                         float(w.reshape(-1)[i]), float(mine.reshape(-1)[i]))
+            apart += int((d > bf16_ulp(w)).sum())
+            total += d.numel()
+            del w, mine, d, lim, r
+        grad_bad = sorted(k for k, (c, r, _) in grad.items()
+                          if not (c >= TP_GRAD_COS
+                                  and abs(r - 1.0) <= TP_GRAD_NORM))
+        one, mine = ref["first"], got["first"]
+        runs.append({
+            "arch": cfg.name, "mesh": list(shape), "fsdp": axes.fsdp,
+            "gathered_leaves": got["fsdp"], "batch": shape[0],
+            "seq": FSDP_SEQ, "attn_mode": got["attn_mode"],
+            "against": "one GPU, grad_accum 2" if against == "one" else
+            {"mesh": list(against), "fsdp": False},
+            "loss": mine["loss"], "ref_loss": one["loss"],
+            "loss_diff": abs(mine["loss"] - one["loss"]),
+            "grad_norm": mine["grad_norm"], "ref_grad_norm": one["grad_norm"],
+            "grad_norm_rel": abs(mine["grad_norm"] - one["grad_norm"])
+            / one["grad_norm"],
+            "grad_leaves": len(grad), "grad_bad": grad_bad,
+            "grad_min_cos": min(c for c, _, _ in grad.values()),
+            "grad_worst_norm_ratio": max((r for _, r, _ in grad.values()),
+                                         key=lambda r: abs(r - 1.0)),
+            "grad_max_rel": max(grad.items(), key=lambda kv: kv[1][2]),
+            "param_over_bound": worst[0], "param_worst": worst[1:],
+            "param_share_past_one_ulp": apart / total,
+            "step_ms": got["ms"], "ref_step_ms": ref["ms"],
+            "step_ms_median": median(got["ms"]),
+            "ref_step_ms_median": median(ref["ms"]),
+            "peak_gb": got["peak"], "ref_peak_gb": ref["peak"]})
+        del got, ref
+        torch.cuda.empty_cache()
+    return {"case": "fsdp", "ranks": n, "runs": runs}
+
+
+FSDP_CHECKS = ("loss_diff", "grad_norm_rel", "grad_bad", "grad_min_cos",
+               "grad_worst_norm_ratio", "param_over_bound",
+               "param_share_past_one_ulp", "step_ms_median", "peak_gb")
+
+
+def bad_fsdp(run):
+    return run["loss_diff"] > TP_LOSS_ATOL or \
+        run["grad_norm_rel"] > TP_NORM_RTOL or run["grad_bad"] or \
+        run["param_over_bound"] > 1.0 or not run["fsdp"]
+
+
+CASES = {"moe": moe_case, "pipeline": pipeline_case, "tp": tp_case,
+         "fsdp": fsdp_case}
+
+
+def rank_main(rank, n, store, cases):
     import torch
     import torch.distributed as dist
     dev = torch.device(f"cuda:{rank}")
@@ -356,8 +553,8 @@ def rank_main(rank, n, store):
                             rank=rank, world_size=n,
                             timeout=timedelta(seconds=300))
     try:
-        for case in (moe_case, pipeline_case, tp_case):
-            out = case(rank, n, dev)
+        for name in cases:
+            out = CASES[name](rank, n, dev)
             outs = [None] * n
             dist.all_gather_object(outs, out)
             if rank == 0:
@@ -378,6 +575,12 @@ def rank_main(rank, n, store):
                     o["loss_diff"] > TP_LOSS_ATOL
                     or o["grad_norm_rel"] > TP_NORM_RTOL or o["grad_bad"]
                     or o["param_over_bound"] > 1.0)]
+                if out["case"] == "fsdp":
+                    print(json.dumps({"case": "fsdp ranks", "ranks": [
+                        [{k: r[k] for k in FSDP_CHECKS} for r in o["runs"]]
+                        for o in outs]}), flush=True)
+                    bad += [r for o in outs for r in o["runs"]
+                            if bad_fsdp(r)]
                 if bad:
                     raise RuntimeError(f"mesh_probe: FAIL: {json.dumps(bad)}")
             torch.cuda.empty_cache()
@@ -389,7 +592,13 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--gpus", type=int, default=None,
                     help="ranks (default: every visible GPU)")
+    ap.add_argument("--cases", default="moe,pipeline,tp,fsdp",
+                    help="comma-separated, of " + ",".join(CASES))
     args = ap.parse_args(argv)
+    cases = args.cases.split(",")
+    unknown = sorted(set(cases) - set(CASES))
+    if unknown:
+        ap.error(f"unknown cases {unknown}")
     import torch
     import torch.multiprocessing as mp
     if not torch.cuda.is_available():
@@ -399,7 +608,8 @@ def main(argv=None) -> int:
     build.build()                  # once, before the ranks load the kernels
     n = args.gpus or torch.cuda.device_count()
     with tempfile.TemporaryDirectory(prefix="mesh_probe_") as tmp:
-        mp.spawn(rank_main, args=(n, os.path.join(tmp, "store")), nprocs=n)
+        mp.spawn(rank_main, args=(n, os.path.join(tmp, "store"), cases),
+                 nprocs=n)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
