@@ -325,6 +325,34 @@ Run from the repository root (it puts ``src`` on ``sys.path`` itself):
    one-device step's, the counts exact. The kernels line adds the
    phase's counts and the offset rows to ``flash_attention`` and
    ``flash_attention_bwd``.
+18. Tensor parallelism of the SSM, MLA and MoE families and decode over
+   a cache cut into slot ranges (ROADMAP A13b4), one card.
+   ``flash_decode`` with ``return_lse`` over M = 4 and 8 slot ranges of
+   a bf16 cache (each range's local count of valid slots, -1 where it
+   has none), as a model axis of M holds a cache whose kv heads do not
+   divide M: glm4-9b's heads (4, 4096, 32/2, 128), paligemma-3b's one
+   kv head of 256, gemma2-2b's local ring (window 4096) past its window,
+   and a row whose every range but the first is empty. Checks: each
+   range's float32 partial within ``close_to_plain`` of the plain
+   version's, its lse within ``LSE_REL``, an empty range's out 0 and
+   lse -inf; the ranges merged in float32 in rank order
+   (``merge_ranges``) and rounded once within ``close_to_plain`` (2 bf16
+   ulps) of the whole cache's kernel and plain version. Numbers at the
+   first range: the lse variant's ms from a CUDA graph over copies past
+   the L2, the plain version's, the bound, the whole cache's default
+   call beside it (no library call returns the lse: null). Then
+   mamba2-780m whole in bf16, one ``make_train_step`` at B = 2 x 1,024
+   on one device and one through ``shard_params`` on a one-rank NCCL
+   (1, 1) mesh, bit for bit (at M = 1 the Mamba layers run the
+   one-device code), the counts exact; deepseek-v2-lite-16b whole in
+   bf16 through ``shard_params`` on the mesh, run A's prompt through
+   ``generate`` (``a2a`` prefill with nothing dropped, ``local`` decode,
+   MLA's decode over its latent in one slot range, merged: new code at
+   M = 1), counts exact, its teacher-forced logits within ``LOGIT_REL``
+   of the one-device forward's on the same routes. The kernels line
+   adds the phase's counts to ``rmsnorm``, ``flash_attention``,
+   ``rmsnorm_bwd``, ``ssd_scan`` and ``ssd_scan_bwd``, and the slot-range
+   rows to ``flash_decode``.
 
 Exits non-zero, printing no result, on any failure, when no CUDA device
 is present, or when run outside a checkout. The last line of standard
@@ -995,8 +1023,14 @@ def teacher_forced(cfg, params, prompt, toks, extra=None, ctx=None):
     b, s = prompt.shape
     if extra and "patches" in extra:
         s += cfg.n_patches
+    # a model kept by shard_params serves from caches at cache_spec
+    part = getattr(params, "partitioner", None) \
+        if ctx.mesh is not None else None
+    max_seq = s + toks.shape[1]
+    if part is not None:
+        max_seq = -(-max_seq // part.model_n) * part.model_n
     logits, cache = prefill(params, {"tokens": prompt, **(extra or {})})
-    cache = pad_cache_to(cfg, cache, b, s + toks.shape[1])
+    cache = pad_cache_to(cfg, cache, b, max_seq, part)
     out = [logits.float()]
     for i in range(toks.shape[1] - 1):
         _, logits, cache = step(params, cache, toks[:, i:i + 1], s + i)
@@ -4212,6 +4246,305 @@ def tp_phase(dev):
               for k in TP_KERNELS}
     return by_run, errs, rows
 
+# ---------------------------------------------------------------------------
+# phase 18: tensor parallelism of every family, decode over slot ranges
+# ---------------------------------------------------------------------------
+
+SLOT_CASES = {      # b, t, hq, hkv, d, ring, softcap, pos
+    "glm4-9b": (4, 4096, 32, 2, 128, False, None, (4095, 3000, 1500, 200)),
+    "paligemma-3b": (2, 2048, 8, 1, 256, False, None, (2047, 1000)),
+    "gemma2-2b local ring": (2, 4096, 8, 4, 256, True, 50.0, (5000, 4700)),
+    "empty ranges": (1, 1024, 8, 4, 256, False, None, (60,)),
+}
+SLOT_SPLITS = (4, 8)                # model ranks a cache's slots split over
+LSE_REL = 1e-5                      # a range's lse against the plain one's
+TP_FAMILY_KERNELS = ("rmsnorm", "flash_attention", "rmsnorm_bwd",
+                     "ssd_scan", "ssd_scan_bwd")
+TP_DECODE_GEN = 4                   # deepseek: run A's prompt, 3 steps
+
+
+def range_timing(q, kc, vc, pos, dkw, lse):
+    """Device ms of ``flash_decode`` (with ``return_lse`` where ``lse``)
+    from a CUDA graph of calls taking turns over copies of the cache
+    holding three times the L2, and of its plain version; the bound of
+    the bytes the call moves (its valid slots, q, and a float32 out and
+    lse with ``lse``, else out in q's type) and of its operations."""
+    from repro_torch.kernels.flash_decode import (flash_decode_cuda,
+                                                  flash_decode_torch)
+    n_bytes, flops = decode_cost(q, kc, vc, pos, ring=dkw.get("ring", False))
+    if lse:
+        b, hq = q.shape[:2]
+        n_bytes += (4 - q.element_size()) * b * hq * vc.shape[-1] + 4 * b * hq
+    b_ms, b_by = bound(n_bytes, flops, BF16_OPS_PER_S)
+    cache = kc.numel() * kc.element_size() + vc.numel() * vc.element_size()
+    copies = [(kc, vc)] + [(kc.clone(), vc.clone())
+                           for _ in range(-(-3 * L2_BYTES // cache))]
+    turn = itertools.count()
+
+    def kernel():
+        k, v = copies[next(turn) % len(copies)]
+        return flash_decode_cuda(q, k, v, pos, return_lse=lse, **dkw)
+
+    def plain():
+        k, v = copies[next(turn) % len(copies)]
+        return flash_decode_torch(q, k, v, pos, return_lse=lse, **dkw)
+    return dict(ms=graph_ms(kernel, 50), plain_ms=graph_ms(plain, 10),
+                bound_ms=b_ms, bound_by=b_by, bytes=n_bytes, flops=flops)
+
+
+def slot_range_rows(dev):
+    """``flash_decode`` over a cache cut into M = 4 and 8 slot ranges, as
+    a model axis of M ranks holds it where the kv heads do not divide M
+    (``Partitioner.cache_spec``): each range with ``return_lse`` and its
+    local count of valid slots (-1: none), against its plain version
+    (the float32 partial by ``close_to_plain``, the lse within
+    ``LSE_REL``, a range with no valid slot 0 and -inf), then the ranges
+    merged (``merge_ranges``, float32, rank order) and rounded once,
+    against the whole cache's kernel and its plain version by
+    ``close_to_plain`` (2 bf16 ulps). Shapes: glm4-9b's decode heads,
+    paligemma-3b's one kv head of 256, gemma2-2b's local ring past its
+    window, a row whose every range but the first is empty. Numbers at
+    the first (fullest) range: the lse variant's ms, its plain version's,
+    its bound; the whole cache's default call beside it. Returns (the
+    rows, the comparison launches)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_decode import (flash_decode_torch,
+                                                  merge_ranges)
+    rows, launches = [], 0
+    for i, (name, (b, t, hq, hkv, d, ring, cap, pos)) in enumerate(
+            SLOT_CASES.items()):
+        gen = torch.Generator(device=dev).manual_seed(100 + i)
+        q, kc, vc = (torch.randn(shape, generator=gen, device=dev)
+                     .to(torch.bfloat16) for shape in
+                     ((b, hq, d), (b, t, hkv, d), (b, t, hkv, d)))
+        p = torch.tensor(pos, dtype=torch.int32, device=dev)
+        whole = ops.flash_decode(q, kc, vc, p, ring=ring, softcap=cap)
+        plain = flash_decode_torch(q, kc, vc, p, ring=ring, softcap=cap)
+        limit = torch.clamp(p + 1, max=t) if ring else p + 1
+        for m in SLOT_SPLITS:
+            tl = t // m
+            parts, first, empty, err = [], None, 0, 0.0
+            for r in range(m):
+                sl = slice(r * tl, (r + 1) * tl)
+                loc = (torch.clamp(limit - r * tl, 0, tl) - 1).to(torch.int32)
+                args = (q, kc[:, sl].contiguous(), vc[:, sl].contiguous(),
+                        loc)
+                out, lse = ops.flash_decode(*args, softcap=cap,
+                                            return_lse=True)
+                launches += 1
+                p_out, p_lse = flash_decode_torch(*args, softcap=cap,
+                                                  return_lse=True)
+                torch.cuda.synchronize()
+                ok, e = close_to_plain(out, p_out)
+                finite = torch.isfinite(p_lse)
+                empty += int((~finite).sum())
+                lse_ok = torch.equal(torch.isfinite(lse), finite) and (
+                    not finite.any() or float(
+                        (lse[finite] - p_lse[finite]).abs().max())
+                    <= LSE_REL * max(1.0, float(p_lse[finite].abs().max())))
+                zero = bool(finite.all()) or \
+                    float(out[~finite].abs().max()) == 0.0
+                if not (ok and lse_ok and zero):
+                    fail(f"slot ranges {name} M={m} range {r}: off the "
+                         f"plain version (out err {e:.3e}, lse ok {lse_ok}, "
+                         f"empty rows zero {zero})")
+                err = max(err, e)
+                parts.append((out, lse))
+                first = first or args
+            merged = merge_ranges(*zip(*parts))[0].to(q.dtype)
+            ok_p, err_p = close_to_plain(merged, plain)
+            ok_w, err_w = close_to_plain(merged, whole)
+            if not (ok_p and ok_w):
+                fail(f"slot ranges {name} M={m}: merged off the whole cache "
+                     f"(plain {gate_ratio(merged, plain):.2f}, kernel "
+                     f"{gate_ratio(merged, whole):.2f} of the gate)")
+            row = dict(name=f"{name} M={m}", shape=(
+                f"q {tuple(q.shape)} cache {tuple(kc.shape)} in {m} ranges "
+                f"of {tl} ring={ring} softcap={cap} pos={list(pos)}"),
+                empty_range_rows=empty, max_abs_err=max(err, err_p),
+                gate_vs_plain=gate_ratio(merged, plain),
+                gate_vs_whole_kernel=gate_ratio(merged, whole),
+                bit_equal_to_whole_kernel=bool(torch.equal(merged, whole)),
+                **range_timing(*first, dict(softcap=cap), lse=True),
+                library_ms=None)
+            row["whole_ms"] = range_timing(
+                q, kc, vc, p, dict(softcap=cap, ring=ring), lse=False)["ms"]
+            rows.append(row)
+            print("slot ranges " + json.dumps(row))
+    return rows, launches
+
+
+def tp_families_phase(dev):
+    """Tensor parallelism of the SSM, MLA and MoE families (ROADMAP
+    A13b4) on one card. (a) ``slot_range_rows``. (b) mamba2-780m whole in
+    bf16: one ``make_train_step`` at B = 2 x 1,024 on one device, then the
+    same weights kept by ``shard_params`` (``sharded_train_state``) on a
+    one-rank NCCL (1, 1) mesh and one sharded step, counts zeroed just
+    before and read just after: at one model rank every Mamba layer runs
+    the one-device code (its heads whole), so the loss, the grad norm
+    and every new parameter are bit for bit the one-device step's. (c)
+    deepseek-v2-lite-16b whole in bf16 kept by ``shard_params`` on the
+    (1, 1) mesh, capacity raised so nothing drops: run A's prompt through
+    ``generate`` (the ``a2a`` prefill, the ``local`` decode, MLA's
+    absorbed decode over its latent cut into one slot range and merged:
+    new code at M = 1), counts zeroed just before and read just after;
+    its teacher-forced logits against the one-device forward on the same
+    routes (``recorded_routes``) within ``LOGIT_REL`` of the largest.
+    Returns (the kernels' counts by run, their largest errors, the slot
+    range rows, the comparison launches of (a))."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import ARCHS, ShapeConfig
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_torch
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd_torch, rmsnorm_torch
+    from repro_torch.kernels.ssd_scan import (ssd_scan_bwd_torch,
+                                              ssd_scan_torch)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.specs import make_ctx, mesh_axes_for
+    from repro_torch.launch.train import sharded_train_state
+    from repro_torch.models import ShardCtx
+    from repro_torch.optim import OptConfig, init_opt_state
+    from repro_torch.runtime import generate
+    from repro_torch.runtime.train_loop import make_train_step
+    from repro_torch.sharding import MeshAxes, Partitioner, shard_params
+
+    t_phase = time.perf_counter()
+    rows, cmp_launches = slot_range_rows(dev)
+    keys = spy_train_keys()
+    plains = {"rmsnorm": rmsnorm_torch, "flash_attention":
+              flash_attention_torch, "rmsnorm_bwd": rmsnorm_bwd_torch,
+              "ssd_scan": ssd_scan_torch, "ssd_scan_bwd": ssd_scan_bwd_torch}
+    launches, errs = {}, {k: 0.0 for k in TP_FAMILY_KERNELS}
+    cfg = ARCHS["mamba2-780m"].replace(dtype="bfloat16")
+    opt = OptConfig()
+    batch = TokenPipeline(cfg, PipelineConfig(
+        batch=SSM_TRAIN["batch"], seq_len=SSM_TRAIN["seq"], seed=0),
+        device=dev).make_batch(0)
+    _, params = load_model("tp mamba2", cfg, dev)
+    params.requires_grad_(True)
+    state = {"params": params, "opt": init_opt_state(params, opt)}
+    state, want = make_train_step(cfg, opt, ShardCtx(mode="train"), 1)(
+        state, batch)
+    host = {k: p.detach().to("cpu") for k, p in
+            state["params"].named_parameters()}
+    want = {k: float(v) for k, v in want.items()}
+    del state, params
+    freed("tp mamba2 one device")
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        axes = mesh_axes_for(cfg, mesh)
+        ctx = make_ctx(cfg, ShapeConfig("train", SSM_TRAIN["seq"],
+                                        SSM_TRAIN["batch"], "train"),
+                       mesh, axes)
+        _, params = load_model("tp mamba2", cfg, dev)
+        state, specs = sharded_train_state(params, opt, Partitioner(mesh,
+                                                                    axes))
+        step = make_train_step(cfg, opt, ctx, 1, *specs)
+        counts = train_counts(cfg, 1)
+        with contextlib.ExitStack() as stack:
+            spies = {k: stack.enter_context(Spy(ops, k, *keys[k]))
+                     for k in ("rmsnorm", "rmsnorm_bwd", "ssd_scan",
+                               "ssd_scan_bwd")}
+            for sp in spies.values():
+                sp.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, got = step(state, batch)
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) * 1e3
+            run = "tp_mamba2_mesh_step"
+            launches[run] = {k: sp.launches for k, sp in spies.items()}
+            if launches[run] != {k: counts[k] for k in spies}:
+                fail(f"{run}: launches {launches[run]} != {counts}")
+            got = {k: float(v) for k, v in got.items()}
+            same = [k for k, p in state["params"].named_parameters()
+                    if torch.equal(p.detach().cpu(), host[k])]
+            print(f"tp mamba2-780m one step on the (1, 1) mesh "
+                  f"(shard_params, fsdp={axes.fsdp}) vs one device: loss "
+                  f"{got['loss']!r} / {want['loss']!r}, grad_norm "
+                  f"{got['grad_norm']!r} / {want['grad_norm']!r}, "
+                  f"parameters bit for bit {len(same)} of {len(host)}; "
+                  f"step ms {step_ms:.2f} (a first step, not a timing)")
+            if got["loss"] != want["loss"] or \
+                    got["grad_norm"] != want["grad_norm"] or \
+                    len(same) != len(host):
+                fail(f"{run}: not the one-device step bit for bit")
+            del state, params, host
+            errs.update(hold_to_plain("tp mamba2 mesh step", spies, plains))
+        freed("tp mamba2 mesh")
+
+        full = ARCHS["deepseek-v2-lite-16b"].replace(dtype="bfloat16")
+        nodrop = full.replace(capacity_factor=full.n_experts / full.top_k
+                              * 1.01)
+        gen, params = load_model("tp deepseek", nodrop, dev)
+        shard_params(params, Partitioner(mesh, MeshAxes()))
+        ctx = ShardCtx(mesh=mesh, dp_axes=("data",), model_axis="model")
+        prompt = torch.randint(0, full.vocab, (RUN_A["batch"],
+                                               RUN_A["prompt"]),
+                               generator=gen, device=dev)
+        norms = 2 + bool(full.kv_lora_rank)
+        want_n = {"rmsnorm": TP_DECODE_GEN * (norms * full.n_layers + 1),
+                  "flash_attention": full.n_layers}
+        with contextlib.ExitStack() as stack:
+            spies = {k: stack.enter_context(Spy(ops, k, *keys[k]))
+                     for k in ("rmsnorm", "flash_attention")}
+            for sp in spies.values():
+                sp.launches = 0
+            decode_n = ops.flash_decode.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            toks = generate(nodrop, ctx, params, {"tokens": prompt},
+                            TP_DECODE_GEN)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            run = "tp_deepseek_mesh_A"
+            launches[run] = {k: sp.launches for k, sp in spies.items()}
+            print(f"tp deepseek-v2-lite-16b run A on the (1, 1) mesh "
+                  f"(shard_params: a2a prefill, local decode, MLA over one "
+                  f"slot range, {TP_DECODE_GEN} tokens): wall_s {wall:.3f} "
+                  f"launches {launches[run]}")
+            if launches[run] != want_n or \
+                    ops.flash_decode.launches != decode_n or \
+                    toks.shape != (RUN_A["batch"], TP_DECODE_GEN):
+                fail(f"{run}: launches {launches[run]} != {want_n}, "
+                     f"flash_decode moved, or tokens {tuple(toks.shape)}")
+            errs.update({k: max(errs[k], v) for k, v in hold_to_plain(
+                "tp deepseek", spies, plains).items()})
+        with recorded_routes() as rk:
+            kern = teacher_forced(nodrop, params, prompt, toks, ctx=ctx)
+        with recorded_routes(forced=rk):
+            one = teacher_forced(nodrop, params, prompt, toks)
+        scale = float(one.abs().max())
+        d_pre = float((kern[:, 0] - one[:, 0]).abs().max())
+        d_dec = float((kern[:, 1:] - one[:, 1:]).abs().max())
+        print(f"tp deepseek mesh vs one device on the same routes: max "
+              f"|dlogit| prefill {d_pre:.4e}, decode {d_dec:.4e}, bound "
+              f"{LOGIT_REL} x {scale:.4f}; top-1 agreement "
+              f"{float((kern.argmax(-1) == one.argmax(-1)).float().mean()):.4f}")
+        if not torch.isfinite(kern).all() or \
+                not max(d_pre, d_dec) <= LOGIT_REL * scale:
+            fail(f"tp deepseek: mesh logits off one device's by "
+                 f"{max(d_pre, d_dec):.4e} > {LOGIT_REL * scale:.4e}")
+        del params, kern, one
+        freed("tp deepseek")
+    finally:
+        dist.destroy_process_group()
+    print("tp families phase " + json.dumps(dict(
+        seconds=time.perf_counter() - t_phase, mamba2_loss=got["loss"],
+        mamba2_grad_norm=got["grad_norm"], deepseek_dlogit_prefill=d_pre,
+        deepseek_dlogit_decode=d_dec, slot_range_launches=cmp_launches,
+        launches=launches)))
+    by_run = {k: {r: launches[r].get(k, 0) for r in launches}
+              for k in TP_FAMILY_KERNELS}
+    return by_run, errs, rows, cmp_launches
+
 
 def main() -> int:
     import torch
@@ -4611,9 +4944,18 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     tp_launches, tp_err, tp_rows = tp_phase(dev)
-    for row in serve_rows + train_entries:
+    gc.collect()
+    torch.cuda.empty_cache()
+    fam_launches, fam_err, slot_rows, slot_launches = tp_families_phase(dev)
+    for row in serve_rows + train_entries + [ssd_entry]:
         name = row["name"]
-        for by_run, err in ((mesh_launches, mesh_err), (tp_launches, tp_err)):
+        if name == "flash_decode":
+            row["slot_range_rows"] = slot_rows
+            row["slot_range_comparison_launches"] = slot_launches
+            row["max_abs_err"] = max(row["max_abs_err"], max(
+                r["max_abs_err"] for r in slot_rows))
+        for by_run, err in ((mesh_launches, mesh_err), (tp_launches, tp_err),
+                            (fam_launches, fam_err)):
             if name in by_run:
                 row["launches"] += sum(by_run[name].values())
                 row["launches_by_path"].update(by_run[name])

@@ -57,6 +57,15 @@
 //    in order, the four sums are added in warp order and the denominator
 //    in a fixed tree, so the result is bitwise the same on every launch;
 //    no atomics.
+//  * Slot ranges of a cache split over ranks (tensor-parallel decode):
+//    with an lse pointer the combine writes its output in float32 (a
+//    partial, rounded once only after the ranges are merged) and each
+//    row's float32 log-sum-exp of the scaled scores, max + log(sum), from
+//    the (max, sum) it already holds, so the caller can merge ranges it
+//    ran apart.
+//    pos[b] = -1 is a row with no valid slot: every split block exits
+//    before reading the cache, the combine gives out 0 and lse -inf.
+//    Without the pointer nothing of the launch or its arithmetic changes.
 //  * Host work per call: the shared-memory opt-in is set once per process
 //    and device; one workspace (the partials) is allocated by the caller.
 //  * Scale, softcap and mask are applied in float32 before the exp, with
@@ -65,6 +74,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -445,14 +455,16 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
 // grid: (B * Hq, ceil(Dv / 32)); rescale the valid ranges to their
 // common max and divide. Warp w sums ranges w, w + 4, ... of 32 columns
 // in range order, then the four sums are added in warp order: a fixed
-// order, the same bits on every launch.
+// order, the same bits on every launch. With lse != nullptr the first
+// column block also writes lse[b * Hq + h] = max + log(sum), or -inf for
+// a row with no valid slot.
 template <typename T>
 __global__ void __launch_bounds__(kCombineThreads)
 decode_combine_kernel(const float* __restrict__ ws_acc,
                       const float* __restrict__ ws_ml,
                       const int* __restrict__ pos, T* __restrict__ out,
-                      int T_len, int Hq, int Dv, int n_splits, int chunk,
-                      int ring) {
+                      float* __restrict__ lse, int T_len, int Hq, int Dv,
+                      int n_splits, int chunk, int ring) {
   extern __shared__ float weight[];        // n_splits
   __shared__ float red[kCombineWarps];
   __shared__ float part[kCombineWarps][kCombineCols];
@@ -485,6 +497,8 @@ decode_combine_kernel(const float* __restrict__ ws_acc,
   float denom = red[0];
 #pragma unroll
   for (int w = 1; w < kCombineWarps; ++w) denom += red[w];
+  if (lse != nullptr && blockIdx.y == 0 && tid == 0)
+    lse[bq] = ns == 0 ? -INFINITY : mx + logf(denom);
   denom = fmaxf(denom, 1e-30f);
 
   const int col = blockIdx.y * kCombineCols + lane;
@@ -508,9 +522,9 @@ decode_combine_kernel(const float* __restrict__ ws_acc,
 
 template <typename T, int kGR, bool kAligned>
 int launch(const void* q, const void* kc, const void* vc, const void* pos,
-           void* out, void* ws, int B, int T_len, int Hq, int Hkv, int D,
-           int Dv, int n_splits, int chunk, long long smem, float scale,
-           float softcap, int ring, cudaStream_t stream) {
+           void* out, float* lse, void* ws, int B, int T_len, int Hq,
+           int Hkv, int D, int Dv, int n_splits, int chunk, long long smem,
+           float scale, float softcap, int ring, cudaStream_t stream) {
   // the shared-memory opt-in, once per process and device
   static bool opted[kMaxDevices] = {};
   int dev = 0;
@@ -538,45 +552,50 @@ int launch(const void* q, const void* kc, const void* vc, const void* pos,
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 cgrid(B * Hq, (Dv + kCombineCols - 1) / kCombineCols);
-  decode_combine_kernel<T><<<cgrid, kCombineThreads,
-                             sizeof(float) * n_splits, stream>>>(
-      ws_acc, ws_ml, static_cast<const int*>(pos), static_cast<T*>(out),
-      T_len, Hq, Dv, n_splits, chunk, ring);
+  const size_t csmem = sizeof(float) * n_splits;
+  if (lse != nullptr)                      // a float32 partial and its lse
+    decode_combine_kernel<float><<<cgrid, kCombineThreads, csmem, stream>>>(
+        ws_acc, ws_ml, static_cast<const int*>(pos), static_cast<float*>(out),
+        lse, T_len, Hq, Dv, n_splits, chunk, ring);
+  else
+    decode_combine_kernel<T><<<cgrid, kCombineThreads, csmem, stream>>>(
+        ws_acc, ws_ml, static_cast<const int*>(pos), static_cast<T*>(out),
+        nullptr, T_len, Hq, Dv, n_splits, chunk, ring);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int kGR>
 int launch_aligned(int aligned, const void* q, const void* kc,
-                   const void* vc, const void* pos, void* out, void* ws,
-                   int B, int T_len, int Hq, int Hkv, int D, int Dv,
+                   const void* vc, const void* pos, void* out, float* lse,
+                   void* ws, int B, int T_len, int Hq, int Hkv, int D, int Dv,
                    int n_splits, int chunk, long long smem, float scale,
                    float softcap, int ring, cudaStream_t s) {
   return aligned
-      ? launch<T, kGR, true>(q, kc, vc, pos, out, ws, B, T_len, Hq, Hkv, D,
-                             Dv, n_splits, chunk, smem, scale, softcap, ring,
-                             s)
-      : launch<T, kGR, false>(q, kc, vc, pos, out, ws, B, T_len, Hq, Hkv, D,
-                              Dv, n_splits, chunk, smem, scale, softcap,
-                              ring, s);
+      ? launch<T, kGR, true>(q, kc, vc, pos, out, lse, ws, B, T_len, Hq,
+                             Hkv, D, Dv, n_splits, chunk, smem, scale,
+                             softcap, ring, s)
+      : launch<T, kGR, false>(q, kc, vc, pos, out, lse, ws, B, T_len, Hq,
+                              Hkv, D, Dv, n_splits, chunk, smem, scale,
+                              softcap, ring, s);
 }
 
 template <typename T>
 int launch_gr(int gr, int aligned, const void* q, const void* kc,
-              const void* vc, const void* pos, void* out, void* ws, int B,
-              int T_len, int Hq, int Hkv, int D, int Dv, int n_splits,
-              int chunk, long long smem, float scale, float softcap, int ring,
-              cudaStream_t s) {
+              const void* vc, const void* pos, void* out, float* lse,
+              void* ws, int B, int T_len, int Hq, int Hkv, int D, int Dv,
+              int n_splits, int chunk, long long smem, float scale,
+              float softcap, int ring, cudaStream_t s) {
   if (gr == 1)
-    return launch_aligned<T, 1>(aligned, q, kc, vc, pos, out, ws, B, T_len,
-                                Hq, Hkv, D, Dv, n_splits, chunk, smem, scale,
-                                softcap, ring, s);
+    return launch_aligned<T, 1>(aligned, q, kc, vc, pos, out, lse, ws, B,
+                                T_len, Hq, Hkv, D, Dv, n_splits, chunk, smem,
+                                scale, softcap, ring, s);
   if (gr == 2)
-    return launch_aligned<T, 2>(aligned, q, kc, vc, pos, out, ws, B, T_len,
-                                Hq, Hkv, D, Dv, n_splits, chunk, smem, scale,
-                                softcap, ring, s);
-  return launch_aligned<T, 4>(aligned, q, kc, vc, pos, out, ws, B, T_len, Hq,
-                              Hkv, D, Dv, n_splits, chunk, smem, scale,
-                              softcap, ring, s);
+    return launch_aligned<T, 2>(aligned, q, kc, vc, pos, out, lse, ws, B,
+                                T_len, Hq, Hkv, D, Dv, n_splits, chunk, smem,
+                                scale, softcap, ring, s);
+  return launch_aligned<T, 4>(aligned, q, kc, vc, pos, out, lse, ws, B,
+                              T_len, Hq, Hkv, D, Dv, n_splits, chunk, smem,
+                              scale, softcap, ring, s);
 }
 
 }  // namespace
@@ -592,13 +611,15 @@ extern "C" long long flash_decode_shared_bytes(int D, int Dv, int gr,
 // are 16-byte aligned and D, Dv multiples of the 16-byte vector (cp.async
 // path). The plan (n_splits ranges of `chunk` slots, smem bytes) is
 // kernels/flash_decode.py:decode_plan's. ws holds B*Hq*n_splits*(Dv+2)
-// floats. Launches both kernels on `stream`; returns the first CUDA error
-// (0 = ok). The caller has checked shapes (D, Dv <= 256, Hq a multiple of
-// Hkv), types, contiguity and the range of pos, and that B, T and the
-// heads are non-zero.
+// floats. lse: nullptr, or (B, Hq) floats for each row's log-sum-exp;
+// out is then (B, Hq, Dv) floats whatever the dtype, and pos[b] may be -1
+// (no valid slot). Launches both kernels on
+// `stream`; returns the first CUDA error (0 = ok). The caller has checked
+// shapes (D, Dv <= 256, Hq a multiple of Hkv), types, contiguity and the
+// range of pos, and that B, T and the heads are non-zero.
 extern "C" int flash_decode(const void* q, const void* kc, const void* vc,
-                            const void* pos, void* out, void* ws, int B,
-                            int T_len, int Hq, int Hkv, int D, int Dv,
+                            const void* pos, void* out, void* lse, void* ws,
+                            int B, int T_len, int Hq, int Hkv, int D, int Dv,
                             int n_splits, int chunk, int gr, long long smem,
                             float scale, float softcap, int ring,
                             int aligned, int dtype, void* stream) {
@@ -610,12 +631,14 @@ extern "C" int flash_decode(const void* q, const void* kc, const void* vc,
       static_cast<long long>(n_splits) * sizeof(float) > 48 * 1024)
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
-    return launch_gr<float>(gr, aligned, q, kc, vc, pos, out, ws, B, T_len,
-                            Hq, Hkv, D, Dv, n_splits, chunk, smem, scale,
-                            softcap, ring, s);
-  return launch_gr<__nv_bfloat16>(gr, aligned, q, kc, vc, pos, out, ws, B,
-                                  T_len, Hq, Hkv, D, Dv, n_splits, chunk,
-                                  smem, scale, softcap, ring, s);
+    return launch_gr<float>(gr, aligned, q, kc, vc, pos, out,
+                            static_cast<float*>(lse), ws, B, T_len, Hq, Hkv,
+                            D, Dv, n_splits, chunk, smem, scale, softcap,
+                            ring, s);
+  return launch_gr<__nv_bfloat16>(gr, aligned, q, kc, vc, pos, out,
+                                  static_cast<float*>(lse), ws, B, T_len, Hq,
+                                  Hkv, D, Dv, n_splits, chunk, smem, scale,
+                                  softcap, ring, s);
 }
 
 extern "C" const char* flash_decode_error_string(int err) {

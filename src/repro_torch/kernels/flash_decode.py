@@ -8,7 +8,13 @@ of the token just inserted; the result is (B, Hq, Dv) in q's type. Slot
 ``t < min(pos + 1, T)`` (``ring``: a sliding-window ring buffer; slot
 order does not matter because RoPE was applied at insert). The scaled
 scores are softcapped, masked with -2e38 and turned into probabilities
-in float32. The CUDA kernel (``csrc/flash_decode.cu``) cuts each (b, kv
+in float32. With ``return_lse`` each gives its output in float32 (a
+partial, rounded to q's type only once the ranges are merged) and the
+float32 log-sum-exp (B, Hq) of the scaled scores over the valid slots,
+and ``pos`` may be -1 (a row with no valid slot: out 0, lse -inf): a
+cache cut into slot ranges, each run on its own, is then merged by
+:func:`merge_ranges` (tensor-parallel decode over a cache split along
+T). The CUDA kernel (``csrc/flash_decode.cu``) cuts each (b, kv
 head) pair's cache into ``splits`` ranges of ``chunk`` slots by
 :func:`decode_plan`, streams each range through a ring of 32-slot tiles
 and combines the ranges in a second, small launch;
@@ -99,9 +105,11 @@ def valid_slots(pos: torch.Tensor, t: int, ring: bool) -> torch.Tensor:
 def flash_decode_torch(q, k_cache, v_cache, pos, *,
                        scale: float | None = None,
                        softcap: float | None = None,
-                       ring: bool = False) -> torch.Tensor:
+                       ring: bool = False, return_lse: bool = False):
     """Plain PyTorch version: one softmax over the whole cache in
-    float32, invalid slots given probability 0."""
+    float32, invalid slots given probability 0; with ``return_lse``,
+    (out float32, lse (B, Hq) float32), -inf on a row with no valid
+    slot."""
     b, hq, d = q.shape
     t, hkv = k_cache.shape[1], k_cache.shape[2]
     dv = v_cache.shape[-1]
@@ -116,15 +124,34 @@ def flash_decode_torch(q, k_cache, v_cache, pos, *,
                     torch.exp(scores - scores.amax(dim=-1, keepdim=True)),
                     0.0)
     out = torch.einsum("bkgt,btkd->bkgd", p, v_cache.float())
-    out = out / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    return out.reshape(b, hq, dv).to(q.dtype)
+    total = p.sum(dim=-1, keepdim=True)
+    out = (out / total.clamp_min(1e-30)).reshape(b, hq, dv)
+    if not return_lse:
+        return out.to(q.dtype)
+    lse = scores.amax(dim=-1) + torch.log(total[..., 0])
+    return out, lse.reshape(b, hq)
+
+
+def merge_ranges(outs, lses) -> tuple[torch.Tensor, torch.Tensor]:
+    """The attention over a cache from its slot ranges' partials, each
+    from ``flash_decode(..., return_lse=True)`` on one range: ``outs``
+    (B, Hq, Dv) and ``lses`` (B, Hq) in range order. In float32, in that
+    order: lse = log sum_r exp(lse_r), out = sum_r exp(lse_r - lse)
+    out_r. Returns (out float32, lse); a range with no valid slot (lse
+    -inf) adds nothing."""
+    lse = torch.logsumexp(torch.stack([x.float() for x in lses]), dim=0)
+    out = None
+    for o, x in zip(outs, lses):
+        term = torch.exp(x.float() - lse)[..., None] * o.float()
+        out = term if out is None else out + term
+    return out, lse
 
 
 @functools.cache
 def _library():
     lib = build.load("flash_decode")
     fn = lib.flash_decode
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 \
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 \
         + [ctypes.c_longlong, ctypes.c_float, ctypes.c_float] \
         + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -138,10 +165,12 @@ def _library():
 def flash_decode_cuda(q, k_cache, v_cache, pos, *,
                       scale: float | None = None,
                       softcap: float | None = None,
-                      ring: bool = False) -> torch.Tensor:
+                      ring: bool = False, return_lse: bool = False):
     """Launch the split kernel and the combine on the current stream of
     the inputs' device, with :func:`decode_plan`'s ranges and one float32
-    workspace for the ranges' partials. The cp.async path needs q and
+    workspace for the ranges' partials; with ``return_lse`` the combine
+    writes a float32 out and the (B, Hq) float32 log-sum-exp (out,
+    lse). The cp.async path needs q and
     the caches 16-byte aligned and D, Dv multiples of the 16-byte vector;
     other inputs take the kernel's plain-load copy. Unguarded: the caller
     has checked shapes (D and Dv at most ``MAX_HEAD_DIM``), types,
@@ -156,13 +185,18 @@ def flash_decode_cuda(q, k_cache, v_cache, pos, *,
     aligned = (d % vec == 0 and dv % vec == 0
                and all(x.data_ptr() % 16 == 0 for x in (q, k_cache, v_cache)))
     scale = d ** -0.5 if scale is None else scale
-    out = torch.empty((b, hq, dv), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, hq, dv), device=q.device,
+                      dtype=torch.float32 if return_lse else q.dtype)
+    lse = torch.empty((b, hq), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     ws = torch.empty(b * hq * plan.splits * (dv + 2), dtype=torch.float32,
                      device=q.device)
     with torch.cuda.device(q.device):
         err = lib.flash_decode(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            pos.data_ptr(), out.data_ptr(), ws.data_ptr(), b, t, hq, hkv, d,
+            pos.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), ws.data_ptr(), b, t, hq,
+            hkv, d,
             dv, plan.splits, plan.chunk, plan.gr, plan.shared_bytes, scale,
             0.0 if softcap is None else softcap, int(ring), int(aligned),
             DTYPE_CODES[q.dtype], torch.cuda.current_stream().cuda_stream)
@@ -170,4 +204,4 @@ def flash_decode_cuda(q, k_cache, v_cache, pos, *,
         raise RuntimeError(
             f"flash_decode launch failed: CUDA error {err} "
             f"({lib.flash_decode_error_string(err).decode()})")
-    return out
+    return (out, lse) if return_lse else out

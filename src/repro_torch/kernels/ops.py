@@ -434,15 +434,20 @@ flash_attention_bwd.launches = 0
 
 
 def flash_decode(q, k_cache, v_cache, pos, *, scale: float | None = None,
-                 softcap: float | None = None,
-                 ring: bool = False) -> torch.Tensor:
+                 softcap: float | None = None, ring: bool = False,
+                 return_lse: bool = False):
     """Decode attention of one token (see :mod:`.flash_decode`): ``q``
     (B, Hq, D), ``k_cache`` (B, T, Hkv, D), ``v_cache`` (B, T, Hkv, Dv),
     one type (float32 or bfloat16), int32 ``pos`` (B,), contiguous on
     one device. ``pos`` is the absolute position of the token just
     inserted: at least 0, and at most T - 1 for a linear cache (stricter
     than the reference wrapper, whose kernel lets a zero padding slot
-    into the softmax at ``pos == T``). Returns (B, Hq, Dv) in q's type."""
+    into the softmax at ``pos == T``). Returns (B, Hq, Dv) in q's type.
+    With ``return_lse`` returns (out float32, lse (B, Hq) float32, the
+    log-sum-exp of the scaled scores) and takes ``pos`` -1 for a row with
+    no valid slot (out 0, lse -inf, no cache read): one slot range of a
+    cache split over ranks, merged by
+    :func:`.flash_decode.merge_ranges`."""
     device = _check_tensors(
         "flash_decode", dict(q=q, k_cache=k_cache, v_cache=v_cache, pos=pos),
         dict(q=FLOAT_TYPES, k_cache=FLOAT_TYPES, v_cache=FLOAT_TYPES,
@@ -464,18 +469,22 @@ def flash_decode(q, k_cache, v_cache, pos, *, scale: float | None = None,
         # the call is the CUDA-graph work)
         lo, hi = torch.stack(torch.aminmax(pos)).tolist()  # lint: sync-ok
         top = None if ring else t - 1
-        if lo < 0 or (top is not None and hi > top):
+        bottom = -1 if return_lse else 0
+        if lo < bottom or (top is not None and hi > top):
             raise IndexError(f"flash_decode.pos: positions span [{lo}, {hi}]"
-                             f", outside [0, {'inf' if top is None else top}]"
+                             f", outside [{bottom}, "
+                             f"{'inf' if top is None else top}]"
                              f" ({'ring' if ring else 'linear'} cache of "
                              f"{t} slots)")
+    kw = dict(scale=scale, softcap=softcap, ring=ring, return_lse=return_lse)
     if device.type == "cpu":
-        return _fd.flash_decode_torch(q, k_cache, v_cache, pos, scale=scale,
-                                      softcap=softcap, ring=ring)
+        return _fd.flash_decode_torch(q, k_cache, v_cache, pos, **kw)
     if q.numel() == 0 or v_cache.numel() == 0:
+        if return_lse:
+            return (torch.zeros((b, hq, dv), device=device),
+                    torch.full((b, hq), -torch.inf, device=device))
         return torch.zeros((b, hq, dv), dtype=q.dtype, device=device)
-    out = _fd.flash_decode_cuda(q, k_cache, v_cache, pos, scale=scale,
-                                softcap=softcap, ring=ring)
+    out = _fd.flash_decode_cuda(q, k_cache, v_cache, pos, **kw)
     flash_decode.launches += 1
     return out
 

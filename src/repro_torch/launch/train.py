@@ -23,7 +23,8 @@ MoE, SSM (``mamba2-780m``), hybrid
 variant in float32. Runs on the card unless ``--device cpu`` is given.
 
 ``--mesh DxM`` trains tensor-parallel over M ranks and data-parallel
-over D (the dense, encoder and VLM families): one process a device,
+over D (every family: the SSM and hybrid layers' heads, MLA's heads and
+MoE's experts over M too): one process a device,
 D x M of them, started by ``torchrun --nproc-per-node N`` (NCCL, one
 card a rank) or, with ``--device cpu``, as gloo ranks
 (:func:`repro_torch.launch.mesh.spawn_cpu_ranks` joins them and calls

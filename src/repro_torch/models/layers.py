@@ -202,19 +202,25 @@ def attention(q, k, v, *, causal=True, window=None, scale=None,
 
 
 def attention_decode(q, k_cache, v_cache, *, pos, scale=None,
-                     attn_softcap=None, ring=False):
+                     attn_softcap=None, ring=False, return_lse=False):
     """One-token decode, q (B, 1, Hq, D) against a (B, T, Hkv, D[v])
     cache, through the ``flash_decode`` kernel. ``pos`` (an int or a (B,)
     tensor) is the absolute position of the token just inserted; slots
     ``< pos + 1`` are valid, capped at T for a ``ring`` buffer. (The
     reference's unused ``attention_decode`` took the count of valid
     entries and an explicit window instead; the model's ring caches
-    carry the window.) Returns (B, 1, Hq, Dv)."""
+    carry the window.) Returns (B, 1, Hq, Dv); with ``return_lse`` a
+    float32 (B, 1, Hq, Dv) and the (B, Hq) float32 log-sum-exp, and
+    ``pos`` may be -1 (no valid slot: one slot range of a cache split
+    over ranks)."""
     b = q.shape[0]
     pos_b = torch.as_tensor(pos, dtype=torch.int32, device=q.device)
     pos_b = pos_b.expand(b).contiguous() if pos_b.dim() == 0 else pos_b
     out = ops.flash_decode(q[:, 0].contiguous(), k_cache, v_cache, pos_b,
-                           scale=scale, softcap=attn_softcap, ring=ring)
+                           scale=scale, softcap=attn_softcap, ring=ring,
+                           return_lse=return_lse)
+    if return_lse:
+        return out[0][:, None], out[1]
     return out[:, None]
 
 

@@ -65,9 +65,10 @@ from torch.distributed.device_mesh import DeviceMesh
 from ..configs.base import ModelConfig
 from ..sharding.collectives import (assemble, fsdp_gather, psum,
                                     replicated_in)
-from .blocks import (_init, check_supported, init_layer, init_shared_block,
-                     init_shared_lora, layer_forward, model_axis,
-                     shared_block_forward)
+from ..sharding.partition import cache_slices
+from .blocks import (_init, check_supported, column_parallel, init_layer,
+                     init_shared_block, init_shared_lora, layer_forward,
+                     model_axis, shared_block_forward)
 from .layers import embed_scale, embed_tokens, rms_norm, softcap
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -216,7 +217,7 @@ class MambaLayer(nn.Module):
     def forward(self, x, *, cfg, mode, positions, cache=None,
                 prefix_len=None, ctx=None):
         return layer_forward(self.kind, self, x, cfg=cfg, mode=mode,
-                             positions=positions, cache=cache)
+                             positions=positions, cache=cache, ctx=ctx)
 
 
 class LoRA(nn.Module):
@@ -241,6 +242,12 @@ class SharedBlock(nn.Module):
         self.attn = Attention(tensors["attn"])
         self.mlp = MLP(tensors["mlp"])
         self.lora = nn.ModuleList(LoRA(t) for t in loras)
+
+    def forward(self, slot, x, emb0, *, cfg, mode, positions, cache=None,
+                ctx=None):
+        return shared_block_forward(self, self.lora[slot], x, emb0, cfg=cfg,
+                                    mode=mode, positions=positions,
+                                    cache=cache, ctx=ctx)
 
 
 def block_plan(cfg: ModelConfig) -> list[tuple[str, int]]:
@@ -349,15 +356,6 @@ def _head(params: Model, x, cfg, ctx=None):
     return assemble(torch.einsum(eq, replicated_in(x, group), w), 2, group)
 
 
-def _column_parallel(x, w, d_out, ctx, what):
-    """x · w, where ``w`` may hold this rank's columns of a (d, d_out)
-    projection: then assembled over the model axis."""
-    y = torch.einsum("bsd,de->bse", x, w)
-    if w.shape[1] == d_out:
-        return y
-    return assemble(y, 2, model_axis(ctx, what)[0])
-
-
 def _lookup(tokens, table, cfg, ctx):
     """The embedding rows of ``tokens``; a table holding V / M rows of
     the vocabulary (rank r rows r V / M ..) looks up the tokens it holds,
@@ -380,14 +378,14 @@ def _embed(params: Model, batch: dict, cfg: ModelConfig, ctx=None):
     the reference's ``_embed``."""
     dt = DTYPES[cfg.dtype]
     if cfg.frontend == "frame_stub":
-        x = _column_parallel(batch["frames"].to(dt), params.frontend,
-                             cfg.d_model, ctx, "frontend")
+        x = column_parallel(batch["frames"].to(dt), params.frontend,
+                            cfg.d_model, ctx, "frontend")
         return x, torch.arange(x.shape[1], device=x.device), None
     x = _lookup(batch["tokens"], params.embed, cfg, ctx)
     prefix_len = None
     if cfg.frontend == "patch_stub" and "patches" in batch:
-        px = _column_parallel(batch["patches"].to(dt), params.patch_proj,
-                              cfg.d_model, ctx, "patch_proj")
+        px = column_parallel(batch["patches"].to(dt), params.patch_proj,
+                             cfg.d_model, ctx, "patch_proj")
         x = torch.cat([px, x], dim=1)
         prefix_len = torch.full((x.shape[0],), cfg.n_patches,
                                 dtype=torch.int32, device=x.device)
@@ -448,6 +446,20 @@ def _run_layer(params: Model, i: int, *args, **kwargs):
     return torch.func.functional_call(layer, weights, args, kwargs)
 
 
+def _run_shared(params: Model, slot: int, *args, **kwargs):
+    """The shared block with LoRA slot ``slot`` on ``args``, its FSDP
+    weights (and that slot's) gathered first: the body of a remat
+    region."""
+    weights = {k: w for k, w in _fsdp_weights(params, "shared.",
+                                              kwargs.get("ctx")).items()
+               if not k.startswith("lora.") or
+               k.startswith(f"lora.{slot}.")}
+    if not weights:
+        return params.shared(slot, *args, **kwargs)
+    return torch.func.functional_call(params.shared, weights,
+                                      (slot, *args), kwargs)
+
+
 def forward(params: Model, batch: dict, cfg: ModelConfig, ctx: ShardCtx):
     """train -> (logits, aux); prefill -> (last_logits, aux, cache);
     decode -> (logits (B,V), aux, cache). ``aux`` is the float32 sum of
@@ -478,8 +490,8 @@ def forward(params: Model, batch: dict, cfg: ModelConfig, ctx: ShardCtx):
         c = caches[j] if decode else None
         if what == "shared":
             x, nc = call(functools.partial(
-                shared_block_forward, params.shared, params.shared.lora[i],
-                x, emb0, cfg=cfg, mode=mode, positions=positions, cache=c))
+                _run_shared, params, i, x, emb0, cfg=cfg, mode=mode,
+                positions=positions, cache=c, ctx=ctx))
         else:
             x, a, nc = call(functools.partial(
                 _run_layer, params, i, x, cfg=cfg, mode=mode,
@@ -520,11 +532,22 @@ def _layer_cache(kind, cfg, b, max_seq, dt, device):
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int,
-               device=None) -> list[dict]:
+               device=None, part=None) -> list[dict]:
     """Zeros in ``cfg.dtype``, one dict per entry of :func:`block_plan`
-    (the shared block's caches are linear, like a global layer's)."""
+    (the shared block's caches are linear, like a global layer's). With
+    ``part`` (the :class:`~repro_torch.sharding.Partitioner` a model was
+    kept by, ``model.partitioner``), this rank's slice of each tensor at
+    its :meth:`~repro_torch.sharding.Partitioner.cache_spec`
+    (:func:`repro_torch.sharding.cache_slices`)."""
     dt = DTYPES[cfg.dtype]
     kinds = cfg.layer_kinds()
-    return [_layer_cache(kinds[i] if what == "layer" else "dense_global",
-                         cfg, batch_size, max_seq, dt, device)
-            for what, i in block_plan(cfg)]
+    caches = [_layer_cache(kinds[i] if what == "layer" else "dense_global",
+                           cfg, batch_size, max_seq, dt,
+                           device if part is None else "meta")
+              for what, i in block_plan(cfg)]
+    if part is None:
+        return caches
+    return [{k: torch.zeros([s.stop - s.start for s in
+                             cache_slices(part, k, tuple(t.shape))],
+                            dtype=dt, device=device) for k, t in c.items()}
+            for c in caches]

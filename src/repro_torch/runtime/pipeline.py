@@ -16,9 +16,10 @@ pipeline, as the reference's ``runtime/pipeline.py`` does:
 * the whole pipeline is differentiable: the shift's backward sends the
   gradient to the previous pod.
 
-Scope: the stage body is local compute (no mesh inside a stage);
-pipeline × tensor parallelism (a model axis inside a stage) is ROADMAP
-A13b4.
+Scope: the stage body is local compute (no mesh inside a stage). The
+reference leaves pipeline × tensor parallelism (a model axis inside a
+stage) documented and unbuilt (its ``runtime/pipeline.py`` docstring),
+and so does the port.
 """
 
 from __future__ import annotations

@@ -28,12 +28,17 @@ rules need sizes only). In place of the reference's ``named``,
 :func:`shard` gives this rank's slice of a tensor and :func:`gather`
 gives the whole tensor back.
 
-What executes under a mesh in this port: every weight of the dense,
-encoder and VLM families at its spec (:func:`shard_params`: heads, the
-MLP's F and the vocabulary over ``model``, run by the tensor-parallel
-blocks of :mod:`repro_torch.models.blocks`), and MoE's experts over
-``model`` (:func:`shard_experts`, for the ``a2a`` and ``local``
-dispatches) with every other MoE weight whole. Under FSDP
+What executes under a mesh in this port: every weight of every family
+at its spec (:func:`shard_params`: heads, the MLP's F, the vocabulary,
+Mamba-2's heads and ``d_inner``, the LoRA's ``b_*``, MLA's ``wkv_b`` and
+MoE's experts over ``model``, run by the tensor-parallel blocks of
+:mod:`repro_torch.models.blocks`), or MoE's experts alone over ``model``
+(:func:`shard_experts`, for the ``a2a`` and ``local`` dispatches) with
+every other weight whole. A model kept by :func:`shard_params` decodes
+against caches at :meth:`Partitioner.cache_spec`'s layout
+(:func:`cache_slices`: kv heads over ``model`` where they divide, else
+the slots; MLA's latent over the slots; a Mamba layer's state and
+``conv_x`` over heads). Under FSDP
 (``MeshAxes.fsdp``) each rank keeps its slice by the whole spec, data
 axes included; the model records which parameters carry data axes, on
 which dim (``fsdp_dims``), and its forward gathers them over the data
@@ -42,8 +47,7 @@ fsdp_gather`), whose backward reduce-scatters the gradients. ZeRO-1:
 :meth:`Partitioner.moment_specs` lays the optimizer moments out by
 :meth:`Partitioner.zero1_spec`, and
 :func:`repro_torch.optim.adamw.apply_updates` updates each rank's
-slice of them. Still rules only: the tensor-parallel layouts of the
-SSM, hybrid and MLA layers and of MoE's attention (ROADMAP A13b4).
+slice of them.
 """
 
 from __future__ import annotations
@@ -58,12 +62,13 @@ import torch.distributed as dist
 
 from ..launch.mesh import axis_sizes, check_tensors, mesh_coords
 
-__all__ = ["MeshAxes", "Partitioner", "Shardings", "Spec", "gather",
-           "permute_expert_params", "shard", "shard_experts",
-           "shard_params", "shard_slices", "spec_axes", "split_spec"]
+__all__ = ["MeshAxes", "Partitioner", "SLOTTED", "Shardings", "Spec",
+           "cache_slices", "gather", "permute_expert_params", "shard",
+           "shard_experts", "shard_params", "shard_slices", "spec_axes",
+           "split_spec"]
 
-#: the families whose every weight shards by its spec (shard_params)
-TP_FAMILIES = ("dense", "encoder", "vlm")
+#: the decode cache tensors whose dim 1 is the T slots
+SLOTTED = ("k", "v", "latent", "k_rope")
 
 
 def _entry(e):
@@ -408,23 +413,55 @@ def _keep_local(model, part: Partitioner, names) -> None:
 
 def shard_params(model, part: Partitioner):
     """Keep this rank's slice of every parameter of ``model`` (a
-    :class:`~repro_torch.models.Model` of the dense, encoder or VLM
-    family) by :meth:`Partitioner.param_spec`: attention heads, the
-    MLP's F, the vocabulary and the frontends' output columns over
-    ``model`` where they divide, the rest whole. In place; returns the
-    model, which the tensor-parallel blocks then run
+    :class:`~repro_torch.models.Model` of any family) by
+    :meth:`Partitioner.param_spec`: attention heads (MLA's ``wkv_b`` and
+    zamba2's LoRA ``b_*`` with them), the MLP's F (MoE's shared experts
+    too), MoE's experts (as :func:`shard_experts` keeps them), Mamba-2's
+    heads and ``d_inner`` columns, the vocabulary and the frontends'
+    output columns over ``model`` where they divide, the rest whole. In
+    place; returns the model, which the tensor-parallel blocks then run
     (:mod:`repro_torch.models.blocks`). Under FSDP the weights' other
     dim is also cut over the data axes (``model.fsdp_dims`` records it),
-    and the forward gathers it back a layer at a time. Refuses the SSM,
-    hybrid, MoE and MLA layers (ROADMAP A13b4)."""
+    and the forward gathers it back a layer at a time. The model records
+    ``part`` (``model.partitioner``) and marks its attention modules
+    ``caches_by_spec``: its decode caches lie at
+    :meth:`Partitioner.cache_spec`'s layout (:func:`cache_slices`). A
+    Mamba-2 split whose ranks' heads would cut a group of B and C is
+    refused."""
+    from ..models.blocks import ssm_groups
     cfg = model.cfg
-    if cfg.family not in TP_FAMILIES or cfg.kv_lora_rank:
-        raise NotImplementedError(
-            f"{cfg.name}: tensor parallelism of the {cfg.family} family"
-            f"{' (MLA)' if cfg.kv_lora_rank else ''} is ROADMAP A13b4 "
-            f"(MoE's experts alone: shard_experts)")
+    if cfg.ssm_state and cfg.ssm_heads % part.model_n == 0:
+        heads = cfg.ssm_heads // part.model_n
+        for r in range(part.model_n):
+            ssm_groups(cfg.ssm_heads, cfg.ssm_ngroups, heads, r)
     _keep_local(model, part, [k for k, _ in model.named_parameters()])
+    model.partitioner = part
+    for name, m in model.named_modules():
+        if name.split(".")[-1] == "attn":
+            m.caches_by_spec = True
     return model
+
+
+def cache_slices(part: Partitioner, path: str,
+                 shape: tuple[int, ...]) -> tuple[slice, ...]:
+    """This rank's slices of a decode cache tensor ``path`` (ending in
+    its name) of whole ``shape``, held by one data-parallel rank (its
+    batch rows already): the model-axis entries of
+    :meth:`Partitioner.cache_spec`. A K/V cache whose kv heads do not
+    divide the model axis, and MLA's ``latent``/``k_rope``, are cut over
+    their T slots; a T that does not divide is refused (the reference
+    would keep such a cache whole; the port's decode reads a cut one)."""
+    model = part.axes.model
+    spec = Spec(*(e if e == model else None
+                  for e in part.cache_spec(path, shape)))
+    name = _last(path)
+    by_slots = name in SLOTTED and (name in ("latent", "k_rope")
+                                    or shape[2] % part.model_n != 0)
+    if by_slots and spec[1] != model:
+        raise ValueError(f"{path}: a cache of {shape[1]} slots does not "
+                         f"split over {part.model_n} model ranks; give a "
+                         f"length that divides")
+    return shard_slices(shape, spec, part.mesh)
 
 
 def shard_experts(model, part: Partitioner):

@@ -640,6 +640,50 @@ def test_flash_decode_plan_bytes_match_the_library(cuda):
             flash_decode.decode_shared_bytes(d, dv, gr, size)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [4, 8])
+def test_flash_decode_lse_over_slot_ranges_on_the_card(cuda, dtype, m):
+    """glm4-9b's decode head shape (32 q heads, 2 kv heads of 128) with
+    the cache cut into ``m`` slot ranges, as a model axis of ``m`` cuts
+    it; row 1 ends in the first range, so its other ranges have no valid
+    slot (a local ``pos`` of -1). Each range's float32 out and lse against
+    the plain version's (lse within rtol 1e-5), an empty range's out 0
+    and lse -inf; the ranges merged (``merge_ranges``) and rounded once
+    against the whole cache's kernel and plain version (the gate of
+    ``assert_close_to_plain``: 2 bf16 ulps); one launch a range."""
+    from repro_torch.kernels.flash_decode import merge_ranges
+    b, t, hq, hkv, d = 2, 1024, 32, 2, 128
+    q = rand(cuda, (b, hq, d), dtype, 11)
+    kc = rand(cuda, (b, t, hkv, d), dtype, 12)
+    vc = rand(cuda, (b, t, hkv, d), dtype, 13)
+    pos = torch.tensor([t - 1, 100], dtype=torch.int32, device=cuda)
+    whole = ops.flash_decode(q, kc, vc, pos)
+    want = flash_decode.flash_decode_torch(q, kc, vc, pos)
+    tl = t // m
+    parts = []
+    before = ops.flash_decode.launches
+    for r in range(m):
+        sl = slice(r * tl, (r + 1) * tl)
+        loc = (torch.clamp(pos + 1 - r * tl, 0, tl) - 1).to(torch.int32)
+        args = (q, kc[:, sl].contiguous(), vc[:, sl].contiguous(), loc)
+        out, lse = ops.flash_decode(*args, return_lse=True)
+        p_out, p_lse = flash_decode.flash_decode_torch(*args,
+                                                       return_lse=True)
+        assert out.dtype == lse.dtype == torch.float32
+        assert_close_to_plain(out, p_out)
+        finite = torch.isfinite(p_lse)
+        assert torch.equal(torch.isfinite(lse), finite)
+        torch.testing.assert_close(lse[finite], p_lse[finite], rtol=1e-5,
+                                   atol=1e-5)
+        if not bool(finite.all()):
+            assert float(out[~finite].abs().max()) == 0.0
+        parts.append((out, lse))
+    assert ops.flash_decode.launches == before + m
+    merged, _ = merge_ranges(*zip(*parts))
+    assert_close_to_plain(merged.to(dtype), want)
+    assert_close_to_plain(merged.to(dtype), whole)
+
+
 def test_serving_kernels_refuse_bad_input_without_falling_back(cuda):
     q = rand(cuda, (2, 10, 4, 16), torch.float32, 1)
     k = rand(cuda, (2, 10, 2, 16), torch.float32, 2)

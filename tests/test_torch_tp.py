@@ -21,9 +21,12 @@ gloo ranks, held to one device and to the reference.
   rows (a replicated parameter's slice is all of it); and the step's
   ``grad_norm`` equals the one-device norm.
 * ``make_ctx`` / ``mesh_axes_for`` equal the reference's for every
-  ``ARCHS`` config at (16, 16) and (2, 16, 16); ``shard_params``'
-  refusals; ``train.py --mesh 2x4 --device cpu --reduced`` for 2 steps
-  against the one-device CLI, its checkpoint restored on one device.
+  ``ARCHS`` config at (16, 16) and (2, 16, 16); ``shard_params`` of the
+  SSM, hybrid, MoE and MLA families at (2, 4), every leaf at its spec's
+  slice; glm4's ``generate`` under split heads (its 2 kv heads cut over
+  the slots) equal to one device's tokens; ``train.py --mesh 2x4
+  --device cpu --reduced`` for 2 steps against the one-device CLI, its
+  checkpoint restored on one device.
 
 Float32 tolerances: logits and gradients within 1e-4 of the largest
 (``tests/test_torch_models.py``'s model tolerance: the same sums in
@@ -44,6 +47,7 @@ from repro_torch.launch.mesh import make_mesh, mesh_coords, spawn_cpu_ranks
 from repro_torch.launch.specs import input_specs, make_ctx, mesh_axes_for
 from repro_torch.models import ShardCtx, forward, init_params
 from repro_torch.optim import OptConfig, init_opt_state
+from repro_torch.runtime import generate
 from repro_torch.runtime.train_loop import family_loss, make_train_step
 from repro_torch.sharding import MeshAxes, Partitioner, shard_params
 from repro_torch.sharding.partition import shard_slices
@@ -99,29 +103,34 @@ def logits_and_grads(model, batch, cfg, ctx):
     return logits.detach().numpy(), grads
 
 
-def mesh_rank(rank, runs, cli_argvs):
+def mesh_rank(rank, runs, cli_argvs, prompt):
     """``step_rank`` of each (mesh shape, cases) of ``runs`` on its mesh
-    over the same 8 ranks; on the first, the message of decode under
-    split heads; then the train CLI's ``main`` on each of ``cli_argvs``
+    over the same 8 ranks; on the first, the first case's tokens
+    generated from this rank's rows of ``prompt`` under split heads,
+    and the shapes of every parameter ``shard_params`` keeps of each of
+    ``FAMILIES``; then the train CLI's ``main`` on each of ``cli_argvs``
     ({start: argv}), its history."""
     from repro_torch.launch.train import main
     out = {shape: step_rank(shape, cases) for shape, cases in runs}
     shape, cases = runs[0]
     cfg = cfg_of(cases[0][0])
     mesh = make_mesh(shape, ("data", "model"), device_type="cpu")
-    model = shard_params(model_of(cfg, cases[0][1]),
-                         Partitioner(mesh, MeshAxes()))
-    ctx = ShardCtx(mesh=mesh, dp_axes=("data",), model_axis="model",
-                   mode="decode")
-    from repro_torch.models import init_cache
-    try:
-        with torch.no_grad():
-            forward(model, {"tokens": torch.zeros((1, 1), dtype=torch.long),
-                            "pos": 0, "cache": init_cache(cfg, 1, 8)}, cfg,
-                    ctx)
-        out["decode"] = None
-    except NotImplementedError as e:
-        out["decode"] = str(e)
+    part = Partitioner(mesh, MeshAxes())
+    model = shard_params(model_of(cfg, cases[0][1]), part)
+    ctx = ShardCtx(mesh=mesh, dp_axes=("data",), model_axis="model")
+    b = prompt.shape[0] // shape[0]
+    d = mesh_coords(mesh)["data"]
+    out["decode"] = generate(cfg, ctx, model, {"tokens": torch.from_numpy(
+        prompt[d * b:(d + 1) * b])}, DECODE_GEN).numpy()
+    out["families"] = {}
+    for name in FAMILIES:
+        fam = shard_params(init_params(cfg_of(name), torch.Generator()
+                                       .manual_seed(0)), part)
+        out["families"][name] = (
+            {k: tuple(p.shape) for k, p in fam.named_parameters()},
+            fam.partitioner is part,
+            [getattr(m, "caches_by_spec", False) for n, m in
+             fam.named_modules() if n.split(".")[-1] == "attn"])
     out["cli"] = {start: main(argv) for start, argv in cli_argvs.items()}
     return out
 
@@ -239,6 +248,9 @@ CLAIMED = {"auto": "shard_map_seq", "seq": "seq", "batch": "batch"}
 
 
 CLI_STARTS = {"fresh": 0, "reference": 1}    # the step each run starts at
+FAMILIES = ("mamba2-780m", "zamba2-7b", "qwen3-moe-235b-a22b",
+            "deepseek-v2-lite-16b")
+DECODE_GEN = 5
 
 
 def cli_argv(root, start):
@@ -316,7 +328,14 @@ def mesh_runs(tmp_path_factory):
     argvs = {start: cli_argv(root, start) + ["--mesh", "2x4", "--ckpt-dir",
                                              str(root / "mesh")]
              for start, root in roots.items()}
-    outs = spawn_cpu_ranks(8, mesh_rank, runs, argvs, timeout=DEADLINE)
+    name, weights = split[0][:2]
+    prompt = np.random.default_rng(7).integers(0, cfg_of(name).vocab, (2, 8))
+    wants["decode"] = generate(cfg_of(name), ShardCtx(),
+                               model_of(cfg_of(name), weights),
+                               {"tokens": torch.from_numpy(prompt)},
+                               DECODE_GEN).numpy()
+    outs = spawn_cpu_ranks(8, mesh_rank, runs, argvs, prompt,
+                           timeout=DEADLINE)
     return outs, wants, ref, roots
 
 
@@ -356,11 +375,14 @@ def test_small_heads_on_1x8_claim_the_model_axis(mesh_runs):
         check_ranks(outs, (name, claim), wants[name, claim], SMALL[0])
 
 
-def test_decode_under_split_heads_is_refused(mesh_runs):
-    """Decode with split heads raises on every rank, naming A13b4."""
-    outs = mesh_runs[0]
-    assert all(o["decode"] is not None and "A13b4" in o["decode"]
-               for o in outs), [o["decode"] for o in outs]
+def test_decode_under_split_heads_equals_one_device(mesh_runs):
+    """glm4-9b's ``generate`` with its q heads split over 4 model ranks
+    and its 2 kv heads' cache cut over the slots (the reference's
+    ``cache_spec``), each data rank on its row: one device's tokens."""
+    outs, wants = mesh_runs[0], mesh_runs[1]
+    for o in outs:
+        d = o[SPLIT][("glm4-9b", "auto")]["at"]["data"]
+        np.testing.assert_array_equal(o["decode"], wants["decode"][d:d + 1])
 
 
 def test_make_ctx_and_mesh_axes_equal_the_reference(monkeypatch):
@@ -410,17 +432,29 @@ def test_make_ctx_and_mesh_axes_equal_the_reference(monkeypatch):
                         assert got[k].shape == want[k].shape, (name, k)
 
 
-def test_shard_params_refuses_what_waits_for_later_items():
-    """The SSM, hybrid, MoE and MLA families name A13b4 (decode under
-    split heads, which names it too, is
-    ``test_decode_under_split_heads_is_refused``)."""
-    from repro_torch.models import init_params
-    gen = torch.Generator().manual_seed(0)
-    tp = Partitioner({"data": 1, "model": 4}, MeshAxes())
-    for name in ("mamba2-780m", "zamba2-7b", "qwen3-moe-235b-a22b",
-                 "deepseek-v2-lite-16b"):
-        with pytest.raises(NotImplementedError, match="A13b4"):
-            shard_params(init_params(cfg_of(name), gen), tp)
+def test_shard_params_takes_every_family(mesh_runs):
+    """The SSM, hybrid, MoE and MLA families at (2, 4): every parameter
+    a rank keeps has its spec's slice shape (Mamba-2's heads and
+    ``d_inner``, the LoRA's ``b_*``, MLA's ``wkv_b``, the experts and
+    the shared experts' F over 4), the model records its partitioner
+    and every attention module (none in mamba2) decodes at
+    ``cache_spec``'s layout."""
+    tp = Partitioner(dict(zip(("data", "model"), SPLIT)), MeshAxes())
+    for name in FAMILIES:
+        model = init_params(cfg_of(name), torch.Generator(), "meta")
+        specs = tp.param_specs(model)
+        cut = 0
+        for o in mesh_runs[0]:
+            shapes, recorded, marked = o["families"][name]
+            assert recorded and all(marked), name
+            assert marked or cfg_of(name).family == "ssm", name
+            for k, p in model.named_parameters():
+                want = tuple(n // (SPLIT[1] if specs[k][i:i + 1] ==
+                                   ("model",) else 1)
+                             for i, n in enumerate(p.shape))
+                assert shapes[k] == want, (name, k, shapes[k], want)
+                cut += shapes[k] != tuple(p.shape)
+        assert cut, name
 
 
 @pytest.mark.parametrize("start", sorted(CLI_STARTS))

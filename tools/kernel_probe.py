@@ -22,7 +22,10 @@ CUDA device:
   ``chip_smoke.decode_row``: device ms from a CUDA graph of 50 calls over
   copies of the cache that hold 3x the L2, the plain version's the same
   way, back-to-back ms on one cache; without a softcap also
-  ``scaled_dot_product_attention`` (run B's shape is timed both ways).
+  ``scaled_dot_product_attention`` (run B's shape is timed both ways);
+  ``sha256``, the first 16 hex digits of a digest of the bits of one
+  default call's output (the same inputs in every process, so two trees
+  whose digests agree give the same bits).
 - ``sim_relax`` at the four offline shapes of ``chip_smoke.py`` phase 2
   (``dense_lags`` of the lowered 64- and 256-core suites, jitter 0 and
   0.01 x 16): ms of one call from CUDA events over 5 calls after 2
@@ -75,6 +78,7 @@ line (the last).
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import subprocess
 import sys
@@ -165,6 +169,8 @@ def main() -> int:
 
 def probe_decode(cs, dev):
     import torch
+
+    from repro_torch.kernels.flash_decode import flash_decode_cuda
     gen = torch.Generator(device=dev).manual_seed(0)
     decode = {}
     for name, b, t, hq, hkv, d, ring, cap, p in (
@@ -179,6 +185,9 @@ def probe_decode(cs, dev):
         pos = torch.full((b,), p, dtype=torch.int32, device=dev)
         kw = dict(ring=ring, softcap=cap, scale=d ** -0.5)
         decode[name] = cs.decode_row(q, kc, vc, pos, kw)
+        bits = flash_decode_cuda(q, kc, vc, pos, **kw).view(torch.int16)
+        decode[name]["sha256"] = hashlib.sha256(
+            bits.cpu().numpy().tobytes()).hexdigest()[:16]
         if name == "gemma2_B":
             decode["gemma2_B_no_softcap"] = cs.decode_row(
                 q, kc, vc, pos, dict(kw, softcap=None))

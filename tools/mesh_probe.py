@@ -105,6 +105,11 @@ TP_GRAD_NORM = 5e-2       # per leaf, relative
 # fsdp: (arch, mesh, the comparison: "one" GPU over 2 microbatches, or a
 # mesh without FSDP); B = one row a data rank, 1,024 tokens
 FSDP_SEQ = 1024
+ZAMBA_CUT = 39            # zamba2-7b's layers one GPU trains (PERF.md §4)
+F32_COS = 1e-5           # float32 on the mesh against one GPU: 1 - cosine
+F32_NORM = 1e-3           # and |norm ratio - 1|, every leaf
+SERVE_RUN = dict(batch=2, prompt=1024, gen=8)
+SERVE_REL = 5e-2          # chip_smoke.LOGIT_REL: bf16 logits, 5e-2 of max
 
 
 def median(xs):
@@ -249,6 +254,25 @@ def bf16_ulp(x):
 
 
 def tp_case(rank, n, dev):
+    return {"case": "tp", **tp_compare(cfg_of(TP_ARCH), n, dev)}
+
+
+def tp_compare(cfg, n, dev, f32=False):
+    """``cfg`` from seed 0 (norms, Mamba's A and dt, the LoRA redrawn) on
+    one GPU (every rank runs it on its whole model) and kept by
+    ``shard_params`` on a (1, N) mesh, on the same batch of ``TP_RUN``:
+    the gradients of one forward and backward (each rank's against its
+    slice of the one-GPU gradient, per leaf), one step, ``TP_TIMED`` timed
+    steps each way, the mesh run's peak GB. With ``f32`` the same
+    weights also run in float32, on one GPU and kept by ``shard_params``
+    on the mesh: every leaf's float32 gradient on the mesh against its
+    slice of one GPU's within ``F32_COS`` (1 - cosine) and ``F32_NORM``
+    (the norm ratio's distance from 1), the check of the sums; a leaf
+    that misses the bf16 ``tp`` gates passes where that float32 check
+    holds (small Mamba leaves, ``dt_bias``, ``A_log``, ``D``, the whole
+    ``wB``/``wC``/``conv_B``/``conv_C``, are sums that cancel, and two bf16
+    runs rounded in another order differ there), and its bf16 errors to
+    the float32 gradient, the mesh's and one GPU's, are reported."""
     import torch
 
     from chip_smoke import redraw
@@ -260,7 +284,6 @@ def tp_case(rank, n, dev):
     from repro_torch.optim import OptConfig, init_opt_state
     from repro_torch.runtime.train_loop import make_loss_fn, make_train_step
     from repro_torch.sharding import Partitioner, shard, shard_params
-    cfg = cfg_of(TP_ARCH)
     opt = OptConfig(**TP_OPT)
     mesh = make_mesh((1, n), ("data", "model"))
     axes = mesh_axes_for(cfg, mesh)
@@ -310,6 +333,15 @@ def tp_case(rank, n, dev):
         lambda tree: {k: shard(w.detach(), specs[k], mesh).clone()
                       for k, w in tree.items()})
     del whole
+    cfg32 = cfg.replace(dtype="float32")
+
+    def grads32(params, step_ctx):
+        """Every leaf's float32 gradient of one forward and backward."""
+        params.float().requires_grad_(True)
+        make_loss_fn(cfg32, step_ctx)(params, batch)[0].backward()
+        return {k: w.grad for k, w in params.named_parameters()}
+    g32 = {k: shard(g, specs[k], mesh).clone() for k, g in grads32(
+        model(), ShardCtx(mode="train")).items()} if f32 else {}
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     params = shard_params(model(), part)
@@ -318,6 +350,8 @@ def tp_case(rank, n, dev):
         lambda tree: {k: w.detach().clone() for k, w in tree.items()})
     peak = torch.cuda.max_memory_allocated() / 1e9
     del params
+    my32 = {k: g.clone() for k, g in grads32(shard_params(model(), part),
+                                             ctx).items()} if f32 else {}
     grad = {}                            # leaf: (cosine, norm ratio, max)
     for k, w in one_g.items():
         a, b = my_g[k].double().reshape(-1), w.double().reshape(-1)
@@ -326,9 +360,18 @@ def tp_case(rank, n, dev):
                    float(na == nb), na / nb if nb else float(na == 0.0),
                    float((a - b).abs().max() / b.abs().max().clamp_min(
                        1e-30)))
-    grad_bad = sorted(k for k, (c, r, _) in grad.items()
-                      if not (c >= TP_GRAD_COS
-                              and abs(r - 1.0) <= TP_GRAD_NORM))
+    struct = {k: leaf_stats(my32[k], w) for k, w in g32.items()}
+    f32_bad = sorted(k for k, (c, r, _) in struct.items()
+                     if not (1 - c <= F32_COS and abs(r - 1) <= F32_NORM))
+    missed = sorted(k for k, (c, r, _) in grad.items()
+                    if not (c >= TP_GRAD_COS
+                            and abs(r - 1.0) <= TP_GRAD_NORM))
+    grad_bad = [k for k in missed if k not in struct] + f32_bad
+    judged = {}          # a missed leaf's 1 - cos to float32: mesh, one GPU
+    for k in missed:
+        if k in g32:
+            judged[k] = (1 - leaf_stats(my_g[k], g32[k])[0],
+                         1 - leaf_stats(one_g[k], g32[k])[0])
     lr1 = float(opt.lr)                  # no warm-up: the first step's rate
     worst, apart, total = (0.0, None), 0, 0
     for k, w in want.items():
@@ -342,9 +385,11 @@ def tp_case(rank, n, dev):
                      float(mine[k].reshape(-1)[i]))
         apart += int((d > bf16_ulp(w)).sum())
         total += d.numel()
-    return {"case": "tp", "ranks": n, "arch": cfg.name, **TP_RUN,
+    heads = next(w for k, w in mine.items()
+                 if k.endswith(("attn.wq", "A_log")))
+    return {"ranks": n, "arch": cfg.name, "layers": cfg.n_layers, **TP_RUN,
             "mesh": [1, n], "attn_mode": ctx.attn_mode, "fsdp": axes.fsdp,
-            "local_heads": mine["layers.0.attn.wq"].shape[1],
+            "local_heads": heads.shape[1 if heads.dim() == 3 else 0],
             "loss": got["loss"], "one_gpu_loss": one["loss"],
             "grad_norm": got["grad_norm"],
             "one_gpu_grad_norm": one["grad_norm"],
@@ -352,6 +397,15 @@ def tp_case(rank, n, dev):
             "grad_norm_rel": abs(got["grad_norm"] - one["grad_norm"])
             / one["grad_norm"],
             "grad_leaves": len(grad), "grad_bad": grad_bad,
+            "grad_passed_by_f32": [k for k in missed if k not in grad_bad],
+            "f32_bad": f32_bad,
+            "f32_min_cos": min((c for c, _, _ in struct.values()),
+                               default=None),
+            "f32_worst_norm_ratio": max((r for _, r, _ in struct.values()),
+                                        key=lambda r: abs(r - 1.0),
+                                        default=None),
+            "bf16_to_f32_worst": max(judged.items(), key=lambda kv: kv[1][0]
+                                     / max(kv[1][1], 1e-12), default=None),
             "grad_min_cos": min(c for c, _, _ in grad.values()),
             "grad_worst_norm_ratio": max((r for _, r, _ in grad.values()),
                                          key=lambda r: abs(r - 1.0)),
@@ -363,6 +417,195 @@ def tp_case(rank, n, dev):
             "step_ms_median": median(tp_ms),
             "one_gpu_step_ms_median": median(one_ms),
             "peak_gb_tp": peak}
+
+
+def whole_step(cfg, n, dev):
+    """``cfg`` kept by ``shard_params`` on a (1, N) mesh (the optimizer
+    state made at its slices), one step and ``TP_TIMED`` timed steps on
+    ``TP_RUN``: what one GPU cannot hold. Returns the first step's loss
+    and norm, the step ms and the peak GB a GPU from the first step on."""
+    import torch
+
+    from chip_smoke import redraw
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.specs import make_ctx, mesh_axes_for
+    from repro_torch.launch.train import sharded_train_state
+    from repro_torch.runtime.train_loop import make_train_step
+    from repro_torch.optim import OptConfig
+    from repro_torch.sharding import Partitioner
+    from repro_torch.models import init_params
+    opt = OptConfig(**TP_OPT)
+    mesh = make_mesh((1, n), ("data", "model"))
+    axes = mesh_axes_for(cfg, mesh)
+    ctx = make_ctx(cfg, ShapeConfig("whole", TP_RUN["seq"], TP_RUN["batch"],
+                                    "train"), mesh, axes)
+    batch = TokenPipeline(cfg, PipelineConfig(
+        batch=TP_RUN["batch"], seq_len=TP_RUN["seq"], seed=0),
+        device=dev).make_batch(0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_params(cfg, gen, dev)
+    redraw(params, gen, dev)
+    state, specs = sharded_train_state(params, opt, Partitioner(mesh, axes))
+    del params
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step = make_train_step(cfg, opt, ctx, 1, *specs)
+    state, m = step(state, batch)
+    first = {k: float(v) for k, v in m.items()}
+    ms = []
+    for _ in range(TP_TIMED):
+        torch.cuda.synchronize()
+        torch.distributed.barrier()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    held = sum(w.numel() * w.element_size()
+               for w in state["params"].parameters()) / 1e9
+    del state
+    return {"arch": cfg.name, "layers": cfg.n_layers, **TP_RUN,
+            "mesh": [1, n], "fsdp": axes.fsdp, "loss": first["loss"],
+            "grad_norm": first["grad_norm"], "step_ms": ms,
+            "step_ms_median": median(ms), "weights_gb_a_gpu": held,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "peak_gb_above_state": (torch.cuda.max_memory_allocated()
+                                    - base) / 1e9}
+
+
+def full_routes(calls, n_moe, group, b, s):
+    """A teacher-forced run's router calls (``chip_smoke.recorded_routes``:
+    its prefill's, one a MoE layer, by the ``a2a`` dispatch over this
+    rank's chunk of the sequence, then each decode step's over every
+    token) as the calls of the same run on one GPU: each prefill call's
+    ids gathered over the model ranks and laid out (B, S) row-major."""
+    import torch
+    import torch.distributed as dist
+    m = dist.get_world_size(group)
+    out = []
+    for i, ids in enumerate(calls):
+        if i < n_moe:
+            parts = [torch.empty_like(ids) for _ in range(m)]
+            dist.all_gather(parts, ids.contiguous(), group=group)
+            ids = torch.cat([x.reshape(b, s // m, -1) for x in parts],
+                            dim=1).reshape(b * s, -1)
+        out.append(ids)
+    return out
+
+
+def serve_compare(name, n, dev):
+    """``name`` in bf16 from seed 0 (norms redrawn; a MoE's capacity
+    raised so no copy drops) kept by ``shard_params`` on a (1, N) mesh:
+    ``SERVE_RUN``'s prompt through ``generate`` (the main path), then its
+    tokens fed back (``chip_smoke.teacher_forced``: the prefill's logits
+    and each decode step's) against the same weights whole on one GPU
+    (drawn again from the seed) on the same MoE routes (the mesh run's,
+    gathered), within ``SERVE_REL`` of the largest logit; the caches'
+    bytes a GPU beside one GPU's, at this run and at the reference's
+    ``decode_32k`` (B 128 x 32,768)."""
+    import torch
+
+    from chip_smoke import recorded_routes, redraw, teacher_forced
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import ShardCtx, init_cache, init_params
+    from repro_torch.runtime import generate
+    from repro_torch.sharding import MeshAxes, Partitioner, shard_params
+    cfg = cfg_of(name)
+    if cfg.n_experts:
+        cfg = cfg.replace(capacity_factor=cfg.n_experts / cfg.top_k * 1.01)
+    b, s, g = SERVE_RUN["batch"], SERVE_RUN["prompt"], SERVE_RUN["gen"]
+
+    def model():
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = init_params(cfg, gen, dev)
+        redraw(params, gen, dev)
+        return params, gen
+    mesh = make_mesh((1, n), ("data", "model"))
+    part = Partitioner(mesh, MeshAxes())
+    params, gen = model()
+    prompt = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=dev)
+    shard_params(params, part)
+    torch.cuda.empty_cache()
+    ctx = ShardCtx(mesh=mesh, dp_axes=("data",), model_axis="model")
+    toks = generate(cfg, ctx, params, {"tokens": prompt}, g)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with recorded_routes() as calls:
+        mesh_logits = teacher_forced(cfg, params, prompt, toks, ctx=ctx)
+    torch.cuda.synchronize()
+    mesh_ms = (time.perf_counter() - t0) * 1e3
+    n_moe = sum(k.startswith("moe") for k in cfg.layer_kinds())
+    routes = full_routes(calls, n_moe, mesh.get_group("model"), b, s)
+    del params
+    torch.cuda.empty_cache()
+    params, _ = model()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with recorded_routes(forced=routes if n_moe else None):
+        one = teacher_forced(cfg, params, prompt, toks)
+    torch.cuda.synchronize()
+    one_ms = (time.perf_counter() - t0) * 1e3
+    del params
+    torch.cuda.empty_cache()
+    scale = float(one.abs().max())
+
+    def cache_gb(bb, t, with_part):
+        return sum(x.numel() * x.element_size() for c in init_cache(
+            cfg, bb, t, device="meta", part=part if with_part else None)
+            for x in c.values()) / 1e9
+    big = SHAPES["decode_32k"]
+    t = -(-(s + g) // n) * n                 # teacher_forced's window
+    return {"arch": cfg.name, "mesh": [1, n], **SERVE_RUN,
+            "max_dlogit_prefill": float((mesh_logits[:, 0] - one[:, 0])
+                                        .abs().max()),
+            "max_dlogit_decode": float((mesh_logits[:, 1:] - one[:, 1:])
+                                       .abs().max()),
+            "max_logit": scale,
+            "top1_agreement": float((mesh_logits.argmax(-1)
+                                     == one.argmax(-1)).float().mean()),
+            "finite": bool(torch.isfinite(mesh_logits).all()),
+            "teacher_forced_ms": mesh_ms, "one_gpu_teacher_forced_ms": one_ms,
+            "cache_gb_a_gpu": cache_gb(b, t, True),
+            "one_gpu_cache_gb": cache_gb(b, t, False),
+            "decode_32k_cache_gb_a_gpu": cache_gb(
+                big.global_batch, big.seq_len, True),
+            "decode_32k_one_gpu_cache_gb": cache_gb(
+                big.global_batch, big.seq_len, False)}
+
+
+def families_case(rank, n, dev):
+    """Tensor parallelism of the SSM, hybrid, MLA and MoE families
+    (ROADMAP A13b4) on a (1, N) mesh: mamba2-780m and zamba2-7b cut to
+    ``ZAMBA_CUT`` layers, each against one GPU in bf16 and in float32
+    (``tp_compare``);
+    zamba2-7b whole (``whole_step``: one GPU cannot hold its training
+    state); deepseek-v2-lite-16b and glm4-9b serving (``serve_compare``:
+    glm4's 2 kv heads do not divide N = 4, so its caches are cut over
+    their slots)."""
+    zamba = cfg_of("zamba2-7b")
+    train = [tp_compare(cfg_of("mamba2-780m"), n, dev, f32=True),
+             tp_compare(zamba.replace(n_layers=ZAMBA_CUT), n, dev, f32=True)]
+    whole = whole_step(zamba, n, dev)
+    serve = [serve_compare(name, n, dev)
+             for name in ("deepseek-v2-lite-16b", "glm4-9b")]
+    return {"case": "families", "ranks": n, "train": train, "whole": whole,
+            "serve": serve}
+
+
+def bad_serve(run):
+    return not run["finite"] or max(
+        run["max_dlogit_prefill"], run["max_dlogit_decode"]) > \
+        SERVE_REL * run["max_logit"]
+
+
+def bad_tp(o):
+    return o["loss_diff"] > TP_LOSS_ATOL or \
+        o["grad_norm_rel"] > TP_NORM_RTOL or o["grad_bad"] or \
+        o["param_over_bound"] > 1.0
 
 
 def leaf_stats(a, b):
@@ -540,7 +783,10 @@ def bad_fsdp(run):
 
 
 CASES = {"moe": moe_case, "pipeline": pipeline_case, "tp": tp_case,
-         "fsdp": fsdp_case}
+         "fsdp": fsdp_case, "families": families_case}
+TP_CHECKS = ("loss_diff", "grad_norm_rel", "grad_bad", "grad_min_cos",
+             "grad_worst_norm_ratio", "grad_max_rel", "param_over_bound",
+             "param_share_past_one_ulp")
 
 
 def rank_main(rank, n, store, cases):
@@ -559,22 +805,26 @@ def rank_main(rank, n, store, cases):
             dist.all_gather_object(outs, out)
             if rank == 0:
                 print(json.dumps(outs[0]), flush=True)
+                bad = []
                 if out["case"] == "tp":
                     print(json.dumps({"case": "tp ranks", "ranks": [
-                        {k: o[k] for k in ("loss_diff", "grad_norm_rel",
-                                           "grad_bad", "grad_min_cos",
-                                           "grad_worst_norm_ratio",
-                                           "grad_max_rel", "param_over_bound",
-                                           "param_share_past_one_ulp")}
-                        for o in outs]}), flush=True)
-                bad = [o for o in outs if o["case"] == "moe" and
-                       max(o["a2a_err"], o["local_err"]) > BF16_REL]
+                        {k: o[k] for k in TP_CHECKS} for o in outs]}),
+                        flush=True)
+                    bad += [o for o in outs if bad_tp(o)]
+                if out["case"] == "families":
+                    print(json.dumps({"case": "families ranks", "ranks": [
+                        [{k: r[k] for k in TP_CHECKS} for r in o["train"]]
+                        + [{k: r[k] for k in ("max_dlogit_prefill",
+                                              "max_dlogit_decode",
+                                              "max_logit")}
+                           for r in o["serve"]] for o in outs]}), flush=True)
+                    bad += [r for o in outs for r in o["train"] if bad_tp(r)]
+                    bad += [r for o in outs for r in o["serve"]
+                            if bad_serve(r)]
+                bad += [o for o in outs if o["case"] == "moe" and
+                        max(o["a2a_err"], o["local_err"]) > BF16_REL]
                 bad += [o for o in outs if o["case"] == "pipeline" and
                         not o["logits_bit_equal"]]
-                bad += [o for o in outs if o["case"] == "tp" and (
-                    o["loss_diff"] > TP_LOSS_ATOL
-                    or o["grad_norm_rel"] > TP_NORM_RTOL or o["grad_bad"]
-                    or o["param_over_bound"] > 1.0)]
                 if out["case"] == "fsdp":
                     print(json.dumps({"case": "fsdp ranks", "ranks": [
                         [{k: r[k] for k in FSDP_CHECKS} for r in o["runs"]]
