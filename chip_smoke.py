@@ -353,6 +353,22 @@ Run from the repository root (it puts ``src`` on ``sys.path`` itself):
    adds the phase's counts to ``rmsnorm``, ``flash_attention``,
    ``rmsnorm_bwd``, ``ssd_scan`` and ``ssd_scan_bwd``, and the slot-range
    rows to ``flash_decode``.
+19. AMTHA places the port's own model stack (``autoplace_phase``):
+   gemma2-2b's pipeline placed by the GA on ``h100_node(1, 8)`` (its
+   fitness by ``sim_relax_pop``: the launches join that kernel's row);
+   one gemma2-2b repeat unit at full width in bf16 on 1 x 1,024 tokens,
+   the cost model's predicted ms (analytic and counted sources, at the
+   datasheet rates) beside the measured median of CUDA events and
+   %Dif_rel (Eq. 4), not gated; deepseek-v2-lite-16b whole, its experts
+   placed from routes recorded on the card and permuted, its logits on
+   the same routes within ``LOGIT_REL`` of the unpermuted model's (bf16
+   sums in another order), and in float32 at 4 layers within
+   ``PERMUTE_F32_REL``;
+   one ``dryrun`` cell on the 16 x 16 mesh with its host seconds; the
+   three abstract trace-check entries of phase 11 clean. The kernels
+   line adds the unit's and deepseek's counts to ``rmsnorm`` and
+   ``flash_attention``, each kernel held to its plain version at the
+   shapes they gave it.
 
 Exits non-zero, printing no result, on any failure, when no CUDA device
 is present, or when run outside a checkout. The last line of standard
@@ -2200,14 +2216,19 @@ TRACE_LAUNCHES = {"search.generation_step": {"sim_relax_pop": 1},
                   "sim.relax_pop": {"sim_relax_pop": 1},
                   "kernels.sched_score": {"sched_score": 1},
                   "online.admission_score": {"sched_score": 1},
-                  "kernels.flash_attention": {"flash_attention": 1}}
+                  "kernels.flash_attention": {"flash_attention": 1},
+                  # abstract: fake CPU tensors, nothing launches
+                  "runtime.pipelined_forward": {},
+                  "autoplace.unit[gemma-2b]": {},
+                  "autoplace.unit[gemma2-2b]": {}}
 
 
 def analysis_phase(dev):
     """The port's lint over its tree and its tracecheck (``--quick``) on
     the card over the manifest; any finding fails. Each entry must launch
-    its kernel once per call, and the admission scorer must read back
-    exactly once per call."""
+    its kernel once per call (the abstract model-stack entries, on fake
+    CPU tensors, none), and the admission scorer must read back exactly
+    once per call. Returns the reports."""
     from repro_torch.analysis import lint, tracecheck
     bad = lint.lint_paths(lint.default_paths())
     print(f"lint: {len(bad)} finding(s) over the port's tree")
@@ -2233,6 +2254,7 @@ def analysis_phase(dev):
     if len(syncs) != 1:
         fail(f"admission scorer: {len(syncs)} host read-backs per call "
              f"({syncs}), expected exactly 1")
+    return reports
 
 
 # -- 12. the paper's evaluation: T_est, and T_exec from the event
@@ -4546,6 +4568,236 @@ def tp_families_phase(dev):
     return by_run, errs, rows, cmp_launches
 
 
+# ---------------------------------------------------------------------------
+# phase 19: AMTHA places the port's own model stack
+# ---------------------------------------------------------------------------
+
+AUTOPLACE_KERNELS = ("rmsnorm", "flash_attention")
+UNIT_ARCH, UNIT_SEQ, UNIT_REPS = "gemma2-2b", 1024, 20
+PERMUTE_ARCH, PERMUTE_ROWS = "deepseek-v2-lite-16b", dict(batch=2, seq=256)
+PERMUTE_F32_LAYERS = 4              # the dense layer and 3 MoE layers
+PERMUTE_F32_REL = 1e-4              # float32: sums in another order
+DRYRUN_CELL = ("gemma2-2b", "decode_32k")
+ABSTRACT_ENTRIES = ("runtime.pipelined_forward", "autoplace.unit[gemma-2b]",
+                    "autoplace.unit[gemma2-2b]")
+
+
+def autoplace_phase(dev, trace_reports):
+    """AMTHA places the port's own model stack (ROADMAP A13e-A13h) on one
+    card. (a) ``autoplace.place`` of gemma2-2b on ``h100_node(1, 8)`` by
+    the GA (its fitness on the card: ``sim_relax_pop``), the plan's
+    report. (b) One gemma2-2b repeat unit (a local/global pair) at full
+    width in bf16 on 1 x 1,024 tokens, forward only: the cost model's
+    predicted time (``exec_times`` of ``unit_costs`` under both sources
+    at the H100's datasheet rates) against the measured one (CUDA events,
+    the median of ``UNIT_REPS`` calls after a warm-up), and %Dif_rel =
+    (measured - predicted) / measured, the paper's Eq. 4, for each
+    source: reported, not gated; where the measured time goes
+    (``profile_step``: device busy ms, kernels and idle share a call);
+    the unit's launches counted (zeroed just before one call, read just
+    after) and its kernels held to their plain versions at the shapes it
+    gave them. (c) deepseek-v2-lite-16b
+    whole in bf16: one forward of ``PERMUTE_ROWS`` tokens with its routes
+    recorded, every expert's routed load placed by ``place_moe_experts``
+    on ``h100_node(1, 8)``, the permutation applied with
+    ``permute_expert_params``; the permuted model's forward on the same
+    routes (each expert id mapped to its new position) against the
+    unpermuted logits: bit for bit or not (printed), within
+    ``LOGIT_REL`` of the largest logit (gated: the dense dispatch's
+    combine and the router's softmax sum the experts in index order,
+    which the permutation changes, and bf16 rounding carries that
+    through 27 layers); then the same at full width in float32 cut to
+    ``PERMUTE_F32_LAYERS`` layers, within ``PERMUTE_F32_REL``; launches
+    counted and kernels held to their plain versions as in (b). (d) ``dryrun`` of
+    one cell on the 16 x 16 mesh (a fake world of 256 on the host), its
+    record and host seconds. (e) The three abstract trace-check entries
+    of phase 11's run on the card: clean, FLOPs and bytes within their
+    bounds, nothing launched. Returns (the kernels' counts by run, their
+    largest errors, the GA's ``sim_relax_pop`` launches)."""
+    import torch
+
+    from repro_torch import autoplace
+    from repro_torch.autoplace.costs import unit_call
+    from repro_torch.configs import ARCHS
+    from repro_torch.core.machine import h100_node
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.models import ShardCtx, forward
+    from repro_torch.models.model import DTYPES
+    from repro_torch.sharding.partition import permute_expert_params
+
+    t_phase = time.perf_counter()
+    keys, plains = spy_keys(), plain_versions()
+    stress = stress_cases(torch.Generator(device=dev).manual_seed(19), dev)
+    launches, errs = {}, {k: 0.0 for k in AUTOPLACE_KERNELS}
+
+    def counted(run, fn):
+        for k in AUTOPLACE_KERNELS:
+            getattr(ops, k).launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        launches[run] = {k: getattr(ops, k).launches
+                         for k in AUTOPLACE_KERNELS}
+        return out
+
+    # (a) the GA places gemma2-2b's pipeline on one H100 node
+    ops.sim_relax_pop.launches = 0
+    t0 = time.perf_counter()
+    plan = autoplace.place(UNIT_ARCH, scheduler="ga", machine=h100_node(1, 8))
+    ga_s = time.perf_counter() - t0
+    ga_launches = ops.sim_relax_pop.launches
+    report = plan.report()
+    print("autoplace plan " + json.dumps(dict(report, host_s=ga_s,
+                                              sim_relax_pop=ga_launches)))
+    if plan.t_autoplaced > plan.t_heuristic or ga_launches == 0:
+        fail(f"autoplace: plan {report}, GA launches {ga_launches}")
+
+    # (b) one repeat unit: the cost model against the card
+    cfg = ARCHS[UNIT_ARCH]
+    _, _, unit, _ = cfg.repeat_structure()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    fn, layers = unit_call(cfg, unit, gen, dev)
+    with torch.no_grad():
+        for layer in layers:
+            redraw(layer, gen, dev)
+        x = torch.randn((1, UNIT_SEQ, cfg.d_model), generator=gen,
+                        device=dev).to(DTYPES[cfg.dtype])
+        for _ in range(3):
+            fn(layers, x)
+        with contextlib.ExitStack() as stack:
+            spies = {k: stack.enter_context(Spy(ops, k, *keys[k]))
+                     for k in AUTOPLACE_KERNELS}
+            y = counted("autoplace_unit", lambda: fn(layers, x))
+        norms = 2 + 2 * cfg.post_block_norms + 2 * cfg.qk_norm
+        want = {"rmsnorm": norms * len(unit), "flash_attention": len(unit)}
+        if launches["autoplace_unit"] != want:
+            fail(f"autoplace unit launches {launches['autoplace_unit']}, "
+                 f"expected {want}")
+        if not torch.isfinite(y).all() or y.shape != x.shape:
+            fail(f"autoplace unit: output {tuple(y.shape)} not finite")
+        for k, e in check_against_plain("autoplace unit", spies, plains,
+                                        stress, ops).items():
+            errs[k] = max(errs[k], e)
+        times = []
+        for _ in range(UNIT_REPS):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn(layers, x)
+            stop.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(stop))
+        where = profile_step(lambda: fn(layers, x), {})
+    measured = sorted(times)[len(times) // 2]
+    node = h100_node(1, 1)
+    unit_row = dict(arch=UNIT_ARCH, unit=unit, tokens=UNIT_SEQ,
+                    measured_ms=measured, measured_min_ms=min(times),
+                    measured_max_ms=max(times), reps=UNIT_REPS,
+                    launches=launches["autoplace_unit"], profile=where)
+    for source in ("analytic", "counted"):
+        c = autoplace.unit_costs(cfg, seq=UNIT_SEQ, source=source)
+        pred = autoplace.exec_times(c.flops, c.hbm_bytes, node)[0] * 1e3
+        unit_row[source] = dict(
+            flops=c.flops, hbm_bytes=c.hbm_bytes, predicted_ms=pred,
+            dif_rel_pct=100.0 * (measured - pred) / measured)
+    print("autoplace unit " + json.dumps(unit_row))
+    del layers, x, y, spies
+    freed("autoplace unit")
+
+    # (c) expert placement from routes on the card, applied to the weights
+    def permuted(run, cfg, rel):
+        label = run.replace("_", " ")
+        gen, params = load_model(label, cfg, dev)
+        tokens = torch.randint(0, cfg.vocab, (PERMUTE_ROWS["batch"],
+                                              PERMUTE_ROWS["seq"]),
+                               generator=gen, device=dev)
+        ctx = ShardCtx(mode="train")
+        with torch.no_grad(), contextlib.ExitStack() as stack:
+            spies = {k: stack.enter_context(Spy(ops, k, *keys[k]))
+                     for k in AUTOPLACE_KERNELS}
+            with recorded_routes() as routes:
+                before = counted(run, lambda: forward(
+                    params, {"tokens": tokens}, cfg, ctx)[0])
+            loads = torch.bincount(torch.cat([r.reshape(-1)
+                                              for r in routes]),
+                                   minlength=cfg.n_experts).cpu().tolist()
+            t0 = time.perf_counter()
+            eplan = autoplace.place_moe_experts(
+                cfg, [float(v) for v in loads], n_devices=EP_GPUS)
+            place_s = time.perf_counter() - t0
+            permute_expert_params(params, eplan.permutation)
+            new_at = torch.empty(cfg.n_experts, dtype=torch.long,
+                                 device=dev)
+            new_at[torch.tensor(eplan.permutation, device=dev)] = \
+                torch.arange(cfg.n_experts, device=dev)
+            with recorded_routes(forced=[new_at[r] for r in routes]):
+                after = forward(params, {"tokens": tokens}, cfg, ctx)[0]
+            torch.cuda.synchronize()
+            for k, e in check_against_plain(label, spies, plains, stress,
+                                            ops).items():
+                errs[k] = max(errs[k], e)
+        scale = float(before.float().abs().max())
+        d = float((after.float() - before.float()).abs().max())
+        row = dict(arch=cfg.name, layers=cfg.n_layers, dtype=cfg.dtype,
+                   tokens=list(tokens.shape), expert_tokens_max=max(loads),
+                   expert_tokens_min=min(loads), place_s=place_s,
+                   t_autoplaced=eplan.t_autoplaced,
+                   t_roundrobin=eplan.t_roundrobin, gain_pct=eplan.gain_pct,
+                   identity=eplan.permutation == list(range(cfg.n_experts)),
+                   bit_for_bit=bool(torch.equal(after, before)),
+                   max_dlogit=d, bound=rel * scale, max_logit=scale,
+                   launches=launches[run])
+        print("autoplace experts " + json.dumps(row))
+        if not torch.isfinite(after).all() or not d <= rel * scale:
+            fail(f"{label}: permuted logits off by {d:.4e} > "
+                 f"{rel * scale:.4e}")
+        if sorted(eplan.permutation) != list(range(cfg.n_experts)) or \
+                not all(launches[run].values()):
+            fail(f"{label}: {row}")
+        del params, before, after, spies
+        freed(label)
+        return row
+
+    full = ARCHS[PERMUTE_ARCH]
+    perm_rows = [permuted("autoplace_deepseek", full, LOGIT_REL),
+                 permuted("autoplace_deepseek_f32", full.replace(
+                     dtype="float32", n_layers=PERMUTE_F32_LAYERS),
+                     PERMUTE_F32_REL)]
+
+    # (d) one dry-run cell on the 16 x 16 mesh, on the host
+    t0 = time.perf_counter()
+    rec = dryrun.run_cell(*DRYRUN_CELL, multi_pod=False, out_dir=None)
+    dry_s = time.perf_counter() - t0
+    dry_row = dict(cell=list(DRYRUN_CELL), mesh=rec["mesh"], host_s=dry_s,
+                   roofline_seconds=rec["roofline_seconds"],
+                   dominant=rec["dominant"],
+                   flops_per_device=rec["flops_per_device"],
+                   bytes_per_device=rec["bytes_per_device"],
+                   collective_by_axis=rec["collective_by_axis"],
+                   memory_analysis=rec["memory_analysis"])
+    print("autoplace dryrun " + json.dumps(dry_row))
+    if not rec["flops_per_device"] > 0 or rec["n_chips"] != 256:
+        fail(f"dryrun: {dry_row}")
+
+    # (e) the abstract trace-check entries of phase 11's run
+    by = {r.entry: r for r in trace_reports}
+    trace_rows = {}
+    for name in ABSTRACT_ENTRIES:
+        r = by.get(name)
+        if r is None or not r.ok or not r.abstract or r.launches:
+            fail(f"tracecheck {name}: {r and r.row()}")
+        trace_rows[name] = {k: r.cost[k] for k in
+                            ("flops_ratio", "flops_bounds", "bytes_ratio",
+                             "bytes_bounds")}
+    print("autoplace phase " + json.dumps(dict(
+        seconds=time.perf_counter() - t_phase, plan=report, unit=unit_row,
+        experts=perm_rows, dryrun_host_s=dry_s, tracecheck=trace_rows,
+        launches=launches, ga_sim_relax_pop=ga_launches)))
+    by_run = {k: {r: launches[r][k] for r in launches}
+              for k in AUTOPLACE_KERNELS}
+    return by_run, errs, ga_launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4904,7 +5156,7 @@ def main() -> int:
         row["launches_by_path"].update(ssm_launches[name])
         row["max_abs_err"] = max(row["max_abs_err"], ssm_err[name])
 
-    analysis_phase(dev)
+    trace_reports = analysis_phase(dev)
     paper_launches = paper_phase(dev)
     gc.collect()
     torch.cuda.empty_cache()
@@ -4947,6 +5199,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     fam_launches, fam_err, slot_rows, slot_launches = tp_families_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    auto_launches, auto_err, auto_ga = autoplace_phase(dev, trace_reports)
     for row in serve_rows + train_entries + [ssd_entry]:
         name = row["name"]
         if name == "flash_decode":
@@ -4955,7 +5210,8 @@ def main() -> int:
             row["max_abs_err"] = max(row["max_abs_err"], max(
                 r["max_abs_err"] for r in slot_rows))
         for by_run, err in ((mesh_launches, mesh_err), (tp_launches, tp_err),
-                            (fam_launches, fam_err)):
+                            (fam_launches, fam_err),
+                            (auto_launches, auto_err)):
             if name in by_run:
                 row["launches"] += sum(by_run[name].values())
                 row["launches_by_path"].update(by_run[name])
@@ -4982,12 +5238,13 @@ def main() -> int:
         replaces="src/repro/kernels/sim_step.py:184",
         launches=launches["sim_relax_pop"]
         + online_launches["sim_relax_pop"] + ga_launches + verify_launches
-        + paper_launches,
+        + paper_launches + auto_ga,
         launches_by_path={"offline": launches["sim_relax_pop"],
                           "online": online_launches["sim_relax_pop"],
                           "device_ga": ga_launches,
                           "verify": verify_launches,
-                          "paper": paper_launches},
+                          "paper": paper_launches,
+                          "autoplace_ga": auto_ga},
         max_abs_err=max(x["max_abs_err"] for x in kernel_rows),
         ms=main_row["ms"], plain_ms=main_row["plain_ms"],
         bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],

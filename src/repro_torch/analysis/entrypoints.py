@@ -4,7 +4,8 @@ The analyzer (:mod:`repro_torch.analysis.tracecheck`) is only as good as
 its coverage: a hot path that never lands in this manifest is a hot path
 nobody checks. So registration is *explicit* — each :class:`EntryPoint`
 names one callable of the port (a kernel's guarded wrapper, the device
-GA's generation step, the admission scorer) and knows how to build
+GA's generation step, the admission scorer, the pipelined forward, a
+model's repeat unit) and knows how to build
 representative arguments per suite size on a given device, mirroring the
 8/64/256-core suites of ``repro_torch.analysis.verify``:
 
@@ -12,18 +13,23 @@ representative arguments per suite size on a given device, mirroring the
 * ``64core`` — ``hp_bl260c``, 2 apps of 20–30 tasks;
 * ``256core`` — ``cluster_of_multicores(n_blades=32)``, 2 apps of
   30–40 tasks;
-* ``model`` — model-stack shapes.
+* ``model`` — model-stack shapes (small inputs on the device; full
+  ``ARCHS`` entries abstractly, on fake tensors).
 
-Every input is made with NumPy from a seed and then put on the device,
-so the CPU and the card check the same values. A build returns a
+Every concrete input is made with NumPy from a seed and then put on the
+device, so the CPU and the card check the same values. A build returns a
 :class:`Built`: the callable, its arguments, a same-shape/different-value
 argument *sweep* for the retrace detector, and optionally a
-:class:`CostRef` — roofline terms the counted FLOPs must agree with.
+:class:`CostRef` — roofline terms the counted FLOPs and traffic bytes
+must agree with, within its ratio bounds.
 
-The reference's manifest also holds ``runtime.pipelined_forward`` and
-two ``autoplace.unit[...]`` entries; they need ``sharding/``,
-``runtime/pipeline.py`` and ``autoplace/``, which the port does not have
-yet, and join this manifest with them.
+The model-stack cost entries (``runtime.pipelined_forward``,
+``autoplace.unit[...]``) are *abstract*, as the reference's are: they
+are built and called on fake CPU tensors (shapes and dtypes, no
+storage, nothing computed) whatever the device, and the pipeline's under
+a ``fake`` process group of 4 ranks of its own
+(:func:`repro_torch.launch.mesh.fake_world`), torn down after the call.
+No 2B-parameter weight is ever allocated for their cost cross-checks.
 
 Adding a new hot entry point to the port? Register it here (or via
 :func:`register_entrypoint` next to its definition) in the same change
@@ -33,6 +39,7 @@ manifest and nothing else.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from dataclasses import dataclass
 from typing import Callable, Optional
@@ -49,14 +56,18 @@ SUITES = ("8core", "64core", "256core", "model")
 
 @dataclass(frozen=True)
 class CostRef:
-    """Roofline reference terms for the cost cross-check pass: the
-    counted matmul FLOPs over ``flops`` must land inside
-    ``flops_bounds``. ``hbm_bytes`` is kept beside it for the record
-    (no counted byte term exists in eager PyTorch)."""
+    """Roofline reference terms for the cost cross-check pass.
+
+    ``flops``/``hbm_bytes`` come from ``autoplace.costs.unit_costs`` (or
+    a closed-form count for the other entries); the counted matmul FLOPs
+    over ``flops`` must land inside ``flops_bounds`` and the counted
+    traffic proxy (:func:`repro_torch.launch.op_analysis.call_cost`)
+    over ``hbm_bytes`` inside ``bytes_bounds``."""
 
     flops: float
     hbm_bytes: float
     flops_bounds: tuple[float, float] = (0.85, 1.15)
+    bytes_bounds: tuple[float, float] = (0.05, 20.0)
     source: str = "closed form"
 
 
@@ -67,12 +78,17 @@ class Built:
     ``fn(*args)`` runs it; ``sweep`` holds extra argument tuples of
     identical shapes and dtypes but different values: a callable that
     keeps its host control flow off the data runs the same ops on every
-    one of them."""
+    one of them. ``abstract``: ``fn`` and ``args`` live on fake CPU
+    tensors inside the contexts ``stack`` holds open (a fake tensor
+    mode, a fake process group), which the tracecheck closes after its
+    passes."""
 
     fn: Callable
     args: tuple
     sweep: tuple = ()
     cost_ref: Optional[CostRef] = None
+    abstract: bool = False
+    stack: Optional[contextlib.ExitStack] = None
 
 
 @dataclass(frozen=True)
@@ -236,6 +252,107 @@ def _build_flash_attention(suite: str, device: torch.device) -> Built:
     return Built(fn=fn, args=at(0), sweep=(at(1),))
 
 
+def _reduced_pipeline_cfg():
+    from ..configs import ARCHS, reduced
+    return reduced(ARCHS["glm4-9b"]).replace(dtype="float32", n_layers=4)
+
+
+#: the pipeline entry's fake world: 4 ranks, as the reference's CI
+#: forces 4 host devices
+_PIPELINE_RANKS = 4
+
+
+def _build_pipelined_forward(suite: str, device: torch.device) -> Built:
+    """``make_pipelined_forward`` over as many pipeline stages as a fake
+    world of 4 ranks holds, abstract: rank 0's stage on fake CPU
+    tensors — the pass suite reads structure and cost, it never runs
+    the pipeline."""
+    from ..autoplace.costs import unit_costs
+    from ..launch.mesh import fake_world, make_mesh
+    from ..launch.op_analysis import fake_mode
+    from ..models.model import init_params
+    from ..runtime.pipeline import make_pipelined_forward
+    cfg = _reduced_pipeline_cfg()
+    _, n_rep, _, _ = cfg.repeat_structure()
+    n_stages = max(s for s in range(1, _PIPELINE_RANKS + 1)
+                   if n_rep % s == 0)
+    n_micro, bm, seq = 3, 2, 16
+    # roofline reference for rank 0's share of the pipeline: the port's
+    # gpipe runs a stage only on the ticks where its microbatch is in
+    # range (the reference's runs the bubble's ticks too, on don't-care
+    # data), so n_micro stage calls of n_rep / n_stages units each, plus
+    # the head on every microbatch (2*d*V dots per token; the embedding
+    # is a gather, no dot term). The per-unit term is the counted source,
+    # as the reference's is its hlo source (the analytic closed form is
+    # pinned at full scale and undercounts at these toy dims)
+    unit = unit_costs(cfg, seq=seq, micro_batch=bm, source="counted")
+    head = 2.0 * bm * seq * cfg.d_model * cfg.vocab
+    units_per_stage = n_rep // n_stages
+    ref = CostRef(
+        flops=n_micro * units_per_stage * unit.flops + n_micro * head,
+        hbm_bytes=n_micro * units_per_stage * unit.hbm_bytes,
+        flops_bounds=(0.8, 1.25), bytes_bounds=(0.3, 5.0),
+        source="autoplace.unit_costs(counted) * n_micro * units a stage "
+               "+ n_micro * head (gpipe skips the bubble's ticks; rank 0)")
+    stack = contextlib.ExitStack()
+    try:
+        stack.enter_context(fake_world(_PIPELINE_RANKS))
+        mesh = make_mesh((n_stages,), ("pod",), device_type="cpu")
+        stack.enter_context(fake_mode())
+        model = init_params(cfg, torch.Generator(), "cpu")
+        tokens = torch.zeros((n_micro, bm, seq), dtype=torch.int64)
+        fwd = make_pipelined_forward(cfg, mesh, n_stages)
+    except BaseException:
+        stack.close()
+        raise
+    return Built(fn=fwd, args=(model, tokens), abstract=True,
+                 cost_ref=ref, stack=stack)
+
+
+def _build_autoplace_unit(arch: str) -> Callable[[str, torch.device],
+                                                  Built]:
+    def build(suite: str, device: torch.device) -> Built:
+        """One repeat unit of ``arch`` on fake CPU tensors, exactly as
+        ``autoplace.costs.counted_unit_terms`` runs it — the cost pass
+        counts its FLOPs and traffic and must land inside the
+        analytic-vs-counted ratio bounds ``tests/test_torch_autoplace.py``
+        pins."""
+        from ..autoplace.costs import unit_call, unit_costs
+        from ..configs import ARCHS
+        from ..launch.op_analysis import fake_mode
+        from ..models.model import DTYPES
+        cfg = ARCHS[arch]
+        _, _, unit, _ = cfg.repeat_structure()
+        seq, micro_batch = 1024, 1
+        ana = unit_costs(cfg, seq=seq, micro_batch=micro_batch)
+        lo, hi = _UNIT_FLOP_BOUNDS.get(arch, (0.6, 1.4))
+        # bytes: the traffic proxy counts every eager op's operands and
+        # result, the analytic term only the weight + 4x-activation
+        # floor — same order of magnitude is the contract, as the
+        # reference's
+        ref = CostRef(flops=ana.flops, hbm_bytes=ana.hbm_bytes,
+                      flops_bounds=(lo, hi), bytes_bounds=(0.5, 25.0),
+                      source="autoplace.unit_costs(analytic)")
+        stack = contextlib.ExitStack()
+        try:
+            stack.enter_context(fake_mode())
+            fn, layers = unit_call(cfg, unit, torch.Generator(), "cpu")
+            x = torch.zeros((micro_batch, seq, cfg.d_model),
+                            dtype=DTYPES[cfg.dtype])
+        except BaseException:
+            stack.close()
+            raise
+        return Built(fn=fn, args=(layers, x), abstract=True, cost_ref=ref,
+                     stack=stack)
+    return build
+
+
+#: analytic/counted dot-FLOP ratio bounds per arch — the reference's
+#: analytic-vs-HLO tolerances, which ``tests/test_torch_autoplace.py``
+#: pins for the counted source
+_UNIT_FLOP_BOUNDS = {"gemma-2b": (0.85, 1.15), "gemma2-2b": (0.60, 1.20)}
+
+
 # ---------------------------------------------------------------------------
 # the manifest
 # ---------------------------------------------------------------------------
@@ -266,6 +383,21 @@ _BUILTIN: tuple[EntryPoint, ...] = (
         "kernels.flash_attention", _build_flash_attention,
         suites=("model",),
         doc="GQA flash attention wrapper, float32"),
+    EntryPoint(
+        "runtime.pipelined_forward", _build_pipelined_forward,
+        suites=("model",),
+        doc="gpipe'd LM forward over the pod mesh, reduced glm4-9b; "
+            "abstract: rank 0 of a fake world of 4"),
+    EntryPoint(
+        "autoplace.unit[gemma-2b]", _build_autoplace_unit("gemma-2b"),
+        suites=("model",), allow_upcast=True,
+        doc="one gemma-2b repeat unit, abstract — cost cross-check vs "
+            "the analytic roofline"),
+    EntryPoint(
+        "autoplace.unit[gemma2-2b]", _build_autoplace_unit("gemma2-2b"),
+        suites=("model",), allow_upcast=True,
+        doc="one gemma2-2b repeat unit (local/global attn pair), "
+            "abstract"),
 )
 
 _REGISTERED: list[EntryPoint] = []

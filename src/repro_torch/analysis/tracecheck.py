@@ -7,19 +7,24 @@ really runs: for every entry point in
 device under a recorder of the aten ops the call dispatches, then runs
 five passes over the record.
 
-The recorder is a ``torch.utils._python_dispatch.TorchDispatchMode``: it
-sees every aten op after PyTorch's composite decompositions (so
-``.item()``, ``float()`` and ``.tolist()`` all arrive as
-``aten._local_scalar_dense``, ``.float()`` and ``.to()`` as
+The recorder is :class:`repro_torch.launch.op_analysis.Recorder`, a
+``torch.utils._python_dispatch.TorchDispatchMode`` shared with the
+dry-run's cost analysis: it sees every aten op after PyTorch's composite
+decompositions (so ``.item()``, ``float()`` and ``.tolist()`` all arrive
+as ``aten._local_scalar_dense``, ``.float()`` and ``.to()`` as
 ``aten._to_copy``) with its real tensors, their shapes, dtypes and
 devices, on the CPU and on the card alike. ``torch.fx`` tracing would
 not do: it stops at data-dependent host branches, which are exactly
 what pass 1 looks for. FLOPs come from
-``torch.utils.flop_counter.FlopCounterMode``, itself such a mode. The
-CUDA kernels of ``kernels/csrc`` launch through ``ctypes`` and are
-invisible to any dispatch mode; on the card a report therefore also
-records the delta of every ``ops.*.launches`` count over the call, so it
-shows that the kernel ran.
+``torch.utils.flop_counter.FlopCounterMode``, itself such a mode, and
+bytes from the recorder's traffic proxy
+(:func:`repro_torch.launch.op_analysis.call_cost`). The CUDA kernels of
+``kernels/csrc`` launch through ``ctypes`` and are invisible to any
+dispatch mode; on the card a report therefore also records the delta of
+every ``ops.*.launches`` count over the call, so it shows that the
+kernel ran. An *abstract* entry (``Built.abstract``: the model-stack
+cost entries) is built and called on fake CPU tensors whatever the
+device, so on the card it launches nothing and its report says so.
 
 1. **retrace** — call the entry across its canned sweep of
    same-shape/different-value arguments and compare each call's
@@ -44,11 +49,13 @@ shows that the kernel ran.
    has ``allow_f64``; a floating array widened (``aten._to_copy``,
    ``copy_`` into a wider tensor, or an op that promotes a floating
    input to a wider output) unless it has ``allow_upcast``.
-5. **cost-model** — matmul FLOPs counted by ``FlopCounterMode``,
-   cross-checked against the entry's :class:`CostRef` within its ratio
-   bounds, where it has one. There is no compiled HLO in eager PyTorch,
-   so the reference's ``hlo_costs`` (FLOPs and traffic of the compiled
-   program) has no counterpart here and the byte term is not checked.
+5. **cost-model** — matmul FLOPs counted by ``FlopCounterMode`` and
+   the traffic proxy's bytes (operand plus result bytes of every op but
+   views, metadata and allocations), each cross-checked against the
+   entry's :class:`CostRef` within its ratio bounds (``flops_bounds``,
+   ``bytes_bounds``), where it has one, as the reference checks its
+   HLO's dot FLOPs and traffic. Eager code runs unfused, so its traffic
+   runs above a compiled program's.
 
 Findings are :class:`repro_torch.analysis.verify.Violation` values with
 this module's own ``KINDS``; :func:`assert_clean` raises
@@ -61,16 +68,14 @@ exits 1 on any finding. It writes no file.
 from __future__ import annotations
 
 import json
-import math
 import sys
 from dataclasses import dataclass, field
 from typing import Any, Optional
 
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_flatten
-from torch.utils.flop_counter import FlopCounterMode
 
+from ..launch.op_analysis import OpRecord, Recorder, _nbytes, call_cost
+from ..launch.op_analysis import record as record_call
 from .entrypoints import Built, CostRef, EntryPoint, manifest
 from .verify import VerifyError, Violation
 
@@ -90,42 +95,6 @@ _DATA_SIZED = frozenset({"nonzero", "masked_select", "_unique", "_unique2",
 _WIDE = (torch.float64, torch.complex128)
 
 
-@dataclass(frozen=True)
-class OpRecord:
-    """One dispatched aten op: its name and the (shape, dtype, device
-    type) of every tensor it took and returned."""
-
-    op: str
-    inputs: tuple
-    outputs: tuple
-
-
-def _meta(tree) -> tuple:
-    return tuple((tuple(x.shape), x.dtype, x.device.type)
-                 for x in tree_flatten(tree)[0]
-                 if isinstance(x, torch.Tensor))
-
-
-def _nbytes(meta) -> int:
-    shape, dtype, _ = meta
-    return math.prod(shape) * dtype.itemsize
-
-
-class Recorder(TorchDispatchMode):
-    """Records every aten op dispatched while it is active."""
-
-    def __init__(self):
-        super().__init__()
-        self.ops: list[OpRecord] = []
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        out = func(*args, **kwargs)
-        self.ops.append(OpRecord(func.overloadpacket.__name__,
-                                 _meta((args, kwargs)), _meta(out)))
-        return out
-
-
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -134,11 +103,11 @@ def _sync(device: torch.device) -> None:
 def record(built: Built, device: torch.device
            ) -> tuple[list[OpRecord], float]:
     """The ops and the matmul FLOPs of one call of ``built.fn``."""
-    with torch.no_grad(), FlopCounterMode(display=False) as flops, \
-            Recorder() as rec:
-        built.fn(*built.args)
+    with torch.no_grad():
+        ops, flops, _ = record_call(built.fn, *built.args,
+                                    answer_reads=built.abstract)
         _sync(device)
-    return rec.ops, float(flops.get_total_flops())
+    return ops, flops
 
 
 # ---------------------------------------------------------------------------
@@ -273,24 +242,38 @@ def check_dtypes(ops: list[OpRecord], entry: str, *, allow_f64: bool = False,
 # pass 5: cost cross-check
 # ---------------------------------------------------------------------------
 
-def check_costs(flops: float, ref: Optional[CostRef], entry: str
+def check_costs(flops: float, traffic: Optional[float],
+                ref: Optional[CostRef], entry: str
                 ) -> tuple[Optional[dict], list[Violation]]:
-    """Ratio the counted FLOPs against the roofline reference. Returns
-    ``(cost_row, violations)``."""
+    """Ratio the counted FLOPs and traffic bytes against the roofline
+    reference. Returns ``(cost_row, violations)``."""
     if ref is None:
         return None, []
+    out = []
     fr = flops / ref.flops if ref.flops else float("inf")
+    br = (traffic / ref.hbm_bytes
+          if traffic is not None and ref.hbm_bytes else None)
     row = {"model_flops": ref.flops, "counted_flops": flops,
            "flops_ratio": fr, "flops_bounds": list(ref.flops_bounds),
-           "model_bytes": ref.hbm_bytes, "source": ref.source}
+           "model_bytes": ref.hbm_bytes, "counted_bytes": traffic,
+           "bytes_ratio": br, "bytes_bounds": list(ref.bytes_bounds),
+           "source": ref.source}
     lo, hi = ref.flops_bounds
-    if lo <= fr <= hi:
-        return row, []
-    return row, [Violation(
-        "cost-model",
-        f"{entry}: counted matmul FLOPs {flops:.3e} vs roofline "
-        f"{ref.flops:.3e} — ratio {fr:.3f} outside [{lo}, {hi}]; the "
-        f"cost model has drifted from the program")]
+    if not lo <= fr <= hi:
+        out.append(Violation(
+            "cost-model",
+            f"{entry}: counted matmul FLOPs {flops:.3e} vs roofline "
+            f"{ref.flops:.3e} — ratio {fr:.3f} outside [{lo}, {hi}]; the "
+            f"cost model has drifted from the program"))
+    if br is not None:
+        blo, bhi = ref.bytes_bounds
+        if not blo <= br <= bhi:
+            out.append(Violation(
+                "cost-model",
+                f"{entry}: counted traffic {traffic:.3e} B vs roofline "
+                f"{ref.hbm_bytes:.3e} B — ratio {br:.3f} outside "
+                f"[{blo}, {bhi}]"))
+    return row, out
 
 
 # ---------------------------------------------------------------------------
@@ -317,7 +300,9 @@ class EntryReport:
     host_syncs: tuple[str, ...] = ()
     launches: dict[str, int] = field(default_factory=dict)
     flops: float = 0.0
+    traffic: float = 0.0
     cost: Optional[dict] = None
+    abstract: bool = False
 
     @property
     def ok(self) -> bool:
@@ -330,35 +315,42 @@ class EntryReport:
                 "retraces": self.retraces, "n_ops": self.n_ops,
                 "host_syncs": list(self.host_syncs),
                 "launches": self.launches, "flops": self.flops,
-                "cost": self.cost}
+                "traffic_bytes": self.traffic, "cost": self.cost,
+                "abstract": self.abstract}
 
 
 def trace_entry(ep: EntryPoint, suite: str,
                 device: str | torch.device = "cuda") -> EntryReport:
-    """Build one (entry, suite) instantiation on ``device`` and run all
-    five passes."""
+    """Build one (entry, suite) instantiation on ``device`` (an abstract
+    entry on fake CPU tensors whatever the device) and run all five
+    passes."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("tracecheck on cuda needs a CUDA device "
                            "(pass device='cpu' for the CPU)")
     built = ep.build(suite, device)
-    before = _launch_counts()
-    ops, flops = record(built, device)
-    launches = {k: n - before[k] for k, n in _launch_counts().items()
-                if n != before[k]}
-    violations: list[Violation] = []
-    retraces, v = check_retrace(built, ops, ep.name, device)
-    violations += v
+    try:
+        before = _launch_counts()
+        ops, flops = record(built, device)
+        launches = {k: n - before[k] for k, n in _launch_counts().items()
+                    if n != before[k]}
+        violations: list[Violation] = []
+        retraces, v = check_retrace(built, ops, ep.name, device)
+        violations += v
+    finally:
+        if built.stack is not None:
+            built.stack.close()
+    traffic = call_cost(ops, flops).traffic_bytes
     violations += check_host_sync(ops, ep.name, ep.host_syncs)
     violations += check_baked_consts(ops, ep.name,
                                      limit=ep.const_bytes_limit)
     violations += check_dtypes(ops, ep.name, allow_f64=ep.allow_f64,
                                allow_upcast=ep.allow_upcast)
-    cost, v = check_costs(flops, built.cost_ref, ep.name)
+    cost, v = check_costs(flops, traffic, built.cost_ref, ep.name)
     violations += v
     return EntryReport(ep.name, suite, str(device), tuple(violations),
                        retraces, len(ops), tuple(host_syncs(ops)),
-                       launches, flops, cost)
+                       launches, flops, traffic, cost, built.abstract)
 
 
 def assert_clean(reports: list[EntryReport]) -> list[EntryReport]:

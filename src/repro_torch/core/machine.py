@@ -175,6 +175,7 @@ def cluster_of_multicores(n_blades: int = 4, sockets_per_blade: int = 2,
 # (core/placement.py) turns FLOP and byte counts into times with.
 H100_PEAK_FLOPS = 989e12             # dense bf16 tensor-core FLOP/s per GPU
 H100_HBM_BW = 3.35e12                # HBM3 bytes/s per GPU
+H100_HBM_BYTES = 80e9                # HBM3 bytes per GPU (80 GB)
 H100_NVLINK_BW = 450e9               # NVLink 4 bytes/s per GPU per direction
 H100_IB_BW = 50e9                    # bytes/s per GPU between nodes: one
                                      # 400 Gb/s NDR InfiniBand port per GPU

@@ -9,12 +9,19 @@ process per device, NCCL on the card, gloo on the CPU. The counterpart
 of the forced host devices is :func:`spawn_cpu_ranks`, which starts N
 CPU processes on gloo and runs a function in each.
 
+The dry-run and the abstract trace-check entries run one process as
+rank 0 of a larger world: :func:`fake_world` starts a process group on
+PyTorch's ``fake`` backend, whose collectives return at once and move
+nothing, and :func:`make_mesh` builds a ``"cpu"`` mesh over it. No
+other group accepts it, and a card mesh still needs NCCL.
+
 Defined as functions, so importing this module starts no process and
 touches no process group.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import multiprocessing as mp
 import os
@@ -30,11 +37,14 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
-__all__ = ["axis_sizes", "check_tensors", "make_mesh",
-           "make_production_mesh", "mesh_coords", "spawn_cpu_ranks"]
+__all__ = ["axis_ranks", "axis_sizes", "check_tensors", "fake_world",
+           "make_mesh", "make_production_mesh", "mesh_coords",
+           "spawn_cpu_ranks"]
 
 #: the backend each mesh device type runs its collectives on
 BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
+#: the analysis-only backend a ``"cpu"`` mesh also takes (:func:`fake_world`)
+FAKE_BACKEND = "fake"
 
 
 def make_production_mesh(*, multi_pod: bool = False, device_type=None):
@@ -47,13 +57,17 @@ def make_production_mesh(*, multi_pod: bool = False, device_type=None):
 
 
 def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...], *,
-              device_type: str | None = None) -> DeviceMesh:
+              device_type: str | None = None,
+              ranks: list[int] | None = None) -> DeviceMesh:
     """A mesh of ``shape`` named ``axes`` over ranks ``0 .. prod(shape) -
-    1`` of the default process group, row-major. ``device_type`` is
-    ``"cuda"`` (an NCCL group) unless the caller asks for ``"cpu"`` (a
-    gloo group). Every rank of the world calls it. Raises when no group
-    is initialised, when the group's backend does not serve the device
-    type, or when the world has fewer ranks than the mesh."""
+    1`` of the default process group, row-major, or over ``ranks`` in
+    that order (a permuted mesh: :func:`repro_torch.autoplace.
+    stage_mesh`). ``device_type`` is ``"cuda"`` (an NCCL group) unless
+    the caller asks for ``"cpu"`` (a gloo group, or the ``fake`` group
+    of :func:`fake_world`). Every rank of the world calls it. Raises
+    when no group is initialised, when the group's backend does not
+    serve the device type, when the world has fewer ranks than the
+    mesh, or when ``ranks`` are not that many distinct ranks of it."""
     device_type = device_type or "cuda"
     if device_type not in BACKENDS:
         raise ValueError(f"device type {device_type!r} is not one of "
@@ -73,12 +87,39 @@ def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...], *,
             f"--nproc-per-node {n}, or spawn_cpu_ranks({n}, ...) on the "
             f"CPU)")
     backend = dist.get_backend()
-    if backend != BACKENDS[device_type]:
+    if backend != BACKENDS[device_type] and not (
+            backend == FAKE_BACKEND and device_type == "cpu"):
         raise ValueError(f"a {device_type} mesh needs a "
                          f"{BACKENDS[device_type]} process group, this one "
                          f"is {backend}")
-    return DeviceMesh(device_type, torch.arange(n).reshape(shape),
+    order = list(range(n)) if ranks is None else [int(r) for r in ranks]
+    if len(set(order)) != n or len(order) != n or \
+            not all(0 <= r < world for r in order):
+        raise ValueError(f"ranks {ranks}: need {n} distinct ranks of the "
+                         f"world's {world}")
+    return DeviceMesh(device_type, torch.tensor(order).reshape(shape),
                       mesh_dim_names=tuple(axes))
+
+
+@contextlib.contextmanager
+def fake_world(n: int):
+    """This process as rank 0 of a world of ``n`` ranks on the ``fake``
+    backend, for analysis only: its collectives return at once and move
+    nothing, so one process records what rank 0 of a production mesh
+    runs (:mod:`repro_torch.launch.dryrun`, the abstract trace-check
+    entries). :func:`make_mesh` builds a ``"cpu"`` mesh over it. The
+    group is destroyed on exit; raises if a group is already
+    initialised."""
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialised; the "
+                           "fake world needs the process to itself")
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group(FAKE_BACKEND, store=FakeStore(), rank=0,
+                            world_size=n)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def axis_sizes(mesh) -> dict[str, int]:
@@ -87,18 +128,34 @@ def axis_sizes(mesh) -> dict[str, int]:
     ``AbstractMesh``: specs at production sizes need no processes)."""
     if isinstance(mesh, Mapping):
         return {str(k): int(v) for k, v in mesh.items()}
-    return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
 
 
 def mesh_coords(mesh: DeviceMesh) -> dict[str, int]:
     """This rank's index along every axis of ``mesh``; raises for a rank
     outside the mesh. A collective over one axis runs on the mesh's own
     group of it, ``mesh.get_group(axis)``, in which a rank's index is
-    its index along the axis."""
+    its place among the group's global ranks in increasing order. That
+    equals its coordinate along the axis where the mesh lists its ranks
+    in increasing order along it (every :func:`make_mesh` mesh without
+    ``ranks``), not in a permuted mesh: there a neighbour's rank comes
+    from :func:`axis_ranks`."""
     at = mesh.get_coordinate()
     if at is None:
         raise RuntimeError(f"rank {dist.get_rank()} is not in the mesh")
     return dict(zip(mesh.mesh_dim_names, at))
+
+
+def axis_ranks(mesh: DeviceMesh, axis: str) -> list[int]:
+    """The global ranks along ``axis`` through this rank, by coordinate:
+    entry i is the rank at coordinate i of the axis (this rank's
+    coordinates on the others), read from the mesh's own rank tensor."""
+    from torch.utils._python_dispatch import _disable_current_modes
+    at = mesh_coords(mesh)
+    index = tuple(slice(None) if a == axis else at[a]
+                  for a in mesh.mesh_dim_names)
+    with _disable_current_modes():          # the mesh's real rank tensor
+        return [int(r) for r in mesh.mesh[index].tolist()]
 
 
 def check_tensors(mesh: DeviceMesh, *tensors: torch.Tensor) -> None:

@@ -4,7 +4,13 @@ mesh axes of a (config, shape, mesh) cell, as the reference's
 
 Nothing here allocates: parameter counts come from an init on the
 ``meta`` device, and :func:`input_specs` returns :class:`TensorSpec`
-(shape, dtype) pairs in place of the reference's ``ShapeDtypeStruct``.
+(shape, dtype) pairs in place of the reference's ``ShapeDtypeStruct``
+(:func:`sds`). The reference's ``jax.eval_shape`` trees are
+:func:`abstract`'s results: the function run on fake CPU tensors
+(``FakeTensorMode``: shapes, dtypes and devices, no storage), so
+:func:`abstract_params` is a :class:`~repro_torch.models.Model` and
+:func:`abstract_state` a train state whose tensors hold nothing, which
+the dry-run shards and steps as it would real ones.
 ``mesh`` is a :class:`~torch.distributed.device_mesh.DeviceMesh` or a
 mapping from axis name to size, as :class:`~repro_torch.sharding.
 Partitioner` takes it; a context made on a mapping names the layout and
@@ -19,11 +25,12 @@ import torch
 
 from ..configs import ModelConfig, ShapeConfig
 from ..models.model import ShardCtx, init_cache, init_params
+from ..optim.adamw import OptConfig, init_opt_state
 from ..sharding.partition import MeshAxes, Partitioner
 from .mesh import axis_sizes
 
-__all__ = ["TensorSpec", "input_specs", "make_ctx", "mesh_axes_for",
-           "param_count"]
+__all__ = ["TensorSpec", "abstract", "abstract_params", "abstract_state",
+           "input_specs", "make_ctx", "mesh_axes_for", "param_count", "sds"]
 
 ATTN_CLAIMS = ("auto", "none", "batch", "seq", "shard_map_seq")
 FSDP_BYTES = 4e9           # TP-only bf16 weights a device holds before FSDP
@@ -32,6 +39,47 @@ FSDP_BYTES = 4e9           # TP-only bf16 weights a device holds before FSDP
 class TensorSpec(NamedTuple):
     shape: tuple[int, ...]
     dtype: torch.dtype
+
+
+def sds(shape, dtype) -> TensorSpec:
+    """The reference's ``ShapeDtypeStruct``: a shape and a dtype."""
+    return TensorSpec(tuple(shape), dtype)
+
+
+def _fake_mode_of(args):
+    from torch._guards import detect_fake_mode
+    tensors = []
+    for a in args:
+        if isinstance(a, torch.nn.Module):
+            tensors += list(a.parameters())
+        elif isinstance(a, torch.Tensor):
+            tensors.append(a)
+    return detect_fake_mode(tensors)
+
+
+def abstract(fn, *args, **kw):
+    """``fn(*args, **kw)`` on fake CPU tensors, the counterpart of
+    ``jax.eval_shape``: run under the fake tensor mode the arguments (or
+    the caller's active mode) carry, else a new one, so its tensors have
+    shapes and dtypes and no storage."""
+    from .op_analysis import fake_mode
+    mode = _fake_mode_of(args) or fake_mode()
+    with mode:
+        return fn(*args, **kw)
+
+
+def abstract_params(cfg: ModelConfig):
+    """The config's model on fake CPU tensors (no weight allocated)."""
+    return abstract(init_params, cfg, torch.Generator(), "cpu")
+
+
+def abstract_state(cfg: ModelConfig, opt_cfg: OptConfig | None = None
+                   ) -> dict:
+    """A train state ``{"params", "opt"}`` on fake CPU tensors, in one
+    fake tensor mode."""
+    params = abstract_params(cfg)
+    opt = abstract(init_opt_state, params, opt_cfg or OptConfig())
+    return {"params": params, "opt": opt}
 
 
 def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:

@@ -29,7 +29,8 @@ import torch.distributed as dist
 
 from ..core.machine import H100_IB_BW, H100_PEAK_FLOPS
 from ..core.placement import assign_layers_to_pods
-from ..launch.mesh import axis_sizes, check_tensors, mesh_coords
+from ..launch.mesh import (axis_ranks, axis_sizes, check_tensors,
+                           mesh_coords)
 from ..sharding.collectives import psum, replicated_in
 
 __all__ = ["gpipe", "make_pipelined_forward", "plan_stages",
@@ -153,8 +154,12 @@ def gpipe(stage_fn, stage_params, x_micro: torch.Tensor, *, pod_axis: str,
     p = mesh_coords(mesh)[pod_axis]
     n_pods = axis_sizes(mesh)[pod_axis]
     group = mesh.get_group(pod_axis)
-    prev = dist.get_global_rank(group, p - 1) if p > 0 else None
-    nxt = dist.get_global_rank(group, p + 1) if p + 1 < n_pods else None
+    # the neighbours by coordinate, from the mesh: in a permuted mesh
+    # (autoplace.stage_mesh) a rank's index in the axis group is not
+    # its coordinate
+    ranks = axis_ranks(mesh, pod_axis)
+    prev = ranks[p - 1] if p > 0 else None
+    nxt = ranks[p + 1] if p + 1 < n_pods else None
 
     xm = replicated_in(x_micro, group)
     # every shift's output must carry a gradient on every rank, whatever

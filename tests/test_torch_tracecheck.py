@@ -1,7 +1,8 @@
 """The port's tracecheck on the CPU: a planted defect of each kind is
-*named*, clean entries stay clean, the manifest is the reference's less
-the entries that wait for ``sharding/`` and ``autoplace/``, and every
-guarded kernel wrapper checks its inputs before it launches.
+*named*, clean entries stay clean, the manifest is the reference's,
+entry for entry (the model-stack cost entries abstract, on fake
+tensors, their FLOPs and bytes both checked), and every guarded kernel
+wrapper checks its inputs before it launches.
 
 The defects are defined here (the reference's live in ``tests/defects``,
 which is the reference's): each is a small callable that commits the one
@@ -202,22 +203,29 @@ def test_card_reads_and_uploads_are_recognised_from_the_record():
 # the manifest
 # ---------------------------------------------------------------------------
 
-#: the reference's entries that need sharding/, runtime/pipeline.py and
-#: autoplace/ (ROADMAP A13)
-WAIT_FOR_A13 = {"runtime.pipelined_forward", "autoplace.unit[gemma-2b]",
-                "autoplace.unit[gemma2-2b]"}
+#: the model-stack cost entries, built on fake tensors whatever the device
+ABSTRACT = {"runtime.pipelined_forward", "autoplace.unit[gemma-2b]",
+            "autoplace.unit[gemma2-2b]"}
 
 
 def test_manifest_is_the_references_less_the_a13_entries():
+    """The port's manifest is the reference's, entry for entry: names,
+    suites and dtype flags (the unit entries ``allow_upcast``), and the
+    units' FLOP bounds."""
     ref = [ep.name for ep in ref_entrypoints.MANIFEST]
     port = [ep.name for ep in manifest()]
-    assert port == [n for n in ref if n not in WAIT_FOR_A13]
+    assert port == ref
     assert len(port) == len(set(port))
     for ep in manifest():
         assert ep.suites and all(s in SUITES for s in ep.suites), ep.name
         ref_ep = next(e for e in ref_entrypoints.MANIFEST
                       if e.name == ep.name)
-        assert ep.suites == ref_ep.suites
+        assert (ep.suites, ep.allow_upcast, ep.allow_f64) == \
+            (ref_ep.suites, ref_ep.allow_upcast, ref_ep.allow_f64)
+    from repro_torch.analysis.entrypoints import _UNIT_FLOP_BOUNDS
+    assert _UNIT_FLOP_BOUNDS == ref_entrypoints._UNIT_FLOP_BOUNDS
+    assert CostRef(1.0, 1.0).bytes_bounds == \
+        ref_entrypoints.CostRef(1.0, 1.0).bytes_bounds
 
 
 def test_register_entrypoint_rejects_duplicates():
@@ -233,6 +241,37 @@ def test_manifest_entries_clean_on_the_cpu():
     assert by["online.admission_score"].host_syncs == ()   # nothing leaves
     assert by["sim.relax_pop"].host_syncs == ("_local_scalar_dense",) * 2
     assert all(r.launches == {} for r in reports)          # plain versions
+    model = {r.entry: r for r in reports if r.suite == "model"}
+    for name in ABSTRACT:
+        r = model[name]
+        assert r.abstract and r.row()["abstract"], name
+        lo, hi = r.cost["flops_bounds"]
+        blo, bhi = r.cost["bytes_bounds"]
+        assert lo <= r.cost["flops_ratio"] <= hi, name
+        assert blo <= r.cost["bytes_ratio"] <= bhi, name
+        assert r.cost["counted_bytes"] == r.traffic > 0
+    # rank 0 runs its stage for every microbatch, the bubble skipped
+    assert model["runtime.pipelined_forward"].cost["flops_ratio"] == 1.0
+    assert not model["kernels.flash_attention"].abstract
+    assert not torch.distributed.is_initialized()   # the fake world is gone
+
+
+def test_byte_term_names_a_drifted_traffic_reference():
+    """A reference that claims 100x the bytes a matmul moves is a
+    cost-model finding of its own, with the FLOPs right."""
+    a, b = torch.ones((_M, _K)), torch.ones((_K, _N))
+    moved = 4.0 * (_M * _K + _K * _N + _M * _N)
+    for claim, ok in ((moved, True), (100.0 * moved, False)):
+        ep = EntryPoint("test.bytes", lambda suite, device: Built(
+            fn=lambda a, b: a @ b, args=(a, b),
+            cost_ref=CostRef(flops=2.0 * _M * _N * _K, hbm_bytes=claim,
+                             bytes_bounds=(0.5, 2.0))))
+        report = trace_entry(ep, "8core", CPU)
+        assert report.ok is ok
+        assert report.cost["bytes_ratio"] == moved / claim
+        if not ok:
+            assert [v.kind for v in report.violations] == ["cost-model"]
+            assert "traffic" in report.violations[0].message
 
 
 def test_cli_quick_on_the_cpu_exits_zero(capsys):

@@ -2,7 +2,8 @@
 tensor-parallel and FSDP training steps across the GPUs of one host,
 one process a GPU on NCCL, held to one GPU's answer and timed.
 
-    python3 tools/mesh_probe.py [--gpus N] [--cases moe,pipeline,tp,fsdp]
+    python3 tools/mesh_probe.py [--gpus N]
+        [--cases moe,pipeline,tp,fsdp,families,autoplace]
 
 ``chip_smoke.py`` runs these paths on a one-rank group; this probe
 gives them N ranks, so the all-to-alls, shifts and psums cross GPUs.
@@ -66,10 +67,25 @@ the same weights. Cases:
   too. Numbers: median step ms of ``TP_TIMED`` timed steps and peak GB
   a GPU, beside the comparison run's.
 
+- ``autoplace``: AMTHA's stage placement round trip (ROADMAP A13f).
+  glm4-9b whole in bf16 (40 repeat units, so N stages at N = 4; gemma2-
+  2b's 13 units split only into 1) placed by ``autoplace.place_pipeline``
+  (the ``engine`` scheduler) on ``h100_node(1, N)``; the plan's
+  assignment through ``autoplace.stage_mesh`` into
+  ``make_pipelined_forward``, ``PIPE_RUN``'s microbatches forward only,
+  beside the identity assignment, and a reversed one where the plan is
+  the identity (on one uniform node every injection predicts the same
+  makespan, so the plan is the identity and this case checks the round
+  trip through a permuted mesh, not a gain). Each assignment's logits
+  against the per-microbatch ``forward`` of the same GPU's whole model,
+  bit for bit as the ``pipeline`` case's; ms a microbatch (CUDA events
+  on rank 0 after a barrier, the median of ``AUTOPLACE_REPS``).
+
 Prints one JSON line per case (rank 0's; for ``tp`` and ``fsdp`` also
 every rank's check) and, last, the card's name and power limit. Exits
 non-zero when a check fails: an output off the dense dispatch's by more
-than 2e-2 of its largest, pipelined logits not bit for bit, or a ``tp``
+than 2e-2 of its largest, pipelined logits not bit for bit (an
+``autoplace`` assignment's too), or a ``tp``
 gradient or step past its gates (an ``fsdp`` run likewise, or one
 without FSDP). The same dispatches, pipeline and steps run on gloo CPU
 ranks in ``tests/test_torch_moe_ep.py``, ``tests/test_torch_pipeline.py``,
@@ -244,6 +260,59 @@ def pipeline_case(rank, n, dev):
             "grads_bit_equal": sum(v == 0.0 for v in diff.values()),
             "grads": len(diff), "grad_worst": max(diff.items(),
                                                   key=lambda kv: kv[1])}
+
+
+AUTOPLACE_REPS = 3
+
+
+def autoplace_case(rank, n, dev):
+    import torch
+
+    from repro_torch import autoplace
+    from repro_torch.core.machine import h100_node
+    from repro_torch.launch.mesh import mesh_coords
+    from repro_torch.models import ShardCtx, forward, init_params
+    from repro_torch.runtime.pipeline import make_pipelined_forward
+    cfg = cfg_of(PIPE_ARCH)
+    plan = autoplace.place_pipeline(cfg, h100_node(1, n), scheduler="engine",
+                                    n_micro=PIPE_RUN["n_micro"],
+                                    seq=PIPE_RUN["seq"],
+                                    micro_batch=PIPE_RUN["bm"])
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = init_params(cfg, gen, dev)
+    tokens = torch.randint(0, cfg.vocab, (PIPE_RUN["n_micro"],
+                                          PIPE_RUN["bm"], PIPE_RUN["seq"]),
+                           generator=gen, device=dev)
+    identity = list(range(plan.n_stages))
+    assignments = {"autoplaced": plan.stage_to_device, "identity": identity}
+    if plan.stage_to_device == identity:
+        assignments["reversed"] = identity[::-1]
+    with torch.no_grad():
+        seq = torch.stack([forward(model, {"tokens": t}, cfg,
+                                   ShardCtx(mode="train"))[0]
+                           for t in tokens])
+        runs = {}
+        for name, s2d in assignments.items():
+            mesh = autoplace.stage_mesh(s2d)
+            fwd = make_pipelined_forward(cfg, mesh, plan.n_stages)
+            fwd(model, tokens)                          # warm-up
+            times = []
+            for _ in range(AUTOPLACE_REPS):
+                torch.cuda.synchronize()
+                torch.distributed.barrier()
+                holder = []
+                times.append(timed(lambda: holder.append(fwd(model,
+                                                             tokens))))
+            logits = holder[0]
+            runs[name] = {
+                "stage_to_device": s2d, "stage": mesh_coords(mesh)["pod"],
+                "ms_a_microbatch": median(times) / PIPE_RUN["n_micro"],
+                "logits_bit_equal": bool(torch.equal(logits, seq)),
+                "logits_max_diff": float((logits.float() - seq.float())
+                                         .abs().max())}
+    return {"case": "autoplace", "ranks": n, "arch": cfg.name,
+            "layers": cfg.n_layers, **PIPE_RUN, "plan": plan.report(),
+            "runs": runs}
 
 
 def bf16_ulp(x):
@@ -783,7 +852,8 @@ def bad_fsdp(run):
 
 
 CASES = {"moe": moe_case, "pipeline": pipeline_case, "tp": tp_case,
-         "fsdp": fsdp_case, "families": families_case}
+         "fsdp": fsdp_case, "families": families_case,
+         "autoplace": autoplace_case}
 TP_CHECKS = ("loss_diff", "grad_norm_rel", "grad_bad", "grad_min_cos",
              "grad_worst_norm_ratio", "grad_max_rel", "param_over_bound",
              "param_share_past_one_ulp")
@@ -825,6 +895,9 @@ def rank_main(rank, n, store, cases):
                         max(o["a2a_err"], o["local_err"]) > BF16_REL]
                 bad += [o for o in outs if o["case"] == "pipeline" and
                         not o["logits_bit_equal"]]
+                bad += [o for o in outs if o["case"] == "autoplace" and
+                        not all(r["logits_bit_equal"]
+                                for r in o["runs"].values())]
                 if out["case"] == "fsdp":
                     print(json.dumps({"case": "fsdp ranks", "ranks": [
                         [{k: r[k] for k in FSDP_CHECKS} for r in o["runs"]]
