@@ -97,6 +97,7 @@ from torch.distributed.device_mesh import DeviceMesh
 from ..kernels.flash_decode import merge_ranges
 from ..launch.mesh import axis_sizes, mesh_coords
 from ..sharding.collectives import assemble, psum, replicated_in, slice_in
+from ..spans import span
 from .layers import (NEG_INF, apply_rope, attention, attention_decode,
                      glu_mlp, rms_norm, ssd_scan)
 from .moe import moe_ffn
@@ -444,24 +445,25 @@ def attn_forward(p, x, *, cfg, kind, mode, positions, cache=None,
     decode a cache cut over its slots where :func:`seq_split_cache` says
     so (see the module's notes). Every other layout runs
     :func:`_attn_body`."""
-    if cfg.kv_lora_rank:
-        return _mla_forward(p, x, cfg=cfg, mode=mode, positions=positions,
-                            cache=cache, ctx=ctx)
-    kw = dict(cfg=cfg, kind=kind, mode=mode, positions=positions,
-              prefix_len=prefix_len, lora=lora)
-    if mode == "decode" and seq_split_cache(p, cfg, ctx):
-        return _attn_decode_seq(p, x, ctx=ctx, cache=cache, **kw)
-    split = p.wq.shape[1] != cfg.n_heads
-    claim = ctx.attn_mode if ctx is not None and ctx.mesh is not None \
-        and mode != "decode" else None
-    if not (split or claim):
-        return _attn_body(p, x, x, cache=cache, **kw)
-    if split and claim:
-        raise ValueError(f"attn_mode {claim!r} is for heads that do not "
-                         f"divide the model axis; these are split "
-                         f"({p.wq.shape[1]} of {cfg.n_heads} here)")
-    return (_attn_tp if split else _attn_claimed)(p, x, ctx=ctx,
-                                                  cache=cache, **kw)
+    with span("model.attention"):
+        if cfg.kv_lora_rank:
+            return _mla_forward(p, x, cfg=cfg, mode=mode, positions=positions,
+                                cache=cache, ctx=ctx)
+        kw = dict(cfg=cfg, kind=kind, mode=mode, positions=positions,
+                  prefix_len=prefix_len, lora=lora)
+        if mode == "decode" and seq_split_cache(p, cfg, ctx):
+            return _attn_decode_seq(p, x, ctx=ctx, cache=cache, **kw)
+        split = p.wq.shape[1] != cfg.n_heads
+        claim = ctx.attn_mode if ctx is not None and ctx.mesh is not None \
+            and mode != "decode" else None
+        if not (split or claim):
+            return _attn_body(p, x, x, cache=cache, **kw)
+        if split and claim:
+            raise ValueError(f"attn_mode {claim!r} is for heads that do not "
+                             f"divide the model axis; these are split "
+                             f"({p.wq.shape[1]} of {cfg.n_heads} here)")
+        return (_attn_tp if split else _attn_claimed)(p, x, ctx=ctx,
+                                                      cache=cache, **kw)
 
 
 def _cache_insert(cache, k, v, positions, window):
@@ -803,72 +805,73 @@ def mamba_forward(p, x, *, cfg, mode, cache=None, ctx=None):
     B and C of their groups from the whole ``wB``/``wC``/``conv_B``/
     ``conv_C`` (see the module's notes). Returns (y (B,S,d),
     new_cache)."""
-    b, s, _ = x.shape
-    g, n, pd = cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_headdim
-    h = p.A_log.shape[0]
-    split = h != cfg.ssm_heads
-    hidden = rms_norm(x, p.ln)
-    wB, wC, conv_B, conv_C = p.wB, p.wC, p.conv_B, p.conv_C
-    g0, gl = 0, g
-    if split:
-        group, r, _ = model_axis(ctx, "Mamba-2 heads")
-        g0, gl = ssm_groups(cfg.ssm_heads, g, h, r)
-        hidden = replicated_in(hidden, group)
-        wB, wC, conv_B, conv_C = (replicated_in(t, group)
-                                  for t in (wB, wC, conv_B, conv_C))
-    z = torch.einsum("bsd,de->bse", hidden, p.wz)
-    xs = torch.einsum("bsd,de->bse", hidden, p.wx)
-    Bs = torch.einsum("bsd,de->bse", hidden, wB)
-    Cs = torch.einsum("bsd,de->bse", hidden, wC)
-    dt = torch.einsum("bsd,dh->bsh", hidden, p.wdt)
-    dt = F.softplus(dt.float() + p.dt_bias)
-    A = -torch.exp(p.A_log)
+    with span("model.mamba2"):
+        b, s, _ = x.shape
+        g, n, pd = cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_headdim
+        h = p.A_log.shape[0]
+        split = h != cfg.ssm_heads
+        hidden = rms_norm(x, p.ln)
+        wB, wC, conv_B, conv_C = p.wB, p.wC, p.conv_B, p.conv_C
+        g0, gl = 0, g
+        if split:
+            group, r, _ = model_axis(ctx, "Mamba-2 heads")
+            g0, gl = ssm_groups(cfg.ssm_heads, g, h, r)
+            hidden = replicated_in(hidden, group)
+            wB, wC, conv_B, conv_C = (replicated_in(t, group)
+                                      for t in (wB, wC, conv_B, conv_C))
+        z = torch.einsum("bsd,de->bse", hidden, p.wz)
+        xs = torch.einsum("bsd,de->bse", hidden, p.wx)
+        Bs = torch.einsum("bsd,de->bse", hidden, wB)
+        Cs = torch.einsum("bsd,de->bse", hidden, wC)
+        dt = torch.einsum("bsd,dh->bsh", hidden, p.wdt)
+        dt = F.softplus(dt.float() + p.dt_bias)
+        A = -torch.exp(p.A_log)
 
-    def groups(t):                     # (B, S, gl, N): this rank's groups
-        t = t.reshape(b, t.shape[1], g, n)
-        return t if gl == g else t[:, :, g0:g0 + gl]
+        def groups(t):                 # (B, S, gl, N): this rank's groups
+            t = t.reshape(b, t.shape[1], g, n)
+            return t if gl == g else t[:, :, g0:g0 + gl]
 
-    if mode == "decode":
-        xs, cx = _causal_conv(xs, p.conv_x, cache["conv_x"])
-        Bs, cB = _causal_conv(Bs, conv_B, cache["conv_B"])
-        Cs, cC = _causal_conv(Cs, conv_C, cache["conv_C"])
-        xs, Bs, Cs = F.silu(xs), F.silu(Bs), F.silu(Cs)
-        y1, state = ssd_decode_step(
-            cache["state"], xs.reshape(b, h, pd), dt[:, 0], A,
-            groups(Bs)[:, 0], groups(Cs)[:, 0])
-        y = y1.reshape(b, 1, h, pd)
-        xs_r = xs.reshape(b, 1, h, pd)
-        for name, t in (("conv_x", cx), ("conv_B", cB), ("conv_C", cC),
-                        ("state", state)):
-            cache[name].copy_(t)
-        new_cache = cache
-    else:
-        xs, _ = _causal_conv(xs, p.conv_x)
-        Bs, _ = _causal_conv(Bs, conv_B)
-        Cs, _ = _causal_conv(Cs, conv_C)
-        xs, Bs, Cs = F.silu(xs), F.silu(Bs), F.silu(Cs)
-        xs_r = xs.reshape(b, s, h, pd)
-        y, state = ssd_scan(xs_r.contiguous(), dt.contiguous(), A,
-                            groups(Bs).contiguous(), groups(Cs).contiguous(),
-                            cfg.ssm_chunk)
-        if mode == "prefill":
-            k = cfg.ssm_conv
-            # the conv tails need the *pre-activation* streams
-            new_cache = {"conv_x": _conv_tail(hidden, p.wx, k),
-                         "conv_B": _conv_tail(hidden, wB, k),
-                         "conv_C": _conv_tail(hidden, wC, k),
-                         "state": state}
+        if mode == "decode":
+            xs, cx = _causal_conv(xs, p.conv_x, cache["conv_x"])
+            Bs, cB = _causal_conv(Bs, conv_B, cache["conv_B"])
+            Cs, cC = _causal_conv(Cs, conv_C, cache["conv_C"])
+            xs, Bs, Cs = F.silu(xs), F.silu(Bs), F.silu(Cs)
+            y1, state = ssd_decode_step(
+                cache["state"], xs.reshape(b, h, pd), dt[:, 0], A,
+                groups(Bs)[:, 0], groups(Cs)[:, 0])
+            y = y1.reshape(b, 1, h, pd)
+            xs_r = xs.reshape(b, 1, h, pd)
+            for name, t in (("conv_x", cx), ("conv_B", cB), ("conv_C", cC),
+                            ("state", state)):
+                cache[name].copy_(t)
+            new_cache = cache
         else:
-            new_cache = None
+            xs, _ = _causal_conv(xs, p.conv_x)
+            Bs, _ = _causal_conv(Bs, conv_B)
+            Cs, _ = _causal_conv(Cs, conv_C)
+            xs, Bs, Cs = F.silu(xs), F.silu(Bs), F.silu(Cs)
+            xs_r = xs.reshape(b, s, h, pd)
+            y, state = ssd_scan(xs_r.contiguous(), dt.contiguous(), A,
+                                groups(Bs).contiguous(),
+                                groups(Cs).contiguous(), cfg.ssm_chunk)
+            if mode == "prefill":
+                k = cfg.ssm_conv
+                # the conv tails need the *pre-activation* streams
+                new_cache = {"conv_x": _conv_tail(hidden, p.wx, k),
+                             "conv_B": _conv_tail(hidden, wB, k),
+                             "conv_C": _conv_tail(hidden, wC, k),
+                             "state": state}
+            else:
+                new_cache = None
 
-    y = y + xs_r * p.D[:, None].to(y.dtype)
-    y = y.reshape(b, -1, p.gate_norm.shape[0]) * F.silu(z)
-    if not split:
-        return torch.einsum("bse,ed->bsd", rms_norm(y, p.gate_norm),
-                            p.wout), new_cache
-    y = _gated_norm(y, p.gate_norm, cfg.d_inner, ctx)
-    return psum(torch.einsum("bse,ed->bsd", y, p.wout), ctx.mesh,
-                (ctx.model_axis,)), new_cache
+        y = y + xs_r * p.D[:, None].to(y.dtype)
+        y = y.reshape(b, -1, p.gate_norm.shape[0]) * F.silu(z)
+        if not split:
+            return torch.einsum("bse,ed->bsd", rms_norm(y, p.gate_norm),
+                                p.wout), new_cache
+        y = _gated_norm(y, p.gate_norm, cfg.d_inner, ctx)
+        return psum(torch.einsum("bse,ed->bsd", y, p.wout), ctx.mesh,
+                    (ctx.model_axis,)), new_cache
 
 
 def _conv_tail(hidden, w_proj, k):

@@ -40,6 +40,7 @@ import torch.nn.functional as F
 from ..launch.mesh import check_tensors, mesh_coords
 from ..sharding.collectives import (all_to_all, assemble, pmean, psum,
                                     replicated_in, slice_in)
+from ..spans import span
 
 
 def router_probs(x: torch.Tensor, w_router: torch.Tensor) -> torch.Tensor:
@@ -244,12 +245,14 @@ def moe_ffn(x: torch.Tensor, p, cfg, ctx=None
     experts are this rank's), dispatched on the execution context
     (:class:`~repro_torch.models.model.ShardCtx`): no mesh -> dense;
     decode -> local; else a2a."""
-    if ctx is None or ctx.mesh is None:
-        return moe_dense(x, p.router, p.wi, p.wo, cfg.top_k, cfg.activation)
-    kw = dict(top_k=cfg.top_k, activation=cfg.activation,
-              n_experts=cfg.n_experts, mesh=ctx.mesh, dp_axes=ctx.dp_axes,
-              ep_axis=ctx.model_axis)
-    if ctx.mode == "decode":
-        return moe_local_decode(x, p.router, p.wi, p.wo, **kw)
-    return moe_a2a(x, p.router, p.wi, p.wo,
-                   capacity_factor=cfg.capacity_factor, **kw)
+    with span("model.moe"):
+        if ctx is None or ctx.mesh is None:
+            return moe_dense(x, p.router, p.wi, p.wo, cfg.top_k,
+                             cfg.activation)
+        kw = dict(top_k=cfg.top_k, activation=cfg.activation,
+                  n_experts=cfg.n_experts, mesh=ctx.mesh, dp_axes=ctx.dp_axes,
+                  ep_axis=ctx.model_axis)
+        if ctx.mode == "decode":
+            return moe_local_decode(x, p.router, p.wi, p.wo, **kw)
+        return moe_a2a(x, p.router, p.wi, p.wo,
+                       capacity_factor=cfg.capacity_factor, **kw)

@@ -40,6 +40,7 @@ import torch
 import torch.distributed as dist
 
 from ..sharding.partition import Spec, gather, shard_slices, spec_axes
+from ..spans import span
 
 
 @dataclass(frozen=True)
@@ -163,51 +164,52 @@ def apply_updates(params, grads: dict, state: dict, cfg: OptConfig,
     ``state["ef"]`` (at the moments' specs) in place; returns (params,
     state with the new ``step``, stats {"grad_norm", "lr"} as float32
     tensors)."""
-    named = _named(params)
-    mspecs, cuts = specs, dict.fromkeys(named)
-    if moment_specs is not None:
-        mspecs = moment_specs
-        cuts = {k: _finer(specs[k], mspecs[k]) for k in named}
-    # this rank's slice of each gradient, then float32, one at a time
-    grads = {k: _narrow(g, cuts[k], mesh).to(torch.float32)
-             for k, g in grads.items()}
+    with span("optim.adamw"):
+        named = _named(params)
+        mspecs, cuts = specs, dict.fromkeys(named)
+        if moment_specs is not None:
+            mspecs = moment_specs
+            cuts = {k: _finer(specs[k], mspecs[k]) for k in named}
+        # this rank's slice of each gradient, then float32, one at a time
+        grads = {k: _narrow(g, cuts[k], mesh).to(torch.float32)
+                 for k, g in grads.items()}
 
-    if cfg.compression == "int8":
-        # error feedback: compress (grad + residual), keep the residual;
-        # the scale is the whole tensor's, the sum formed again after it
-        ef = state["ef"]
-        amax = _over_slices(torch.stack([torch.max(torch.abs(g + ef[k]))
-                                         for k, g in grads.items()]),
-                            list(grads), mspecs, mesh, dist.ReduceOp.MAX)
-        for (k, g), m in zip(list(grads.items()), amax):
-            summed = g + ef[k]
-            grads[k] = _quantize_int8(summed, m)
-            ef[k].copy_(summed - grads[k])
+        if cfg.compression == "int8":
+            # error feedback: compress (grad + residual), keep the residual;
+            # the scale is the whole tensor's, the sum formed again after it
+            ef = state["ef"]
+            amax = _over_slices(torch.stack([torch.max(torch.abs(g + ef[k]))
+                                             for k, g in grads.items()]),
+                                list(grads), mspecs, mesh, dist.ReduceOp.MAX)
+            for (k, g), m in zip(list(grads.items()), amax):
+                summed = g + ef[k]
+                grads[k] = _quantize_int8(summed, m)
+                ef[k].copy_(summed - grads[k])
 
-    gnorm = global_norm(grads, mspecs, mesh)
-    clip = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
+        gnorm = global_norm(grads, mspecs, mesh)
+        clip = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
 
-    step = state["step"] + 1
-    lr = schedule(step, cfg)
-    stepf = step.to(torch.float32)
-    b1c = 1.0 - torch.pow(torch.tensor(cfg.b1, dtype=torch.float32,
-                                       device=stepf.device), stepf)
-    b2c = 1.0 - torch.pow(torch.tensor(cfg.b2, dtype=torch.float32,
-                                       device=stepf.device), stepf)
+        step = state["step"] + 1
+        lr = schedule(step, cfg)
+        stepf = step.to(torch.float32)
+        b1c = 1.0 - torch.pow(torch.tensor(cfg.b1, dtype=torch.float32,
+                                           device=stepf.device), stepf)
+        b2c = 1.0 - torch.pow(torch.tensor(cfg.b2, dtype=torch.float32,
+                                           device=stepf.device), stepf)
 
-    with torch.no_grad():
-        for k, p in named.items():
-            g = grads.pop(k) * clip
-            m, v = state["m"][k], state["v"][k]
-            m.copy_(cfg.b1 * m + (1 - cfg.b1) * g)
-            v.copy_(cfg.b2 * v + (1 - cfg.b2) * g * g)
-            del g
-            pf = _narrow(p, cuts[k], mesh).to(torch.float32)
-            delta = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps) \
-                + cfg.weight_decay * pf
-            new = (pf - lr * delta).to(p.dtype)
-            if cuts[k] is not None:       # the slices joined over data
-                new = gather(new, cuts[k], mesh)
-            p.copy_(new)
-    state["step"] = step
-    return params, state, {"grad_norm": gnorm, "lr": lr}
+        with torch.no_grad():
+            for k, p in named.items():
+                g = grads.pop(k) * clip
+                m, v = state["m"][k], state["v"][k]
+                m.copy_(cfg.b1 * m + (1 - cfg.b1) * g)
+                v.copy_(cfg.b2 * v + (1 - cfg.b2) * g * g)
+                del g
+                pf = _narrow(p, cuts[k], mesh).to(torch.float32)
+                delta = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps) \
+                    + cfg.weight_decay * pf
+                new = (pf - lr * delta).to(p.dtype)
+                if cuts[k] is not None:       # the slices joined over data
+                    new = gather(new, cuts[k], mesh)
+                p.copy_(new)
+        state["step"] = step
+        return params, state, {"grad_norm": gnorm, "lr": lr}
