@@ -481,12 +481,14 @@ def snapshot(x):
 class Spy:
     """Stands in for ``module.name`` while the main path runs and keeps
     the first arguments of each distinct ``key(args)`` (with the values
-    of the keyword arguments named in ``kw_names``); every call goes on
-    to the real function, whose own count is untouched."""
+    of the keyword arguments named in ``kw_names``): a snapshot of each,
+    or what ``take(args, kwargs)`` keeps of them, taken before the call;
+    every call goes on to the real function, whose own counts are
+    untouched."""
 
-    def __init__(self, module, name, key, kw_names=()):
+    def __init__(self, module, name, key, kw_names=(), take=None):
         self.module, self.name, self.key = module, name, key
-        self.kw_names = kw_names
+        self.kw_names, self.take = kw_names, take
         self.fn = getattr(module, name)
         self.calls = {}
 
@@ -500,13 +502,24 @@ class Spy:
     def launches(self, n):
         self.fn.launches = n
 
+    @property
+    def tensors(self):
+        """The real entry point's count of tensors it updated, where it
+        keeps one (``adamw_update``)."""
+        return self.fn.tensors
+
+    @tensors.setter
+    def tensors(self, n):
+        self.fn.tensors = n
+
     def __call__(self, *args, **kwargs):
         k = self.key(args)
         if self.kw_names:
             k = (k, tuple(kwargs.get(n) for n in self.kw_names))
         if k not in self.calls:
-            self.calls[k] = ([snapshot(a) for a in args],
-                             {n: snapshot(v) for n, v in kwargs.items()})
+            self.calls[k] = self.take(args, kwargs) if self.take else (
+                [snapshot(a) for a in args],
+                {n: snapshot(v) for n, v in kwargs.items()})
         return self.fn(*args, **kwargs)
 
     def __enter__(self):
@@ -2636,7 +2649,12 @@ TRAIN_PEAK_GB = 70.0            # what the cut zamba2-7b and deepseek are
                                 # sized to
 TRAIN_ACT_GB = 8.0              # kept for activations and workspaces
 TRAIN_KERNELS = ("rmsnorm", "flash_attention", "rmsnorm_bwd",
-                 "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd")
+                 "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd",
+                 "grad_sumsq", "adamw_update")
+ADAMW_KEEP_NUMEL = 1 << 22      # the list kernels' check keeps every
+                                # tensor up to this size and the largest
+ADAMW_KEEP_LARGEST = 1 << 27    # up to this size (the card's tests take
+                                # deepseek's 369 M-element leaf)
 
 
 def freed(label):
@@ -3079,6 +3097,9 @@ def spy_train_keys():
     def key_scan(args):
         return shapes(args[:5]) + (str(args[0].dtype), args[6] is None,
                                    args[-1])
+    def key_lists(args):
+        return tuple((tuple(x.shape), str(x.dtype)) for xs in args
+                     for x in xs)
     attn_kw = ("causal", "window", "softcap", "return_lse")
     return {"rmsnorm": (key_norm, ("zero_centered",)),
             "rmsnorm_bwd": (key_norm, ("zero_centered",)),
@@ -3086,7 +3107,27 @@ def spy_train_keys():
             "flash_attention_bwd": (key_attn, attn_kw[:3]),
             "ssd_scan": (lambda a: shapes(a[:5]) + (str(a[0].dtype), a[5]),
                          ()),
-            "ssd_scan_bwd": (key_scan, ())}
+            "ssd_scan_bwd": (key_scan, ()),
+            "grad_sumsq": (key_lists, (), keep_lists),
+            "adamw_update": (key_lists, (), keep_lists)}
+
+
+def keep_lists(args, kwargs):
+    """What the spy of a multi-tensor kernel (``grad_sumsq``,
+    ``adamw_update``) keeps of one call: a copy of the i-th tensor of
+    every list for each tensor of at most ``ADAMW_KEEP_NUMEL`` elements
+    and the largest of at most ``ADAMW_KEEP_LARGEST``, the keyword
+    arguments (the scalars on the card, the constants) and, under
+    ``"index"``, which tensors these were. A copy of every list would not
+    fit beside the training state."""
+    first = args[0]
+    largest = max((i for i, x in enumerate(first)
+                   if x.numel() <= ADAMW_KEEP_LARGEST),
+                  key=lambda i: first[i].numel(), default=None)
+    index = [i for i, x in enumerate(first)
+             if i == largest or x.numel() <= ADAMW_KEEP_NUMEL]
+    return ([[snapshot(xs[i]) for i in index] for xs in args],
+            dict({n: snapshot(v) for n, v in kwargs.items()}, index=index))
 
 
 def train_counts(cfg, steps, remat=True):
@@ -3300,6 +3341,117 @@ def grad_gate(label, cfg, dev, batch_of, ops):
     freed(f"{label} gradient gate")
 
 
+def hold_adamw(label, spies, state, n_steps, tensors):
+    """AdamW's multi-tensor kernels in one training run of ``n_steps``
+    counted steps: ``adamw_update`` took every parameter once a step
+    (``tensors``, its count over those steps); each spied call held to
+    its plain version on what ``keep_lists`` kept of it (the update bit
+    for bit on p, m and v given the call's scalars; the sums of squares
+    within rtol 1e-6 and the same bits in two calls); then both timed at
+    the run's whole lists, the state's parameters and moments with a copy
+    of the parameters as the gradients (``cuda_ms``: the kernels, the
+    plain versions, and the library's calls where one computes the
+    function: ``torch._foreach_norm`` in float32; ``torch._fused_adamw_``,
+    whose error is kept where it refuses the lists), against the bound:
+    the update's bytes (22 a bf16 parameter, 28 a float32 one) and the
+    gradients read once more for the sums. The timing writes the state,
+    which the run has done with. Clears the two spies' calls; returns
+    ({name: (max abs err, max rel err)}, {name: row})."""
+    import torch
+
+    from repro_torch.kernels import adamw
+
+    def bits(x):
+        return x.view(torch.int16 if x.element_size() == 2 else torch.int32)
+    # the real entry points: the spies stand in for them while this runs
+    grad_sumsq, adamw_update = (spies[k].fn for k in ("grad_sumsq",
+                                                      "adamw_update"))
+    named = dict(state["params"].named_parameters())
+    if tensors != n_steps * len(named):
+        fail(f"train {label}: adamw_update took {tensors} tensors in "
+             f"{n_steps} steps of {len(named)} parameters")
+    if not (spies["grad_sumsq"].calls and spies["adamw_update"].calls):
+        fail(f"train {label}: no grad_sumsq or adamw_update call was spied")
+    errs, kept = {}, {}
+    for args, kw in spies["grad_sumsq"].calls.values():
+        kept["grad_sumsq"] = len(kw.pop("index"))
+        first, second = grad_sumsq(*args), grad_sumsq(*args)
+        want = adamw.grad_sumsq_torch(*args)
+        torch.cuda.synchronize()
+        err = (first.double() - want.double()).abs()
+        rel = float((err / want.double().abs().clamp_min(1e-300)).max())
+        if not torch.equal(bits(first), bits(second)) or not rel <= 1e-6:
+            fail(f"train {label} grad_sumsq: rel err {rel:.3e} to the plain "
+                 f"version, bits repeat {torch.equal(first, second)}")
+        worst = errs.get("grad_sumsq", (0.0, 0.0))
+        errs["grad_sumsq"] = (max(worst[0], float(err.max())),
+                              max(worst[1], rel))
+    for args, kw in spies["adamw_update"].calls.values():
+        kept["adamw_update"] = len(kw.pop("index"))
+        kern = [[x.clone() for x in xs] for xs in args]
+        adamw_update(*kern, **kw)
+        adamw.adamw_update_torch(*args, **kw)          # the kept copy
+        torch.cuda.synchronize()
+        for what, i in (("p", 0), ("m", 2), ("v", 3)):
+            for j, (a, b) in enumerate(zip(kern[i], args[i])):
+                if not torch.equal(bits(a), bits(b)):
+                    fail(f"train {label} adamw_update: {what} of kept tensor "
+                         f"{j} {tuple(a.shape)} not the plain version's bit "
+                         f"for bit")
+        errs["adamw_update"] = (0.0, 0.0)
+        scalars = kw
+        del kern
+    for sp in (spies["grad_sumsq"], spies["adamw_update"]):
+        sp.calls.clear()
+    args = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        params = [p.detach() for p in named.values()]
+        grads = [p.clone() for p in params]
+        lists = (params, grads, [state["opt"]["m"][k] for k in named],
+                 [state["opt"]["v"][k] for k in named])
+        n_par = sum(p.numel() for p in params)
+        sq_bytes = sum(g.numel() * g.element_size() for g in grads)
+        up_bytes = sum(p.numel() * (2 * p.element_size() + g.element_size()
+                                    + 16) for p, g in zip(params, grads))
+        notes = {}
+        calls = {
+            "grad_sumsq": (lambda: grad_sumsq(grads),
+                           lambda: adamw.grad_sumsq_torch(grads),
+                           lambda: torch._foreach_norm(
+                               grads, 2, dtype=torch.float32), sq_bytes),
+            "adamw_update": (
+                lambda: adamw_update(*lists, **scalars),
+                lambda: adamw.adamw_update_torch(*lists, **scalars),
+                lambda: torch._fused_adamw_(
+                    *lists, [], [torch.ones((), device=params[0].device)
+                                 for _ in params],
+                    lr=1e-4, beta1=scalars["b1"], beta2=scalars["b2"],
+                    weight_decay=scalars["weight_decay"],
+                    eps=scalars["eps"], amsgrad=False, maximize=False),
+                up_bytes)}
+        rows = {}
+        for name, (kernel, plain, library, n_bytes) in calls.items():
+            try:
+                lib_ms = cuda_ms(library, 3)
+            except (RuntimeError, TypeError) as e:
+                lib_ms, notes[name] = None, str(e).strip().splitlines()[0]
+            b_ms, b_by = bound(n_bytes, 0, FP32_OPS_PER_S)
+            rows[name] = dict(
+                shape=f"{label}: {len(params)} tensors, {n_par} parameters",
+                tensors=len(params), parameters=n_par,
+                kept_tensors=kept.get(name), ms=cuda_ms(kernel, 3),
+                plain_ms=cuda_ms(plain, 1), bound_ms=b_ms, bound_by=b_by,
+                bytes=n_bytes, library_ms=lib_ms,
+                **({"library_error": notes[name][:200]} if name in notes
+                   else {}))
+            rows[name]["bound_share"] = b_ms / rows[name]["ms"]
+            print(f"train {label} {name} " + json.dumps(rows[name]))
+        del params, grads, lists
+    return errs, rows
+
+
 def train_phase(dev):
     """Train gemma2-2b at full width and depth in bf16 for three steps
     through ``Trainer`` (checkpoint at step 2 and at the end), resume
@@ -3337,8 +3489,21 @@ def train_phase(dev):
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     opt = OptConfig()               # the defaults: 100 warmup steps
     keys = spy_train_keys()
-    launches, steps = {}, {}
+    launches, steps, adamw_tensors = {}, {}, {}
+    adamw_errs = {"grad_sumsq": [], "adamw_update": []}
+    adamw_rows = {"grad_sumsq": [], "adamw_update": []}
     torch.cuda.reset_peak_memory_stats()
+
+    def counts(cfg, n):
+        """The launches of ``n`` steps: the model's kernels, and AdamW's
+        two calls a step."""
+        return dict(train_counts(cfg, n), grad_sumsq=n, adamw_update=n)
+
+    def adamw_run(label, key, state, n):
+        errs, rows = hold_adamw(label, spies, state, n, adamw_tensors[key])
+        for name in adamw_rows:
+            adamw_errs[name].append(errs[name])
+            adamw_rows[name].append(rows[name])
 
     def step_record(label, cfg, run, times, want, got):
         b, s = run["batch"], run["seq"]
@@ -3377,6 +3542,7 @@ def train_phase(dev):
         step_fn = make_train_step(cfg, opt, ShardCtx())
         for sp in spies.values():
             sp.launches = 0
+        spies["adamw_update"].tensors = 0
         t0 = time.perf_counter()
         state, history, _ = trainer.run(state, pipe, at, log_every=1)
         wall = time.perf_counter() - t0
@@ -3386,12 +3552,13 @@ def train_phase(dev):
         losses = [h["loss"] for h in history] + [float(metrics["loss"])]
         last = time.perf_counter() - t0
         launches["train_gemma2"] = {k: sp.launches for k, sp in spies.items()}
+        adamw_tensors["train_gemma2"] = spies["adamw_update"].tensors
         # the Trainer's own step times (each ends in the loss's read-back)
         # and step 3's; the first step also builds cuBLAS plans and grows
         # the allocator
         step_record("gemma2-2b", cfg, TRAIN_RUN,
                     [h["sec_per_step"] for h in history[1:]] + [last],
-                    train_counts(cfg, TRAIN_RUN["steps"]),
+                    counts(cfg, TRAIN_RUN["steps"]),
                     launches["train_gemma2"])
         print(f"train gemma2-2b: Trainer wall_s={wall:.2f} ({at} steps and "
               f"the checkpoint at step {at}, written on a thread, waited "
@@ -3407,6 +3574,7 @@ def train_phase(dev):
                      steps["gemma2-2b"], *TRAIN_PROFILE)
         print("train gemma2-2b step profile " + json.dumps(
             steps["gemma2-2b"]))
+        adamw_run("gemma2-2b", "train_gemma2", state, TRAIN_RUN["steps"])
         del state, trainer, step_fn
         gc.collect()
         torch.cuda.empty_cache()
@@ -3459,6 +3627,7 @@ def train_phase(dev):
             state, _ = step_fn(state, pipe.make_batch(0))   # warm-up
             for sp in spies.values():
                 sp.launches = 0
+            spies["adamw_update"].tensors = 0
             times = []
             for i in (1, 2):
                 # the last timed step's routes, kept on the card and read
@@ -3475,7 +3644,8 @@ def train_phase(dev):
                 fail(f"train {label}: loss {float(metrics['loss'])}")
             key = f"train_{name.split('-')[0]}"
             launches[key] = {k: sp.launches for k, sp in spies.items()}
-            step_record(label, cfg, run, times, train_counts(cfg, 2),
+            adamw_tensors[key] = spies["adamw_update"].tensors
+            step_record(label, cfg, run, times, counts(cfg, 2),
                         launches[key])
             if moe:
                 steps[label]["placement"] = place_from_routes(cfg, routes)
@@ -3485,6 +3655,7 @@ def train_phase(dev):
                          experts=cfg.n_experts if moe else None)
             print(f"train {label} step profile " + json.dumps(
                 {k: v for k, v in steps[label].items() if k != "placement"}))
+            adamw_run(label, key, state, 2)
             del state, step_fn, metrics
             freed(f"train {label}")
 
@@ -3619,6 +3790,31 @@ def train_phase(dev):
             bound_ms=main["bound_ms"], bound_by=main["bound_by"],
             library_ms=main["library_ms"], shape=main["shape"],
             rows=rows[name]))
+    # AdamW's two multi-tensor kernels: the row of the run with the most
+    # parameters is the entry's
+    for name, replaces in (
+            ("grad_sumsq", "global_norm's sums of squares in plain jnp, "
+                           "src/repro/optim/adamw.py:57"),
+            ("adamw_update", "apply_updates in plain jnp, "
+                             "src/repro/optim/adamw.py:71")):
+        main = max(adamw_rows[name], key=lambda r: r["parameters"])
+        entries.append(dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/csrc/adamw.cu",
+            replaces="none: the reference runs " + replaces,
+            launches=sum(launches[r][name] for r in launches),
+            launches_by_path={r: launches[r][name] for r in launches},
+            tensors_by_path=dict(adamw_tensors),
+            max_abs_err=max(e[0] for e in adamw_errs[name]),
+            max_rel_err=max(e[1] for e in adamw_errs[name]),
+            ms=main["ms"], plain_ms=main["plain_ms"],
+            bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+            library_ms=main["library_ms"], shape=main["shape"],
+            rows=adamw_rows[name]))
+    print(f"AdamW kernels held to their plain versions in "
+          f"{len(adamw_rows['adamw_update'])} training runs (the update bit "
+          f"for bit, the sums of squares within rtol 1e-6): tensors a run "
+          f"{adamw_tensors}")
     fwd = {k: {r: launches[r][k] for r in launches}
            for k in ("rmsnorm", "flash_attention", "ssd_scan")}
     return entries, fwd, {k: errs[k] for k in fwd}, fwd_rows

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from . import adamw as _aw
 from . import flash_attention as _fa
 from . import flash_decode as _fd
 from . import rmsnorm as _rn
@@ -576,3 +577,93 @@ def ssd_scan_bwd(x, dt, A, B, C, dy, dfinal=None, chunk: int = 256):
 
 
 ssd_scan_bwd.launches = 0
+
+
+def _check_lists(name: str, lists: dict[str, list],
+                 dtypes: dict[str, torch.dtype | tuple[torch.dtype, ...]]
+                 ) -> torch.device:
+    """Lists of tensors of one length, each tensor of its list's types,
+    contiguous, all on one device; the i-th tensor of every list of the
+    first one's shape. One pass, hundreds of tensors a call: a tensor's
+    message is formed only where it fails."""
+    first, *others = lists
+    n = len(lists[first])
+    if n == 0:
+        raise ValueError(f"{name}: no tensors")
+    devices = set()
+    for arg, xs in lists.items():
+        if len(xs) != n:
+            raise ValueError(f"{name}.{arg}: {len(xs)} tensors, {first} "
+                             f"has {n}")
+        want = dtypes[arg] if isinstance(dtypes[arg], tuple) \
+            else (dtypes[arg],)
+        for i, x in enumerate(xs):
+            if not isinstance(x, torch.Tensor) or x.dtype not in want \
+                    or not x.is_contiguous():
+                _check_tensors(name, {f"{arg}[{i}]": x},
+                               {f"{arg}[{i}]": dtypes[arg]})
+            devices.add(x.device)
+    if len(devices) != 1:
+        raise ValueError(f"{name}: inputs on several devices {devices}")
+    device = devices.pop()
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no kernel for device {device}")
+    for i, x in enumerate(lists[first]):
+        for arg in others:
+            if lists[arg][i].shape != x.shape:
+                check_shape(f"{name}.{arg}[{i}]", lists[arg][i],
+                            tuple(x.shape))
+    return device
+
+
+def grad_sumsq(grads) -> torch.Tensor:
+    """The sum of squares of each gradient (see :mod:`.adamw`): ``grads``
+    a non-empty list of float32 or bfloat16 tensors, contiguous on one
+    device. Returns float32 (len(grads),). ``launches`` counts calls that
+    ran the kernels (two launches each: the chunks' partials, then each
+    tensor's sum of them in a fixed order)."""
+    grads = list(grads)
+    device = _check_lists("grad_sumsq", dict(grads=grads),
+                          dict(grads=FLOAT_TYPES))
+    if device.type == "cpu":
+        return _aw.grad_sumsq_torch(grads)
+    out = _aw.grad_sumsq_cuda(grads)
+    grad_sumsq.launches += 1
+    return out
+
+
+grad_sumsq.launches = 0
+
+
+def adamw_update(params, grads, ms, vs, *, clip, lr, b1c, b2c, b1: float,
+                 b2: float, eps: float, weight_decay: float) -> None:
+    """One AdamW update of every tensor in place (see :mod:`.adamw`):
+    lists ``params`` and ``grads`` (float32 or bfloat16, each its own)
+    and ``ms``, ``vs`` (float32), the i-th of each of one shape; float32
+    scalar tensors ``clip``, ``lr``, ``b1c``, ``b2c``; all contiguous on
+    one device. ``launches`` counts calls that ran the kernel (one launch
+    each), ``tensors`` the parameter tensors those calls updated."""
+    lists = [list(xs) for xs in (params, grads, ms, vs)]
+    device = _check_lists(
+        "adamw_update", dict(zip(("params", "grads", "ms", "vs"), lists)),
+        dict(params=FLOAT_TYPES, grads=FLOAT_TYPES, ms=torch.float32,
+             vs=torch.float32))
+    scalars = dict(clip=clip, lr=lr, b1c=b1c, b2c=b2c)
+    if _check_tensors("adamw_update", scalars,
+                      dict.fromkeys(scalars, torch.float32)) != device:
+        raise ValueError(f"adamw_update: scalars on another device than "
+                         f"the tensors' {device}")
+    for arg, x in scalars.items():
+        check_shape(f"adamw_update.{arg}", x, ())
+    kw = dict(clip=clip, lr=lr, b1c=b1c, b2c=b2c, b1=b1, b2=b2, eps=eps,
+              weight_decay=weight_decay)
+    if device.type == "cpu":
+        _aw.adamw_update_torch(*lists, **kw)
+        return
+    _aw.adamw_update_cuda(*lists, **kw)
+    adamw_update.launches += 1
+    adamw_update.tensors += len(lists[0])
+
+
+adamw_update.launches = 0
+adamw_update.tensors = 0

@@ -1,4 +1,4 @@
-"""AdamW in plain PyTorch, a copy of the reference's ``optim/adamw.py``:
+"""AdamW, a copy of the reference's ``optim/adamw.py``:
 
 * float32 moments whatever the parameter type (bf16 parameters update
   in float32 and are cast back);
@@ -14,7 +14,12 @@ updates in place: the parameters (under ``torch.no_grad``), the moments
 and the error-feedback residual, so a step holds one set of moments and
 not two (at gemma2-2b's 2.6 B parameters a second set is 21 GB). The
 step counter and every scalar stay on the parameters' device: a step
-reads nothing back to the host.
+reads nothing back to the host. The gradients' sums of squares and the
+update run through :func:`repro_torch.kernels.ops.grad_sumsq` and
+:func:`repro_torch.kernels.ops.adamw_update`, over every tensor at once:
+on the card multi-tensor CUDA kernels, a fixed number of launches
+whatever the number of tensors, the gradients read in their own type;
+on the CPU the plain expressions, one tensor at a time.
 
 Under a mesh the parameters and gradients are this rank's slices
 (:func:`repro_torch.sharding.shard_params`) and the moments may be cut
@@ -39,6 +44,7 @@ from dataclasses import dataclass
 import torch
 import torch.distributed as dist
 
+from ..kernels import ops
 from ..sharding.partition import Spec, gather, shard_slices, spec_axes
 from ..spans import span
 
@@ -119,8 +125,7 @@ def global_norm(tree: dict, specs: dict | None = None,
     summed over the axes its spec names, so the norm is the whole
     tree's on every rank; the sums are added in the tree's order either
     way, so a mesh of one rank gives the one-device bits."""
-    sums = torch.stack([torch.sum(torch.square(x.to(torch.float32)))
-                        for x in tree.values()])
+    sums = ops.grad_sumsq(list(tree.values()))
     return torch.sqrt(torch.sum(_over_slices(sums, list(tree), specs,
                                              mesh)))
 
@@ -170,14 +175,15 @@ def apply_updates(params, grads: dict, state: dict, cfg: OptConfig,
         if moment_specs is not None:
             mspecs = moment_specs
             cuts = {k: _finer(specs[k], mspecs[k]) for k in named}
-        # this rank's slice of each gradient, then float32, one at a time
-        grads = {k: _narrow(g, cuts[k], mesh).to(torch.float32)
+        # this rank's slice of each gradient, contiguous, in its own type
+        grads = {k: _narrow(g, cuts[k], mesh).contiguous()
                  for k, g in grads.items()}
 
         if cfg.compression == "int8":
             # error feedback: compress (grad + residual), keep the residual;
             # the scale is the whole tensor's, the sum formed again after it
             ef = state["ef"]
+            grads = {k: g.to(torch.float32) for k, g in grads.items()}
             amax = _over_slices(torch.stack([torch.max(torch.abs(g + ef[k]))
                                              for k, g in grads.items()]),
                                 list(grads), mspecs, mesh, dist.ReduceOp.MAX)
@@ -190,26 +196,28 @@ def apply_updates(params, grads: dict, state: dict, cfg: OptConfig,
         clip = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
 
         step = state["step"] + 1
-        lr = schedule(step, cfg)
         stepf = step.to(torch.float32)
-        b1c = 1.0 - torch.pow(torch.tensor(cfg.b1, dtype=torch.float32,
-                                           device=stepf.device), stepf)
-        b2c = 1.0 - torch.pow(torch.tensor(cfg.b2, dtype=torch.float32,
-                                           device=stepf.device), stepf)
+        lr = schedule(stepf, cfg)
+        # b1 and b2 as a Python scalar base: a torch.tensor from a Python
+        # float is a blocking copy from the host
+        b1c = 1.0 - torch.pow(cfg.b1, stepf)
+        b2c = 1.0 - torch.pow(cfg.b2, stepf)
 
         with torch.no_grad():
+            # this rank's slice of each parameter, updated in place (a
+            # copy where the slice is not contiguous)
+            work = {k: _narrow(p, cuts[k], mesh).contiguous()
+                    for k, p in named.items()}
+            ops.adamw_update(list(work.values()), [grads[k] for k in work],
+                             [state["m"][k] for k in work],
+                             [state["v"][k] for k in work], clip=clip, lr=lr,
+                             b1c=b1c, b2c=b2c, b1=cfg.b1, b2=cfg.b2,
+                             eps=cfg.eps, weight_decay=cfg.weight_decay)
+            del grads
             for k, p in named.items():
-                g = grads.pop(k) * clip
-                m, v = state["m"][k], state["v"][k]
-                m.copy_(cfg.b1 * m + (1 - cfg.b1) * g)
-                v.copy_(cfg.b2 * v + (1 - cfg.b2) * g * g)
-                del g
-                pf = _narrow(p, cuts[k], mesh).to(torch.float32)
-                delta = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps) \
-                    + cfg.weight_decay * pf
-                new = (pf - lr * delta).to(p.dtype)
                 if cuts[k] is not None:       # the slices joined over data
-                    new = gather(new, cuts[k], mesh)
-                p.copy_(new)
+                    p.copy_(gather(work[k], cuts[k], mesh))
+                elif work[k] is not p:
+                    p.copy_(work[k])
         state["step"] = step
         return params, state, {"grad_norm": gnorm, "lr": lr}

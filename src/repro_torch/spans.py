@@ -19,6 +19,14 @@ The spans of the port, each around the whole body of its function:
 The model's spans sit inside the functions that a remat region
 (``torch.utils.checkpoint``) runs again in the backward, so the
 recomputation enters them too, on the thread that runs the backward.
+
+A kernel launched by a ctypes call outside every PyTorch operation has
+no launching operation in a profile: the profiler links a device
+operation to the operation that launched it, and a span is not one. So
+a span reader could not count it. :func:`launch` marks such a call as an
+operation of its own while a profiler records: the multi-tensor AdamW
+kernels (``adamw.grad_sumsq``, ``adamw.update``), which run inside
+``optim.adamw`` but in no operation of PyTorch's.
 """
 
 from __future__ import annotations
@@ -36,4 +44,15 @@ def span(name: str):
     the shared no-op context otherwise."""
     if torch.autograd._profiler_enabled():
         return torch.profiler.record_function(name)
+    return _OFF
+
+
+def launch(name: str):
+    """A context that records ``name`` as a host operation (not a span)
+    around a kernel launch while a profiler records on this thread, so
+    the kernels launched in it link to it, and the shared no-op context
+    otherwise. ``torch._C._profiler._RecordFunctionFast``: PyTorch marks
+    the launches of its own compiled kernels the same way."""
+    if torch.autograd._profiler_enabled():
+        return torch._C._profiler._RecordFunctionFast(name)
     return _OFF

@@ -1541,7 +1541,8 @@ def test_reduced_train_step_on_the_card_matches_the_cpu(cuda, name):
     qwen3-moe-235b-a22b (GQA, qk-norm over rows of the head dim) on the
     card against the CPU's: the loss and every new parameter within 1e-4
     of the largest; both backward kernels launched, once per attention
-    layer and once per norm of the forward. The MoE models run under
+    layer and once per norm of the forward, AdamW's two multi-tensor
+    kernels once each over every parameter. The MoE models run under
     remat full, their router twice a layer (the forward and its
     recomputation), and the CPU replays the card's routes call by call,
     so a near tie in the top-k cannot send a token elsewhere."""
@@ -1564,9 +1565,16 @@ def test_reduced_train_step_on_the_card_matches_the_cpu(cuda, name):
     pipe = TokenPipeline(cfg, PipelineConfig(batch=2, seq_len=40))
     step = make_train_step(cfg, opt, ShardCtx())
     before = (ops.flash_attention_bwd.launches, ops.rmsnorm_bwd.launches)
+    opt_before = (ops.grad_sumsq.launches, ops.adamw_update.launches,
+                  ops.adamw_update.tensors)
     with routes() as card_routes:
         card, got = step(card, {k: v.to(cuda)
                                 for k, v in pipe.make_batch(0).items()})
+    # AdamW's two multi-tensor calls took every parameter
+    n_params = len(list(card["params"].parameters()))
+    assert (ops.grad_sumsq.launches - opt_before[0],
+            ops.adamw_update.launches - opt_before[1],
+            ops.adamw_update.tensors - opt_before[2]) == (1, 1, n_params)
     per_layer = 2 + 2 * cfg.post_block_norms + 2 * cfg.qk_norm \
         + bool(cfg.kv_lora_rank)
     assert (ops.flash_attention_bwd.launches - before[0],
@@ -1685,3 +1693,209 @@ def test_cuda_tensor_under_a_gloo_mesh_raises(cuda):
             make_mesh((2,), ("model",), device_type="cpu")
     finally:
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# AdamW: the multi-tensor update and the gradients' sums of squares
+# ---------------------------------------------------------------------------
+
+ADAMW_CONSTS = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+
+
+def bench_shapes(name):
+    """(shape, dtype) of each parameter of a benchmark cell's model, from
+    the port's config on the meta device: ``zamba2`` (39 layers, 581
+    tensors, 117 of them float32) or ``deepseek`` (6 layers, 72)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.model import init_params
+    cfg = {"zamba2": ARCHS["zamba2-7b"].replace(
+               n_layers=39, ssm_ngroups=2, activation="geglu",
+               dtype="bfloat16"),
+           "deepseek": ARCHS["deepseek-v2-lite-16b"].replace(
+               n_layers=6, dtype="bfloat16")}[name]
+    model = init_params(cfg, torch.Generator(), "meta")
+    return [(tuple(p.shape), p.dtype) for _, p in model.named_parameters()]
+
+
+def placed(x, misaligned):
+    """``x``, or a contiguous copy of it one element past a 16-byte
+    boundary (the kernels' scalar path)."""
+    if not misaligned:
+        return x
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def adamw_lists(device, specs, seed=0, grad_dtype=None, misaligned=()):
+    """[params, grads, ms, vs] for ``specs`` ((shape, dtype) a tensor),
+    drawn from ``seed`` on the card: parameters N(0, 1), gradients N(0,
+    1e-2²) in ``grad_dtype`` (default the parameter's), m N(0, 1e-3²), v
+    uniform in [0, 1e-5); tensors whose index is in ``misaligned`` off
+    16 bytes."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    lists = [[], [], [], []]
+    for i, (shape, dtype) in enumerate(specs):
+        def draw(scale, dt, uniform=False):
+            fn = torch.rand if uniform else torch.randn
+            x = fn(shape, generator=gen, device=device) * scale
+            return placed(x.to(dt), i in misaligned)
+        lists[0].append(draw(1.0, dtype))
+        lists[1].append(draw(1e-2, grad_dtype or dtype))
+        lists[2].append(draw(1e-3, torch.float32))
+        lists[3].append(draw(1e-5, torch.float32, uniform=True))
+    return lists
+
+
+def adamw_scalars(device, step=3, clip=0.37, lr=1e-2):
+    """clip, lr and the bias corrections at ``step`` as
+    ``apply_updates`` forms them: float32 scalars on the card. At lr 1e-2
+    a step moves a parameter about one bf16 step, so the cast's rounding
+    is exercised on most elements."""
+    stepf = torch.tensor(float(step), device=device)
+    b = {k: 1.0 - torch.pow(torch.tensor(ADAMW_CONSTS[k], device=device),
+                            stepf) for k in ("b1", "b2")}
+    return dict(clip=torch.tensor(clip, device=device),
+                lr=torch.tensor(lr, device=device), b1c=b["b1"],
+                b2c=b["b2"])
+
+
+def bits(x):
+    return x.view(torch.int16 if x.element_size() == 2 else torch.int32)
+
+
+def assert_update_bit_for_bit(device, specs, **kw):
+    """The kernel's p, m and v bit for bit the plain version's on the
+    card, from the same inputs and scalars; one launch for the list."""
+    from repro_torch.kernels import adamw
+    scalars = adamw_scalars(device)
+    kern, plain = adamw_lists(device, specs, **kw), adamw_lists(device, specs,
+                                                                **kw)
+    before = (ops.adamw_update.launches, ops.adamw_update.tensors)
+    versions = [x._version for i in (0, 2, 3) for x in kern[i]]
+    ops.adamw_update(*kern, **scalars, **ADAMW_CONSTS)
+    assert (ops.adamw_update.launches - before[0],
+            ops.adamw_update.tensors - before[1]) == (1, len(specs))
+    # written in place, so autograd sees each p, m and v as modified
+    assert all(x._version > v for x, v in
+               zip((x for i in (0, 2, 3) for x in kern[i]), versions))
+    adamw.adamw_update_torch(*plain, **scalars, **ADAMW_CONSTS)
+    torch.cuda.synchronize()
+    for what, i in (("p", 0), ("m", 2), ("v", 3)):
+        for j, (a, b) in enumerate(zip(kern[i], plain[i])):
+            same = bits(a) == bits(b)
+            assert bool(same.all()), (what, j, specs[j],
+                                      int((~same).sum()))
+    start = adamw_lists(device, specs, **kw)
+    for i in (2, 3):                          # every tensor's moments moved
+        assert not any(torch.equal(a, b) for a, b in zip(kern[i], start[i])
+                       if a.numel())
+
+
+@pytest.mark.parametrize("grad_dtype", [None, torch.float32])
+def test_adamw_update_bit_for_bit_over_zamba2s_shapes(cuda, grad_dtype):
+    """zamba2's 581 parameter shapes, each dim cut by 9 (394 numels off a
+    multiple of 8), bf16 and float32 parameters as the model has them,
+    every fifth tensor off 16 bytes; gradients of the parameter's type or
+    float32 (int8 compression's)."""
+    specs = [(tuple(max(1, d // 9) for d in s), dt)
+             for s, dt in bench_shapes("zamba2")]
+    assert len(specs) == 581
+    assert_update_bit_for_bit(cuda, specs, grad_dtype=grad_dtype,
+                              misaligned=set(range(0, len(specs), 5)))
+
+
+def test_adamw_update_bit_for_bit_at_deepseeks_largest_leaf(cuda):
+    """``layers.1.moe.wi`` (64, 2048, 2, 1408), 369 M elements, 5,632
+    chunks, beside a float32 router and a ragged tail."""
+    specs = [((64, 2048, 2, 1408), torch.bfloat16),
+             ((64, 2048), torch.float32), ((1000003,), torch.bfloat16)]
+    assert_update_bit_for_bit(cuda, specs, seed=1)
+
+
+@pytest.mark.parametrize("grad_dtype", [torch.bfloat16, torch.float32])
+def test_adamw_update_bit_for_bit_at_misaligned_tails(cuda, grad_dtype):
+    """Numels 1 to 17, around a chunk and a vector, empty tensors, bf16
+    and float32 parameters, aligned and one element off."""
+    ns = [0, 1, 2, 7, 8, 9, 15, 16, 17, 65535, 65536, 65537, 131079]
+    specs = [((n,), dt) for n in ns for dt in (torch.bfloat16, torch.float32)]
+    assert_update_bit_for_bit(cuda, specs, seed=2, grad_dtype=grad_dtype,
+                              misaligned=set(range(1, len(specs), 2)))
+
+
+def test_grad_sumsq_close_to_torch_sum_and_repeatable(cuda):
+    """Each tensor's sum within rtol 1e-6 of ``torch.sum(torch.square(
+    g.float()))``, and the same bits in two runs: deepseek's largest leaf,
+    zamba2's shapes cut by 9 (some off 16 bytes), float32 gradients,
+    ragged and empty ones."""
+    specs = [((64, 2048, 2, 1408), torch.bfloat16), ((0,), torch.bfloat16),
+             ((65537,), torch.float32), ((13,), torch.bfloat16)] \
+        + [(tuple(max(1, d // 9) for d in s), dt)
+           for s, dt in bench_shapes("zamba2")]
+    grads = adamw_lists(cuda, specs, seed=3,
+                        misaligned=set(range(4, len(specs), 7)))[1]
+    before = ops.grad_sumsq.launches
+    first, second = ops.grad_sumsq(grads), ops.grad_sumsq(grads)
+    assert ops.grad_sumsq.launches - before == 2
+    assert first.dtype == torch.float32 and first.shape == (len(grads),)
+    assert torch.equal(bits(first), bits(second))
+    want = torch.stack([torch.sum(torch.square(g.float())) for g in grads])
+    np.testing.assert_allclose(first.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-6, atol=0)
+    assert float(first[1]) == 0.0
+
+
+def test_adamw_kernels_refuse_bad_input_without_falling_back(cuda):
+    lists = adamw_lists(cuda, [((5, 3), torch.bfloat16),
+                               ((8,), torch.float32)])
+    scalars = adamw_scalars(cuda)
+    before = (ops.adamw_update.launches, ops.grad_sumsq.launches)
+    bad = [list(x) for x in lists]
+    bad[3][0] = torch.zeros(3, 5, device=cuda).t()
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.adamw_update(*bad, **scalars, **ADAMW_CONSTS)
+    with pytest.raises(ValueError, match="several devices"):
+        ops.adamw_update(*lists, **dict(scalars, lr=torch.tensor(1e-3)),
+                         **ADAMW_CONSTS)
+    bad = [list(x) for x in lists]
+    bad[2][1] = bad[2][1].to(torch.bfloat16)
+    with pytest.raises(TypeError):
+        ops.adamw_update(*bad, **scalars, **ADAMW_CONSTS)
+    with pytest.raises(ValueError, match="several devices"):
+        ops.grad_sumsq([lists[1][0], lists[1][1].cpu()])
+    assert (ops.adamw_update.launches, ops.grad_sumsq.launches) == before
+
+
+def test_adamw_kernels_link_to_their_launch_under_the_profiler(cuda):
+    """Under ``torch.profiler`` each kernel of the two calls links to its
+    call's host operation (``spans.launch``: ``adamw.grad_sumsq``,
+    ``adamw.update``), so a span reader counts it in the span that holds
+    the call; without it a ctypes launch links to no operation."""
+    from torch.profiler import ProfilerActivity, profile
+    lists = adamw_lists(cuda, [((1 << 20,), torch.bfloat16),
+                               ((8,), torch.float32)])
+    scalars = adamw_scalars(cuda)
+
+    def calls():
+        ops.grad_sumsq(lists[1])
+        ops.adamw_update(*lists, **scalars, **ADAMW_CONSTS)
+        torch.cuda.synchronize()
+    calls()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        calls()
+    events = prof.profiler.kineto_results.events()
+    host = {e.correlation_id(): e.name() for e in events
+            if e.device_type() == torch.autograd.DeviceType.CPU}
+    want = {"::update_kernel(": "adamw.update",
+            "::sumsq_kernel(": "adamw.grad_sumsq",
+            "::sumsq_finish_kernel(": "adamw.grad_sumsq"}
+    seen = {}
+    for e in events:
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        for key, launcher in want.items():
+            if key in e.name():
+                seen[key] = host.get(e.linked_correlation_id())
+    assert seen == want

@@ -144,6 +144,6 @@ def test_build_route_flags_and_ignored_output_dir(monkeypatch):
     assert out.parent == ROOT / "build" / "kernels"
     assert "build/" in (ROOT / ".gitignore").read_text().split()
     sources = sorted(p.stem for p in build.CSRC.glob("*.cu"))
-    assert sources == ["flash_attention", "flash_attention_bwd",
+    assert sources == ["adamw", "flash_attention", "flash_attention_bwd",
                        "flash_decode", "rmsnorm", "sched_score",
                        "sim_relax_pop", "sim_step", "ssd_scan"]

@@ -13,7 +13,7 @@ from repro_torch.models import ShardCtx, block_plan
 from repro_torch.optim.adamw import OptConfig, apply_updates
 from repro_torch.runtime.train_loop import (init_train_state, make_grad_fn,
                                             make_train_step)
-from repro_torch.spans import span
+from repro_torch.spans import launch, span
 
 FAMILIES = ("deepseek-v2-lite-16b", "zamba2-7b")
 OPT = OptConfig(lr=1e-2, warmup_steps=1, total_steps=4)
@@ -79,6 +79,20 @@ def test_span_without_a_profiler_is_one_shared_no_op():
     assert span("optim.adamw") is span("model.moe")
     with span("model.moe") as entered:
         assert entered is None
+
+
+def test_launch_marks_an_operation_only_under_the_profiler():
+    """``launch`` is the shared no-op without a profiler; under one it
+    records a host operation of its name, not a span (a user
+    annotation), so the kernels launched in it link to it."""
+    assert launch("adamw.update") is span("optim.adamw")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with span("optim.adamw"):
+            with launch("adamw.update"):
+                pass
+    kinds = {e.name(): e.is_user_annotation()
+             for e in prof.profiler.kineto_results.events()}
+    assert kinds == {"optim.adamw": True, "adamw.update": False}
 
 
 @pytest.mark.parametrize("name", FAMILIES)

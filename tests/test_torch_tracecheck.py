@@ -288,7 +288,8 @@ def test_cli_quick_on_the_cpu_exits_zero(capsys):
 #: added here AND call check_shape/check_gather_bounds before launch
 OPS = {"flash_attention", "rmsnorm", "ssd_scan", "sched_score",
        "sim_step", "sim_relax", "sim_relax_pop", "flash_decode",
-       "flash_attention_bwd", "rmsnorm_bwd", "ssd_scan_bwd"}
+       "flash_attention_bwd", "rmsnorm_bwd", "ssd_scan_bwd",
+       "grad_sumsq", "adamw_update"}
 
 
 def test_every_op_wrapper_checked():

@@ -1,5 +1,5 @@
 """Time ``flash_decode``, the dense ``sim_relax``, ``sched_score``, the
-bf16 ``flash_attention_bwd``, ``rmsnorm_bwd`` and ``ssd_scan_bwd`` with
+bf16 ``flash_attention_bwd``, ``rmsnorm_bwd``, ``ssd_scan_bwd`` and AdamW with
 the kernels of one checkout of this repository, so that a parent and a
 change can be compared on one card in one call (run the probe once per
 tree, in turns: parent, change, change, parent).
@@ -64,6 +64,12 @@ CUDA device:
   bound; the share of the bound, the largest error over the gate's bound
   of dx and dw, the tree's launch plan (``bwd_plan``, where it has one)
   and the device ms of the row pass and of the column pass of one call.
+- ``adamw``: the tree's ``apply_updates`` over deepseek-v2-lite-16b's
+  (6 layers) and zamba2-7b's (39 layers) parameters at full size, as
+  the benchmark's cells hold them (``probe_adamw``): device ms a call,
+  the host's ms, the device operations a call launches, the memory it
+  allocates beyond the state; with the tree's multi-tensor kernels also
+  their ms alone, the plain versions', the bound and the counters.
 - ``ssd_scan_bwd`` (a tree that has it), bf16 and float32, Mamba-2-like
   inputs from seed 0 (A in -[1, 16], dt log-uniform in [1e-3, 1e-1]) at
   mamba2-780m's and zamba2-7b's training shapes (2, 1024, 48 or 112
@@ -86,7 +92,12 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
 KERNELS = ("flash_decode", "sim_relax", "sched_score", "flash_attention_bwd",
-           "rmsnorm_bwd", "ssd_scan_bwd")
+           "rmsnorm_bwd", "ssd_scan_bwd", "adamw")
+ADAMW_MODELS = (     # the benchmark cells' models: name, arch, config changes
+    ("deepseek", "deepseek-v2-lite-16b", dict(n_layers=6, dtype="bfloat16")),
+    ("zamba2", "zamba2-7b", dict(n_layers=39, ssm_ngroups=2,
+                                 activation="geglu", dtype="bfloat16")),
+)
 BWD_SHAPES = (      # name, b, s, hq, hkv, d, dv, options (bf16)
     ("gemma2", 2, 1024, 8, 4, 256, 256, dict(softcap=50.0)),
     ("gemma2_window", 2, 1024, 8, 4, 256, 256,
@@ -141,7 +152,8 @@ def main() -> int:
                "sched_score": ["sched_score"],
                "flash_attention_bwd": ["flash_attention",
                                        "flash_attention_bwd"],
-               "rmsnorm_bwd": ["rmsnorm"], "ssd_scan_bwd": ["ssd_scan"]}
+               "rmsnorm_bwd": ["rmsnorm"], "ssd_scan_bwd": ["ssd_scan"],
+               "adamw": [p.stem for p in build.CSRC.glob("adamw.cu")]}
     build.build([src for k in args.kernels for src in sources[k]])
     torch.backends.cuda.matmul.allow_tf32 = False
     out = dict(label=args.label, tree=str(tree), device=smi)
@@ -157,6 +169,8 @@ def main() -> int:
         out["rmsnorm_bwd"] = probe_rmsnorm_bwd(cs, dev)
     if "ssd_scan_bwd" in args.kernels:
         out["ssd_scan_bwd"] = probe_ssd_scan_bwd(cs, dev)
+    if "adamw" in args.kernels:
+        out["adamw"] = probe_adamw(cs, dev)
     print(json.dumps(out))
     ok = all(r["equal"] for r in out.get("sim_relax", {}).values()) \
         and all(r["gate_ratio"] <= 1.0
@@ -398,6 +412,129 @@ def probe_ssd_scan_bwd(cs, dev):
             rows[f"{name}_{str(dtype)[6:]}"] = row
             del x, dt, A, B, C, dy, args
             torch.cuda.empty_cache()
+    return rows
+
+
+def probe_adamw(cs, dev):
+    """The tree's ``apply_updates`` over each benchmark model's parameters
+    at full size (bf16 and float32 leaves as the model has them, float32
+    moments, gradients N(0, 1e-2²) of the parameter's type, step 3):
+    device ms a call from CUDA events over 3 calls after 2 warm-ups, the
+    host ms of a call (its return, no synchronise), the device operations
+    one call launches (``torch.profiler``: kernels and copies; the call
+    alone, the step counter set before it) and the
+    host operations that took most of the host's time in it, and the
+    bytes it allocates beyond the state at its peak. Where the tree has
+    the multi-tensor kernels, also the kernels alone (``grad_sumsq`` then
+    ``adamw_update``), the plain versions, the library's calls
+    (``torch._foreach_norm`` in float32, ``torch._fused_adamw_``; what it
+    raises where it refuses the lists), the counters a call adds, and
+    the bound: each byte the update and the norm need, once, at 3.35
+    TB/s (the update's 22 B a bf16 parameter, 28 a float32 one, and the
+    gradient again for the norm: 24 and 32 B)."""
+    import time
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import init_params
+    from repro_torch.optim import OptConfig, apply_updates, init_opt_state
+    fused = hasattr(ops, "adamw_update")
+    rows = {}
+    for name, arch, changes in ADAMW_MODELS:
+        cfg = ARCHS[arch].replace(**changes)
+        model = init_params(cfg, torch.Generator(), "meta")
+        specs = {k: (p.shape, p.dtype) for k, p in model.named_parameters()}
+        del model
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = {k: torch.randn(s, generator=gen, device=dev).to(dt)
+                  for k, (s, dt) in specs.items()}
+        grads = {k: (torch.randn(s, generator=gen, device=dev) * 1e-2).to(dt)
+                 for k, (s, dt) in specs.items()}
+        opt = OptConfig()
+        state = init_opt_state(params, opt)
+        state["step"].fill_(2)
+        row = dict(tensors=len(specs),
+                   parameters=sum(p.numel() for p in params.values()))
+        need = sum(p.numel() * (4 * p.element_size() + 16)
+                   for p in params.values())
+        row["bound_ms"] = need / 3.35e12 * 1e3
+
+        def step():
+            state["step"].fill_(2)
+            apply_updates(params, grads, state, opt)
+        row["apply_updates_ms"] = cs.cuda_ms(step, 3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        row["apply_updates_host_ms"] = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        counts = (ops.grad_sumsq.launches, ops.adamw_update.launches,
+                  ops.adamw_update.tensors) if fused else None
+        state["step"].fill_(2)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            apply_updates(params, grads, state, opt)
+            torch.cuda.synchronize()
+        row["extra_peak_gb"] = (torch.cuda.max_memory_allocated() - held) / 1e9
+        events = prof.key_averages()
+        row["device_ops"] = sum(
+            e.count for e in events
+            if "CUDA" in str(getattr(e, "device_type", "")))
+        host = sorted(((e.self_cpu_time_total / 1e3, e.key, e.count)
+                       for e in events if e.self_cpu_time_total > 0),
+                      reverse=True)[:8]
+        row["host_ops_ms"] = [[k[:40], round(ms, 3), n] for ms, k, n in host]
+        if fused:
+            from repro_torch.kernels import adamw
+            row["counters"] = dict(zip(
+                ("grad_sumsq_launches", "adamw_update_launches",
+                 "adamw_update_tensors"),
+                (ops.grad_sumsq.launches - counts[0],
+                 ops.adamw_update.launches - counts[1],
+                 ops.adamw_update.tensors - counts[2])))
+            lists = [list(params.values()), list(grads.values()),
+                     list(state["m"].values()), list(state["v"].values())]
+            scalars = dict(clip=torch.tensor(0.5, device=dev),
+                           lr=torch.tensor(1e-4, device=dev),
+                           b1c=torch.tensor(0.271, device=dev),
+                           b2c=torch.tensor(0.142625, device=dev))
+            consts = dict(b1=opt.b1, b2=opt.b2, eps=opt.eps,
+                          weight_decay=opt.weight_decay)
+            row["grad_sumsq_ms"] = cs.cuda_ms(
+                lambda: ops.grad_sumsq(lists[1]), 3)
+            row["adamw_update_ms"] = cs.cuda_ms(
+                lambda: ops.adamw_update(*lists, **scalars, **consts), 3)
+            row["plain_ms"] = cs.cuda_ms(
+                lambda: (adamw.grad_sumsq_torch(lists[1]),
+                         adamw.adamw_update_torch(*lists, **scalars,
+                                                  **consts)), 1)
+            row["kernels_ms"] = row["grad_sumsq_ms"] + row["adamw_update_ms"]
+            steps = [torch.ones((), device=dev) for _ in lists[0]]
+            library = {
+                "grad_sumsq": lambda: torch._foreach_norm(
+                    lists[1], 2, dtype=torch.float32),
+                "adamw_update": lambda: torch._fused_adamw_(
+                    *lists, [], steps, lr=1e-4, beta1=opt.b1, beta2=opt.b2,
+                    weight_decay=opt.weight_decay, eps=opt.eps,
+                    amsgrad=False, maximize=False)}
+            for k, fn in library.items():
+                try:
+                    row[f"{k}_library_ms"] = cs.cuda_ms(fn, 3)
+                except (RuntimeError, TypeError) as e:
+                    row[f"{k}_library_ms"] = None
+                    row[f"{k}_library_error"] = \
+                        str(e).strip().splitlines()[0][:200]
+            row["bound_share"] = row["bound_ms"] / row["kernels_ms"]
+            del lists
+        rows[name] = row
+        del params, grads, state
+        torch.cuda.empty_cache()
     return rows
 
 
